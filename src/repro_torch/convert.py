@@ -1,0 +1,59 @@
+"""Carry a network's weights and state across from the JAX package.
+
+``params_from_jax`` / ``state_from_jax`` take the JAX package's
+``NetworkParams`` / ``NetworkState`` (any array type numpy can read,
+fields by name) and return the port's versions on ``device``, so both
+packages compute from identical weights and state.  Nothing here imports
+JAX: every leaf goes through ``numpy.asarray``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import delays as dl
+from repro_torch.core import merge as mg
+from repro_torch.core import routing as rt
+from repro_torch.kernels import common as kc
+from repro_torch.snn import network as net
+from repro_torch.snn import neuron as nr
+from repro_torch.snn import synapse as sy
+
+
+def tensor(x, device, dtype=None) -> torch.Tensor:
+    """A numpy-readable array as a contiguous tensor on ``device``."""
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def _fields(cls, obj, device):
+    return cls(*(tensor(getattr(obj, f), device) for f in cls._fields))
+
+
+def table_from_jax(table, *, device="cuda") -> rt.RoutingTable:
+    return _fields(rt.RoutingTable, table, kc.resolve_device(device))
+
+
+def params_from_jax(params, *, device="cuda") -> net.NetworkParams:
+    """Crossbar ``w``, neuron params (LIF or AdEx, told apart by their
+    fields) and routing table."""
+    device = kc.resolve_device(device)
+    cls = nr.LIFParams if hasattr(params.neuron, "tau_m") else nr.AdExParams
+    return net.NetworkParams(
+        crossbar=sy.Crossbar(w=tensor(params.crossbar.w, device)),
+        neuron=_fields(cls, params.neuron, device),
+        table=table_from_jax(params.table, device=device))
+
+
+def state_from_jax(state, *, device="cuda") -> net.NetworkState:
+    """Neuron state, delay ring and clock, step counter and merge queue."""
+    device = kc.resolve_device(device)
+    cls = nr.LIFState if not hasattr(state.neuron, "w") else nr.AdExState
+    merge = None
+    if getattr(state, "merge", None) is not None:
+        merge = mg.MergeBuffer(words=tensor(state.merge.words, device))
+    return net.NetworkState(
+        neuron=_fields(cls, state.neuron, device),
+        ring=_fields(dl.DelayRing, state.ring, device),
+        t=tensor(state.t, device, torch.int32),
+        merge=merge)

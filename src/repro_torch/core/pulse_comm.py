@@ -1,0 +1,240 @@
+"""PulseComm configuration, accounting and the superstep exchange (port of
+``repro.core.pulse_comm``).
+
+Layouts on the local path: the flush slab is ``[n_chips(src), n_buckets,
+B, capacity]``; per-substep accounting is ``[B, n_chips, ...]``, as the
+JAX fabric returns it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import buckets as bk
+from repro_torch.core import events as ev
+from repro_torch.core import routing as rt
+from repro_torch.core import transport as tp
+
+I32 = torch.int32
+
+WORD_BYTES = 4
+EVENT_BYTES = WORD_BYTES
+HEADER_BYTES = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class PulseCommConfig:
+    """The reference config without ``use_pallas``: kernels run whenever
+    the tensors lie on a CUDA device."""
+
+    n_chips: int
+    neurons_per_chip: int = 512
+    n_inputs_per_chip: int = 256
+    event_capacity: int = 256
+    fanout: int = 1
+    bucket_capacity: int = 16
+    buckets_per_chip: int = 1
+    ring_depth: int = 16
+    mode: str = "simplified"
+    merge_rate: int = 0
+    merge_depth: int = 64
+    time_window: int = 4
+    superstep: int = 1
+
+    def __post_init__(self):
+        half = ev.TIME_MOD // 2
+        if self.mode not in ("simplified", "full"):
+            raise ValueError(f"unknown mode {self.mode!r}")
+        if self.superstep < 1:
+            raise ValueError(f"superstep {self.superstep} must be >= 1")
+        if self.superstep > 1 and self.superstep + self.ring_depth >= half:
+            # A deferred word must land inside the wrap half-window, or it
+            # could alias onto a future deadline instead of expiring.
+            raise ValueError(
+                f"superstep {self.superstep} + ring_depth {self.ring_depth}"
+                f" reaches the 8-bit wrap half-window ({half})")
+        if self.neurons_per_chip > (1 << ev.ADDR_BITS):
+            raise ValueError("neuron address exceeds 14-bit event format")
+        if self.n_inputs_per_chip > (1 << ev.ADDR_BITS):
+            raise ValueError("input address exceeds 14-bit event format")
+        if self.merge_rate > 0 and self.merge_depth > half * self.merge_rate:
+            # A queued word must drain before it can age across the wrap.
+            raise ValueError(
+                f"merge_depth {self.merge_depth} exceeds {half} * "
+                "merge_rate; a queued word could age past the 8-bit wrap")
+        if self.ring_depth >= half:
+            raise ValueError(f"ring_depth {self.ring_depth} exceeds the "
+                             f"8-bit wrap half-window ({half - 1})")
+
+    @property
+    def n_buckets(self) -> int:
+        return self.n_chips * self.buckets_per_chip
+
+    @property
+    def lanes_in(self) -> int:
+        """Incoming lanes per chip after exchange."""
+        return self.n_chips * self.buckets_per_chip * self.bucket_capacity
+
+
+class CommStats(NamedTuple):
+    """Per-step, per-chip accounting (fields lead with ``[B, n_chips]``)."""
+
+    sent: torch.Tensor
+    overflow: torch.Tensor
+    merge_dropped: torch.Tensor
+    expired: torch.Tensor
+    stalled: torch.Tensor
+    utilization: torch.Tensor    # f32
+    wire_bytes: torch.Tensor
+    traffic: torch.Tensor        # [..., n_chips]
+    link_words: torch.Tensor     # [..., 1] off-chip words of the exchange
+    link_backlog: torch.Tensor   # [..., 1]
+    lost_to_failure: torch.Tensor
+
+
+class Delivered(NamedTuple):
+    """Post-exchange (merged) wire words at each destination chip."""
+
+    words: torch.Tensor
+
+
+class FlushBuffer(NamedTuple):
+    """The superstep flush slab ``[n_chips, n_buckets, B, capacity]`` and
+    the number of substep columns filled so far."""
+
+    slab: torch.Tensor
+    phase: int
+
+
+def flush_init(cfg: PulseCommConfig, device=None) -> FlushBuffer:
+    return FlushBuffer(
+        slab=ev.sentinel_words((cfg.n_chips, cfg.n_buckets, cfg.superstep,
+                                cfg.bucket_capacity), device=device),
+        phase=0)
+
+
+def bucket_ids(cfg: PulseCommConfig, routed: rt.RoutedEvents) -> torch.Tensor:
+    if cfg.mode == "simplified":
+        return bk.static_bucket_ids(routed.dest_chip, n_chips=cfg.n_chips,
+                                    streams=cfg.buckets_per_chip)
+    return bk.dynamic_bucket_ids(routed.dest_chip, routed.deadline,
+                                 n_chips=cfg.n_chips,
+                                 pool_per_chip=cfg.buckets_per_chip,
+                                 window=cfg.time_window)
+
+
+def route_block(events: ev.EventBuffer, table: rt.RoutingTable,
+                t0: torch.Tensor):
+    """Route a block ``[B, n_chips, E]`` and admit it into the wrap
+    window, with the remaining deferral ``B-1-k`` as extra slack.
+    Returns ``(routed, sent[B, n_chips], wrap_expired[B, n_chips])``."""
+    b = events.addr.shape[0]
+    routed = rt.route(events, table)
+    sent = routed.valid.sum(-1, dtype=I32)
+    k = torch.arange(b, dtype=I32, device=t0.device)[:, None]
+    now = t0[None, :] + k
+    defer = (b - 1) - k
+    diff = routed.deadline - now[..., None]
+    in_window = (diff > defer[..., None]) & (diff < ev.TIME_MOD // 2)
+    wrap_expired = (routed.valid & ~in_window).sum(-1, dtype=I32)
+    return routed._replace(valid=routed.valid & in_window), sent, wrap_expired
+
+
+def aggregate_into(cfg: PulseCommConfig, routed: rt.RoutedEvents):
+    """Bucket assignment and flush-pack of a whole block.
+
+    ``routed`` carries ``[B, n_chips, L]`` lanes (every substep of the
+    block: without flow control the substeps do not depend on each
+    other), packed by the ``bucket_pack`` kernel on a CUDA device and by
+    its plain version on the CPU.  Returns ``(flushbuf, counts[B, n_chips,
+    n_buckets], overflow[B, n_chips], traffic[B, n_chips, n_chips])``.
+    """
+    from repro_torch.kernels.bucket_pack import ops as bp_ops
+
+    slab, counts, overflow = bp_ops.flush_pack(
+        bucket_ids(cfg, routed), routed.dest_addr, routed.deadline,
+        routed.valid, n_buckets=cfg.n_buckets,
+        capacity=cfg.bucket_capacity)
+    traffic = tp.exchange_matrix(routed.dest_chip, routed.valid, cfg.n_chips)
+    return (FlushBuffer(slab=slab, phase=slab.shape[-2]), counts, overflow,
+            traffic)
+
+
+class LinkStats(NamedTuple):
+    words: torch.Tensor     # int32[n_chips, 1]
+    backlog: torch.Tensor   # int32[n_chips, 1]
+
+
+class IssuedFlush(NamedTuple):
+    """An exchanged block: ``words[n_chips(dst), n_chips(src), bpc, B, C]``
+    and its link accounting."""
+
+    words: torch.Tensor
+    link: LinkStats
+
+
+def exchange_flush_issue(cfg: PulseCommConfig, slab: torch.Tensor,
+                         transport: tp.LocalTransport | None = None
+                         ) -> IssuedFlush:
+    """Exchange the filled slabs of every chip in one swap.
+
+    ``link_words`` is each source chip's off-chip word count: its valid
+    words minus those addressed to itself.
+    """
+    n, bpc = cfg.n_chips, cfg.buckets_per_chip
+    b = slab.shape[-2]
+    transport = transport or tp.LocalTransport(n)
+    block = slab.reshape(n, n, bpc, b, cfg.bucket_capacity)
+    valid = ev.word_valid(block)
+    mine = torch.arange(n, device=slab.device)
+    off_chip = (valid.sum((1, 2, 3, 4), dtype=I32)
+                - valid[mine, mine].sum((1, 2, 3), dtype=I32))
+    return IssuedFlush(
+        words=transport.all_to_all(block),
+        link=LinkStats(words=off_chip[:, None],
+                       backlog=torch.zeros_like(off_chip)[:, None]))
+
+
+def exchange_flush_complete(cfg: PulseCommConfig, issued: IssuedFlush):
+    """Unpack the exchanged block into per-substep lanes
+    ``[n_chips, B, lanes_in]`` (lane order: source chip, bucket, slot)."""
+    words = issued.words
+    n, b = words.shape[0], words.shape[3]
+    out = words.permute(0, 3, 1, 2, 4).reshape(n, b, cfg.lanes_in)
+    return out, issued.link
+
+
+def exchange_flush(cfg: PulseCommConfig, slab: torch.Tensor):
+    return exchange_flush_complete(cfg, exchange_flush_issue(cfg, slab))
+
+
+class InjectStats(NamedTuple):
+    """Source-side accounting of one block, fields ``[B, n_chips, ...]``."""
+
+    sent: torch.Tensor
+    overflow: torch.Tensor
+    stalled: torch.Tensor
+    wrap_expired: torch.Tensor
+    lost: torch.Tensor
+    wire_bytes: torch.Tensor
+    utilization: torch.Tensor
+    traffic: torch.Tensor
+
+
+def inject_stats(cfg: PulseCommConfig, *, counts, sent, overflow,
+                 wrap_expired, traffic) -> InjectStats:
+    """Wire bytes and utilization from the per-substep bucket counts
+    ``[B, n_chips, n_buckets]``, with the reference's formulas
+    (utilization is ``mean(fill) / C`` in f32)."""
+    fill = torch.clamp(counts, max=cfg.bucket_capacity)
+    n_packets = (counts > 0).sum(-1, dtype=I32)
+    wire = n_packets * HEADER_BYTES + fill.sum(-1, dtype=I32) * EVENT_BYTES
+    zeros = torch.zeros_like(sent)
+    return InjectStats(
+        sent=sent, overflow=overflow, stalled=zeros,
+        wrap_expired=wrap_expired, lost=zeros, wire_bytes=wire.to(I32),
+        utilization=fill.float().mean(-1) / float(cfg.bucket_capacity),
+        traffic=traffic)

@@ -1,0 +1,59 @@
+"""Plain PyTorch version of the fused inject path: the composed chain of
+the reference (``repro.kernels.fused_inject.ref.fused_inject_ref``) over
+a whole block and every chip at once — route, wrap-window admission,
+bucket ids, and the reference flush-pack into a fresh slab.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import buckets as bk
+from repro_torch.core import events as ev
+from repro_torch.core import pulse_comm as pc
+from repro_torch.core import routing as rt
+from repro_torch.core import transport as tp
+
+
+class FusedInjectOut(NamedTuple):
+    """slab         : int32[n_chips, n_buckets, B, capacity]
+    counts       : int32[B, n_chips, n_buckets] pre-overflow fill levels
+    sent         : int32[B, n_chips] routed events offered
+    overflow     : int32[B, n_chips] bucket-capacity drops
+    wrap_expired : int32[B, n_chips] admission-window drops
+    traffic      : int32[B, n_chips, n_chips] events by destination
+    """
+
+    slab: torch.Tensor
+    counts: torch.Tensor
+    sent: torch.Tensor
+    overflow: torch.Tensor
+    wrap_expired: torch.Tensor
+    traffic: torch.Tensor
+
+
+def fused_inject_ref(events: ev.EventBuffer, table: rt.RoutingTable,
+                     t0: torch.Tensor, *, n_chips: int,
+                     buckets_per_chip: int, capacity: int,
+                     mode: str = "simplified",
+                     time_window: int = 1) -> FusedInjectOut:
+    """``events [B, n_chips, E]``, ``table [n_chips, N, 1]``,
+    ``t0 [n_chips]``."""
+    routed, sent, wrap_expired = pc.route_block(events, table, t0)
+    if mode == "simplified":
+        bid = bk.static_bucket_ids(routed.dest_chip, n_chips=n_chips,
+                                   streams=buckets_per_chip)
+    else:
+        bid = bk.dynamic_bucket_ids(routed.dest_chip, routed.deadline,
+                                    n_chips=n_chips,
+                                    pool_per_chip=buckets_per_chip,
+                                    window=time_window)
+    packed = bk.pack(bid, routed.dest_addr, routed.deadline, routed.valid,
+                     n_buckets=n_chips * buckets_per_chip, capacity=capacity)
+    return FusedInjectOut(
+        slab=packed.words.permute(1, 2, 0, 3).contiguous(),
+        counts=packed.counts, sent=sent, overflow=packed.overflow,
+        wrap_expired=wrap_expired,
+        traffic=tp.exchange_matrix(routed.dest_chip, routed.valid, n_chips))

@@ -1,0 +1,128 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, bitwise, and the feedforward demo on the card against the CPU.
+
+These tests need an NVIDIA GPU and skip without one (a CUDA kernel has no
+CPU mode).  They import no JAX, so they run on a machine with the card:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import delays as dl
+from repro_torch.core import events as ev
+from repro_torch.core import routing as rt
+from repro_torch.kernels import common as kc
+from repro_torch.kernels.bucket_pack import ops as bp
+from repro_torch.kernels.bucket_pack.ref import bucket_pack_ref
+from repro_torch.kernels.fused_drain import ops as fd
+from repro_torch.kernels.fused_drain.ref import fused_drain_ref
+from repro_torch.kernels.fused_inject import ops as fi
+from repro_torch.kernels.fused_inject.ref import fused_inject_ref
+
+N_CHIPS = 5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _on(x, device):
+    return torch.as_tensor(np.array(x), device=device)
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        if isinstance(g, torch.Tensor):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["simplified", "full"])
+@pytest.mark.parametrize("b", [1, 8])
+def test_fused_inject_kernel_matches_plain(cuda, b, mode):
+    rng = np.random.default_rng(b)
+    n, e = 40, 70
+    t0 = _on(np.array([0, 100, 250, 254, 7], np.int32), cuda)
+    events = ev.EventBuffer(
+        _on(rng.integers(-3, n + 3, (b, N_CHIPS, e)).astype(np.int32), cuda),
+        (t0[None, :, None]
+         + _on(rng.integers(0, b + 1, (b, N_CHIPS, e)), cuda)).int(),
+        _on(rng.random((b, N_CHIPS, e)) < 0.7, cuda))
+    table = rt.RoutingTable(
+        _on(rng.integers(-2, N_CHIPS, (N_CHIPS, n, 1)).astype(np.int32),
+            cuda),
+        _on(rng.integers(0, n, (N_CHIPS, n, 1)).astype(np.int32), cuda),
+        _on(rng.choice([0, 3, 9, 12, 130], (N_CHIPS, n, 1)).astype(np.int32),
+            cuda),
+        _on(rng.random((N_CHIPS, n, 1)) < 0.9, cuda))
+    kw = dict(n_chips=N_CHIPS, buckets_per_chip=2, capacity=3, mode=mode,
+              time_window=4)
+    before = kc.launches["fused_inject"]
+    got = fi.fused_inject(events, table, t0, **kw)
+    assert kc.launches["fused_inject"] == before + 1
+    _equal(got, fused_inject_ref(events, table, t0, **kw))
+
+
+@pytest.mark.cuda
+def test_bucket_pack_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(0)
+    shape = (3, N_CHIPS, 1500)     # more lanes than threads: several tiles
+    bid, addr, dead = (_on(rng.integers(lo, hi, shape).astype(np.int32), cuda)
+                       for lo, hi in ((-2, 9), (0, 1 << 14), (0, 256)))
+    valid = _on(rng.random(shape) < 0.8, cuda)
+    slab, counts, overflow = bp.flush_pack(bid, addr, dead, valid,
+                                           n_buckets=7, capacity=32)
+    rows, want_counts, want_overflow = bucket_pack_ref(
+        bid, ev.encode_word(addr, dead, valid), n_buckets=7, capacity=32)
+    assert torch.equal(slab, rows.permute(1, 2, 0, 3))
+    assert torch.equal(counts, want_counts)
+    assert torch.equal(overflow, want_overflow)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["passthrough", "sort", "rate"])
+def test_fused_drain_kernel_matches_plain(cuda, mode):
+    rng = np.random.default_rng(len(mode))
+    b, d, n_in, depth, lanes = 4, 12, 40, 16, 300
+    t0 = _on(np.array([0, 250, 254, 3, 128], np.int32), cuda)
+
+    def words(shape, spread, p):
+        now = t0.cpu().numpy().reshape((-1,) + (1,) * (len(shape) - 1))
+        addr = rng.integers(0, 64, shape)
+        dead = now + rng.integers(-6, spread, shape)
+        valid = rng.random(shape) < p
+        w = ((addr & 0x3FFF) << 8) | (dead & 0xFF)
+        return _on(np.where(valid, w, -1).astype(np.int32), cuda)
+
+    delivered = words((N_CHIPS, b, lanes), 40, 0.7)
+    queue = words((N_CHIPS, depth), 10, 0.9) if mode == "rate" else None
+    ring = dl.DelayRing(
+        _on(rng.integers(0, 3, (N_CHIPS, d, n_in)).astype(np.int32), cuda),
+        t0)
+    for gate in (None, _on([True, False, True, True, False], cuda)):
+        kw = dict(mode=mode, rate=3, extra_ahead=1, gate=gate)
+        got = fd.fused_drain(ring, delivered, queue, t0, **kw)
+        want = fused_drain_ref(ring, delivered, queue, t0, **kw)
+        assert torch.equal(got.ring.ring, want.ring.ring)
+        _equal(got[1:], want[1:])
+
+
+@pytest.mark.cuda
+def test_demo_on_the_card_matches_the_cpu(cuda):
+    from repro_torch import demo
+    from repro_torch.snn import network as net
+
+    records = []
+    for device in (cuda, torch.device("cpu")):
+        cfg, params, state, ext = demo.setup(device)
+        records.append(net.run(cfg, params, state, ext, device=device)[1])
+    gpu, cpu = records
+    assert torch.equal(gpu.spikes.cpu(), cpu.spikes)
+    torch.testing.assert_close(gpu.voltage.cpu(), cpu.voltage, rtol=0,
+                               atol=1e-5)
