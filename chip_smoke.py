@@ -9,10 +9,10 @@ Phases, each fatal on failure:
   2. kernels each kernel against its plain PyTorch version on the card,
              bitwise on every output, on inputs taken from the first block
              of each path below, in every mode the fabric uses; its time
-             (CUDA events over a CUDA graph of back-to-back launches), its
-             device time (torch.profiler), the eager call's and the plain
-             version's time (CUDA events), bytes and the bound at
-             3.35 TB/s;
+             (CUDA events over a CUDA graph of back-to-back calls), the
+             kernel's own device time (torch.profiler; the difference is
+             the wrapper's tensor ops), the plain version's time (CUDA
+             events), bytes and the bound at 3.35 TB/s;
   3. wafer   ``configs/bss2.py`` as is (46 chips x 512 AdEx, fan-out 4,
              simplified, B 1): bucket_pack and fused_drain must launch and
              Σ sent == Σ (deposits + expired + overflow + merge_dropped);
@@ -22,7 +22,9 @@ Phases, each fatal on failure:
              fused_inject and fused_drain must launch;
   5. profile where a block's time goes on each path (torch.profiler):
              wall and device-busy time per step, the idle share, kernel
-             launches per step and the costliest kernels;
+             launches per step and the costliest kernels.  The kernels are
+             a small part of a step; this phase shows what the rest is,
+             for PERF.md's breakdown;
   6. summary the ``kernels`` JSON line, the card's name and power limit,
              and last the ``{"ok": true, ...}`` line.
 
@@ -226,14 +228,14 @@ def check_record(label: str, rec, t: int, n_chips: int, n: int):
 class Paths:
     """The two path runs and the first-block kernel inputs of each."""
 
-    def __init__(self, device, seed: int, steps: int, small: bool):
+    def __init__(self, device, seed: int, steps: int):
         from repro_torch.configs import bss2
         from repro_torch.core import pulse_comm as pc
         from repro_torch.core import routing as rt
         from repro_torch.snn import network as net
 
         self.device, self.seed, self.steps, self.net = device, seed, steps, net
-        base = bss2.CONFIG.reduced() if small else bss2.CONFIG
+        base = bss2.CONFIG
         self.wafer_cfg = net.NetworkConfig(comm=base.comm,
                                            neuron_model=base.neuron_model)
         ff_comm = dataclasses.replace(
@@ -305,7 +307,7 @@ def kernel_cases(blocks: dict, device) -> list[dict]:
                 main=(mode == "full" and b == events.addr.shape[0]),
                 run=lambda a=args, k=kwm: fi_ops.fused_inject(*a, **k),
                 plain=lambda a=args, k=kwm: fused_inject_ref(*a, **k),
-                inputs=(ev_b, fi_ops.table_matrix(table), t0), ops=lanes))
+                inputs=(ev_b, table, t0), ops=lanes))
 
     (bid, addr, dead, valid), kw = blocks["wafer"]["flush_pack"]
     args = (bid, addr, dead, valid)
@@ -358,44 +360,35 @@ def kernel_cases(blocks: dict, device) -> list[dict]:
     return cases
 
 
-def kernel_phase(cases: list[dict], timed: bool) -> dict:
+def kernel_phase(cases: list[dict]) -> dict:
     """Compare, then time; returns the main case of each kernel."""
     main = {}
     for case in cases:
         got = case["run"]()
         want = case["plain"]()
-        if timed:
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         err = compare(f"{case['kernel']} [{case['mode']}]", got, want)
-        row = dict(name=case["kernel"], mode=case["mode"], max_abs_err=err)
-        if timed:
-            row["ms"] = graph_ms(case["run"])
-            row["device_ms"] = device_ms(case["run"], case["kernel"], 20)
-            row["call_ms"] = event_ms(case["run"], 50)
-            row["plain_ms"] = event_ms(case["plain"], 5)
-            moved = nbytes(case["inputs"]) + nbytes(got)
-            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-            ops_ms = case["ops"] / SIMT_OPS_PER_S * 1e3
-            row.update(bytes=moved, ops=case["ops"],
-                       bound_ms=max(bytes_ms, ops_ms),
-                       bound_by="bytes" if bytes_ms >= ops_ms
-                       else "operations")
-            dms = row["device_ms"]
-            print(f"[kernel] {case['kernel']:12s} {case['mode']:40s} "
-                  f"bitwise ok  ms={row['ms']:.4f} device_ms="
-                  f"{'not measured' if dms is None else f'{dms:.4f}'} "
-                  f"call_ms={row['call_ms']:.4f} "
-                  f"plain_ms={row['plain_ms']:.4f} bytes={moved} "
-                  f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
-        else:
-            print(f"[kernel] {case['kernel']:12s} {case['mode']:40s} "
-                  "bitwise ok")
+        moved = nbytes(case["inputs"]) + nbytes(got)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = case["ops"] / SIMT_OPS_PER_S * 1e3
+        row = dict(name=case["kernel"], mode=case["mode"], max_abs_err=err,
+                   ms=graph_ms(case["run"]),
+                   device_ms=device_ms(case["run"], case["kernel"], 20),
+                   plain_ms=event_ms(case["plain"], 5), bytes=moved,
+                   ops=case["ops"], bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        dms = row["device_ms"]
+        print(f"[kernel] {case['kernel']:12s} {case['mode']:40s} "
+              f"bitwise ok  ms={row['ms']:.4f} device_ms="
+              f"{'not measured' if dms is None else f'{dms:.4f}'} "
+              f"plain_ms={row['plain_ms']:.4f} bytes={moved} "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
         if case["main"]:
             main[case["kernel"]] = row
     return main
 
 
-def path_phase(paths: Paths, device, timed: bool) -> dict:
+def path_phase(paths: Paths, device) -> dict:
     """Run both paths with the launch counters zeroed just before each;
     returns launches per kernel and path."""
     from repro_torch import demo
@@ -414,21 +407,17 @@ def path_phase(paths: Paths, device, timed: bool) -> dict:
             kc.reset_launches()
             src_t, dst_t = demo.main(device)
             demo_counts = dict(kc.launches)
-            ref_src, ref_dst = _demo_on_cpu(demo) if timed else (src_t,
-                                                                 dst_t)
-            if (src_t, dst_t) != (ref_src, ref_dst):
+            if (src_t, dst_t) != _demo_on_cpu(demo):
                 raise AssertionError("demo spike times differ from the "
                                      "plain run on the CPU")
             print(f"[feedforward] demo spike times equal the plain CPU run; "
                   f"launches {demo_counts}")
-        if timed:
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         kc.reset_launches()
         t_start = time.perf_counter()
         state, rec, deposits = run_path(net, cfg, params, ext, device,
                                         c.superstep)
-        if timed:
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t_start
         counts[label] = dict(kc.launches)
         print(f"[{label}] {c.n_chips} chips x {c.neurons_per_chip} "
@@ -445,7 +434,7 @@ def path_phase(paths: Paths, device, timed: bool) -> dict:
         check_record(label, rec, ext.shape[0], c.n_chips, c.neurons_per_chip)
         check_conservation(label, state, rec, deposits)
         for k in needs:
-            if timed and counts[label][k] == 0:
+            if counts[label][k] == 0:
                 raise AssertionError(f"{label}: kernel {k} never launched")
         counts[label]["steps_per_s"] = ext.shape[0] / wall
     return counts
@@ -457,9 +446,8 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
     time (sum of kernel times on the one stream), kernel launches, and
     the kernels that take the most device time."""
     net = paths.net
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
     out = {}
     for label, cfg, params, ext in (
             ("wafer", paths.wafer_cfg, paths.wafer_params, paths.wafer_ext),
@@ -468,15 +456,13 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
         n_blocks = min(blocks, ext.shape[0] // b - 1)
         state = net.init_state(cfg, params, device=device)
         state, _ = net.run(cfg, params, state, ext[:b], device=device)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             t_start = time.perf_counter()
             for i in range(1, n_blocks + 1):
                 state, _ = net.run(cfg, params, state,
                                    ext[i * b:(i + 1) * b], device=device)
-            if device.type == "cuda":
-                torch.cuda.synchronize()
+            torch.cuda.synchronize()
             wall = time.perf_counter() - t_start
         steps = n_blocks * b
         kernels = [e for e in prof.key_averages()
@@ -504,10 +490,9 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
 
 def _demo_on_cpu(demo):
     """The demo's spike times from the plain versions on the CPU."""
-    import contextlib as cl
     import io
 
-    with cl.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()):
         return demo.main("cpu")
 
 
@@ -546,10 +531,10 @@ def main() -> int:
                 if any(w in line for w in ("registers", "spill", "smem")):
                     print(f"[build] {name}: {line.strip()}")
 
-    paths = Paths(device, args.seed, args.steps, small=False)
+    paths = Paths(device, args.seed, args.steps)
     cases = kernel_cases(paths.first_blocks(), device)
-    main_rows = kernel_phase(cases, timed=True)
-    counts = path_phase(paths, device, timed=True)
+    main_rows = kernel_phase(cases)
+    counts = path_phase(paths, device)
     profile = profile_phase(paths, device)
 
     kernels = []
@@ -563,8 +548,7 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None, mode=row["mode"],
-            device_ms=row["device_ms"], call_ms=row["call_ms"],
-            bytes=row["bytes"]))
+            device_ms=row["device_ms"], bytes=row["bytes"]))
         print(f"[kernel-summary] {name}: launches "
               f"{ {p: counts[p][name] for p in counts} } ms={row['ms']:.5f} "
               f"plain_ms={row['plain_ms']:.4f} bytes={row['bytes']} "

@@ -30,16 +30,5 @@ class BSS2Config:
     )
     neuron_model: str = "adex"
 
-    def reduced(self) -> "BSS2Config":
-        return dataclasses.replace(
-            self,
-            name="bss2-reduced",
-            comm=dataclasses.replace(
-                self.comm, n_chips=4, neurons_per_chip=64,
-                n_inputs_per_chip=64, event_capacity=64,
-                bucket_capacity=16, ring_depth=16,
-            ),
-        )
-
 
 CONFIG = BSS2Config()

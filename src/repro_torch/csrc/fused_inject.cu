@@ -20,8 +20,8 @@
 //   when two words land on one cell the later lane wins, as the
 //   reference's XLA scatter does), counts, traffic and the scalar stats.
 //
-// Bound: bytes.  Each CTA reads one event row (12 B per lane) and one
-// table row per event (16 B), and writes NB * C words; the rank and the
+// Bound: bytes.  Each CTA reads one event row (9 B per lane) and one
+// table entry per event (13 B), and writes NB * C words; the rank and the
 // slab stay in shared memory, so device memory sees each byte once.
 #include "common.cuh"
 
@@ -31,8 +31,11 @@ using namespace repro;
 
 __global__ void __launch_bounds__(1024) fused_inject_kernel(
     const int* __restrict__ addr, const int* __restrict__ time,
-    const unsigned char* __restrict__ valid, const int* __restrict__ table,
-    const int* __restrict__ t0, int B, int n_chips, int E, int N, int bpc,
+    const unsigned char* __restrict__ valid,
+    const int* __restrict__ lut_chip, const int* __restrict__ lut_addr,
+    const int* __restrict__ lut_delay,
+    const unsigned char* __restrict__ lut_valid, const int* __restrict__ t0,
+    int B, int n_chips, int E, int N, int bpc,
     int C, int full_mode, int time_window, int* __restrict__ slab,
     int* __restrict__ counts, int* __restrict__ sent,
     int* __restrict__ overflow, int* __restrict__ wrap_expired,
@@ -58,7 +61,7 @@ __global__ void __launch_bounds__(1024) fused_inject_kernel(
   const int now = wrap_add(t0[chip], k);
   const int defer = B - 1 - k;
   const int window = time_window > 1 ? time_window : 1;
-  const int* lut = table + static_cast<size_t>(chip) * N * 4;
+  const size_t lut = static_cast<size_t>(chip) * N;
   const size_t row = (static_cast<size_t>(k) * n_chips + chip) * E;
 
   for (int base = 0; base < E; base += blockDim.x) {
@@ -68,11 +71,10 @@ __global__ void __launch_bounds__(1024) fused_inject_kernel(
     int a = ev_valid ? addr[row + e] : 0;
     if (a < 0) a += N;
     a = clamp_int(a, 0, N - 1);
-    const int4 entry = reinterpret_cast<const int4*>(lut)[a];
-    bool v = ev_valid && entry.w != 0;
-    const int dest_chip = v ? entry.x : 0;
-    const int dest_addr = v ? entry.y : -1;
-    const int deadline = wrap_add(in ? time[row + e] : 0, entry.z);
+    bool v = ev_valid && lut_valid[lut + a] != 0;
+    const int dest_chip = v ? lut_chip[lut + a] : 0;
+    const int dest_addr = v ? lut_addr[lut + a] : -1;
+    const int deadline = wrap_add(in ? time[row + e] : 0, lut_delay[lut + a]);
     const int is_sent = v;
     const int diff = wrap_sub(deadline, now);
     const bool in_window = diff > defer && diff < kHalfWindow;
@@ -119,14 +121,16 @@ __global__ void __launch_bounds__(1024) fused_inject_kernel(
 
 }  // namespace
 
-// Events are [B, n_chips, E] (valid as bytes), the table [n_chips, N, 4]
-// (dest_chip, dest_addr, delay, valid), t0 [n_chips].  Outputs: slab
-// [n_chips, NB, B, C]; counts [B, n_chips, NB]; sent, overflow,
-// wrap_expired [B, n_chips]; traffic [B, n_chips, n_chips].
+// Events are [B, n_chips, E] (valid as bytes); the table's dest_chip,
+// dest_addr, delay and valid (bytes) are each [n_chips, N]; t0 is
+// [n_chips].  Outputs: slab [n_chips, NB, B, C]; counts [B, n_chips,
+// NB]; sent, overflow, wrap_expired [B, n_chips]; traffic [B, n_chips,
+// n_chips].
 extern "C" int fused_inject_launch(
     const int* addr, const int* time, const unsigned char* valid,
-    const int* table, const int* t0, int B, int n_chips, int E, int N,
-    int bpc, int C, int full_mode, int time_window, int threads,
+    const int* lut_chip, const int* lut_addr, const int* lut_delay,
+    const unsigned char* lut_valid, const int* t0, int B, int n_chips,
+    int E, int N, int bpc, int C, int full_mode, int time_window, int threads,
     long long smem_bytes, int* slab, int* counts, int* sent, int* overflow,
     int* wrap_expired, int* traffic, void* stream) {
   static size_t allowed = 48 * 1024;
@@ -135,7 +139,8 @@ extern "C" int fused_inject_launch(
   dim3 grid(n_chips, B);
   fused_inject_kernel<<<grid, threads, smem_bytes,
                         static_cast<cudaStream_t>(stream)>>>(
-      addr, time, valid, table, t0, B, n_chips, E, N, bpc, C, full_mode,
-      time_window, slab, counts, sent, overflow, wrap_expired, traffic);
+      addr, time, valid, lut_chip, lut_addr, lut_delay, lut_valid, t0, B,
+      n_chips, E, N, bpc, C, full_mode, time_window, slab, counts, sent,
+      overflow, wrap_expired, traffic);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,9 @@
 Each kernel is one CUDA C++ source under ``repro_torch/csrc/`` with a
 plain C entry point.  At first use the sources are compiled by ``nvcc``
 for ``sm_90a`` (one process per source, all started together) into
-``build/repro_torch/<hash of the sources>/`` at the root of the checkout,
-and loaded with ``ctypes``; nothing includes PyTorch's headers.  A wrapper
+``build/repro_torch/<hash of the sources>/`` at the root of the checkout
+(an installed package builds under ``$XDG_CACHE_HOME/repro_torch``, by
+default ``~/.cache/repro_torch``), and loaded with ``ctypes``; nothing includes PyTorch's headers.  A wrapper
 launches its kernel only for CUDA tensors and raises when the launch
 fails; for CPU tensors it runs the plain PyTorch version.
 
@@ -24,7 +25,6 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("bucket_pack", "fused_inject", "fused_drain")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,13 +54,24 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def build_root() -> Path:
+    """``build/repro_torch`` of the source checkout the package lies in,
+    else the user's cache directory."""
+    pkg = Path(__file__).resolve().parents[1]
+    root = pkg.parents[1]
+    if pkg.parent.name == "src" and (root / "pyproject.toml").exists():
+        return root / "build" / "repro_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "repro_torch"
+
+
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.iterdir()):
         if path.suffix in (".cu", ".cuh"):
             h.update(path.name.encode())
             h.update(path.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    return build_root() / h.hexdigest()[:16]
 
 
 def _nvcc() -> str:

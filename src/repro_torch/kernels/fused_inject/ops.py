@@ -17,17 +17,7 @@ from repro_torch.kernels.fused_inject.ref import FusedInjectOut, fused_inject_re
 
 NAME = "fused_inject"
 I32 = torch.int32
-_ARGTYPES = [kc.P] * 5 + [kc.I] * 9 + [kc.LL] + [kc.P] * 7
-
-
-def table_matrix(table: rt.RoutingTable) -> torch.Tensor:
-    """The fan-out-1 LUT as one ``int32[n_chips, N, 4]`` matrix of
-    (dest_chip, dest_addr, delay, valid) rows."""
-    if table.fanout != 1:
-        raise ValueError(f"fused inject requires fanout 1, got {table.fanout}")
-    return torch.stack([table.dest_chip[..., 0], table.dest_addr[..., 0],
-                        table.delay[..., 0], table.valid[..., 0].to(I32)],
-                       dim=-1).to(I32).contiguous()
+_ARGTYPES = [kc.P] * 8 + [kc.I] * 9 + [kc.LL] + [kc.P] * 7
 
 
 def fused_inject(events: ev.EventBuffer, table: rt.RoutingTable,
@@ -38,12 +28,13 @@ def fused_inject(events: ev.EventBuffer, table: rt.RoutingTable,
     1]``, ``t0 [n_chips]``."""
     if mode not in ("simplified", "full"):
         raise ValueError(f"unknown mode {mode!r}")
-    tbl = table_matrix(table)
+    if table.fanout != 1:
+        raise ValueError(f"fused inject requires fanout 1, got {table.fanout}")
     kw = dict(n_chips=n_chips, buckets_per_chip=buckets_per_chip,
               capacity=capacity, mode=mode, time_window=time_window)
     if not events.addr.is_cuda:
         return fused_inject_ref(events, table, t0, **kw)
-    return _launch(events, tbl, t0, **kw)
+    return _launch(events, table, t0, **kw)
 
 
 def launch_plan(e: int, n_chips: int, nb: int, capacity: int
@@ -57,17 +48,19 @@ def launch_plan(e: int, n_chips: int, nb: int, capacity: int
     return threads, smem
 
 
-def _launch(events, tbl, t0, *, n_chips, buckets_per_chip, capacity, mode,
+def _launch(events, table, t0, *, n_chips, buckets_per_chip, capacity, mode,
             time_window) -> FusedInjectOut:
     b, n, e = events.addr.shape
     if n != n_chips:
         raise ValueError(f"events carry {n} chips, expected {n_chips}")
     nb = n_chips * buckets_per_chip
-    n_lut = tbl.shape[1]
+    n_lut = table.n_neurons
     addr = events.addr.to(I32).contiguous()
     time = events.time.to(I32).contiguous()
     valid = events.valid.bool().contiguous()
     t0 = torch.as_tensor(t0, dtype=I32, device=addr.device).contiguous()
+    lut = [(f"table.{f}", x.to(dt).contiguous(), dt) for f, x, dt in zip(
+        table._fields, table, (I32, I32, I32, torch.bool))]
     dev = addr.device
     slab = torch.empty((n, nb, b, capacity), dtype=I32, device=dev)
     counts = torch.empty((b, n, nb), dtype=I32, device=dev)
@@ -81,7 +74,7 @@ def _launch(events, tbl, t0, *, n_chips, buckets_per_chip, capacity, mode,
         kc.check(addr, "addr", I32, (b, n, e)),
         kc.check(time, "time", I32, (b, n, e)),
         kc.check(valid, "valid", torch.bool, (b, n, e)),
-        kc.check(tbl, "table", I32, (n, n_lut, 4)),
+        *(kc.check(x, name, dt, (n, n_lut, 1)) for name, x, dt in lut),
         kc.check(t0, "t0", I32, (n,)),
         b, n, e, n_lut, buckets_per_chip, capacity, int(mode == "full"),
         time_window, threads, smem,
