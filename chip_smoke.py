@@ -4,28 +4,41 @@
     python3 chip_smoke.py [--seed 0] [--steps 64]
 
 Phases, each fatal on failure:
-  1. build   the three CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-             sm_90a, one process per source);
+  1. build   the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
+             one process per source, all started together);
   2. kernels each kernel against its plain PyTorch version on the card,
              bitwise on every output, on inputs taken from the first block
              of each path below, in every mode the fabric uses; its time
              (CUDA events over a CUDA graph of back-to-back calls), the
              kernel's own device time (torch.profiler; the difference is
              the wrapper's tensor ops), the plain version's time (CUDA
-             events), bytes and the bound at 3.35 TB/s;
-  3. wafer   ``configs/bss2.py`` as is (46 chips x 512 AdEx, fan-out 4,
+             events), bytes, the bound at 3.35 TB/s or 67 T op/s and, for
+             the sorts, stable ``torch.sort`` plus the gather;
+  3. entry   the entry points off the network's path, counters zeroed
+             first: ``merge_drain_words(use_pallas=True)`` on the first
+             feedforward block's delivered words must equal
+             ``fused_drain``'s rate mode (queue, words, drops);
+             ``kernels.merge_sort`` on the same lanes; and
+             ``fused_lif_inject`` on the feedforward cell's first block,
+             whose spikes must equal the network's;
+  4. wafer   ``configs/bss2.py`` as is (46 chips x 512 AdEx, fan-out 4,
              simplified, B 1): bucket_pack and fused_drain must launch and
              Σ sent == Σ (deposits + expired + overflow + merge_dropped);
-  4. feedforward  the paper demo (2 x 64 LIF, fan-out 1) against its plain
+  5. feedforward  the paper demo (2 x 64 LIF, fan-out 1) against its plain
              run on the CPU, then the wafer widths with fan-out 1, LIF,
              full mode, 2 buckets per chip, merge_rate 128, B 8:
-             fused_inject and fused_drain must launch;
-  5. profile where a block's time goes on each path (torch.profiler):
+             fused_inject, fused_drain and lif_step must launch;
+  6. plastic ``run_plastic`` on the feedforward configuration (default
+             STDPConfig): conservation, finite weights, and its first 16
+             steps equal a plain run on the CPU;
+  7. dense   ``comm_mode="dense"`` at the wafer widths with LIF and the
+             wafer's fan-out-4 LUT: its first 16 steps equal a plain run
+             on the CPU, then 3 surrogate-gradient steps of a rate loss
+             (T 16) with a finite, nonzero gradient;
+  8. profile where a block's time goes on each path (torch.profiler):
              wall and device-busy time per step, the idle share, kernel
-             launches per step and the costliest kernels.  The kernels are
-             a small part of a step; this phase shows what the rest is,
-             for PERF.md's breakdown;
-  6. summary the ``kernels`` JSON line, the card's name and power limit,
+             launches per step and the costliest kernels;
+  9. summary the ``kernels`` JSON line, the card's name and power limit,
              and last the ``{"ok": true, ...}`` line.
 
 It exits non-zero without a card, and without the rest of the repository.
@@ -50,9 +63,14 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 SIMT_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores
 REPLACES = {
     "fused_inject": "src/repro/kernels/fused_inject/kernel.py:186",
+    "fused_lif_inject": "src/repro/kernels/fused_inject/kernel.py:277",
     "bucket_pack": "src/repro/kernels/bucket_pack/kernel.py:84",
     "fused_drain": "src/repro/kernels/fused_drain/kernel.py:145",
+    "lif_step": "src/repro/kernels/lif_step/kernel.py:45",
+    "merge_sort_words": "src/repro/kernels/merge_sort/kernel.py:84",
+    "merge_sort": "src/repro/kernels/merge_sort/kernel.py:132",
 }
+PLAIN_CHECK_STEPS = 16
 
 
 def tree_clone(x):
@@ -153,6 +171,18 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return start.elapsed_time(stop) / (reps * iters)
 
 
+def library_ms(fn) -> float:
+    """A library call's time as :func:`graph_ms` takes it, or with CUDA
+    events over eager calls where the call cannot be captured in a
+    graph."""
+    try:
+        return graph_ms(fn)
+    except RuntimeError as err:
+        print(f"[kernel] library call not capturable ({err}); timed eagerly")
+        torch.cuda.synchronize()
+        return event_ms(fn, 20)
+
+
 def device_ms(fn, kernel: str, iters: int) -> float | None:
     """Device time per launch of the CUDA kernel named ``kernel`` from
     torch.profiler; None if the profiler recorded no device time."""
@@ -225,14 +255,35 @@ def check_record(label: str, rec, t: int, n_chips: int, n: int):
             raise AssertionError(f"{label}: non-finite {name}")
 
 
+@contextlib.contextmanager
+def tally_pops(store: list):
+    """Add up the spikes every ring pop of a run returns (the ring's
+    deposits are its pops plus what it still holds)."""
+    from repro_torch.core import delays as dl
+
+    orig = dl.pop_current
+
+    def wrapped(state):
+        state, spikes = orig(state)
+        store.append(spikes.sum(dtype=torch.float64))
+        return state, spikes
+
+    dl.pop_current = wrapped
+    try:
+        yield
+    finally:
+        dl.pop_current = orig
+
+
 class Paths:
-    """The two path runs and the first-block kernel inputs of each."""
+    """The path runs and the first-block kernel inputs of each."""
 
     def __init__(self, device, seed: int, steps: int):
         from repro_torch.configs import bss2
         from repro_torch.core import pulse_comm as pc
         from repro_torch.core import routing as rt
         from repro_torch.snn import network as net
+        from repro_torch.snn import synapse as sy
 
         self.device, self.seed, self.steps, self.net = device, seed, steps, net
         base = bss2.CONFIG
@@ -242,6 +293,8 @@ class Paths:
             base.comm, fanout=1, mode="full", buckets_per_chip=2,
             merge_rate=128, superstep=8)
         self.ff_cfg = net.NetworkConfig(comm=ff_comm, neuron_model="lif")
+        self.dense_cfg = net.NetworkConfig(comm=base.comm, neuron_model="lif",
+                                           comm_mode="dense")
         gen = torch.Generator().manual_seed(seed)
         self.wafer_params = net.init_params(gen, self.wafer_cfg,
                                             device=device)
@@ -250,9 +303,16 @@ class Paths:
                                 min_delay=8, max_delay=16)
         self.ff_params = net.init_params(gen, self.ff_cfg, table=table,
                                          device=device)
+        # The wafer's LUT; weights on a 1/64 grid, so the crossbar sums of
+        # integer spike counts are exact in any order (card = CPU).
+        dense = net.init_params(gen, self.dense_cfg,
+                                table=self.wafer_params.table, device=device)
+        self.dense_params = dense._replace(crossbar=sy.Crossbar(
+            w=torch.round(dense.crossbar.w * 64) / 64))
         rng = np.random.default_rng(seed)
         self.wafer_ext = self._ext(rng, base.comm)
         self.ff_ext = self._ext(rng, ff_comm)
+        self.dense_ext = self._ext(rng, base.comm)
         self.pc = pc
 
     def _ext(self, rng, comm):
@@ -262,11 +322,35 @@ class Paths:
         return torch.as_tensor((x < 0.02).astype(np.float32),
                                device=self.device)
 
+    def runs(self):
+        """(label, cfg, params, ext, kernels that must launch, plastic)."""
+        return (
+            ("wafer", self.wafer_cfg, self.wafer_params, self.wafer_ext,
+             ("bucket_pack", "fused_drain"), False),
+            ("feedforward", self.ff_cfg, self.ff_params, self.ff_ext,
+             ("fused_inject", "fused_drain", "lif_step"), False),
+            ("plastic", self.ff_cfg, self.ff_params, self.ff_ext,
+             ("fused_inject", "fused_drain", "lif_step"), True),
+            ("dense", self.dense_cfg, self.dense_params, self.dense_ext,
+             ("lif_step",), False))
+
+    def drive(self, cfg, params, state, ext, plastic: bool, device=None):
+        """One ``run`` or ``run_plastic`` call; returns ``(state, record,
+        params)``."""
+        device = device or self.device
+        if plastic:
+            params, state, rec, _ = self.net.run_plastic(
+                cfg, params, state, ext, device=device)
+            return state, rec, params
+        state, rec = self.net.run(cfg, params, state, ext, device=device)
+        return state, rec, params
+
     def first_blocks(self) -> dict:
         """Kernel inputs of each path's first block."""
         from repro_torch.kernels.bucket_pack import ops as bp_ops
         from repro_torch.kernels.fused_drain import ops as fd_ops
         from repro_torch.kernels.fused_inject import ops as fi_ops
+        from repro_torch.kernels.lif_step import ops as lif_ops
 
         out = {}
         for label, cfg, params, ext in (
@@ -275,15 +359,57 @@ class Paths:
             store = {}
             with capture(fi_ops, "fused_inject", store), \
                     capture(fd_ops, "fused_drain", store), \
-                    capture(bp_ops, "flush_pack", store):
+                    capture(bp_ops, "flush_pack", store), \
+                    capture(lif_ops, "lif_step", store):
                 state = self.net.init_state(cfg, params, device=self.device)
-                self.net.run(cfg, params, state, ext[:cfg.comm.superstep],
-                             device=self.device)
+                _, store["record"] = self.net.run(
+                    cfg, params, state, ext[:cfg.comm.superstep],
+                    device=self.device)
             out[label] = store
         return out
 
 
-def kernel_cases(blocks: dict, device) -> list[dict]:
+def sort_ops(rows: int, lanes: int) -> int:
+    """Compare-exchanges of the bitonic network over ``rows`` rows."""
+    from repro_torch.kernels.merge_sort import ops as ms_ops
+
+    n = ms_ops.sort_length(lanes)
+    lg = n.bit_length() - 1
+    return rows * n // 2 * (lg * (lg + 1) // 2)
+
+
+def merge_lanes(blocks: dict):
+    """The first feedforward block's merge cycle of substep 0: queue +
+    delivered lanes + ``rate`` sentinels, and the clock of each row."""
+    from repro_torch.core import events as ev
+
+    (ring, delivered, queue, t0), kw = blocks["feedforward"]["fused_drain"]
+    pad = ev.sentinel_words((queue.shape[0], kw["rate"]),
+                            device=queue.device)
+    return torch.cat([queue, delivered[:, 0], pad], dim=-1).contiguous(), t0
+
+
+def lif_inject_call(paths: Paths, device, mode: str, bpc: int, b: int):
+    """``fused_lif_inject``'s arguments at the feedforward cell: the
+    network's initial state and its first block's currents (the rings are
+    empty in the first block, so each substep's currents are the crossbar
+    of the input alone, computed as the network computes them)."""
+    from repro_torch.snn import synapse as sy
+
+    cfg, params = paths.ff_cfg, paths.ff_params
+    c = cfg.comm
+    state = paths.net.init_state(cfg, params, device=device)
+    currents = torch.stack([sy.currents(params.crossbar,
+                                        paths.ff_ext[k] + 0.0)
+                            for k in range(b)])
+    kw = dict(event_capacity=c.event_capacity, n_chips=c.n_chips,
+              buckets_per_chip=bpc, capacity=c.bucket_capacity, mode=mode,
+              time_window=c.time_window)
+    return (state.neuron.v, state.neuron.refrac, currents, params.neuron,
+            params.table, state.ring.now), kw
+
+
+def kernel_cases(blocks: dict, paths: Paths, device) -> list[dict]:
     """Every (kernel, mode) case: the call, its plain version, bytes and
     operations."""
     from repro_torch.core import events as ev
@@ -292,7 +418,13 @@ def kernel_cases(blocks: dict, device) -> list[dict]:
     from repro_torch.kernels.fused_drain import ops as fd_ops
     from repro_torch.kernels.fused_drain.ref import fused_drain_ref
     from repro_torch.kernels.fused_inject import ops as fi_ops
-    from repro_torch.kernels.fused_inject.ref import fused_inject_ref
+    from repro_torch.kernels.fused_inject.ref import (fused_inject_ref,
+                                                     fused_lif_inject_ref)
+    from repro_torch.kernels.lif_step import ops as lif_ops
+    from repro_torch.kernels.lif_step.ref import lif_step_ref
+    from repro_torch.kernels.merge_sort import ops as ms_ops
+    from repro_torch.kernels.merge_sort.ref import (merge_sort_ref,
+                                                   merge_sort_words_ref)
 
     cases = []
     (events, table, t0), kw = blocks["feedforward"]["fused_inject"]
@@ -308,6 +440,52 @@ def kernel_cases(blocks: dict, device) -> list[dict]:
                 run=lambda a=args, k=kwm: fi_ops.fused_inject(*a, **k),
                 plain=lambda a=args, k=kwm: fused_inject_ref(*a, **k),
                 inputs=(ev_b, table, t0), ops=lanes))
+
+    c = paths.ff_cfg.comm
+    for mode, bpc, b in (("full", c.buckets_per_chip, c.superstep),
+                         ("simplified", 1, 1)):
+        args, kwm = lif_inject_call(paths, device, mode, bpc, b)
+        cases.append(dict(
+            kernel="fused_lif_inject", mode=f"{mode} B{b}",
+            main=mode == "full",
+            run=lambda a=args, k=kwm: fi_ops.fused_lif_inject(*a, **k),
+            plain=lambda a=args, k=kwm: fused_lif_inject_ref(*a, **k),
+            inputs=args, ops=args[2].numel() * 12))
+
+    args, _ = blocks["feedforward"]["lif_step"]
+    cases.append(dict(
+        kernel="lif_step", mode=f"{tuple(args[0].shape)}", main=True,
+        run=lambda a=args: lif_ops.lif_step(*a),
+        plain=lambda a=args: lif_step_ref(*a), inputs=args,
+        ops=args[0].numel() * 12))
+
+    words, now = merge_lanes(blocks)
+    rows, lanes = words.shape
+    key = ev.word_sort_key(words, now[:, None])
+
+    def words_library(w=words, k=key):
+        return w.gather(-1, torch.sort(k, dim=-1, stable=True).indices)
+
+    cases.append(dict(
+        kernel="merge_sort_words", mode=f"{rows} x {lanes}", main=True,
+        run=lambda: ms_ops.merge_sort_words(words, now),
+        plain=lambda: merge_sort_words_ref(words, now),
+        library=words_library, inputs=(words, now),
+        ops=sort_ops(rows, lanes)))
+
+    soa = (ev.word_addr(words), ev.word_deadline(words, now[:, None]),
+           ev.word_valid(words))
+    soa_key = torch.where(soa[2], soa[1], 2**30)
+
+    def soa_library(a=soa, k=soa_key):
+        order = torch.sort(k, dim=-1, stable=True).indices
+        return tuple(x.gather(-1, order) for x in a)
+
+    cases.append(dict(
+        kernel="merge_sort", mode=f"{rows} x {lanes}", main=True,
+        run=lambda: ms_ops.merge_sort(*soa),
+        plain=lambda: merge_sort_ref(*soa), library=soa_library,
+        inputs=soa, ops=sort_ops(rows, lanes)))
 
     (bid, addr, dead, valid), kw = blocks["wafer"]["flush_pack"]
     args = (bid, addr, dead, valid)
@@ -371,36 +549,97 @@ def kernel_phase(cases: list[dict]) -> dict:
         moved = nbytes(case["inputs"]) + nbytes(got)
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         ops_ms = case["ops"] / SIMT_OPS_PER_S * 1e3
+        library = case.get("library")
+        if library is not None:
+            compare(f"{case['kernel']} [{case['mode']}] library", got,
+                    library())
         row = dict(name=case["kernel"], mode=case["mode"], max_abs_err=err,
                    ms=graph_ms(case["run"]),
                    device_ms=device_ms(case["run"], case["kernel"], 20),
                    plain_ms=event_ms(case["plain"], 5), bytes=moved,
                    ops=case["ops"], bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-        dms = row["device_ms"]
-        print(f"[kernel] {case['kernel']:12s} {case['mode']:40s} "
-              f"bitwise ok  ms={row['ms']:.4f} device_ms="
-              f"{'not measured' if dms is None else f'{dms:.4f}'} "
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   library_ms=(None if library is None
+                               else library_ms(library)))
+        dms, lms = row["device_ms"], row["library_ms"]
+        print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
+              f"bitwise ok  ms={row['ms']:.5f} device_ms="
+              f"{'not measured' if dms is None else f'{dms:.5f}'} "
               f"plain_ms={row['plain_ms']:.4f} bytes={moved} "
-              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})"
+              + ("" if lms is None else f" library_ms={lms:.5f}"))
         if case["main"]:
             main[case["kernel"]] = row
     return main
 
 
+def entry_phase(blocks: dict, paths: Paths, device) -> dict:
+    """The entry points off the network's path, counters zeroed just
+    before; returns their launches."""
+    from repro_torch.core import events as ev
+    from repro_torch.core import merge as mg
+    from repro_torch.kernels import common as kc
+    from repro_torch.kernels.fused_drain import ops as fd_ops
+    from repro_torch.kernels.fused_inject import ops as fi_ops
+    from repro_torch.kernels.merge_sort import ops as ms_ops
+
+    (ring, delivered, queue, t0), kw = blocks["feedforward"]["fused_drain"]
+    record = blocks["feedforward"]["record"]
+    c = paths.ff_cfg.comm
+    lif_args, lif_kw = lif_inject_call(paths, device, c.mode,
+                                       c.buckets_per_chip, c.superstep)
+    torch.cuda.synchronize()
+    kc.reset_launches()
+    drains = {rate: mg.merge_drain_words(
+        mg.MergeBuffer(words=queue), delivered.transpose(0, 1), now0=t0,
+        rate=rate, use_pallas=True) for rate in (kw["rate"], 16)}
+    merged, now = merge_lanes(blocks)
+    soa = (ev.word_addr(merged), ev.word_deadline(merged, now[:, None]),
+           ev.word_valid(merged))
+    sorted_soa = ms_ops.merge_sort(*soa)
+    lif = fi_ops.fused_lif_inject(*lif_args, **lif_kw)
+    torch.cuda.synchronize()
+    counts = dict(kc.launches)
+    for rate, (buf, words, dropped) in drains.items():
+        fused = fd_ops.fused_drain(ring, delivered, queue, t0, mode="rate",
+                                   rate=rate)
+        compare(f"merge_drain_words(use_pallas=True) vs fused_drain rate "
+                f"{rate}", (buf.words, words, dropped),
+                (fused.queue, fused.words, fused.dropped))
+        print(f"[entry] merge_drain_words(use_pallas=True) equals "
+              f"fused_drain rate mode at rate {rate}: "
+              f"{int(buf.occupancy().sum())} queued, {int(dropped.sum())} "
+              f"dropped")
+    key = torch.where(sorted_soa[2], sorted_soa[1], 2**30)
+    if not bool((key[..., 1:] >= key[..., :-1]).all()):
+        raise AssertionError("merge_sort: rows out of order")
+    compare("fused_lif_inject spikes vs the network's first block",
+            lif.spikes, record.spikes)
+    (events, table, t0_inject), inject_kw = blocks["feedforward"][
+        "fused_inject"]
+    compare("fused_lif_inject vs fused_inject of the network's first block",
+            lif.inject, fi_ops.fused_inject(events, table, t0_inject,
+                                            **inject_kw))
+    print(f"[entry] merge_sort on {tuple(soa[0].shape)} in order; "
+          f"fused_lif_inject's spikes and slab equal the network's first "
+          f"block "
+          f"({int(lif.spikes.sum())} spikes, {int(lif.inject.sent.sum())} "
+          f"sent); launches {counts}")
+    for k in ("merge_sort_words", "merge_sort", "fused_lif_inject"):
+        if counts[k] == 0:
+            raise AssertionError(f"entry: kernel {k} never launched")
+    return counts
+
+
 def path_phase(paths: Paths, device) -> dict:
-    """Run both paths with the launch counters zeroed just before each;
+    """Run every path with the launch counters zeroed just before each;
     returns launches per kernel and path."""
     from repro_torch import demo
     from repro_torch.kernels import common as kc
 
     net = paths.net
     counts = {}
-    for label, cfg, params, ext, needs in (
-            ("wafer", paths.wafer_cfg, paths.wafer_params, paths.wafer_ext,
-             ("bucket_pack", "fused_drain")),
-            ("feedforward", paths.ff_cfg, paths.ff_params, paths.ff_ext,
-             ("fused_inject", "fused_drain"))):
+    for label, cfg, params, ext, needs, plastic in paths.runs():
         c = cfg.comm
         if label == "feedforward":
             print("[feedforward] paper demo (2 chips x 64 LIF, fan-out 1):")
@@ -412,18 +651,31 @@ def path_phase(paths: Paths, device) -> dict:
                                      "plain run on the CPU")
             print(f"[feedforward] demo spike times equal the plain CPU run; "
                   f"launches {demo_counts}")
+        if label in ("plastic", "dense"):
+            check_against_cpu(paths, label, cfg, params, ext, plastic)
         torch.cuda.synchronize()
         kc.reset_launches()
+        pops = []
         t_start = time.perf_counter()
-        state, rec, deposits = run_path(net, cfg, params, ext, device,
-                                        c.superstep)
+        if plastic or label == "dense":
+            state = net.init_state(cfg, params, device=device)
+            ring0 = state.ring.ring.sum(dtype=torch.float64)
+            with tally_pops(pops):
+                state, rec, learnt = paths.drive(cfg, params, state, ext,
+                                                 plastic)
+            deposits = (state.ring.ring.sum(dtype=torch.float64) - ring0
+                        + sum(pops))
+        else:
+            state, rec, deposits = run_path(net, cfg, params, ext, device,
+                                            c.superstep)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_start
         counts[label] = dict(kc.launches)
         print(f"[{label}] {c.n_chips} chips x {c.neurons_per_chip} "
-              f"{cfg.neuron_model}, fan-out {c.fanout}, {c.mode}, "
-              f"bpc {c.buckets_per_chip}, merge_rate {c.merge_rate}, "
-              f"B {c.superstep}, T {ext.shape[0]}: {ext.shape[0] / wall:.2f} "
+              f"{cfg.neuron_model}, {cfg.comm_mode}, fan-out {c.fanout}, "
+              f"{c.mode}, bpc {c.buckets_per_chip}, merge_rate "
+              f"{c.merge_rate}, B {c.superstep}, T {ext.shape[0]}"
+              f"{', STDP' if plastic else ''}: {ext.shape[0] / wall:.2f} "
               f"steps/s ({wall:.3f} s); launches {counts[label]}")
         s = rec.stats
         print(f"[{label}] spikes {int(rec.spikes.sum())}, sent "
@@ -432,12 +684,104 @@ def path_phase(paths: Paths, device) -> dict:
               f"{int(s.merge_dropped.sum())}, mean utilization "
               f"{float(s.utilization.mean()):.4f}")
         check_record(label, rec, ext.shape[0], c.n_chips, c.neurons_per_chip)
-        check_conservation(label, state, rec, deposits)
+        if label == "dense":
+            check_dense_delivery(cfg, params, rec, deposits)
+            gradient_steps(paths, cfg, params, ext)
+        else:
+            check_conservation(label, state, rec, int(deposits))
+        if plastic:
+            w = learnt.crossbar.w
+            if not bool(torch.isfinite(w).all()):
+                raise AssertionError("plastic: non-finite weights")
+            moved = float((w - params.crossbar.w).abs().max())
+            print(f"[plastic] weights moved by up to {moved:.5f}, now in "
+                  f"[{float(w.min()):.4f}, {float(w.max()):.4f}]")
+            if moved == 0:
+                raise AssertionError("plastic: STDP changed no weight")
         for k in needs:
             if counts[label][k] == 0:
                 raise AssertionError(f"{label}: kernel {k} never launched")
         counts[label]["steps_per_s"] = ext.shape[0] / wall
     return counts
+
+
+def check_dense_delivery(cfg, params, rec, deposits):
+    """Infinite capacity: every spike reaches the rings once for each LUT
+    entry that is valid, in range and has a delay in [1, D]."""
+    tbl, c = params.table, cfg.comm
+    ok = (tbl.valid.bool() & (tbl.delay >= 1) & (tbl.delay <= c.ring_depth)
+          & (tbl.dest_chip >= -c.n_chips) & (tbl.dest_chip < c.n_chips))
+    want = (rec.spikes.double() * ok.sum(-1).double()).sum()
+    print(f"[dense] delivered {float(deposits):.0f} spikes into the rings, "
+          f"{float(want):.0f} expected from {int(rec.spikes.sum())} spikes")
+    if float(deposits) != float(want) or float(want) == 0:
+        raise AssertionError("dense: delivery does not match the LUT")
+
+
+def check_against_cpu(paths: Paths, label, cfg, params, ext, plastic):
+    """The path's first steps on the card against the plain versions on
+    the CPU from the same weights: spikes equal, learnt weights within
+    1e-5, and each neuron's voltage within 1e-5 of the largest |v| on its
+    own trajectory (at least 1).  The card's expf and the CPU's exp may
+    differ in the last bit, and the card sums the crossbar in another
+    order once STDP has made the weights non-dyadic; a neuron's voltage
+    keeps such an ulp of its largest value through the leak and through
+    cancelling currents."""
+    t = PLAIN_CHECK_STEPS
+    cpu = torch.device("cpu")
+    cpu_params = type(params)(*(tree_to(x, cpu) for x in params))
+    out = {}
+    for dev, p in ((paths.device, params), (cpu, cpu_params)):
+        state = paths.net.init_state(cfg, p, device=dev)
+        _, rec, learnt = paths.drive(cfg, p, state, ext[:t].to(dev), plastic,
+                                     device=dev)
+        out[dev.type] = (rec, learnt)
+    (grec, gp), (crec, cp) = out["cuda"], out["cpu"]
+    if not torch.equal(grec.spikes.cpu(), crec.spikes):
+        raise AssertionError(f"{label}: spikes differ from the CPU run")
+    scale = crec.voltage.abs().amax(0, keepdim=True).clamp(min=1.0)
+    rel = float(((grec.voltage.cpu() - crec.voltage).abs() / scale).max())
+    dw = float((gp.crossbar.w.cpu() - cp.crossbar.w).abs().max())
+    if rel > 1e-5 or dw > 1e-5:
+        raise AssertionError(f"{label}: voltage {rel} (of each neuron's "
+                             f"largest |v|) / weights {dw} differ from the "
+                             f"CPU run")
+    print(f"[{label}] first {t} steps equal the plain CPU run: "
+          f"{int(crec.spikes.sum())} spikes equal, max |dv| / max|v| "
+          f"{rel:.3g} (|v| up to {float(scale.max()):.4g}), max |dw| "
+          f"{dw:.3g}")
+
+
+def tree_to(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return type(x)(*(tree_to(v, device) for v in x))
+
+
+def gradient_steps(paths: Paths, cfg, params, ext, steps: int = 3,
+                   t: int = PLAIN_CHECK_STEPS, lr: float = 5.0):
+    """Surrogate-gradient descent on the dense path: the squared distance
+    of the mean firing rate from 0.05 over ``t`` steps, ``steps`` times."""
+    from repro_torch.snn import synapse as sy
+
+    w = params.crossbar.w.clone().requires_grad_()
+    losses = []
+    t_start = time.perf_counter()
+    for _ in range(steps):
+        p = params._replace(crossbar=sy.Crossbar(w=w))
+        state = paths.net.init_state(cfg, p, device=paths.device)
+        _, rec = paths.net.run(cfg, p, state, ext[:t], device=paths.device)
+        loss = (rec.spikes.mean() - 0.05) ** 2
+        (g,) = torch.autograd.grad(loss, w)
+        if not bool(torch.isfinite(g).all()) or float(g.abs().sum()) == 0:
+            raise AssertionError("dense: the gradient is not finite and "
+                                 "nonzero")
+        losses.append(float(loss.detach()))
+        w = (w - lr * g).detach().requires_grad_()
+    torch.cuda.synchronize()
+    print(f"[dense] {steps} surrogate-gradient steps at T {t}: loss "
+          f"{' -> '.join(f'{x:.6g}' for x in losses)}, |grad| finite and "
+          f"nonzero ({(time.perf_counter() - t_start) / steps:.3f} s/step)")
 
 
 def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
@@ -449,19 +793,18 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     out = {}
-    for label, cfg, params, ext in (
-            ("wafer", paths.wafer_cfg, paths.wafer_params, paths.wafer_ext),
-            ("feedforward", paths.ff_cfg, paths.ff_params, paths.ff_ext)):
-        b = cfg.comm.superstep
+    for label, cfg, params, ext, _, plastic in paths.runs():
+        b = cfg.comm.superstep if cfg.comm_mode == "event" else 8
         n_blocks = min(blocks, ext.shape[0] // b - 1)
         state = net.init_state(cfg, params, device=device)
-        state, _ = net.run(cfg, params, state, ext[:b], device=device)
+        state, _, params = paths.drive(cfg, params, state, ext[:b], plastic)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             t_start = time.perf_counter()
             for i in range(1, n_blocks + 1):
-                state, _ = net.run(cfg, params, state,
-                                   ext[i * b:(i + 1) * b], device=device)
+                state, _, params = paths.drive(cfg, params, state,
+                                               ext[i * b:(i + 1) * b],
+                                               plastic)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t_start
         steps = n_blocks * b
@@ -522,9 +865,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     build = kc.build()
-    print(f"[build] {len(kc.KERNELS)} kernels in "
+    print(f"[build] {len(kc.SOURCES)} sources, {len(kc.KERNELS)} kernels in "
           f"{time.perf_counter() - t_start:.1f} s into {build}")
-    for name in kc.KERNELS:
+    for name in kc.SOURCES:
         log = build / f"{name}.log"
         if log.exists():
             for line in log.read_text().splitlines():
@@ -532,32 +875,39 @@ def main() -> int:
                     print(f"[build] {name}: {line.strip()}")
 
     paths = Paths(device, args.seed, args.steps)
-    cases = kernel_cases(paths.first_blocks(), device)
+    blocks = paths.first_blocks()
+    cases = kernel_cases(blocks, paths, device)
     main_rows = kernel_phase(cases)
+    entry = entry_phase(blocks, paths, device)
     counts = path_phase(paths, device)
+    counts["entry"] = entry
     profile = profile_phase(paths, device)
 
     kernels = []
-    for name in kc.KERNELS:
+    for name, src in kc.KERNELS.items():
         row = main_rows[name]
+        launches = {p: c[name] for p, c in counts.items() if c[name]}
         kernels.append(dict(
-            name=name, route="cuda",
-            source=f"src/repro_torch/csrc/{name}.cu",
-            replaces=REPLACES[name],
-            launches=sum(counts[p][name] for p in counts),
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}.cu",
+            replaces=REPLACES[name], launches=sum(launches.values()),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=None, mode=row["mode"],
-            device_ms=row["device_ms"], bytes=row["bytes"]))
-        print(f"[kernel-summary] {name}: launches "
-              f"{ {p: counts[p][name] for p in counts} } ms={row['ms']:.5f} "
-              f"plain_ms={row['plain_ms']:.4f} bytes={row['bytes']} "
-              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            mode=row["mode"], device_ms=row["device_ms"],
+            bytes=row["bytes"], launches_by=launches))
+        if not launches:
+            raise AssertionError(f"kernel {name} launched on no path or "
+                                 f"entry point")
+        print(f"[kernel-summary] {name}: launches {launches} "
+              f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.4f} "
+              f"bytes={row['bytes']} bound_ms={row['bound_ms']:.5f} "
+              f"({row['bound_by']}) library_ms={row['library_ms']} "
               f"[{row['mode']}]")
     summary = dict(
         launches={p: {k: v for k, v in c.items() if k in kc.KERNELS}
                   for p, c in counts.items()},
-        steps_per_s={p: c["steps_per_s"] for p, c in counts.items()},
+        steps_per_s={p: c["steps_per_s"] for p, c in counts.items()
+                     if "steps_per_s" in c},
         profile=profile)
     print(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}))

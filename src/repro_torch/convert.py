@@ -1,9 +1,11 @@
 """Carry a network's weights and state across from the JAX package.
 
-``params_from_jax`` / ``state_from_jax`` take the JAX package's
-``NetworkParams`` / ``NetworkState`` (any array type numpy can read,
-fields by name) and return the port's versions on ``device``, so both
-packages compute from identical weights and state.  Nothing here imports
+``params_from_jax`` / ``state_from_jax`` / ``stdp_state_from_jax`` take
+the JAX package's ``NetworkParams`` / ``NetworkState`` / ``STDPState``
+(any array type numpy can read, fields by name) and return the port's
+versions on ``device``, so both packages compute from identical weights
+and state.  A ring keeps its dtype: int32 in event mode, float32 in
+dense mode.  Nothing here imports
 JAX: every leaf goes through ``numpy.asarray``.
 """
 
@@ -18,6 +20,7 @@ from repro_torch.core import routing as rt
 from repro_torch.kernels import common as kc
 from repro_torch.snn import network as net
 from repro_torch.snn import neuron as nr
+from repro_torch.snn import stdp as sd
 from repro_torch.snn import synapse as sy
 
 
@@ -57,3 +60,9 @@ def state_from_jax(state, *, device="cuda") -> net.NetworkState:
         ring=_fields(dl.DelayRing, state.ring, device),
         t=tensor(state.t, device, torch.int32),
         merge=merge)
+
+
+def stdp_state_from_jax(state, *, device="cuda") -> sd.STDPState:
+    """STDP traces ``x_pre [n_chips, n_inputs]``, ``x_post [n_chips,
+    n_neurons]``."""
+    return _fields(sd.STDPState, state, kc.resolve_device(device))

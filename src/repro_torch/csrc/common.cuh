@@ -7,9 +7,12 @@
 //   give.  Warps rank their own lanes with __match_any_sync + __popc;
 //   per-warp bucket histograms in shared memory get an exclusive scan
 //   over warps.
-// * bitonic_sort_u32: a shared-memory bitonic network on unique 32-bit
-//   composite keys (sort key * n + lane), so the result is the stable
-//   order by key with the lane index as tie-break.
+// * lif_update: one LIF step of one neuron, each operation rounded as
+//   the reference and PyTorch's separate elementwise kernels round it.
+// * bitonic_sort: a shared-memory bitonic network on unique composite
+//   keys (sort key * n + lane in 32 bits, or key << 32 | lane in 64), so
+//   the result is the stable order by key with the lane index as
+//   tie-break.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +51,29 @@ __device__ __forceinline__ int floor_mod(int a, int b) {
 
 __device__ __forceinline__ int clamp_int(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// One Euler step of a LIF neuron; returns whether it spiked.
+//   decay = exp(-1 / tau); active = refrac <= 0;
+//   v_int = active ? (v_rest + decay * (v - v_rest)) + current : v;
+//   spike = active && v_int > v_th; v = spike ? v_reset : v_int;
+//   refrac = spike ? refrac_period : max(refrac - 1, 0).
+// The _rn intrinsics keep nvcc from contracting the product and the sum
+// into one FMA (the reference rounds the product first), expf (not
+// __expf) is the correctly rounded library exp, and -1.0f / tau stays in
+// float.
+__device__ __forceinline__ bool lif_update(float& v, int& refrac, float current,
+                                           float tau, float v_th, float v_reset,
+                                           float v_rest, int refrac_period) {
+  const float decay = expf(__fdiv_rn(-1.0f, tau));
+  const bool active = refrac <= 0;
+  const float leak = __fadd_rn(v_rest, __fmul_rn(decay, __fsub_rn(v, v_rest)));
+  const float v_int = active ? __fadd_rn(leak, current) : v;
+  const bool spike = active && v_int > v_th;
+  const int left = wrap_sub(refrac, 1);
+  v = spike ? v_reset : v_int;
+  refrac = spike ? refrac_period : (left > 0 ? left : 0);
+  return spike;
 }
 
 // Sum of v over the warp, added to *dst in shared memory by lane 0.
@@ -93,16 +119,18 @@ __device__ int block_stable_rank(int key, bool member, int nb, int* hist,
   return rank;
 }
 
-// Ascending bitonic sort of a[0, n) in shared memory, n a power of two.
-// The caller synchronises before; the function synchronises after.
-__device__ void bitonic_sort_u32(unsigned* a, int n) {
+// Ascending bitonic sort of a[0, n) in shared memory, n a power of two,
+// K an unsigned integer type.  The caller synchronises before; the
+// function synchronises after.
+template <typename K>
+__device__ void bitonic_sort(K* a, int n) {
   for (int k = 2; k <= n; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       for (int i = threadIdx.x; i < n; i += blockDim.x) {
         const int ixj = i ^ j;
         if (ixj > i) {
-          const unsigned x = a[i];
-          const unsigned y = a[ixj];
+          const K x = a[i];
+          const K y = a[ixj];
           const bool ascending = (i & k) == 0;
           if ((x > y) == ascending) {
             a[i] = y;

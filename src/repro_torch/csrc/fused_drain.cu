@@ -18,7 +18,7 @@
 //   rate         queue + row + sentinels sorted to a power of two, emit
 //                the first `rate` words, keep [rate, rate + depth) as the
 //                queue, dropped = max(n_valid - emitted - depth, 0).
-// The sort is bitonic_sort_u32 on composite keys key * n + lane.  Each
+// The sort is bitonic_sort on composite keys key * n + lane.  Each
 // emitted word w >= 0 with ahead = wrap8(w - now) deposits at
 // ring[(now + ahead) mod D, clip(addr)] if min_ahead < ahead <= D and is
 // counted in dep_expired otherwise.  A gated-off chip (pipeline empty
@@ -90,7 +90,7 @@ __global__ void __launch_bounds__(1024) fused_drain_kernel(
         warp_tally(w >= 0, &tally[1]);
       }
       __syncthreads();
-      bitonic_sort_u32(keys, n);
+      bitonic_sort(keys, n);
       if (mode == kRate && on) {
         for (int i = threadIdx.x; i < Q; i += blockDim.x)
           queue[i] = src[keys[rate + i] & static_cast<unsigned>(n - 1)];

@@ -11,6 +11,8 @@ fails; for CPU tensors it runs the plain PyTorch version.
 
 ``launches`` counts kernel launches per kernel (one per wrapper call that
 reached the card), so a run can show that it went through the kernels.
+``KERNELS`` maps each kernel to the source (and library) it is built
+from; ``fused_inject.cu`` and ``merge_sort.cu`` each hold two kernels.
 """
 
 from __future__ import annotations
@@ -25,7 +27,12 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("bucket_pack", "fused_inject", "fused_drain")
+SOURCES = ("bucket_pack", "fused_inject", "fused_drain", "lif_step",
+           "merge_sort")
+KERNELS = {"fused_inject": "fused_inject", "fused_lif_inject": "fused_inject",
+           "bucket_pack": "bucket_pack", "fused_drain": "fused_drain",
+           "lif_step": "lif_step", "merge_sort_words": "merge_sort",
+           "merge_sort": "merge_sort"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Shared memory one block may use on Hopper (227 KB).
@@ -82,7 +89,7 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build(names=KERNELS) -> Path:
+def build(names=SOURCES) -> Path:
     """Compile every missing kernel library, in parallel.  Returns the
     build directory; each ``<name>.log`` holds ``ptxas``'s register and
     shared-memory report."""
@@ -113,14 +120,15 @@ def build(names=KERNELS) -> Path:
 
 
 def kernel_fn(name: str, symbol: str, argtypes):
-    """The C entry point ``symbol`` of kernel ``name``, built and loaded on
-    first use, with its ctypes signature set."""
-    lib = _libs.get(name)
+    """The C entry point ``symbol`` of kernel ``name``, its source built
+    and loaded on first use, with its ctypes signature set."""
+    src = KERNELS[name]
+    lib = _libs.get(src)
     if lib is None:
-        lib = ctypes.CDLL(str(build((name,)) / f"lib{name}.so"))
+        lib = ctypes.CDLL(str(build((src,)) / f"lib{src}.so"))
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        _libs[src] = lib
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -132,7 +140,7 @@ def launch(name: str, fn, *args) -> None:
     on a non-zero ``cudaGetLastError()`` and count the launch."""
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        msg = _libs[name].repro_error_string(err).decode()
+        msg = _libs[KERNELS[name]].repro_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
     launches[name] += 1
 

@@ -2,6 +2,11 @@
 the reference (``repro.kernels.fused_inject.ref.fused_inject_ref``) over
 a whole block and every chip at once — route, wrap-window admission,
 bucket ids, and the reference flush-pack into a fresh slab.
+
+:func:`fused_lif_inject_ref` puts the LIF update in front, as the
+reference's ``fused_lif_inject_ref`` does: per substep the plain LIF
+step, then ``events.from_spikes`` (the stable compaction with the
+``event_capacity`` cut), then the inject chain over the block.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from repro_torch.core import events as ev
 from repro_torch.core import pulse_comm as pc
 from repro_torch.core import routing as rt
 from repro_torch.core import transport as tp
+from repro_torch.kernels.lif_step.ref import lif_step_ref
 
 
 class FusedInjectOut(NamedTuple):
@@ -57,3 +63,43 @@ def fused_inject_ref(events: ev.EventBuffer, table: rt.RoutingTable,
         counts=packed.counts, sent=sent, overflow=packed.overflow,
         wrap_expired=wrap_expired,
         traffic=tp.exchange_matrix(routed.dest_chip, routed.valid, n_chips))
+
+
+class FusedLifInjectOut(NamedTuple):
+    """v, refrac : [n_chips, N] membrane and refractory count after the
+    block; spikes, voltage : f32[B, n_chips, N] per substep; inject : the
+    block's :class:`FusedInjectOut`."""
+
+    v: torch.Tensor
+    refrac: torch.Tensor
+    spikes: torch.Tensor
+    voltage: torch.Tensor
+    inject: FusedInjectOut
+
+
+def fused_lif_inject_ref(v: torch.Tensor, refrac: torch.Tensor,
+                         currents: torch.Tensor, params,
+                         table: rt.RoutingTable, t0: torch.Tensor, *,
+                         event_capacity: int, n_chips: int,
+                         buckets_per_chip: int, capacity: int,
+                         mode: str = "simplified",
+                         time_window: int = 1) -> FusedLifInjectOut:
+    """``v, refrac [n_chips, N]``, ``currents [B, n_chips, N]`` (known for
+    the whole block: under the superstep admission rule no event injected
+    in a block is delivered inside it), ``params`` LIF parameters
+    ``[n_chips, N]``, ``table [n_chips, N, 1]``, ``t0 [n_chips]``."""
+    ebs, spikes, voltage = [], [], []
+    for k in range(currents.shape[0]):
+        v, refrac, spk = lif_step_ref(
+            v, refrac, currents[k], params.tau_m, params.v_th,
+            params.v_reset, params.v_rest, params.refrac)
+        spikes.append(spk)
+        voltage.append(v)
+        ebs.append(ev.from_spikes(spk > 0.5, (t0 + k)[..., None],
+                                  event_capacity)[0])
+    events = ev.EventBuffer(*(torch.stack(x) for x in zip(*ebs)))
+    inject = fused_inject_ref(
+        events, table, t0, n_chips=n_chips, buckets_per_chip=buckets_per_chip,
+        capacity=capacity, mode=mode, time_window=time_window)
+    return FusedLifInjectOut(v=v, refrac=refrac, spikes=torch.stack(spikes),
+                             voltage=torch.stack(voltage), inject=inject)

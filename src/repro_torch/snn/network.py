@@ -1,17 +1,28 @@
-"""Multi-chip spiking network on the pulse fabric, event mode, serial
-schedule (port of ``repro.snn.network``).
+"""Multi-chip spiking network on the pulse fabric, serial schedule (port
+of ``repro.snn.network``).
 
 Per step t, chips on a leading tensor axis: pop delay-ring slot t, add
-the external input, crossbar product, neuron dynamics, spikes -> events.
-Every B steps (``comm.superstep``) the block's events go through
-:meth:`repro_torch.core.fabric.PulseFabric.superstep` at the block-start
-clock — one exchange per block.  Admission only puts events on the wire
-with more slack than their remaining deferral, so no event injected in a
-block is popped inside it and the schedule equals the per-step one.
+the external input, crossbar product, neuron dynamics, (STDP), then one
+of two communication paths:
 
-The dense differentiable path, the pipelined schedule, flow control,
-topologies, health masks, telemetry, the shard forms and ``run_plastic``
-are later slices of the port and raise ``NotImplementedError``.
+* ``event`` — spikes -> events; every B steps (``comm.superstep``) the
+  block's events go through :meth:`repro_torch.core.fabric.PulseFabric.
+  superstep` at the block-start clock, one exchange per block.
+  Admission only puts events on the wire with more slack than their
+  remaining deferral, so no event injected in a block is popped inside it
+  and the schedule equals the per-step one.
+* ``dense`` — the differentiable path: the routing table applied as a
+  scatter-add of float spike values into float delay rings (infinite
+  capacity), per step, never blocked.  It carries surrogate gradients
+  and is the event path's oracle.
+
+:func:`run_plastic` threads STDP through the same block body: the
+crossbar learns from the delivered input spikes (pre) and the output
+spikes (post), updated every substep.
+
+The pipelined schedule, flow control, topologies, health masks,
+telemetry and the shard forms are later slices of the port and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from repro_torch.core import pulse_comm as pc
 from repro_torch.core import routing as rt
 from repro_torch.kernels import common as kc
 from repro_torch.snn import neuron as nr
+from repro_torch.snn import stdp as sd
 from repro_torch.snn import synapse as sy
 
 I32 = torch.int32
@@ -52,7 +64,6 @@ class NetworkConfig:
         if self.comm_mode not in ("event", "dense"):
             raise ValueError(self.comm_mode)
         unported = {
-            "comm_mode='dense'": self.comm_mode == "dense",
             "pipeline=True": self.pipeline,
             "flow control": self.flow is not None,
             "a topology": self.topology is not None,
@@ -73,7 +84,8 @@ class NetworkParams(NamedTuple):
 
 class NetworkState(NamedTuple):
     neuron: Any                  # LIFState/AdExState, [n_chips, n]
-    ring: dl.DelayRing           # ring [n_chips, D, n_inputs], now [n_chips]
+    ring: dl.DelayRing           # ring [n_chips, D, n_inputs] (f32 in dense
+                                 # mode), now [n_chips]
     t: torch.Tensor              # int32[] simulation step
     merge: Any = None            # merge queue (full mode, merge_rate > 0)
 
@@ -123,40 +135,96 @@ def init_state(cfg: NetworkConfig, params: NetworkParams, *,
     return NetworkState(
         neuron=ninit(params.neuron),
         ring=dl.init(c.ring_depth, c.n_inputs_per_chip,
+                     dtype=(torch.float32 if cfg.comm_mode == "dense"
+                            else I32),
                      batch_shape=(c.n_chips,), device=device),
         t=torch.zeros((), dtype=I32, device=device),
         merge=fabric.init_merge())
 
 
+def dense_route(cfg: pc.PulseCommConfig, spikes: torch.Tensor,
+                table: rt.RoutingTable, ring: dl.DelayRing,
+                t: torch.Tensor) -> dl.DelayRing:
+    """Apply the routing table as a differentiable scatter-add of spike
+    values ``[n_chips, n_neurons]`` into the destination rings at slot
+    ``(t + delay) mod D`` (infinite capacity).  Delays outside ``[1, D]``
+    deliver nothing; a destination chip follows the reference's scatter
+    rule: a negative index wraps once, then an index out of range drops."""
+    n_chips = ring.ring.shape[0]
+    d = cfg.ring_depth
+    vals = (spikes[:, :, None] * table.valid.to(spikes.dtype)).reshape(-1)
+    delay = table.delay.reshape(-1)
+    chip = table.dest_chip.reshape(-1).long()
+    chip = torch.where(chip < 0, chip + n_chips, chip)
+    keep = (delay >= 1) & (delay <= d) & (chip >= 0) & (chip < n_chips)
+    slot = torch.remainder(t + delay, d).long()
+    addr = table.dest_addr.reshape(-1).clamp(
+        0, cfg.n_inputs_per_chip - 1).long()
+    new = ring.ring.index_put(
+        (torch.where(keep, chip, 0), slot, addr),
+        torch.where(keep, vals, 0.0).to(ring.ring.dtype), accumulate=True)
+    return dl.DelayRing(ring=new, now=ring.now)
+
+
+def _zero_stats(c: pc.PulseCommConfig, b: int, device) -> pc.CommStats:
+    """The dense path's stats for a block of ``b`` steps: it has no
+    fabric, so every counter is 0."""
+    z = torch.zeros((b, c.n_chips), dtype=I32, device=device)
+    link = torch.zeros((b, c.n_chips, 1), dtype=I32, device=device)
+    return pc.CommStats(
+        sent=z, overflow=z, merge_dropped=z, expired=z, stalled=z,
+        utilization=torch.zeros((b, c.n_chips), dtype=torch.float32,
+                                device=device),
+        wire_bytes=z,
+        traffic=torch.zeros((b, c.n_chips, c.n_chips), dtype=I32,
+                            device=device),
+        link_words=link, link_backlog=link, lost_to_failure=z)
+
+
 def _block(cfg: NetworkConfig, fabric: fb.PulseFabric, params: NetworkParams,
-           state: NetworkState, ext_block: torch.Tensor):
-    """One B-step block: B substeps of [pop ring, crossbar, dynamics,
-    spikes -> events], then one fabric superstep at the block-start
-    clock.  Returns ``(state, spikes[B, ...], voltage[B, ...], stats)``."""
+           state: NetworkState, ext_block: torch.Tensor, w: torch.Tensor,
+           stdp_cfg: sd.STDPConfig | None = None,
+           stdp_state: sd.STDPState | None = None):
+    """One block of B substeps of [pop ring, crossbar, dynamics, (STDP),
+    spikes -> events (event mode) or dense route (dense mode)], then, in
+    event mode, one fabric superstep at the block-start clock.  Returns
+    ``(state, spikes[B, ...], voltage[B, ...], stats, w, stdp_state)``."""
     c = cfg.comm
     b = ext_block.shape[0]
+    dense = cfg.comm_mode == "dense"
     nstep, _ = _neuron_fns(cfg)
     nstate, ring = state.neuron, state.ring
     ebs, spikes, volts = [], [], []
     for k in range(b):
         ring, in_spikes = dl.pop_current(ring)
         total_in = in_spikes.to(torch.float32) + ext_block[k]
-        nstate, spk = nstep(nstate, sy.currents(params.crossbar, total_in),
+        nstate, spk = nstep(nstate, sy.currents(sy.Crossbar(w=w), total_in),
                             params.neuron)
-        ebs.append(ev.from_spikes(spk > 0.5, state.t + k,
-                                  c.event_capacity)[0])
+        if stdp_cfg is not None:
+            stdp_state, w = sd.step(stdp_cfg, stdp_state, total_in, spk, w)
+        if dense:
+            ring = dense_route(c, spk, params.table, ring, state.t + k)
+        else:
+            ebs.append(ev.from_spikes(spk > 0.5, state.t + k,
+                                      c.event_capacity)[0])
         ring = dl.tick(ring)
         spikes.append(spk)
         volts.append(nstate.v if cfg.record_voltage
                      else torch.zeros_like(nstate.v))
-    events = ev.EventBuffer(*(torch.stack(x) for x in zip(*ebs)))
-    ring0 = dl.DelayRing(ring=ring.ring, now=ring.now - b)
-    res = fabric.superstep(events, params.table, ring0, None, state.merge)
-    state = NetworkState(
-        neuron=nstate, ring=dl.DelayRing(ring=res.ring.ring,
-                                         now=res.ring.now + b),
-        t=state.t + b, merge=res.merge)
-    return state, torch.stack(spikes), torch.stack(volts), res.stats
+    if dense:
+        stats = _zero_stats(c, b, ring.ring.device)
+        merge = state.merge
+    else:
+        events = ev.EventBuffer(*(torch.stack(x) for x in zip(*ebs)))
+        ring0 = dl.DelayRing(ring=ring.ring, now=ring.now - b)
+        res = fabric.superstep(events, params.table, ring0, None,
+                               state.merge)
+        ring = dl.DelayRing(ring=res.ring.ring, now=res.ring.now + b)
+        stats, merge = res.stats, res.merge
+    state = NetworkState(neuron=nstate, ring=ring, t=state.t + b,
+                         merge=merge)
+    return (state, torch.stack(spikes), torch.stack(volts), stats, w,
+            stdp_state)
 
 
 def _check_device(params: NetworkParams, device: torch.device):
@@ -168,9 +236,9 @@ def _check_device(params: NetworkParams, device: torch.device):
 def step(cfg: NetworkConfig, params: NetworkParams, state: NetworkState,
          ext_input: torch.Tensor, *, device="cuda"
          ) -> tuple[NetworkState, StepRecord]:
-    """One step (``comm.superstep == 1``); ``ext_input [n_chips,
-    n_inputs]``.  The record has no time axis."""
-    if cfg.comm.superstep != 1:
+    """One step (event mode needs ``comm.superstep == 1``); ``ext_input
+    [n_chips, n_inputs]``.  The record has no time axis."""
+    if _block_length(cfg) != 1:
         raise ValueError(
             f"comm.superstep={cfg.comm.superstep}: drive the network with "
             "run(), which scans whole blocks")
@@ -180,15 +248,18 @@ def step(cfg: NetworkConfig, params: NetworkParams, state: NetworkState,
                              stats=pc.CommStats(*(x[0] for x in rec.stats)))
 
 
-def run(cfg: NetworkConfig, params: NetworkParams, state: NetworkState,
-        ext_inputs: torch.Tensor, *, device="cuda"
-        ) -> tuple[NetworkState, StepRecord]:
-    """Run T steps (T a multiple of ``comm.superstep``) on ``device``;
-    ``ext_inputs [T, n_chips, n_inputs]``.  Records are stacked along
-    time."""
+def _block_length(cfg: NetworkConfig) -> int:
+    """Steps per block: the superstep B in event mode; the dense path runs
+    per step."""
+    return cfg.comm.superstep if cfg.comm_mode == "event" else 1
+
+
+def _run(cfg, params, state, ext_inputs, device, stdp_cfg=None,
+         stdp_state=None):
+    """The block loop of :func:`run` and :func:`run_plastic`."""
     device = kc.resolve_device(device)
     _check_device(params, device)
-    b = cfg.comm.superstep
+    b = _block_length(cfg)
     ext_inputs = torch.as_tensor(ext_inputs, dtype=torch.float32,
                                  device=device)
     t_total = ext_inputs.shape[0]
@@ -198,20 +269,45 @@ def run(cfg: NetworkConfig, params: NetworkParams, state: NetworkState,
     fabric = fb.PulseFabric(cfg.comm, device=device)
     if fabric.merge_enabled and state.merge is None:
         state = state._replace(merge=fabric.init_merge())
+    w = params.crossbar.w
     spikes, volts, stats = [], [], []
     for t in range(0, t_total, b):
-        state, spk, volt, st = _block(cfg, fabric, params, state,
-                                      ext_inputs[t:t + b])
+        state, spk, volt, st, w, stdp_state = _block(
+            cfg, fabric, params, state, ext_inputs[t:t + b], w, stdp_cfg,
+            stdp_state)
         spikes.append(spk)
         volts.append(volt)
         stats.append(st)
     rec = StepRecord(spikes=torch.cat(spikes), voltage=torch.cat(volts),
                      stats=pc.CommStats(*(torch.cat(x) for x in zip(*stats))))
+    return state, rec, w, stdp_state
+
+
+def run(cfg: NetworkConfig, params: NetworkParams, state: NetworkState,
+        ext_inputs: torch.Tensor, *, device="cuda"
+        ) -> tuple[NetworkState, StepRecord]:
+    """Run T steps on ``device`` (in event mode T a multiple of
+    ``comm.superstep``); ``ext_inputs [T, n_chips, n_inputs]``.  Records
+    are stacked along time."""
+    state, rec, _, _ = _run(cfg, params, state, ext_inputs, device)
     return state, rec
 
 
-def run_plastic(*args, **kwargs):
-    raise NotImplementedError("run_plastic (STDP) is not ported yet")
+def run_plastic(cfg: NetworkConfig, params: NetworkParams,
+                state: NetworkState, ext_inputs: torch.Tensor,
+                stdp_cfg: sd.STDPConfig | None = None, *, device="cuda"):
+    """On-chip learning run: the crossbar weights evolve under STDP
+    (BSS-2's correlation sensors and PPU loop), per step or in B-step
+    blocks as :func:`run`.  Returns ``(params, state, record,
+    stdp_state)``; the STDP traces are ``[n_chips, n_inputs]`` and
+    ``[n_chips, n_neurons]``."""
+    c = cfg.comm
+    sstate = sd.init(c.n_inputs_per_chip, c.neurons_per_chip,
+                     batch_shape=(c.n_chips,),
+                     device=kc.resolve_device(device))
+    state, rec, w, sstate = _run(cfg, params, state, ext_inputs, device,
+                                 stdp_cfg or sd.STDPConfig(), sstate)
+    return (params._replace(crossbar=sy.Crossbar(w=w)), state, rec, sstate)
 
 
 def shard_step(*args, **kwargs):

@@ -20,7 +20,14 @@ from repro_torch.kernels.bucket_pack.ref import bucket_pack_ref
 from repro_torch.kernels.fused_drain import ops as fd
 from repro_torch.kernels.fused_drain.ref import fused_drain_ref
 from repro_torch.kernels.fused_inject import ops as fi
-from repro_torch.kernels.fused_inject.ref import fused_inject_ref
+from repro_torch.kernels.fused_inject.ref import (fused_inject_ref,
+                                                 fused_lif_inject_ref)
+from repro_torch.kernels.lif_step import ops as lif
+from repro_torch.kernels.lif_step.ref import lif_step_ref
+from repro_torch.kernels.merge_sort import ops as ms
+from repro_torch.kernels.merge_sort.ref import merge_sort_ref, merge_sort_words_ref
+from repro_torch.core import merge as mg
+from repro_torch.snn import neuron as nr
 
 N_CHIPS = 5
 
@@ -111,6 +118,98 @@ def test_fused_drain_kernel_matches_plain(cuda, mode):
         want = fused_drain_ref(ring, delivered, queue, t0, **kw)
         assert torch.equal(got.ring.ring, want.ring.ring)
         _equal(got[1:], want[1:])
+
+
+def _lif_args(rng, shape, device):
+    f32 = lambda lo, hi: _on(rng.uniform(lo, hi, shape).astype(np.float32),
+                             device)
+    i32 = lambda lo, hi: _on(rng.integers(lo, hi, shape).astype(np.int32),
+                             device)
+    return (f32(-0.5, 1.5), i32(-1, 3), f32(-0.5, 1.5), f32(1.5, 30.0),
+            f32(0.5, 1.2), f32(-0.2, 0.0), f32(-0.1, 0.1), i32(1, 4))
+
+
+@pytest.mark.cuda
+def test_lif_step_kernel_matches_plain(cuda):
+    """Bitwise: the kernel rounds each operation as PyTorch's separate
+    elementwise kernels do (no FMA contraction, expf)."""
+    args = _lif_args(np.random.default_rng(0), (46, 512), cuda)
+    before = kc.launches["lif_step"]
+    got = lif.lif_step(*args)
+    assert kc.launches["lif_step"] == before + 1
+    for g, w in zip(got, lif_step_ref(*args)):
+        assert torch.equal(g, w)
+    # the network's neuron update goes through the same kernel
+    state, spk = nr.lif_step(nr.LIFState(args[0], args[1]), args[2],
+                             nr.LIFParams(*args[3:]))
+    assert kc.launches["lif_step"] == before + 2
+    assert torch.equal(spk, got[2]) and torch.equal(state.v, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 70, 300, 3136])
+def test_merge_sort_words_kernel_matches_plain(cuda, lanes):
+    rng = np.random.default_rng(lanes)
+    now = _on(np.array([0, 250, 255, 3, 128], np.int32), cuda)
+    addr = rng.integers(0, 1 << 14, (N_CHIPS, lanes))
+    dead = now.cpu().numpy()[:, None] + rng.integers(-40, 40, (N_CHIPS, lanes))
+    words = _on(np.where(rng.random((N_CHIPS, lanes)) < 0.7,
+                         (addr << 8) | (dead & 0xFF), -1).astype(np.int32),
+                cuda)
+    before = kc.launches["merge_sort_words"]
+    got = ms.merge_sort_words(words, now)
+    assert kc.launches["merge_sort_words"] == before + 1
+    assert torch.equal(got, merge_sort_words_ref(words, now))
+    buf = mg.merge_init(16, batch_shape=(N_CHIPS,), device=cuda)
+    a = mg.merge_step_words(buf, words, now=now, rate=5, use_pallas=True)
+    b = mg.merge_step_words(buf, words, now=now, rate=5)
+    assert kc.launches["merge_sort_words"] == before + 2
+    assert torch.equal(a[0].words, b[0].words) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 300, 3136])
+def test_merge_sort_kernel_matches_plain(cuda, lanes):
+    """Negative deadlines and deadlines at and above 2^30."""
+    rng = np.random.default_rng(lanes)
+    shape = (N_CHIPS, lanes)
+    addr = _on(rng.integers(0, 1 << 14, shape).astype(np.int32), cuda)
+    dead = _on(rng.choice([-2**31, -5, 0, 3, 2**30, 2**30 + 1, 2**31 - 1],
+                          shape).astype(np.int32), cuda)
+    valid = _on(rng.random(shape) < 0.6, cuda)
+    before = kc.launches["merge_sort"]
+    got = ms.merge_sort(addr, dead, valid)
+    assert kc.launches["merge_sort"] == before + 1
+    for g, w in zip(got, merge_sort_ref(addr, dead, valid)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["simplified", "full"])
+@pytest.mark.parametrize("b", [1, 8])
+def test_fused_lif_inject_kernel_matches_plain(cuda, b, mode):
+    rng = np.random.default_rng(b + len(mode))
+    n = 700                                  # more neurons than one tile
+    v, refrac, _, *params = _lif_args(rng, (N_CHIPS, n), cuda)
+    currents = _on(rng.normal(0.5, 0.8, (b, N_CHIPS, n)).astype(np.float32),
+                   cuda)
+    table = rt.RoutingTable(
+        _on(rng.integers(-1, N_CHIPS, (N_CHIPS, n, 1)).astype(np.int32),
+            cuda),
+        _on(rng.integers(0, n, (N_CHIPS, n, 1)).astype(np.int32), cuda),
+        _on(rng.integers(b, 20, (N_CHIPS, n, 1)).astype(np.int32), cuda),
+        _on(rng.random((N_CHIPS, n, 1)) < 0.9, cuda))
+    t0 = _on(np.array([0, 100, 250, 254, 7], np.int32), cuda)
+    kw = dict(event_capacity=200, n_chips=N_CHIPS, buckets_per_chip=2,
+              capacity=16, mode=mode, time_window=4)
+    lifp = nr.LIFParams(*params)
+    before = kc.launches["fused_lif_inject"]
+    got = fi.fused_lif_inject(v, refrac, currents, lifp, table, t0, **kw)
+    assert kc.launches["fused_lif_inject"] == before + 1
+    want = fused_lif_inject_ref(v, refrac, currents, lifp, table, t0, **kw)
+    for name in ("v", "refrac", "spikes", "voltage"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    _equal(got.inject, want.inject)
 
 
 @pytest.mark.cuda

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import demo
+from repro_torch import demo, stdp_demo
 from repro_torch.core import fabric as fb
 from repro_torch.core import pulse_comm as pc
 from repro_torch.kernels import common as kc
@@ -71,8 +71,11 @@ def test_entry_points_default_to_the_card():
         lambda: net.init_params(gen, cfg),
         lambda: net.init_state(cfg, params),
         lambda: net.run(cfg, params, state, np.zeros((1, 2, 8), np.float32)),
+        lambda: net.run_plastic(cfg, params, state,
+                                np.zeros((1, 2, 8), np.float32)),
         lambda: fb.PulseFabric(comm),
         lambda: demo.main(),
+        lambda: stdp_demo.main(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -80,7 +83,7 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(comm_mode="dense"), dict(pipeline=True), dict(flow=object()),
+    dict(pipeline=True), dict(flow=object()),
     dict(topology=object()), dict(healthy=[0]), dict(dead_links=((0, 1),)),
     dict(telemetry=True)])
 def test_unported_network_features_raise(kw):
@@ -88,7 +91,7 @@ def test_unported_network_features_raise(kw):
         net.NetworkConfig(comm=pc.PulseCommConfig(n_chips=2), **kw)
 
 
-@pytest.mark.parametrize("name", ["run_plastic", "shard_step",
+@pytest.mark.parametrize("name", ["shard_step",
                                   "shard_superstep", "shard_pipeline_block",
                                   "shard_flush_pending"])
 def test_unported_entry_points_raise(name):
@@ -101,4 +104,44 @@ def test_kernel_build_is_keyed_by_the_sources():
     assert d.parent == ROOT / "build" / "repro_torch"
     assert d == kc.build_dir()
     assert {p.name for p in kc.CSRC.glob("*.cu")} == {
-        f"{name}.cu" for name in kc.KERNELS}
+        f"{name}.cu" for name in kc.SOURCES}
+    assert set(kc.KERNELS.values()) == set(kc.SOURCES)
+
+
+def _c_params(source: str, symbol: str) -> list[str]:
+    """The parameter types of ``extern "C" int symbol(...)`` in a CUDA
+    source, as ctypes names: a pointer, ``long long`` or ``int``."""
+    import re
+
+    text = (kc.CSRC / source).read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", text,
+                  re.S)
+    assert m, f"{symbol} not in {source}"
+    kinds = []
+    for param in m.group(1).split(","):
+        decl = " ".join(param.split())
+        kinds.append("P" if "*" in decl else
+                     "LL" if "long long" in decl else "I")
+    return kinds
+
+
+@pytest.mark.parametrize("module,attr,source,symbol", [
+    ("fused_inject", "_ARGTYPES", "fused_inject.cu", "fused_inject_launch"),
+    ("fused_inject", "_LIF_ARGTYPES", "fused_inject.cu",
+     "fused_lif_inject_launch"),
+    ("fused_drain", "_ARGTYPES", "fused_drain.cu", "fused_drain_launch"),
+    ("bucket_pack", "_ARGTYPES", "bucket_pack.cu", "bucket_pack_launch"),
+    ("lif_step", "_ARGTYPES", "lif_step.cu", "lif_step_launch"),
+    ("merge_sort", "_WORDS_ARGTYPES", "merge_sort.cu",
+     "merge_sort_words_launch"),
+    ("merge_sort", "_SOA_ARGTYPES", "merge_sort.cu", "merge_sort_launch")])
+def test_ctypes_signatures_match_the_c_entry_points(module, attr, source,
+                                                    symbol):
+    """ctypes passes an argument beyond ``argtypes`` as a 32-bit int, which
+    cuts a pointer: every C launcher's parameter list must match its
+    wrapper's ``argtypes`` one for one (the stream included)."""
+    import importlib
+
+    ops = importlib.import_module(f"repro_torch.kernels.{module}.ops")
+    names = {kc.P: "P", kc.I: "I", kc.LL: "LL"}
+    assert [names[t] for t in getattr(ops, attr)] == _c_params(source, symbol)
