@@ -7,13 +7,16 @@ Phases, each fatal on failure:
   1. build   the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
              one process per source, all started together);
   2. kernels each kernel against its plain PyTorch version on the card,
-             bitwise on every output, on inputs taken from the first block
-             of each path below, in every mode the fabric uses; its time
+             bitwise on every output of the SNN kernels, on inputs taken
+             from the first block of each path below, in every mode the
+             fabric uses, and flash attention and the SSM scan at the
+             serve paths' prefill shapes; its time
              (CUDA events over a CUDA graph of back-to-back calls), the
              kernel's own device time (torch.profiler; the difference is
              the wrapper's tensor ops), the plain version's time (CUDA
              events), bytes, the bound at 3.35 TB/s or 67 T op/s and, for
-             the sorts, stable ``torch.sort`` plus the gather;
+             the sorts, stable ``torch.sort`` plus the gather, for flash
+             attention ``scaled_dot_product_attention``;
   3. entry   the entry points off the network's path, counters zeroed
              first: ``merge_drain_words(use_pallas=True)`` on the first
              feedforward block's delivered words must equal
@@ -35,11 +38,28 @@ Phases, each fatal on failure:
              wafer's fan-out-4 LUT: its first 16 steps equal a plain run
              on the CPU, then 3 surrogate-gradient steps of a rate loss
              (T 16) with a finite, nonzero gradient;
-  8. profile where a block's time goes on each path (torch.profiler):
+  8. serve-check  zamba2-2.7b at full width, one pattern repeat (6
+             layers), float32, batch 1, prompt 300, 8 teacher-forced decode
+             steps: the card (kernels) against the plain path on the CPU
+             from the same weights and tokens, every step's logits within
+             1e-3 of the largest |logit|;
+  9. serve   ``launch.serve.main`` on zamba2-2.7b (54 layers) and then
+             internlm2-1.8b (24 layers) at full width in bfloat16, batch 4,
+             prompt 2048, 32 tokens: prefill must launch flash_attention 9
+             and ssm_scan 54 times (zamba2) or flash_attention 24 times
+             (internlm2); then, from the same weights, prefill + one decode
+             step against a full forward at the next position, in float32
+             and in bf16 (``consistency``); tok/s and peak memory;
+ 10. profile where a block's time goes on each path (torch.profiler):
              wall and device-busy time per step, the idle share, kernel
-             launches per step and the costliest kernels;
-  9. summary the ``kernels`` JSON line, the card's name and power limit,
+             launches per step and the costliest kernels; for the serve
+             paths per prefill and per decode step;
+ 11. summary the ``kernels`` JSON line, the card's name and power limit,
              and last the ``{"ok": true, ...}`` line.
+
+The SNN kernels are held bitwise; flash attention and the SSM scan sum in
+another order than their plain versions and are held to a stated
+tolerance (``lm_kernel_cases``).
 
 It exits non-zero without a card, and without the rest of the repository.
 """
@@ -61,6 +81,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 SIMT_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores
+BF16_TC_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
 REPLACES = {
     "fused_inject": "src/repro/kernels/fused_inject/kernel.py:186",
     "fused_lif_inject": "src/repro/kernels/fused_inject/kernel.py:277",
@@ -69,6 +90,8 @@ REPLACES = {
     "lif_step": "src/repro/kernels/lif_step/kernel.py:45",
     "merge_sort_words": "src/repro/kernels/merge_sort/kernel.py:84",
     "merge_sort": "src/repro/kernels/merge_sort/kernel.py:132",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:104",
+    "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:61",
 }
 PLAIN_CHECK_STEPS = 16
 
@@ -128,6 +151,28 @@ def compare(name: str, got, want) -> float:
     if err != 0:
         raise AssertionError(f"{name}: differs from the plain version "
                              f"(max abs {err})")
+    return err
+
+
+def compare_close(name: str, got, want, rtol: float, atol: float) -> float:
+    """Max abs difference over every output; raises where an element
+    exceeds ``atol + rtol * |want|``."""
+    g, w = leaves(got), leaves(want)
+    if len(g) != len(w):
+        raise AssertionError(f"{name}: {len(g)} outputs vs {len(w)}")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(g, w)):
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: output {i} shape {tuple(a.shape)}"
+                                 f", plain {tuple(b.shape)}")
+        diff = (a.double() - b.double()).abs()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: non-finite output {i}")
+        err = max(err, float(diff.max()))
+        if bool((diff > atol + rtol * b.double().abs()).any()):
+            raise AssertionError(f"{name}: output {i} differs from the plain "
+                                 f"version beyond rtol {rtol} atol {atol} "
+                                 f"(max abs {err})")
     return err
 
 
@@ -539,38 +584,129 @@ def kernel_cases(blocks: dict, paths: Paths, device) -> list[dict]:
 
 
 def kernel_phase(cases: list[dict]) -> dict:
-    """Compare, then time; returns the main case of each kernel."""
+    """Compare, then time; returns the main case of each kernel.  A case
+    with ``tol = (rtol, atol)`` is held to that tolerance against its
+    ``want`` (default: its plain version), else bitwise."""
     main = {}
     for case in cases:
+        label = f"{case['kernel']} [{case['mode']}]"
         got = case["run"]()
-        want = case["plain"]()
+        want = case.get("want", case["plain"])()
         torch.cuda.synchronize()
-        err = compare(f"{case['kernel']} [{case['mode']}]", got, want)
+        tol = case.get("tol")
+        err = (compare(label, got, want) if tol is None
+               else compare_close(label, got, want, *tol))
+        del want
         moved = nbytes(case["inputs"]) + nbytes(got)
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = case["ops"] / SIMT_OPS_PER_S * 1e3
+        ops_ms = case["ops"] / case.get("ops_per_s", SIMT_OPS_PER_S) * 1e3
         library = case.get("library")
         if library is not None:
-            compare(f"{case['kernel']} [{case['mode']}] library", got,
-                    library())
+            lib_tol = case.get("library_tol")
+            if lib_tol is None:
+                compare(f"{label} library", got, library())
+            else:
+                compare_close(f"{label} library", got, library(), *lib_tol)
+        del got
         row = dict(name=case["kernel"], mode=case["mode"], max_abs_err=err,
                    ms=graph_ms(case["run"]),
                    device_ms=device_ms(case["run"], case["kernel"], 20),
-                   plain_ms=event_ms(case["plain"], 5), bytes=moved,
-                   ops=case["ops"], bound_ms=max(bytes_ms, ops_ms),
+                   plain_ms=event_ms(case["plain"], case.get("plain_iters",
+                                                             5)),
+                   bytes=moved, ops=case["ops"],
+                   bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    library_ms=(None if library is None
                                else library_ms(library)))
         dms, lms = row["device_ms"], row["library_ms"]
+        check = ("bitwise ok" if tol is None else
+                 f"within rtol {tol[0]:g} atol {tol[1]:g} (max abs "
+                 f"{err:.3g})")
         print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
-              f"bitwise ok  ms={row['ms']:.5f} device_ms="
+              f"{check}  ms={row['ms']:.5f} device_ms="
               f"{'not measured' if dms is None else f'{dms:.5f}'} "
               f"plain_ms={row['plain_ms']:.4f} bytes={moved} "
-              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})"
+              f"ops={case['ops']} bound_ms={row['bound_ms']:.5f} "
+              f"({row['bound_by']})"
               + ("" if lms is None else f" library_ms={lms:.5f}"))
         if case["main"]:
             main[case["kernel"]] = row
     return main
+
+
+def causal_pairs(sq: int, skv: int, q_offset: int) -> int:
+    """(query, key) pairs the causal mask lets through, per head."""
+    return sum(min(skv, max(0, q_offset + r + 1)) for r in range(sq))
+
+
+def lm_kernel_cases(device, seed: int) -> list[dict]:
+    """flash_attention at the zamba2 and internlm2 prefill shapes (bf16),
+    in f32, on a ragged length and after a cached prefix; ssm_scan at the
+    zamba2 prefill shape with a general random A.
+
+    Tolerances: a bf16 output against the plain version in f32 on the
+    same bf16 inputs within 1e-2 (half a bf16 ulp of outputs below 4,
+    attention outputs being convex sums of v ~ N(0, 1)); f32 outputs
+    within 5e-5 (sums over up to 2048 keys in another order); the scan's
+    y and final state within 1e-4 relative and absolute (the card's expf,
+    64-term sums in another order, over 2048 steps).  The library call
+    (``scaled_dot_product_attention``, causal from the top left, so only
+    where q_offset is 0) is held to 2e-2 against the kernel."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    randn = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                       device=device)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = []
+    for label, b, hq, hkv, sq, skv, d, dtype, q_offset, main in (
+            ("zamba2 prefill bf16", 4, 32, 32, 2048, 2048, 80,
+             torch.bfloat16, 0, True),
+            ("internlm2 prefill bf16", 4, 16, 8, 2048, 2048, 128,
+             torch.bfloat16, 0, False),
+            ("zamba2 f32, batch 1", 1, 32, 32, 2048, 2048, 80, torch.float32,
+             0, False),
+            ("ragged 300 f32", 1, 32, 32, 300, 300, 80, torch.float32, 0,
+             False),
+            ("q_offset 2048 bf16", 4, 32, 32, 64, 2112, 80, torch.bfloat16,
+             2048, False)):
+        q = randn(b, hq, sq, d).to(dtype)
+        k, v = randn(b, hkv, skv, d).to(dtype), randn(b, hkv, skv, d).to(dtype)
+        args, kw = (q, k, v), dict(causal=True, q_offset=q_offset)
+        bf16 = dtype == torch.bfloat16
+        library = None
+        if q_offset == 0:
+            library = (lambda a=args: sdpa(*a, is_causal=True,
+                                           enable_gqa=True))
+        cases.append(dict(
+            kernel="flash_attention", mode=f"{label} {tuple(q.shape)}",
+            main=main,
+            run=lambda a=args, k_=kw: fa_ops.flash_attention(*a, **k_),
+            plain=lambda a=args, k_=kw: attention_ref(*a, **k_),
+            want=lambda a=args, k_=kw: attention_ref(
+                *(x.float() for x in a), **k_),
+            tol=(0.0, 1e-2 if bf16 else 5e-5), library=library,
+            library_tol=(0.0, 2e-2 if bf16 else 1e-4), inputs=args,
+            ops=4 * d * b * hq * causal_pairs(sq, skv, q_offset),
+            ops_per_s=BF16_TC_OPS_PER_S if bf16 else SIMT_OPS_PER_S))
+
+    b, t, di, n = 4, 2048, 5120, 64
+    x = randn(b, t, di)
+    dt = torch.nn.functional.softplus(randn(b, t, di) - 1.0)
+    a = -torch.exp(randn(di, n) * 0.5)
+    args = (x, dt, a, randn(b, t, n), randn(b, t, n), randn(di))
+    cases.append(dict(
+        kernel="ssm_scan", mode=f"zamba2 prefill x {tuple(x.shape)} N {n}",
+        main=True, run=lambda: scan_ops.ssm_scan(*args),
+        plain=lambda: ssm_scan_ref(*args), tol=(1e-4, 1e-4), inputs=args,
+        plain_iters=2,
+        # Per state element and step: dt*A, exp, decay*h + u*B (3), and
+        # h*C summed (2); per channel and step: dt*x and D*x + y (3).
+        ops=b * t * di * (7 * n + 3)))
+    return cases
 
 
 def entry_phase(blocks: dict, paths: Paths, device) -> dict:
@@ -784,14 +920,41 @@ def gradient_steps(paths: Paths, cfg, params, ext, steps: int = 3,
           f"nonzero ({(time.perf_counter() - t_start) / steps:.3f} s/step)")
 
 
+def profile_row(prof, wall: float, units: float) -> dict:
+    """Per unit (a step, a prefill, a decode step) of a profiled window:
+    wall and device busy time (sum of kernel times on the one stream),
+    the idle share, kernel launches and the costliest kernels."""
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_us = lambda e: (getattr(e, "self_device_time_total", None)  # noqa: E731
+                        or getattr(e, "device_time_total", 0.0))
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    return dict(
+        wall_ms_per_step=wall * 1e3 / units,
+        device_busy_ms_per_step=busy_ms / units,
+        idle_share=1.0 - busy_ms / (wall * 1e3),
+        kernel_launches_per_step=sum(e.count for e in kernels) / units,
+        top_kernels=[(e.key[:60], dev_us(e) / 1e3 / units) for e in top])
+
+
+def print_profile(label: str, row: dict, unit: str = "step") -> None:
+    print(f"[profile] {label}: {row['wall_ms_per_step']:.4f} ms/{unit} "
+          f"wall, device busy {row['device_busy_ms_per_step']:.4f} "
+          f"ms/{unit}, idle share {row['idle_share']:.4f}, "
+          f"{row['kernel_launches_per_step']:.1f} kernel launches/{unit}")
+    for name, ms in row["top_kernels"]:
+        print(f"[profile] {label}:   {ms:.5f} ms/{unit}  {name}")
+
+
+PROFILER_ACTS = [torch.profiler.ProfilerActivity.CPU,
+                 torch.profiler.ProfilerActivity.CUDA]
+
+
 def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
     """Where a block's time goes: torch.profiler over ``blocks`` blocks of
-    each path (after one warm-up block).  Per step: wall time, device busy
-    time (sum of kernel times on the one stream), kernel launches, and
-    the kernels that take the most device time."""
+    each path (after one warm-up block), per step."""
     net = paths.net
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     out = {}
     for label, cfg, params, ext, _, plastic in paths.runs():
         b = cfg.comm.superstep if cfg.comm_mode == "event" else 8
@@ -799,7 +962,7 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
         state = net.init_state(cfg, params, device=device)
         state, _, params = paths.drive(cfg, params, state, ext[:b], plastic)
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
             t_start = time.perf_counter()
             for i in range(1, n_blocks + 1):
                 state, _, params = paths.drive(cfg, params, state,
@@ -807,27 +970,237 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
                                                plastic)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t_start
-        steps = n_blocks * b
-        kernels = [e for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        dev_us = lambda e: (getattr(e, "self_device_time_total", None)
-                            or getattr(e, "device_time_total", 0.0))
-        busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-        top = sorted(kernels, key=dev_us, reverse=True)[:5]
-        row = dict(
-            wall_ms_per_step=wall * 1e3 / steps,
-            device_busy_ms_per_step=busy_ms / steps,
-            idle_share=1.0 - busy_ms / (wall * 1e3),
-            kernel_launches_per_step=sum(e.count for e in kernels) / steps,
-            top_kernels=[(e.key[:60], dev_us(e) / 1e3 / steps)
-                         for e in top])
-        print(f"[profile] {label}: {row['wall_ms_per_step']:.4f} ms/step "
-              f"wall, device busy {row['device_busy_ms_per_step']:.4f} "
-              f"ms/step, idle share {row['idle_share']:.4f}, "
-              f"{row['kernel_launches_per_step']:.1f} kernel launches/step")
-        for name, ms in row["top_kernels"]:
-            print(f"[profile] {label}:   {ms:.5f} ms/step  {name}")
-        out[label] = row
+        out[label] = profile_row(prof, wall, n_blocks * b)
+        print_profile(label, out[label])
+    return out
+
+
+def serve_check(device, seed: int, prompt: int = 300,
+                steps: int = 8) -> dict:
+    """zamba2-2.7b at full width, one pattern repeat (6 layers: five
+    Mamba-2 blocks, then the shared attention+MLP block and a sixth),
+    float32, batch 1: prefill and ``steps`` teacher-forced decode steps on
+    the card (kernels) and on the CPU (plain versions) from the same
+    weights and tokens.  Every step's logits agree within 1e-3 of the
+    largest |logit| (f32 sums in another order through six layers)."""
+    from repro_torch import configs as C
+    from repro_torch.kernels import common as kc
+    from repro_torch.models import lm
+    from repro_torch.models import spec as sp
+
+    cfg = dataclasses.replace(C.get("zamba2-2.7b"), n_layers=6,
+                              dtype="float32")
+    params = lm.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, prompt + steps)).astype(np.int32))
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        p = sp.tree_map(lambda x: x.to(dev), params)
+        tk = tokens.to(dev)
+        torch.cuda.synchronize()
+        kc.reset_launches()
+        t_start = time.perf_counter()
+        with torch.no_grad():
+            last, cache = lm.prefill(cfg, p, {"tokens": tk[:, :prompt]})
+            cache = lm.pad_cache(cfg, cache, prompt + steps)
+            rows = [last]
+            for i in range(steps):
+                lg, cache = lm.decode(cfg, p, tk[:, prompt + i], cache,
+                                      prompt + i)
+                rows.append(lg)
+        logits = torch.cat(rows).float().cpu()
+        out[dev.type] = (logits, time.perf_counter() - t_start,
+                         dict(kc.launches))
+        del p, cache
+    (gpu, t_gpu, counts), (cpu, t_cpu, _) = out["cuda"], out["cpu"]
+    if counts["flash_attention"] != 1 or counts["ssm_scan"] != 6:
+        raise AssertionError(f"serve-check: launches {counts}")
+    scale = float(cpu.abs().max())
+    err = (gpu - cpu).abs().amax(dim=-1)
+    agree = int((gpu.argmax(-1) == cpu.argmax(-1)).sum())
+    print(f"[serve-check] zamba2-2.7b full width, 6 layers, f32, batch 1, "
+          f"prompt {prompt}, {steps} teacher-forced steps: card "
+          f"{t_gpu:.2f} s, CPU {t_cpu:.2f} s; max |dlogit| per step "
+          f"{[float(f'{e:.3g}') for e in err]} vs max |logit| "
+          f"{scale:.4g} (rel {float(err.max()) / scale:.3g}); greedy tokens "
+          f"equal {agree}/{steps + 1}; launches flash_attention "
+          f"{counts['flash_attention']}, ssm_scan {counts['ssm_scan']}")
+    if not bool(torch.isfinite(gpu).all()) or float(err.max()) > 1e-3 * scale:
+        raise AssertionError("serve-check: the card's logits differ from "
+                             "the CPU's beyond 1e-3 of the largest |logit|")
+    return dict(max_rel_err=float(err.max()) / scale, greedy_equal=agree,
+                steps=steps + 1, launches=counts)
+
+
+SERVE_RUNS = (("zamba2-2.7b", 9, 54), ("internlm2-1.8b", 24, 0))
+SERVE_ARGS = dict(batch=4, prompt=2048, gen=32)
+
+
+def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
+    """``launch.serve.main`` at full width and depth on each serve arch,
+    then, from the same weights, prefill + one decode step against a full
+    forward at the next position, and a profile of one prefill and of 4
+    decode steps.  Returns (launches, metrics, profile) by path."""
+    import io
+    import re
+
+    from repro_torch import configs as C
+    from repro_torch.kernels import common as kc
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    b, s, n_gen = SERVE_ARGS["batch"], SERVE_ARGS["prompt"], SERVE_ARGS["gen"]
+    counts, metrics, profile = {}, {}, {}
+    for arch, n_flash, n_scan in SERVE_RUNS:
+        label = f"serve {arch}"
+        cfg = C.get(arch)
+        argv = ["--arch", arch, "--batch", str(b), "--prompt-len", str(s),
+                "--gen", str(n_gen), "--seed", str(seed)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kc.reset_launches()
+        buf = io.StringIO()
+        t_start = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ids = serve.main(argv)
+        wall = time.perf_counter() - t_start
+        counts[label] = dict(kc.launches)
+        peak = torch.cuda.max_memory_allocated()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            print(f"[{label}] {line}")
+        pre_ms = float(re.search(r"prefill: \S+ in ([\d.]+) ms", text)[1])
+        dec_ms = float(re.search(r"decode: .* in ([\d.]+) ms", text)[1])
+        row = dict(prefill_ms=pre_ms, prefill_tok_s=b * s / pre_ms * 1e3,
+                   decode_ms=dec_ms, decode_tok_s=b * n_gen / dec_ms * 1e3,
+                   peak_bytes=peak, wall_s=wall)
+        print(f"[{label}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"bf16, batch {b}, prompt {s}, {n_gen} tokens: prefill "
+              f"{row['prefill_tok_s']:.1f} tok/s, decode "
+              f"{row['decode_tok_s']:.2f} tok/s, peak memory {peak} B "
+              f"({peak / 2**30:.2f} GiB), {wall:.1f} s in all; launches "
+              f"flash_attention {counts[label]['flash_attention']}, "
+              f"ssm_scan {counts[label]['ssm_scan']}")
+        if (counts[label]["flash_attention"] != n_flash
+                or counts[label]["ssm_scan"] != n_scan):
+            raise AssertionError(f"{label}: prefill launched "
+                                 f"{counts[label]}, expected flash_attention "
+                                 f"{n_flash} and ssm_scan {n_scan}")
+        if tuple(ids.shape) != (b, n_gen) or not bool(
+                ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+            raise AssertionError(f"{label}: generated ids {ids.shape}")
+        del ids
+        # Same weights as serve.main drew (same generator and seed).
+        params = lm.init(torch.Generator(device=device).manual_seed(seed),
+                         cfg, device=device)
+        tokens = torch.randint(
+            0, cfg.vocab_size, (b, s + 1), device=device, dtype=torch.int32,
+            generator=torch.Generator(device=device).manual_seed(seed + 1))
+        consistency(label, cfg, params, tokens)
+        profile.update(serve_profile(label, cfg, params, tokens[:, :s]))
+        metrics[label] = row
+        del params
+    return counts, metrics, profile
+
+
+def next_token_logits(cfg, params, tokens):
+    """A full forward's logits at the last two positions S - 1 and S,
+    and those of prefill over the first S tokens and one decode step with
+    the last token, float32 on the card."""
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tfm
+
+    s = tokens.shape[1] - 1
+    with torch.no_grad():
+        full = tfm.forward(cfg, params, tokens).logits[:, s - 1:].float()
+        last, cache = lm.prefill(cfg, params, {"tokens": tokens[:, :s]})
+        cache = lm.pad_cache(cfg, cache, s + 1)
+        dec, _ = lm.decode(cfg, params, tokens[:, s], cache, s)
+    for name, x in (("forward", full), ("prefill", last), ("decode", dec)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{cfg.name}: non-finite {name} logits")
+    return full, last.float(), dec.float()
+
+
+def consistency(label: str, cfg, params, tokens) -> None:
+    """Prefill + one decode step against a full forward at positions S - 1
+    and S, as ``tests/test_models_smoke.py`` checks the JAX model: in
+    float32 (the bf16 weights widened, exactly) within 1e-3 of the largest
+    |logit| (sums in another order through every layer); in the serving
+    type, bf16, within 0.1 of the largest |logit| or within the distance
+    of the bf16 forward from the float32 forward at position S, whichever
+    is larger.  With random weights a deep model can amplify bf16 rounding
+    to differences of the order of the logits themselves (54-layer zamba2
+    on an H100 80GB HBM3 at 700 W: 1.05 x max |logit| between the bf16
+    and the float32 forward at the next position): two bf16 paths that
+    round at other places (cuBLAS picks other kernels for 4 rows than for
+    8192; decode attends from the bf16 cache in f32 and steps the SSM
+    state in f32) cannot be held closer to each other than either is to
+    the exact function."""
+    from repro_torch.models import spec as sp
+
+    f16, l16, d16 = next_token_logits(cfg, params, tokens)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = sp.tree_map(lambda x: x.float(), params)
+    f32, l32, d32 = next_token_logits(cfg32, p32, tokens)
+    del p32
+    torch.cuda.empty_cache()
+    scale = float(f32.abs().max())
+    err = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    agree = lambda a, b: int((a.argmax(-1) == b.argmax(-1)).sum())  # noqa: E731
+    e32 = max(err(l32, f32[:, 0]), err(d32, f32[:, 1]))
+    e16 = max(err(l16, f16[:, 0]), err(d16, f16[:, 1]))
+    drift = err(f16[:, 1], f32[:, 1])
+    n = tokens.shape[0]
+    print(f"[{label}] consistency with a full forward, max |logit| "
+          f"{scale:.4g}: float32 prefill {err(l32, f32[:, 0]):.4g}, decode "
+          f"{err(d32, f32[:, 1]):.4g} (rel {e32 / scale:.3g}); bf16 prefill "
+          f"{err(l16, f16[:, 0]):.4g}, decode {err(d16, f16[:, 1]):.4g} "
+          f"(rel {e16 / scale:.3g}); bf16 forward vs float32 forward "
+          f"{drift:.4g} (rel {drift / scale:.3g}); argmax equal: bf16 "
+          f"decode/forward {agree(d16, f16[:, 1])}/{n}, float32 "
+          f"{agree(d32, f32[:, 1])}/{n}, bf16/float32 forward "
+          f"{agree(f16[:, 1], f32[:, 1])}/{n}")
+    if e32 > 1e-3 * scale:
+        raise AssertionError(f"{label}: float32 prefill/decode differ from "
+                             f"the full forward beyond 1e-3 of max |logit|")
+    if e16 > max(0.1 * scale, drift):
+        raise AssertionError(f"{label}: bf16 prefill/decode differ from the "
+                             f"bf16 forward beyond both 0.1 of max |logit| "
+                             f"and the bf16 forward's distance from float32")
+
+
+def serve_profile(label: str, cfg, params, tokens, steps: int = 4) -> dict:
+    """torch.profiler over one prefill, then over ``steps`` decode steps
+    (after one warm-up step)."""
+    from repro_torch.models import lm
+
+    s = tokens.shape[1]
+    out = {}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
+            t_start = time.perf_counter()
+            logits, cache = lm.prefill(cfg, params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+        out[f"{label} prefill"] = profile_row(prof, wall, 1)
+        cache = lm.pad_cache(cfg, cache, s + steps + 1)
+        tok = logits.argmax(-1).to(torch.int32)
+        logits, cache = lm.decode(cfg, params, tok, cache, s)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
+            t_start = time.perf_counter()
+            for i in range(steps):
+                tok = logits.argmax(-1).to(torch.int32)
+                logits, cache = lm.decode(cfg, params, tok, cache, s + 1 + i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+        out[f"{label} decode"] = profile_row(prof, wall, steps)
+    print_profile(f"{label} prefill", out[f"{label} prefill"], "prefill")
+    print_profile(f"{label} decode", out[f"{label} decode"], "decode step")
     return out
 
 
@@ -861,6 +1234,7 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
@@ -871,17 +1245,26 @@ def main() -> int:
         log = build / f"{name}.log"
         if log.exists():
             for line in log.read_text().splitlines():
-                if any(w in line for w in ("registers", "spill", "smem")):
+                if any(w in line for w in ("registers", "spill", "smem",
+                                          "entry function")):
                     print(f"[build] {name}: {line.strip()}")
 
     paths = Paths(device, args.seed, args.steps)
     blocks = paths.first_blocks()
-    cases = kernel_cases(blocks, paths, device)
+    cases = kernel_cases(blocks, paths, device) + lm_kernel_cases(
+        device, args.seed)
     main_rows = kernel_phase(cases)
+    del cases
     entry = entry_phase(blocks, paths, device)
     counts = path_phase(paths, device)
     counts["entry"] = entry
+    check = serve_check(device, args.seed)
+    counts["serve-check"] = check["launches"]
+    serve_counts, serve_metrics, serve_profiles = serve_phase(device,
+                                                              args.seed)
+    counts.update(serve_counts)
     profile = profile_phase(paths, device)
+    profile.update(serve_profiles)
 
     kernels = []
     for name, src in kc.KERNELS.items():
@@ -894,7 +1277,7 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             mode=row["mode"], device_ms=row["device_ms"],
-            bytes=row["bytes"], launches_by=launches))
+            bytes=row["bytes"], ops=row["ops"], launches_by=launches))
         if not launches:
             raise AssertionError(f"kernel {name} launched on no path or "
                                  f"entry point")
@@ -908,6 +1291,8 @@ def main() -> int:
                   for p, c in counts.items()},
         steps_per_s={p: c["steps_per_s"] for p, c in counts.items()
                      if "steps_per_s" in c},
+        serve=serve_metrics,
+        serve_check={k: v for k, v in check.items() if k != "launches"},
         profile=profile)
     print(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,14 @@
-"""Carry a network's weights and state across from the JAX package.
+"""Carry a network's or a language model's weights and state across
+from the JAX package.
 
 ``params_from_jax`` / ``state_from_jax`` / ``stdp_state_from_jax`` take
 the JAX package's ``NetworkParams`` / ``NetworkState`` / ``STDPState``
 (any array type numpy can read, fields by name) and return the port's
 versions on ``device``, so both packages compute from identical weights
 and state.  A ring keeps its dtype: int32 in event mode, float32 in
-dense mode.  Nothing here imports
-JAX: every leaf goes through ``numpy.asarray``.
+dense mode.  ``lm_params_from_jax`` maps a language model's parameter
+tree (nested dicts) leaf by leaf, each keeping its dtype.  Nothing here
+imports JAX: every leaf goes through ``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -66,3 +68,21 @@ def stdp_state_from_jax(state, *, device="cuda") -> sd.STDPState:
     """STDP traces ``x_pre [n_chips, n_inputs]``, ``x_post [n_chips,
     n_neurons]``."""
     return _fields(sd.STDPState, state, kc.resolve_device(device))
+
+
+def lm_params_from_jax(params, *, device="cuda") -> dict:
+    """A language model's parameter tree (nested dicts of arrays) as the
+    same tree of tensors on ``device``, each leaf in its own dtype.
+    numpy has no bfloat16: such a leaf goes through a float32 array (an
+    exact widening) and back to ``torch.bfloat16``."""
+    device = kc.resolve_device(device)
+
+    def one(x):
+        if isinstance(x, dict):
+            return {k: one(v) for k, v in x.items()}
+        arr = np.asarray(x)
+        if arr.dtype.name == "bfloat16":
+            return tensor(arr.astype(np.float32), device).to(torch.bfloat16)
+        return tensor(arr, device)
+
+    return one(params)

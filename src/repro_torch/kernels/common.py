@@ -28,11 +28,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("bucket_pack", "fused_inject", "fused_drain", "lif_step",
-           "merge_sort")
+           "merge_sort", "flash_attention", "ssm_scan")
 KERNELS = {"fused_inject": "fused_inject", "fused_lif_inject": "fused_inject",
            "bucket_pack": "bucket_pack", "fused_drain": "fused_drain",
            "lif_step": "lif_step", "merge_sort_words": "merge_sort",
-           "merge_sort": "merge_sort"}
+           "merge_sort": "merge_sort", "flash_attention": "flash_attention",
+           "ssm_scan": "ssm_scan"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Shared memory one block may use on Hopper (227 KB).
@@ -162,3 +163,4 @@ def check(x: torch.Tensor, name: str, dtype, shape) -> int:
 P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
+F = ctypes.c_float

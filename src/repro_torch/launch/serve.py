@@ -1,0 +1,105 @@
+"""Serving entry point: batched prefill, then a greedy (or sampled) decode
+loop, on random weights made from ``--seed`` (``repro.launch.serve``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+        --batch 4 --prompt-len 2048 --gen 32            # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch zamba2-2.7b --reduced
+
+Prefill runs the flash-attention and ssm_scan kernels on the card (their
+plain versions on the CPU); decode is plain torch.  Weights and prompt
+tokens come from ``torch.Generator``s, so they differ from those of
+``repro.launch.serve`` for the same seed.  ``--metrics-out`` and
+``--events-jsonl`` need the telemetry exporters, which are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import configs as C
+from repro_torch.kernels import common as kc
+from repro_torch.models import lm
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--metrics-out",
+                    help="write Prometheus text exposition here on exit")
+    ap.add_argument("--events-jsonl",
+                    help="append per-phase span events here (JSONL)")
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> torch.Tensor:
+    """Serve one batch; returns the generated ids [batch, gen] (int32, on
+    the device)."""
+    args = parse_args(argv)
+    if args.metrics_out or args.events_jsonl:
+        raise NotImplementedError(
+            "--metrics-out and --events-jsonl need the telemetry exporters "
+            "(obs), which are not ported yet (ROADMAP section 1, item 6)")
+    device = kc.resolve_device(args.device)
+    cfg = C.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = lm.init(gen, cfg, device=device)
+    b, s = args.batch, args.prompt_len
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=device, dtype=torch.int32)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = lm.prefill(cfg, params, {"tokens": tokens})
+        cache = lm.pad_cache(cfg, cache, s + args.gen)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    print(f"prefill: {b}x{s} in {t_prefill * 1e3:.1f} ms "
+          f"({b * s / t_prefill:,.0f} tok/s)")
+
+    def sample(lg):
+        if args.temperature <= 0:
+            return torch.argmax(lg, dim=-1).to(torch.int32)
+        probs = torch.softmax(lg.float() / args.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0].to(
+            torch.int32)
+
+    tok = sample(logits)
+    out_tokens = [tok]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(args.gen - 1):
+            logits_i, cache = lm.decode(cfg, params, tok, cache, s + i)
+            tok = sample(logits_i)
+            out_tokens.append(tok)
+    _sync(device)
+    t_dec = time.perf_counter() - t0
+    ids = torch.stack(out_tokens, dim=1)
+    tok_s = b * args.gen / max(t_dec, 1e-9)
+    print(f"decode: {args.gen} steps x batch {b} in {t_dec * 1e3:.1f} ms "
+          f"({tok_s:,.0f} tok/s)")
+    print("sample output ids:", ids[0][:16].tolist())
+    return ids
+
+
+if __name__ == "__main__":
+    main()

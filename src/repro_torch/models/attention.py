@@ -1,0 +1,121 @@
+"""GQA attention: projections, RoPE, prefill attention through the
+flash-attention kernel, and single-token decode against a KV cache
+(``repro.models.attention``).
+
+The JAX package states one semantics across three paths: its pure-XLA
+``chunked_attention``, the Pallas kernel (selected on a TPU) and
+``decode_attention``.  The port's prefill runs the flash-attention kernel
+(``kernels.flash_attention``: the CUDA kernel on the card, its plain
+version on the CPU) where the JAX model runs ``chunked_attention``; the
+two differ only by rounding (the kernel multiplies f32 probabilities by
+v in f32, where ``chunked_attention`` first casts them to v's type).
+Decode stays plain torch, as in JAX.  Sliding windows are not ported:
+the kernel has none, and serving never asks for one.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.layers import apply_rope
+from repro_torch.models.spec import ParamSpec
+
+F32 = torch.float32
+NEG_INF = torch.finfo(torch.float32).min
+
+
+def attn_spec(cfg: ArchConfig) -> dict:
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if cfg.head_pad:
+        if cfg.head_pad % hkv:
+            raise ValueError("head_pad must be a multiple of n_kv_heads")
+        hq = cfg.head_pad
+    return {
+        "wq": ParamSpec((d, hq, dh), (None, "heads", None)),
+        "wk": ParamSpec((d, hkv, dh), (None, "kv_heads", None)),
+        "wv": ParamSpec((d, hkv, dh), (None, "kv_heads", None)),
+        "wo": ParamSpec((hq, dh, d), ("heads", None, None),
+                        fan_in_dims=(0, 1)),
+    }
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor   # [B, Hkv, S_max, Dh] (stacked: [R, B, Hkv, S_max, Dh])
+    v: torch.Tensor
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhe->bhse") as one matmul."""
+    d, h, e = w.shape
+    y = torch.matmul(x, w.to(x.dtype).reshape(d, h * e))
+    return y.reshape(*x.shape[:2], h, e).transpose(1, 2)
+
+
+def project_qkv(cfg: ArchConfig, p: dict, x_q: torch.Tensor,
+                x_kv: torch.Tensor, positions, kv_positions, *,
+                use_rope: bool):
+    q = _proj(x_q, p["wq"])
+    k = _proj(x_kv, p["wk"])
+    v = _proj(x_kv, p["wv"])
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
+    return q, k, v
+
+
+def output_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
+    """einsum("bhse,hed->bsd")."""
+    b, h, s, e = o.shape
+    w = p["wo"].to(o.dtype).reshape(h * e, -1)
+    return torch.matmul(o.transpose(1, 2).reshape(b, s, h * e), w)
+
+
+def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Full-sequence attention of prefill: the flash-attention kernel."""
+    if window:
+        raise NotImplementedError(
+            "sliding-window attention is not ported: the flash-attention "
+            "kernel has no window (ROADMAP section 1, item 9)")
+    return fa_ops.flash_attention(q, k, v, causal=causal)
+
+
+def decode_attention(q: torch.Tensor, cache: KVCache, cache_len: int, *,
+                     window: int = 0) -> torch.Tensor:
+    """q [B, Hq, 1, D] against the first ``cache_len`` slots of the
+    cache.  Scores and the product with v in f32 from the cache's values,
+    the probabilities rounded to the cache's type first, as in JAX."""
+    if window:
+        raise NotImplementedError("sliding-window decode is not ported")
+    b, hq, _, d = q.shape
+    hkv = cache.k.shape[1]
+    g = hq // hkv
+    scale = 1.0 / (d ** 0.5)
+    s_max = cache.k.shape[2]
+    qg = q.reshape(b, hkv, g, d)
+    s = torch.matmul(qg.to(F32), cache.k.to(F32).transpose(-1, -2)) * scale
+    mask = torch.arange(s_max, device=q.device) < cache_len
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.matmul(p.to(cache.v.dtype).to(F32), cache.v.to(F32))
+    return o.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos: int) -> KVCache:
+    """Write [B, Hkv, 1, D] at slot ``pos`` of the S axis, in place (the
+    JAX version returns an updated copy; a copy of a serving cache per
+    token and layer is what the port avoids)."""
+    cache.k[:, :, pos] = k_new[:, :, 0].to(cache.k.dtype)
+    cache.v[:, :, pos] = v_new[:, :, 0].to(cache.v.dtype)
+    return cache
+
+
+def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype,
+               device) -> KVCache:
+    shape = (batch, cfg.n_kv_heads, s_max, cfg.d_head)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))

@@ -1,0 +1,78 @@
+"""Parameter-spec trees: shapes and init rules of a model's parameters
+(``repro.models.spec`` without the sharding half).
+
+A model's parameters are a nested dict of :class:`ParamSpec`; ``init_tree``
+materializes it as a nested dict of tensors with the same keys, drawing
+from a ``torch.Generator`` with the reference's distributions (the numbers
+differ from ``jax.random``'s; tests carry weights across with
+``convert.lm_params_from_jax``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+
+class ParamSpec(NamedTuple):
+    shape: tuple[int, ...]
+    axes: tuple[Any, ...]          # logical axis name (str) or None per dim
+    init: str = "normal"           # normal | zeros | ones | small_normal
+    fan_in_dims: tuple[int, ...] = (0,)
+    dtype: Any = None              # None -> model dtype
+
+    def scale(self) -> float:
+        fan_in = 1
+        for d in self.fan_in_dims:
+            fan_in *= self.shape[d]
+        return 1.0 / math.sqrt(max(fan_in, 1))
+
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a nested dict (a ``ParamSpec`` or a tensor
+    is a leaf), keys in sorted order as ``jax.tree`` flattens them."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def init_tree(gen: torch.Generator, tree, dtype: torch.dtype,
+              device) -> dict:
+    """Materialize a spec tree: ``normal`` draws N(0, 1/fan_in),
+    ``small_normal`` N(0, 0.02^2), in float32 and then cast."""
+
+    def one(spec: ParamSpec) -> torch.Tensor:
+        dt = spec.dtype or dtype
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dt, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dt, device=device)
+        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        scale = 0.02 if spec.init == "small_normal" else spec.scale()
+        return (x * scale).to(dt)
+
+    return tree_map(one, tree)
+
+
+def stack_specs(tree, n: int, axis_name=None):
+    """Prepend a stacking dimension (the repeats of the layer pattern)."""
+    return tree_map(lambda s: ParamSpec(
+        shape=(n,) + s.shape, axes=(axis_name,) + s.axes, init=s.init,
+        fan_in_dims=tuple(d + 1 for d in s.fan_in_dims), dtype=s.dtype),
+        tree)
+
+
+def count_params(tree) -> int:
+    total = 0
+    for leaf in tree_leaves(tree):
+        total += math.prod(leaf.shape)
+    return total

@@ -1,0 +1,239 @@
+"""Decoder-only transformer assembly for the dense and hybrid families
+(``repro.models.transformer``).
+
+Layers are grouped into a repeating pattern of length
+``cfg.pattern_period()`` (dense: 1 [attn_mlp]; zamba2: 6 [5 x ssm,
+shared attention+MLP then ssm]); each pattern position's parameters are
+stacked over the repeats, and a Python loop over the stacked axis takes
+the place of the JAX package's ``lax.scan``.  The same block functions
+serve prefill (``forward`` with ``emit_cache``, returning stacked per-
+repeat KV and SSM caches) and decode (one token against those caches,
+updated in place).  The MoE block kind is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as ly
+from repro_torch.models import mlp as mlpm
+from repro_torch.models import ssm as ssmm
+from repro_torch.models.spec import stack_specs, tree_map
+
+
+def block_kinds(cfg: ArchConfig) -> list[str]:
+    """Block kind per pattern position: attn_mlp | attn_moe | ssm |
+    shared_ssm."""
+    period = cfg.pattern_period()
+    kinds = []
+    for pos in range(period):
+        if cfg.family == "ssm":
+            kinds.append("ssm")
+        elif cfg.family == "hybrid":
+            kinds.append("shared_ssm" if pos == period - 1 else "ssm")
+        elif cfg.n_experts and ((pos + 1) % cfg.moe_every == 0):
+            kinds.append("attn_moe")
+        else:
+            kinds.append("attn_mlp")
+    return kinds
+
+
+def n_repeats(cfg: ArchConfig) -> int:
+    return cfg.n_layers // cfg.pattern_period()
+
+
+def _block_spec(cfg: ArchConfig, kind: str) -> dict:
+    d = cfg.d_model
+    if kind in ("ssm", "shared_ssm"):
+        return {"norm": ly.norm_spec(d, cfg.norm), "ssm": ssmm.ssm_spec(cfg)}
+    if kind == "attn_moe":
+        raise NotImplementedError("the MoE block is not ported yet "
+                                  "(ROADMAP section 1, item 9)")
+    return shared_attn_spec(cfg)
+
+
+def shared_attn_spec(cfg: ArchConfig) -> dict:
+    """An attention+MLP block (zamba2's shared block has one weight
+    copy)."""
+    d = cfg.d_model
+    return {
+        "attn_norm": ly.norm_spec(d, cfg.norm),
+        "attn": attn.attn_spec(cfg),
+        "ffn_norm": ly.norm_spec(d, cfg.norm),
+        "mlp": mlpm.mlp_spec(cfg),
+    }
+
+
+def decoder_spec(cfg: ArchConfig) -> dict:
+    kinds = block_kinds(cfg)
+    blocks = {f"pos{i}": _block_spec(cfg, k) for i, k in enumerate(kinds)}
+    spec: dict[str, Any] = {
+        "embed": ly.embed_spec(cfg.vocab_size, cfg.d_model),
+        "blocks": stack_specs(blocks, n_repeats(cfg)),
+        "final_norm": ly.norm_spec(cfg.d_model, cfg.norm),
+    }
+    if cfg.shared_attn:
+        spec["shared"] = shared_attn_spec(cfg)
+    if not cfg.tie_embeddings:
+        spec["unembed"] = ly.unembed_spec(cfg.d_model, cfg.vocab_size)
+    return spec
+
+
+def _norm(cfg, p, x):
+    return ly.apply_norm(p, x, kind=cfg.norm, eps=cfg.norm_eps)
+
+
+def _apply_attn_block(cfg, bp, x, positions, *, window, emit_cache):
+    h = _norm(cfg, bp["attn_norm"], x)
+    q, k, v = attn.project_qkv(cfg, bp["attn"], h, h, positions, positions,
+                               use_rope=True)
+    o = attn.prefill_attention(q, k, v, causal=True, window=window)
+    x = x + attn.output_proj(bp["attn"], o)
+    return x, (attn.KVCache(k=k, v=v) if emit_cache else None)
+
+
+def _apply_ffn(cfg, bp, x):
+    return x + mlpm.mlp_apply(cfg, bp["mlp"], _norm(cfg, bp["ffn_norm"], x))
+
+
+def _apply_block(cfg, kind, bp, shared, x, positions, *, window,
+                 emit_cache):
+    """Returns (x, cache entry or None)."""
+    if kind in ("ssm", "shared_ssm"):
+        cache = None
+        if kind == "shared_ssm" and shared is not None:
+            x, cache = _apply_attn_block(cfg, shared, x, positions,
+                                         window=window, emit_cache=emit_cache)
+            x = _apply_ffn(cfg, shared, x)
+        h = _norm(cfg, bp["norm"], x)
+        if emit_cache:
+            y, sstate = ssmm.ssm_apply(cfg, bp["ssm"], h, return_state=True)
+            return x + y, {"kv": cache, "ssm": sstate}
+        return x + ssmm.ssm_apply(cfg, bp["ssm"], h), None
+    x, cache = _apply_attn_block(cfg, bp, x, positions, window=window,
+                                 emit_cache=emit_cache)
+    x = _apply_ffn(cfg, bp, x)
+    return x, ({"kv": cache, "ssm": None} if emit_cache else None)
+
+
+class DecoderOutput(NamedTuple):
+    logits: torch.Tensor
+    cache: Any          # stacked per-repeat cache tree (prefill) or None
+
+
+def dtype_of(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _repeat(tree, r: int):
+    return tree_map(lambda x: x[r], tree)
+
+
+def _stack(entries: list):
+    """Stack a list of per-repeat cache entries along a new leading
+    axis."""
+    first = entries[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _stack([e[k] for e in entries]) for k in first}
+    return type(first)(*(torch.stack(xs) for xs in zip(*entries)))
+
+
+def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
+            window: int = 0, emit_cache: bool = False) -> DecoderOutput:
+    """tokens [B, S] -> logits [B, S, V] (and the stacked caches)."""
+    kinds = block_kinds(cfg)
+    shared = params.get("shared")
+    b, s = tokens.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    x = ly.embed(params["embed"], tokens).to(dtype_of(cfg))
+    caches = {f"pos{i}": [] for i in range(len(kinds))}
+    for r in range(n_repeats(cfg)):
+        blk = _repeat(params["blocks"], r)
+        for i, kind in enumerate(kinds):
+            x, entry = _apply_block(cfg, kind, blk[f"pos{i}"], shared, x,
+                                    positions, window=window,
+                                    emit_cache=emit_cache)
+            if emit_cache:
+                caches[f"pos{i}"].append(entry)
+    x = _norm(cfg, params["final_norm"], x)
+    lg = ly.logits(params.get("unembed"), params["embed"], x,
+                   tied=cfg.tie_embeddings)
+    cache = {k: _stack(v) for k, v in caches.items()} if emit_cache else None
+    return DecoderOutput(logits=lg, cache=cache)
+
+
+def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
+                pos: int, *, window: int = 0):
+    """token [B] at position ``pos`` (the tokens already in the cache)
+    -> (logits [B, V], cache).  The cache is updated in place."""
+    if window:
+        raise NotImplementedError("sliding-window decode is not ported")
+    kinds = block_kinds(cfg)
+    shared = params.get("shared")
+    b = token.shape[0]
+    pos = int(pos)
+    positions = torch.full((b, 1), pos, dtype=torch.int32,
+                           device=token.device)
+    x = ly.embed(params["embed"], token[:, None]).to(dtype_of(cfg))
+
+    def attn_decode(bp, x, kv):
+        h = _norm(cfg, bp["attn_norm"], x)
+        q, k, v = attn.project_qkv(cfg, bp["attn"], h, h, positions,
+                                   positions, use_rope=True)
+        s_max = kv.k.shape[2]
+        kv = attn.cache_update(kv, k, v, pos % s_max)
+        o = attn.decode_attention(q, kv, min(pos + 1, s_max))
+        return x + attn.output_proj(bp["attn"], o)
+
+    for r in range(n_repeats(cfg)):
+        blk = _repeat(params["blocks"], r)
+        for i, kind in enumerate(kinds):
+            bp = blk[f"pos{i}"]
+            entry = cache[f"pos{i}"]
+            kv = None if entry["kv"] is None else attn.KVCache(
+                k=entry["kv"].k[r], v=entry["kv"].v[r])
+            if kind in ("ssm", "shared_ssm"):
+                if kind == "shared_ssm" and shared is not None:
+                    x = attn_decode(shared, x, kv)
+                    x = _apply_ffn(cfg, shared, x)
+                st = entry["ssm"]
+                h = _norm(cfg, bp["norm"], x)
+                y, new = ssmm.ssm_decode(
+                    cfg, bp["ssm"], h, ssmm.SSMState(h=st.h[r],
+                                                     conv=st.conv[r]))
+                st.h[r].copy_(new.h)
+                st.conv[r].copy_(new.conv)
+                x = x + y
+            else:
+                x = attn_decode(bp, x, kv)
+                x = _apply_ffn(cfg, bp, x)
+    x = _norm(cfg, params["final_norm"], x)
+    lg = ly.logits(params.get("unembed"), params["embed"], x,
+                   tied=cfg.tie_embeddings)
+    return lg[:, 0, :], cache
+
+
+def make_cache(cfg: ArchConfig, batch: int, s_max: int, *, device) -> dict:
+    """Stacked per-repeat decode cache of zeros."""
+    dtype = dtype_of(cfg)
+    r = n_repeats(cfg)
+    out = {}
+    for i, kind in enumerate(block_kinds(cfg)):
+        has_attn = kind in ("attn_mlp", "attn_moe") or (
+            kind == "shared_ssm" and cfg.shared_attn)
+        kv = ssm = None
+        if has_attn:
+            kv = attn.init_cache(cfg, batch, s_max, dtype, device)
+        if kind in ("ssm", "shared_ssm"):
+            ssm = ssmm.init_ssm_state(cfg, batch, dtype, device)
+        out[f"pos{i}"] = {"kv": kv, "ssm": ssm}
+    return tree_map(
+        lambda e: None if e is None else type(e)(
+            *(x.expand((r,) + x.shape).clone() for x in e)), out)

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, bitwise, and the feedforward demo on the card against the CPU.
+card (the SNN kernels bitwise, flash attention and the SSM scan within a
+stated tolerance), the feedforward demo and a reduced LM serve on the
+card against the CPU.
 
 These tests need an NVIDIA GPU and skip without one (a CUDA kernel has no
 CPU mode).  They import no JAX, so they run on a machine with the card:
@@ -22,10 +24,14 @@ from repro_torch.kernels.fused_drain.ref import fused_drain_ref
 from repro_torch.kernels.fused_inject import ops as fi
 from repro_torch.kernels.fused_inject.ref import (fused_inject_ref,
                                                  fused_lif_inject_ref)
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.lif_step import ops as lif
 from repro_torch.kernels.lif_step.ref import lif_step_ref
 from repro_torch.kernels.merge_sort import ops as ms
 from repro_torch.kernels.merge_sort.ref import merge_sort_ref, merge_sort_words_ref
+from repro_torch.kernels.ssm_scan import ops as scan
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.core import merge as mg
 from repro_torch.snn import neuron as nr
 
@@ -225,3 +231,91 @@ def test_demo_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(gpu.spikes.cpu(), cpu.spikes)
     torch.testing.assert_close(gpu.voltage.cpu(), cpu.voltage, rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,q_offset", [
+    (1, 4, 4, 130, 190, 80, True, 0),
+    (2, 8, 2, 200, 200, 128, True, 0),
+    (1, 4, 2, 64, 192, 16, True, 128),
+    (1, 2, 2, 100, 300, 64, False, 0),
+    (1, 2, 1, 1, 77, 256, True, 76),
+    (1, 3, 3, 65, 65, 8, True, 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, skv, d,
+                                              causal, q_offset, dtype):
+    """Within 2e-5 in float32 (the sums run in another order); in
+    bfloat16 within 1e-2 of the plain version in float32 on the same
+    bfloat16 inputs (half a bfloat16 ulp of outputs below 4)."""
+    rng = np.random.default_rng(sq + skv + d)
+    dt = getattr(torch, dtype)
+    q, k, v = (_on(rng.standard_normal(shape).astype(np.float32),
+                   cuda).to(dt)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                             (b, hkv, skv, d)))
+    before = kc.launches["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert kc.launches["flash_attention"] == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want, rtol=0,
+                               atol=2e-5 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,din,n", [(2, 130, 100, 8), (1, 64, 256, 64),
+                                       (2, 300, 200, 16), (1, 40, 5120, 64),
+                                       (1, 33, 70, 100)])
+def test_ssm_scan_kernel_matches_plain(cuda, b, t, din, n):
+    """y and the final state within 1e-4 (relative and absolute): the
+    card's expf and sums over the state in another order."""
+    rng = np.random.default_rng(t + din + n)
+    args = [_on(x.astype(np.float32), cuda) for x in (
+        rng.standard_normal((b, t, din)),
+        np.log1p(np.exp(rng.standard_normal((b, t, din)) - 1.0)),
+        -np.exp(rng.standard_normal((din, n)) * 0.5),
+        rng.standard_normal((b, t, n)), rng.standard_normal((b, t, n)),
+        rng.standard_normal(din))]
+    before = kc.launches["ssm_scan"]
+    y, h = scan.ssm_scan(*args)
+    assert kc.launches["ssm_scan"] == before + 1
+    want_y, want_h = ssm_scan_ref(*args)
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "internlm2-1.8b"])
+def test_reduced_serve_on_the_card_matches_the_cpu(cuda, arch):
+    """Prefill and two decode steps of a reduced config: the kernels on
+    the card against the plain versions on the CPU, logits within 2e-4
+    (prefill) and 5e-4 (decode), the bounds of the CPU parity with JAX."""
+    from repro_torch import configs as C
+    from repro_torch.models import lm
+    from repro_torch.models import spec as sp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = C.get(arch).reduced()
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 70)).astype(np.int32))
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        p = sp.tree_map(lambda x: x.to(device), params)
+        tk = tokens.to(device)
+        kc.reset_launches()
+        last, cache = lm.prefill(cfg, p, {"tokens": tk[:, :68]})
+        counts = dict(kc.launches)
+        cache = lm.pad_cache(cfg, cache, 70)
+        steps = [last]
+        for i in (68, 69):
+            lg, cache = lm.decode(cfg, p, tk[:, i], cache, i)
+            steps.append(lg)
+        out[device.type] = (torch.stack(steps).cpu(), counts)
+    (gpu, counts), (cpu, _) = out["cuda"], out["cpu"]
+    attn_layers = cfg.attn_layers
+    assert counts["flash_attention"] == attn_layers
+    assert counts["ssm_scan"] == (cfg.n_layers if cfg.ssm_state else 0)
+    torch.testing.assert_close(gpu[0], cpu[0], rtol=0, atol=2e-4)
+    torch.testing.assert_close(gpu[1:], cpu[1:], rtol=0, atol=5e-4)

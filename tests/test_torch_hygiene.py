@@ -6,6 +6,7 @@ silence.
 * ``chip_smoke.py`` without a card exits non-zero and prints no result.
 * Entry points default to ``device="cuda"`` and raise without a card.
 * Features of later slices raise ``NotImplementedError``.
+* Each ctypes signature matches its C launcher.
 """
 
 import ast
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch import demo, stdp_demo
+from repro_torch.launch import serve
 from repro_torch.core import fabric as fb
 from repro_torch.core import pulse_comm as pc
 from repro_torch.kernels import common as kc
@@ -76,6 +78,8 @@ def test_entry_points_default_to_the_card():
         lambda: fb.PulseFabric(comm),
         lambda: demo.main(),
         lambda: stdp_demo.main(),
+        lambda: serve.main(["--arch", "zamba2-2.7b", "--reduced"]),
+        lambda: serve.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -110,7 +114,8 @@ def test_kernel_build_is_keyed_by_the_sources():
 
 def _c_params(source: str, symbol: str) -> list[str]:
     """The parameter types of ``extern "C" int symbol(...)`` in a CUDA
-    source, as ctypes names: a pointer, ``long long`` or ``int``."""
+    source, as ctypes names: a pointer, ``long long``, ``float`` or
+    ``int``."""
     import re
 
     text = (kc.CSRC / source).read_text()
@@ -121,7 +126,8 @@ def _c_params(source: str, symbol: str) -> list[str]:
     for param in m.group(1).split(","):
         decl = " ".join(param.split())
         kinds.append("P" if "*" in decl else
-                     "LL" if "long long" in decl else "I")
+                     "LL" if "long long" in decl else
+                     "F" if decl.startswith("float ") else "I")
     return kinds
 
 
@@ -134,7 +140,10 @@ def _c_params(source: str, symbol: str) -> list[str]:
     ("lif_step", "_ARGTYPES", "lif_step.cu", "lif_step_launch"),
     ("merge_sort", "_WORDS_ARGTYPES", "merge_sort.cu",
      "merge_sort_words_launch"),
-    ("merge_sort", "_SOA_ARGTYPES", "merge_sort.cu", "merge_sort_launch")])
+    ("merge_sort", "_SOA_ARGTYPES", "merge_sort.cu", "merge_sort_launch"),
+    ("flash_attention", "_ARGTYPES", "flash_attention.cu",
+     "flash_attention_launch"),
+    ("ssm_scan", "_ARGTYPES", "ssm_scan.cu", "ssm_scan_launch")])
 def test_ctypes_signatures_match_the_c_entry_points(module, attr, source,
                                                     symbol):
     """ctypes passes an argument beyond ``argtypes`` as a 32-bit int, which
@@ -143,5 +152,69 @@ def test_ctypes_signatures_match_the_c_entry_points(module, attr, source,
     import importlib
 
     ops = importlib.import_module(f"repro_torch.kernels.{module}.ops")
-    names = {kc.P: "P", kc.I: "I", kc.LL: "LL"}
+    names = {kc.P: "P", kc.I: "I", kc.LL: "LL", kc.F: "F"}
     assert [names[t] for t in getattr(ops, attr)] == _c_params(source, symbol)
+
+
+def _lm_unported(feature: str):
+    """Call the port's LM API with one feature a later slice brings."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.models import attention as attn
+    from repro_torch.models import lm
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+
+    zamba = C.get("zamba2-2.7b").reduced()
+    dense = C.get("internlm2-1.8b").reduced()
+    x = torch.zeros((1, 2, 4, 16))
+    if feature == "window":
+        attn.prefill_attention(x, x, x, window=4)
+    elif feature == "window decode":
+        attn.decode_attention(x[:, :, :1], attn.KVCache(k=x, v=x), 4,
+                              window=4)
+    elif feature == "ssm_version 1":
+        ssm.ssm_spec(dataclasses.replace(zamba, ssm_version=1))
+    elif feature == "ssd":
+        ssm.ssm_spec(dataclasses.replace(zamba, ssm_impl="ssd"))
+    elif feature == "moe":
+        tfm.decoder_spec(dataclasses.replace(dense, family="moe",
+                                             n_experts=4, top_k=2))
+    elif feature == "encoder-decoder":
+        lm.init(torch.Generator(), dataclasses.replace(dense,
+                                                       encoder_layers=2),
+                device="cpu")
+    else:
+        lm.loss_fn()
+
+
+@pytest.mark.parametrize("feature,match", [
+    ("window", "window"), ("window decode", "window"),
+    ("ssm_version 1", "Mamba-1"), ("ssd", "ssd"), ("moe", "MoE"),
+    ("encoder-decoder", "encoder-decoder"), ("training", "training")])
+def test_unported_lm_features_raise(feature, match):
+    with pytest.raises(NotImplementedError, match=match):
+        _lm_unported(feature)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--device", "cpu", "--reduced", "--metrics-out", "m.prom"], "obs"),
+    (["--device", "cpu", "--reduced", "--events-jsonl", "e.jsonl"], "obs"),
+    (["--device", "cpu", "--arch", "falcon-mamba-7b", "--reduced"],
+     "Mamba-1"),
+    (["--device", "cpu", "--arch", "granite-moe-1b-a400m", "--reduced"],
+     "MoE"),
+    (["--device", "cpu", "--arch", "whisper-medium", "--reduced"],
+     "encoder-decoder")])
+def test_unported_serve_features_raise(argv, match):
+    with pytest.raises(NotImplementedError, match=match):
+        serve.main(argv)
+
+
+def test_serve_runs_on_the_cpu_when_asked(capsys):
+    ids = serve.main(["--device", "cpu", "--arch", "zamba2-2.7b", "--reduced",
+                      "--batch", "2", "--prompt-len", "9", "--gen", "3"])
+    assert ids.shape == (2, 3) and ids.dtype == torch.int32
+    out = capsys.readouterr().out
+    assert "prefill: 2x9 in" in out and "decode: 3 steps x batch 2" in out
