@@ -233,34 +233,83 @@ def test_demo_on_the_card_matches_the_cpu(cuda):
                                atol=1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,q_offset", [
+FLASH_SHAPES = [
     (1, 4, 4, 130, 190, 80, True, 0),
     (2, 8, 2, 200, 200, 128, True, 0),
     (1, 4, 2, 64, 192, 16, True, 128),
     (1, 2, 2, 100, 300, 64, False, 0),
     (1, 2, 1, 1, 77, 256, True, 76),
-    (1, 3, 3, 65, 65, 8, True, 0)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    (1, 3, 3, 65, 65, 8, True, 0)]
+# The tensor-core kernel's edges: head sizes that are not a multiple of 64
+# (TMA zero-fills the columns past D) or of 16, a single key, a ragged q
+# tile, GQA group 4.
+FLASH_BF16_EDGES = [
+    (1, 2, 2, 150, 150, 16, True, 0),
+    (1, 2, 2, 150, 170, 72, True, 0),
+    (1, 4, 4, 200, 200, 80, True, 0),
+    (1, 2, 2, 150, 150, 96, False, 0),
+    (1, 2, 2, 150, 170, 256, True, 0),
+    (1, 4, 2, 5, 1, 64, False, 0),        # Skv = 1
+    (1, 2, 2, 7, 1, 80, True, 20),
+    (1, 4, 4, 129, 129, 80, True, 0),     # one row past a 128-row tile
+    (2, 8, 2, 300, 300, 128, True, 0),    # GQA group 4
+    (1, 8, 2, 129, 200, 80, True, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,skv,d,causal,q_offset,dtype",
+    [(*shape, dtype) for dtype in ("float32", "bfloat16")
+     for shape in FLASH_SHAPES]
+    + [(*shape, "bfloat16") for shape in FLASH_BF16_EDGES])
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, skv, d,
                                               causal, q_offset, dtype):
-    """Within 2e-5 in float32 (the sums run in another order); in
-    bfloat16 within 1e-2 of the plain version in float32 on the same
-    bfloat16 inputs (half a bfloat16 ulp of outputs below 4)."""
-    rng = np.random.default_rng(sq + skv + d)
-    dt = getattr(torch, dtype)
-    q, k, v = (_on(rng.standard_normal(shape).astype(np.float32),
-                   cuda).to(dt)
-               for shape in ((b, hq, sq, d), (b, hkv, skv, d),
-                             (b, hkv, skv, d)))
+    """Within 2e-5 in float32 (the CUDA-core kernel; the sums run in
+    another order); bfloat16 (the tensor-core kernel) within the bound of
+    :func:`_check_flash_bf16`."""
+    q, k, v = _flash_inputs(cuda, b, hq, hkv, sq, skv, d,
+                            getattr(torch, dtype))
     before = kc.launches["flash_attention"]
     got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     assert kc.launches["flash_attention"] == before + 1
-    assert got.dtype == dt and got.shape == q.shape
-    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
-                         q_offset=q_offset)
-    torch.testing.assert_close(got.float(), want, rtol=0,
-                               atol=2e-5 if dtype == "float32" else 1e-2)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    if dtype == "bfloat16":
+        _check_flash_bf16(got, q, k, v, causal=causal, q_offset=q_offset)
+    else:
+        want = attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+def _flash_inputs(device, b, hq, hkv, sq, skv, d, dtype):
+    rng = np.random.default_rng(sq + skv + d)
+    return tuple(_on(rng.standard_normal(shape).astype(np.float32),
+                     device).to(dtype)
+                 for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                               (b, hkv, skv, d)))
+
+
+def _check_flash_bf16(got, q, k, v, **kw):
+    """A bfloat16 output against the plain version in float32 on the same
+    bfloat16 inputs: within 2^-8 |want| + 2^-8 max|v|, half a bf16 ulp of
+    the output plus the kernel's rounding of P to bf16 before PV (at most
+    2^-9 max|v|, doubled as l sums the unrounded p)."""
+    want = attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got.float(), want, rtol=2**-8,
+                               atol=2**-8 * float(v.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_copies_a_misaligned_view(cuda):
+    """TMA needs a 16-byte aligned base: a view whose storage offset is 2
+    bytes is copied by the wrapper, and the result is the aligned one's."""
+    q, k, v = _flash_inputs(cuda, 1, 2, 2, 70, 90, 64, torch.bfloat16)
+    flat = torch.empty(k.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    flat[1:] = k.reshape(-1)
+    k_view = flat[1:].view(k.shape)
+    assert k_view.data_ptr() % fa.TMA_ALIGN != 0
+    got = fa.flash_attention(q, k_view, v)
+    assert torch.equal(got, fa.flash_attention(q, k, v))
+    _check_flash_bf16(got, q, k, v)
 
 
 @pytest.mark.cuda

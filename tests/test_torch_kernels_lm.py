@@ -100,6 +100,36 @@ def test_flash_attention_guards():
         fa.flash_attention(q, k, v)
 
 
+def test_flash_attention_design_is_chosen_by_type_alone():
+    """bf16 goes to the tensor-core kernel, float32 to the CUDA-core one;
+    any other type raises with the wrapper's message."""
+    assert fa.design(torch.bfloat16) == "wgmma"
+    assert fa.design(torch.float32) == "simt"
+    with pytest.raises(ValueError, match="float32 or bfloat16, not "
+                                         "torch.float16"):
+        fa.design(torch.float16)
+
+
+def test_flash_attention_tma_ready_copies_only_a_misaligned_view():
+    """TMA reads from a 16-byte aligned base: an aligned contiguous tensor
+    passes through as itself, a view 2 bytes into its storage is copied to
+    an aligned tensor of the same values, a transposed view is made
+    contiguous."""
+    x = torch.arange(2 * 3 * 40 * 16, dtype=torch.float32).to(torch.bfloat16)
+    aligned = x.view(2, 3, 40, 16)
+    assert aligned.data_ptr() % fa.TMA_ALIGN == 0
+    assert fa.tma_ready(aligned) is aligned
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16)
+    flat[1:] = x
+    view = flat[1:].view(2, 3, 40, 16)
+    assert view.data_ptr() % fa.TMA_ALIGN == 2
+    ready = fa.tma_ready(view)
+    assert ready.data_ptr() % fa.TMA_ALIGN == 0 and ready.is_contiguous()
+    assert torch.equal(ready, aligned)
+    t = fa.tma_ready(aligned.transpose(1, 2))
+    assert t.is_contiguous() and torch.equal(t, aligned.transpose(1, 2))
+
+
 def _scan_inputs(seed, b, t, din, n, dt_shift=-1.0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, t, din)).astype(np.float32)
