@@ -20,7 +20,10 @@ Phases, each fatal on failure:
              the wrapper's tensor ops), the plain version's time (CUDA
              events), bytes, the bound at 3.35 TB/s or 67 T op/s and, for
              the sorts, stable ``torch.sort`` plus the gather, for flash
-             attention ``scaled_dot_product_attention``;
+             attention ``scaled_dot_product_attention``.  The sorts run
+             on the entry phase's merge cycle (46 x 3136 lanes; each SoA
+             row prints its radix passes) and the SoA sort also on
+             deadlines over the whole int32 range (4 passes);
   3. entry   the entry points off the network's path, counters zeroed
              first: ``merge_drain_words(use_pallas=True)`` on the first
              feedforward block's delivered words must equal
@@ -420,13 +423,18 @@ class Paths:
         return out
 
 
-def sort_ops(rows: int, lanes: int) -> int:
-    """Compare-exchanges of the bitonic network over ``rows`` rows."""
-    from repro_torch.kernels.merge_sort import ops as ms_ops
+def radix_passes(key: torch.Tensor) -> torch.Tensor:
+    """Passes of the SoA radix sort per row of ``key [rows, L]`` (int32):
+    ceil(bits / 8) over the key bits that vary within the row."""
+    diff = key ^ key[..., :1]
+    bits = sum(((diff >> b) & 1).any(-1).long() for b in range(32))
+    return (bits + 7) // 8
 
-    n = ms_ops.sort_length(lanes)
-    lg = n.bit_length() - 1
-    return rows * n // 2 * (lg * (lg + 1) // 2)
+
+def sort_ops(lanes: int, passes: torch.Tensor) -> int:
+    """Lane visits of the counting sorts: each pass counts and then ranks
+    every lane of its row once (``passes`` per row)."""
+    return 2 * lanes * int(passes.sum())
 
 
 def merge_lanes(blocks: dict):
@@ -522,21 +530,33 @@ def kernel_cases(blocks: dict, paths: Paths, device) -> list[dict]:
         run=lambda: ms_ops.merge_sort_words(words, now),
         plain=lambda: merge_sort_words_ref(words, now),
         library=words_library, inputs=(words, now),
-        ops=sort_ops(rows, lanes)))
+        ops=sort_ops(lanes, torch.ones(rows))))
 
-    soa = (ev.word_addr(words), ev.word_deadline(words, now[:, None]),
-           ev.word_valid(words))
-    soa_key = torch.where(soa[2], soa[1], 2**30)
+    # The path's lanes, then deadlines over the whole int32 range (4 radix
+    # passes, the worst case).
+    gen = torch.Generator(device=device).manual_seed(paths.seed)
+    full = (torch.randint(0, 1 << 14, (rows, lanes), generator=gen,
+                          device=device, dtype=torch.int32),
+            torch.randint(-2**31, 2**31, (rows, lanes), generator=gen,
+                          device=device, dtype=torch.int64).to(torch.int32),
+            torch.rand((rows, lanes), generator=gen, device=device) < 0.6)
+    for label, soa, main in (
+            ("", (ev.word_addr(words), ev.word_deadline(words, now[:, None]),
+                  ev.word_valid(words)), True),
+            (" full-range", full, False)):
+        soa_key = torch.where(soa[2], soa[1], 2**30)
 
-    def soa_library(a=soa, k=soa_key):
-        order = torch.sort(k, dim=-1, stable=True).indices
-        return tuple(x.gather(-1, order) for x in a)
+        def soa_library(a=soa, k=soa_key):
+            order = torch.sort(k, dim=-1, stable=True).indices
+            return tuple(x.gather(-1, order) for x in a)
 
-    cases.append(dict(
-        kernel="merge_sort", mode=f"{rows} x {lanes}", main=True,
-        run=lambda: ms_ops.merge_sort(*soa),
-        plain=lambda: merge_sort_ref(*soa), library=soa_library,
-        inputs=soa, ops=sort_ops(rows, lanes)))
+        passes = radix_passes(soa_key)
+        cases.append(dict(
+            kernel="merge_sort",
+            mode=f"{rows} x {lanes}{label}, {int(passes.max())} passes",
+            main=main, run=lambda a=soa: ms_ops.merge_sort(*a),
+            plain=lambda a=soa: merge_sort_ref(*a), library=soa_library,
+            inputs=soa, ops=sort_ops(lanes, passes)))
 
     (bid, addr, dead, valid), kw = blocks["wafer"]["flush_pack"]
     args = (bid, addr, dead, valid)

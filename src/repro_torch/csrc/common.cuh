@@ -13,6 +13,19 @@
 //   keys (sort key * n + lane in 32 bits, or key << 32 | lane in 64), so
 //   the result is the stable order by key with the lane index as
 //   tie-break.
+// * counting_pass: one stable counting-sort pass over a row in one
+//   block.  Each warp owns a contiguous run of whole 32-lane groups
+//   (warp_chunk), counts its bins into its own column of a block
+//   histogram (warp_count), an exclusive scan in (bin, warp) order
+//   (block_exclusive_scan) gives every (bin, warp) its first output
+//   position, and the warp walks its lanes again in order, ranking each
+//   within its bin (warp_rank).  Lanes of one bin find each other with
+//   __match_any_sync; the histogram's rows are padded to n_warps + 1
+//   columns, so the bins of one warp fall in different banks.  No
+//   atomics, so the order is deterministic.
+// * bit_extract: a software pext (the bits of x under a mask, packed
+//   into the low bits in order of significance), which makes a radix
+//   sort pass only over the key bits that vary in a row.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -141,6 +154,129 @@ __device__ void bitonic_sort(K* a, int n) {
       __syncthreads();
     }
   }
+}
+
+// The lanes [lo, hi) of a row of n that the calling warp owns in a
+// counting pass: whole 32-lane groups, contiguous, in lane order, so all
+// of warp w's lanes precede warp w + 1's.
+__device__ __forceinline__ void warp_chunk(int n, int& lo, int& hi) {
+  const int n_warps = blockDim.x >> 5;
+  const int groups = (((n + 31) >> 5) + n_warps - 1) / n_warps;
+  lo = min(n, static_cast<int>(threadIdx.x >> 5) * groups * 32);
+  hi = min(n, lo + groups * 32);
+}
+
+// Count one 32-lane step of the warp into col[bin * stride] (the warp's
+// column of a block histogram).  bin < 0: the lane holds no element.
+// Every lane of the warp calls.
+__device__ __forceinline__ void warp_count(int bin, int* col, int stride) {
+  const unsigned same = __match_any_sync(0xffffffffu, bin);
+  if (bin >= 0 && (threadIdx.x & 31) == __ffs(same) - 1)
+    col[bin * stride] += __popc(same);
+  __syncwarp();
+}
+
+// Stable position of one 32-lane step of the warp: col[bin * stride]
+// holds the next free output position of each bin for this warp (the
+// histogram after block_exclusive_scan); the lanes of one bin take
+// consecutive positions in lane order and col advances past them.
+// Returns -1 where bin < 0.  Every lane of the warp calls.
+__device__ __forceinline__ int warp_rank(int bin, int* col, int stride) {
+  const unsigned same = __match_any_sync(0xffffffffu, bin);
+  const int lane = threadIdx.x & 31;
+  int pos = -1;
+  if (bin >= 0) pos = col[bin * stride] + __popc(same & ((1u << lane) - 1u));
+  __syncwarp();
+  if (bin >= 0 && lane == __ffs(same) - 1) col[bin * stride] = pos + __popc(same);
+  __syncwarp();
+  return pos;
+}
+
+// Exclusive prefix sum of a[0, n) in shared memory, in place.  Each
+// thread sums a contiguous segment, warps scan the segment sums with
+// shuffles, and one warp scans the warp sums in scratch (shared, 32
+// ints).  The caller synchronises before; the function synchronises
+// after.
+__device__ void block_exclusive_scan(int* a, int n, int* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = min(n, static_cast<int>(threadIdx.x) * per);
+  const int hi = min(n, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += a[i];
+  int incl = sum;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < static_cast<int>(blockDim.x >> 5) ? scratch[lane] : 0;
+    int vi = v;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, vi, d);
+      if (lane >= d) vi += y;
+    }
+    scratch[lane] = vi - v;
+  }
+  __syncthreads();
+  int run = scratch[warp] + incl - sum;
+  for (int i = lo; i < hi; ++i) {
+    const int c = a[i];
+    a[i] = run;
+    run += c;
+  }
+  __syncthreads();
+}
+
+// One stable counting-sort pass over a row of n lanes in one block
+// (blockDim.x a multiple of 32, every thread calls):
+//   bin_of(i)      the bin of lane i, in [0, nb)
+//   place(i, pos)  lane i goes to position pos of the sorted row
+//   hist           shared, nb * (n_warps + 1) ints (scratch)
+//   scratch        shared, 32 ints
+// Lanes of one bin keep their lane order.  The caller synchronises
+// before (bin_of's inputs) and after (place's outputs).
+template <typename BinOf, typename Place>
+__device__ void counting_pass(int n, int nb, int* hist, int* scratch,
+                              BinOf bin_of, Place place) {
+  const int stride = (blockDim.x >> 5) + 1;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < nb * stride; i += blockDim.x) hist[i] = 0;
+  __syncthreads();
+  int lo, hi;
+  warp_chunk(n, lo, hi);
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    warp_count(i < hi ? bin_of(i) : -1, hist + warp, stride);
+  }
+  __syncthreads();
+  block_exclusive_scan(hist, nb * stride, scratch);
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const int pos = warp_rank(i < hi ? bin_of(i) : -1, hist + warp, stride);
+    if (pos >= 0) place(i, pos);
+  }
+}
+
+// The bits of x where mask is set, packed into the low bits in their
+// order of significance (x86's pext), one run of set bits at a time.
+__device__ __forceinline__ unsigned bit_extract(unsigned x, unsigned mask) {
+  unsigned out = 0;
+  int k = 0;
+  while (mask != 0) {
+    const int lo = __ffs(mask) - 1;
+    const unsigned m = mask >> lo;
+    const int len = ~m == 0 ? 32 : __ffs(~m) - 1;
+    const unsigned ones = len == 32 ? 0xffffffffu : (1u << len) - 1u;
+    out |= ((x >> lo) & ones) << k;
+    k += len;
+    mask &= ~(ones << lo);
+  }
+  return out;
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory.  `allowed`

@@ -152,20 +152,38 @@ def test_lif_step_kernel_matches_plain(cuda):
     assert torch.equal(spk, got[2]) and torch.equal(state.v, got[0])
 
 
+def _sort_words(rng, lanes, kind, now):
+    """Word rows of one kind: ``random`` (70% valid, deadlines within 40
+    of each row's clock), ``sentinels`` (every word -1), ``equal`` (every
+    valid word on one key, sentinels between) or ``negative`` (invalid
+    words of any negative value, not only -1)."""
+    shape = (N_CHIPS, lanes)
+    addr = rng.integers(0, 1 << 14, shape)
+    ahead = {"equal": np.full(shape, 7)}.get(kind, rng.integers(-40, 40,
+                                                                 shape))
+    valid = rng.random(shape) < (0.0 if kind == "sentinels" else 0.7)
+    bad = (rng.integers(-2**31, 0, shape) if kind == "negative"
+           else np.full(shape, -1))
+    dead = now[:, None] + ahead
+    return np.where(valid, (addr << 8) | (dead & 0xFF), bad).astype(np.int32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [1, 70, 300, 3136])
-def test_merge_sort_words_kernel_matches_plain(cuda, lanes):
+@pytest.mark.parametrize("lanes,kind", [
+    *((n, "random") for n in (1, 70, 127, 128, 129, 300, 3136, 32768)),
+    (3136, "sentinels"), (3136, "equal"), (129, "negative"),
+    (3136, "negative")])
+def test_merge_sort_words_kernel_matches_plain(cuda, lanes, kind):
     rng = np.random.default_rng(lanes)
-    now = _on(np.array([0, 250, 255, 3, 128], np.int32), cuda)
-    addr = rng.integers(0, 1 << 14, (N_CHIPS, lanes))
-    dead = now.cpu().numpy()[:, None] + rng.integers(-40, 40, (N_CHIPS, lanes))
-    words = _on(np.where(rng.random((N_CHIPS, lanes)) < 0.7,
-                         (addr << 8) | (dead & 0xFF), -1).astype(np.int32),
-                cuda)
+    now_np = np.array([0, 250, 255, 3, 128], np.int32)
+    now = _on(now_np, cuda)
+    words = _on(_sort_words(rng, lanes, kind, now_np), cuda)
     before = kc.launches["merge_sort_words"]
     got = ms.merge_sort_words(words, now)
     assert kc.launches["merge_sort_words"] == before + 1
     assert torch.equal(got, merge_sort_words_ref(words, now))
+    # a merge cycle sorts the 16-slot queue, the words and 5 sentinels
+    words = words[:, :ms.MAX_LANES["words"] - 21]
     buf = mg.merge_init(16, batch_shape=(N_CHIPS,), device=cuda)
     a = mg.merge_step_words(buf, words, now=now, rate=5, use_pallas=True)
     b = mg.merge_step_words(buf, words, now=now, rate=5)
@@ -173,21 +191,62 @@ def test_merge_sort_words_kernel_matches_plain(cuda, lanes):
     assert torch.equal(a[0].words, b[0].words) and torch.equal(a[1], b[1])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [1, 300, 3136])
-def test_merge_sort_kernel_matches_plain(cuda, lanes):
-    """Negative deadlines and deadlines at and above 2^30."""
-    rng = np.random.default_rng(lanes)
+def _sort_soa(rng, lanes, kind):
+    """SoA rows of one kind (keys ``valid ? deadline : 2^30``):
+    ``mixed`` (a few values from the ends of int32 and around 2^30),
+    ``full`` (uniform over int32: 4 radix passes), ``equal`` (one key
+    throughout: 0 passes), ``sign`` (only bit 31 varies), ``one`` (a
+    single lane differs) and ``tied`` (valid deadlines equal to 2^30
+    among invalid lanes)."""
     shape = (N_CHIPS, lanes)
-    addr = _on(rng.integers(0, 1 << 14, shape).astype(np.int32), cuda)
-    dead = _on(rng.choice([-2**31, -5, 0, 3, 2**30, 2**30 + 1, 2**31 - 1],
-                          shape).astype(np.int32), cuda)
-    valid = _on(rng.random(shape) < 0.6, cuda)
+    addr = rng.integers(0, 1 << 14, shape)
+    if kind == "mixed":
+        dead = rng.choice([-2**31, -5, 0, 3, 2**30, 2**30 + 1, 2**31 - 1],
+                          shape)
+    elif kind == "full":
+        dead = rng.integers(-2**31, 2**31, shape)
+    elif kind == "equal":
+        dead = np.full(shape, 12345)
+    elif kind == "sign":
+        dead = rng.choice([-2**31 + 77, 77], shape)
+    elif kind == "one":
+        dead = np.full(shape, -9)
+        dead[:, rng.integers(0, lanes)] = -10
+    else:
+        dead = np.where(rng.random(shape) < 0.5, 2**30, 17)
+    valid = rng.random(shape) < 0.6
+    if kind in ("equal", "sign", "one"):
+        valid[:] = True
+    return (addr.astype(np.int32), dead.astype(np.int32), valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,kind", [
+    *((n, "mixed") for n in (1, 300, 3136, 16384)),
+    (3136, "full"), (16384, "full"), (3136, "equal"), (300, "sign"),
+    (3136, "one"), (3136, "tied")])
+def test_merge_sort_kernel_matches_plain(cuda, lanes, kind):
+    """Negative deadlines and deadlines at and above 2^30, and the radix
+    sort's cases: 4 passes, none, the sign bit alone, one lane apart."""
+    rng = np.random.default_rng(lanes)
+    addr, dead, valid = (_on(x, cuda) for x in _sort_soa(rng, lanes, kind))
     before = kc.launches["merge_sort"]
     got = ms.merge_sort(addr, dead, valid)
     assert kc.launches["merge_sort"] == before + 1
     for g, w in zip(got, merge_sort_ref(addr, dead, valid)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_merge_sort_kernels_refuse_rows_past_their_limits(cuda):
+    words = torch.full((2, ms.MAX_LANES["words"] + 1), -1, dtype=torch.int32,
+                       device=cuda)
+    with pytest.raises(ValueError, match="32768 lanes"):
+        ms.merge_sort_words(words, 0)
+    lanes = ms.MAX_LANES["soa"] + 1
+    addr = torch.zeros((2, lanes), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16384 lanes"):
+        ms.merge_sort(addr, addr, addr.bool())
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ from repro.kernels.merge_sort.ref import merge_sort_ref as jms_ref  # noqa: E402
 from repro.snn import neuron as jnr  # noqa: E402
 from repro_torch.core import merge as mg  # noqa: E402
 from repro_torch.core import routing as rt  # noqa: E402
+from repro_torch.kernels import common as kc  # noqa: E402
 from repro_torch.kernels.fused_inject import ops as fi  # noqa: E402
 from repro_torch.kernels.lif_step import ops as lif  # noqa: E402
 from repro_torch.kernels.merge_sort import ops as ms  # noqa: E402
@@ -332,7 +333,27 @@ def test_fused_lif_inject_rejects_fanout_above_one():
 
 def test_lif_launch_plan_at_the_feedforward_cell():
     assert fi.lif_launch_plan(512, 46, 92, 32) == (512, 30004, 30584)
-    assert ms.launch_plan(3136, 4) == (4096, 1024, 16384)
-    assert ms.launch_plan(3136, 8) == (4096, 1024, 32768)
+    assert ms.launch_plan(3136, "words") == (1024, 46604)
+    assert ms.launch_plan(3136, "soa") == (1024, 71560)
     with pytest.raises(ValueError, match="shared memory"):
-        ms.launch_plan(40000, 8)
+        ms.launch_plan(40000, "soa")
+
+
+@pytest.mark.parametrize("kind,lanes,threads,smem", [
+    ("words", 1, 32, 2196), ("words", 127, 128, 5784),
+    ("words", 129, 160, 6820), ("words", 32768, 1024, 165132),
+    ("soa", 1, 32, 2196), ("soa", 16384, 1024, 230536)])
+def test_merge_sort_launch_plan_shared_memory(kind, lanes, threads, smem):
+    """One warp per 32 lanes up to 32; shared memory is the block
+    histogram (257 or 256 bins x (warps + 1) ints), 136 B of scratch and
+    4 B (words) or 12 B (SoA) per lane, within a Hopper block's 227 KB."""
+    assert ms.launch_plan(lanes, kind) == (threads, smem)
+    assert smem <= kc.MAX_SMEM
+
+
+@pytest.mark.parametrize("kind,limit", [("words", 32768), ("soa", 16384)])
+def test_merge_sort_launch_plan_refuses_rows_past_the_limit(kind, limit):
+    assert ms.MAX_LANES[kind] == limit
+    assert ms.launch_plan(limit, kind)[0] == 1024
+    with pytest.raises(ValueError, match=f"{limit} lanes"):
+        ms.launch_plan(limit + 1, kind)
