@@ -12,9 +12,10 @@ Phases, each fatal on failure:
              bitwise on every output of the SNN kernels, on inputs taken
              from the first block of each path below, in every mode the
              fabric uses, and flash attention and the SSM scan at the
-             serve paths' prefill shapes (each flash row also prints its
-             design, ``wgmma`` or ``simt``, TFLOP/s, share of the bound
-             and time over SDPA's); its time
+             serve paths' prefill shapes (each flash and scan row also
+             prints its design, TFLOP/s and share of the bound, flash its
+             time over SDPA's; the scan runs on the path's inputs, A per
+             head, and on a general A); its time
              (CUDA events over a CUDA graph of back-to-back calls), the
              kernel's own device time (torch.profiler; the difference is
              the wrapper's tensor ops), the plain version's time (CUDA
@@ -691,7 +692,10 @@ def causal_pairs(sq: int, skv: int, q_offset: int) -> int:
 def lm_kernel_cases(device, seed: int) -> list[dict]:
     """flash_attention at the zamba2 and internlm2 prefill shapes (bf16),
     in f32, on a ragged length and after a cached prefix; ssm_scan at the
-    zamba2 prefill shape with a general random A.
+    zamba2 prefill shape, on inputs made as the serve path makes them (x
+    bf16, dt per head from softplus, A per head of 80 channels: one exp
+    per channel and step; the main case) and with f32 x and a general
+    random A (an exp per state element).
 
     Tolerances: a bf16 output against the plain version in f32 on the
     same bf16 inputs within 2^-8 |want| + 2^-8 max|v| (half a bf16 ulp
@@ -749,19 +753,32 @@ def lm_kernel_cases(device, seed: int) -> list[dict]:
             ops=4 * d * b * hq * causal_pairs(sq, skv, q_offset),
             ops_per_s=BF16_TC_OPS_PER_S if bf16 else SIMT_OPS_PER_S))
 
-    b, t, di, n = 4, 2048, 5120, 64
+    b, t, di, n, head = 4, 2048, 5120, 64, 80
+    softplus = torch.nn.functional.softplus
     x = randn(b, t, di)
-    dt = torch.nn.functional.softplus(randn(b, t, di) - 1.0)
-    a = -torch.exp(randn(di, n) * 0.5)
-    args = (x, dt, a, randn(b, t, n), randn(b, t, n), randn(di))
-    cases.append(dict(
-        kernel="ssm_scan", mode=f"zamba2 prefill x {tuple(x.shape)} N {n}",
-        main=True, run=lambda: scan_ops.ssm_scan(*args),
-        plain=lambda: ssm_scan_ref(*args), tol=(1e-4, 1e-4), inputs=args,
-        plain_iters=2,
-        # Per state element and step: dt*A, exp, decay*h + u*B (3), and
-        # h*C summed (2); per channel and step: dt*x and D*x + y (3).
-        ops=b * t * di * (7 * n + 3)))
+    dt_h = softplus(randn(b, t, di // head) - 1.0)
+    a_h = -torch.exp(randn(di // head) * 0.5)
+    path = (x.to(torch.bfloat16), dt_h.repeat_interleave(head, dim=-1),
+            a_h.repeat_interleave(head)[:, None]
+            * torch.ones((1, n), device=device),
+            randn(b, t, n), randn(b, t, n), randn(di))
+    general = (x, softplus(randn(b, t, di) - 1.0),
+               -torch.exp(randn(di, n) * 0.5), randn(b, t, n),
+               randn(b, t, n), randn(di))
+    # Operations per channel and step: with A per head, dt*A and its exp
+    # (2) once, decay*h + u*B (3) and h*C summed (2) per state element, and
+    # dt*x and D*x + y (3); with a general A, dt*A and exp per element.
+    for label, args, ops, main in (
+            ("zamba2 prefill, A per head, x bf16", path,
+             b * t * di * (5 * n + 5), True),
+            ("zamba2 prefill, general A, x f32", general,
+             b * t * di * (7 * n + 3), False)):
+        cases.append(dict(
+            kernel="ssm_scan", mode=f"{label} {tuple(x.shape)} N {n}",
+            main=main, run=lambda a=args: scan_ops.ssm_scan(*a),
+            plain=lambda a=args: ssm_scan_ref(*a), tol=(1e-4, 1e-4),
+            inputs=args, plain_iters=2, ops=ops,
+            design="exp_per_channel_step" if main else "exp_per_state"))
     return cases
 
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks: shared-memory barriers (mbarrier),
-// TMA tile loads, register reallocation between warpgroups, and the
-// warpgroup matrix multiply (wgmma) on bf16 operands with f32 sums.
+// TMA tile loads and stores, per-thread asynchronous copies (cp.async),
+// register reallocation between warpgroups, and the warpgroup matrix
+// multiply (wgmma) on bf16 operands with f32 sums.
 //
 // Layout contract between TMA and wgmma.  A tile is loaded as column
 // boxes of 64 bf16 (128 bytes) by rows, with the 128-byte swizzle: row r
@@ -85,6 +86,66 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Stores the box at element coordinates (c0, c1, c2) of `map` from shared
+// memory at `src` (bulk group; elements outside the tensor are left out).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's committed bulk stores have read their shared
+// memory (Read) or completed.
+template <bool Read>
+__device__ __forceinline__ void bulk_wait_all() {
+  if constexpr (Read)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's writes to shared memory before later TMA (async
+// proxy) reads of it; a barrier follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- cp.async (per-thread asynchronous copies) --------------------------
+
+// Copies `bytes` (at most Vec) from global `src` to shared `dst` and
+// zero-fills the rest of the Vec-byte chunk; both addresses aligned to
+// Vec (16, 8 or 4).  bytes = 0 reads nothing.
+template <int Vec>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  static_assert(Vec == 16 || Vec == 8 || Vec == 4, "cp.async takes 4, 8, 16");
+  if constexpr (Vec == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "n"(Vec), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's committed copies have all landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // ---- named barriers -----------------------------------------------------
@@ -253,15 +314,16 @@ REPRO_WGMMA(256, REPRO_WG_R128, REPRO_WG_O128, 128, 129, 130, 131, 132, 133)
 
 // ---- host: TMA descriptors ----------------------------------------------
 
-// A contiguous bf16 tensor [outer, rows, cols] as a TMA map of boxes of
-// 64 columns by `box_rows` rows with the 128-byte swizzle; elements past
-// `cols` or `rows` read as zero.  Needs a 16-byte aligned base (the
-// row pitch cols * 2 is a multiple of 16 for cols a multiple of 8).  The
-// driver's encoder is reached through the runtime, so nothing links
-// libcuda.
-inline cudaError_t tma_map_bf16_3d(CUtensorMap* map, const void* base,
-                                   int cols, int rows, int outer,
-                                   int box_rows) {
+// A contiguous tensor [outer, rows, cols] of `elem_bytes`-byte elements
+// as a TMA map of boxes of box_cols x box_rows (x 1), with the given
+// swizzle; elements past `cols`, `rows` or `outer` read as zero, and a
+// store leaves them out.  Needs a 16-byte aligned base and a row pitch
+// cols * elem_bytes that is a multiple of 16.  cuTensorMapEncodeTiled is
+// reached through the runtime, so nothing links libcuda.
+inline cudaError_t tma_map_3d(CUtensorMap* map, CUtensorMapDataType type,
+                              int elem_bytes, const void* base, int cols,
+                              int rows, int outer, int box_cols, int box_rows,
+                              CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -285,19 +347,29 @@ inline cudaError_t tma_map_bf16_3d(CUtensorMap* map, const void* base,
   }
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
     return cudaErrorMisalignedAddress;
+  const cuuint64_t pitch = static_cast<cuuint64_t>(cols) * elem_bytes;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
-                                 static_cast<cuuint64_t>(cols) * rows * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint64_t strides[2] = {pitch, pitch * rows};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 3, const_cast<void*>(base), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A contiguous bf16 tensor [outer, rows, cols] as a TMA map of boxes of 64
+// columns by `box_rows` rows with the 128-byte swizzle (the row pitch
+// cols * 2 is a multiple of 16 for cols a multiple of 8).
+inline cudaError_t tma_map_bf16_3d(CUtensorMap* map, const void* base,
+                                   int cols, int rows, int outer,
+                                   int box_rows) {
+  return tma_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, cols,
+                    rows, outer, 64, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

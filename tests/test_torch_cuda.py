@@ -371,26 +371,86 @@ def test_flash_attention_bf16_copies_a_misaligned_view(cuda):
     _check_flash_bf16(got, q, k, v)
 
 
+def _scan_a(rng, din, n, kind, head=80):
+    """A [din, n]: "general" (random per element), "per_head" (Mamba-2: one
+    value per head of `head` channels, broadcast over the states, as the
+    model's _dt_bc builds it) or "mixed" (per-head rows at even channels,
+    general rows at odd ones, so one block holds both)."""
+    general = -np.exp(rng.standard_normal((din, n)) * 0.5)
+    a_h = -np.exp(rng.standard_normal(-(-din // head)) * 0.5)
+    per_head = np.repeat(a_h, head)[:din, None] * np.ones((1, n))
+    if kind == "general":
+        return general
+    if kind == "per_head":
+        return per_head
+    return np.where((np.arange(din) % 2 == 0)[:, None], per_head, general)
+
+
+def _scan_args(device, b, t, din, n, kind, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, din))
+    dt = np.log1p(np.exp(rng.standard_normal((b, t, din)) - 1.0))
+    a = _scan_a(rng, din, n, kind)
+    return [_on(z.astype(np.float32), device) for z in (
+        x, dt, a, rng.standard_normal((b, t, n)),
+        rng.standard_normal((b, t, n)), rng.standard_normal(din))]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["general", "per_head", "mixed"])
 @pytest.mark.parametrize("b,t,din,n", [(2, 130, 100, 8), (1, 64, 256, 64),
                                        (2, 300, 200, 16), (1, 40, 5120, 64),
-                                       (1, 33, 70, 100)])
-def test_ssm_scan_kernel_matches_plain(cuda, b, t, din, n):
+                                       (1, 33, 70, 100),
+                                       (1, 40, 96, scan.MAX_STATE)])
+def test_ssm_scan_kernel_matches_plain(cuda, b, t, din, n, kind):
     """y and the final state within 1e-4 (relative and absolute): the
-    card's expf and sums over the state in another order."""
-    rng = np.random.default_rng(t + din + n)
-    args = [_on(x.astype(np.float32), cuda) for x in (
-        rng.standard_normal((b, t, din)),
-        np.log1p(np.exp(rng.standard_normal((b, t, din)) - 1.0)),
-        -np.exp(rng.standard_normal((din, n)) * 0.5),
-        rng.standard_normal((b, t, n)), rng.standard_normal((b, t, n)),
-        rng.standard_normal(din))]
+    card's expf and sums over the state in another order.  T not a
+    multiple of the tile, di not a multiple of the block, N from 8 to
+    MAX_STATE, and A general, per head (one exp per channel and step) or
+    both within one block."""
+    args = _scan_args(cuda, b, t, din, n, kind, t + din + n)
     before = kc.launches["ssm_scan"]
     y, h = scan.ssm_scan(*args)
     assert kc.launches["ssm_scan"] == before + 1
     want_y, want_h = ssm_scan_ref(*args)
     torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,din,n", [(1, 64, 256, 64), (2, 37, 75, 16),
+                                       (1, 20, 34, 64)])
+def test_ssm_scan_kernel_reads_bf16_x_as_its_f32_upcast(cuda, b, t, din, n):
+    """A bf16 x gives bitwise the output of the same x upcast to f32 (the
+    kernel reads bf16 in place; bf16 to f32 is exact).  di 75 and 34 give
+    rows that are not 4- and 16-byte aligned."""
+    args = _scan_args(cuda, b, t, din, n, "per_head", 5 + din)
+    xb = args[0].to(torch.bfloat16)
+    before = kc.launches["ssm_scan"]
+    got = scan.ssm_scan(xb, *args[1:])
+    want = scan.ssm_scan(xb.float(), *args[1:])
+    assert kc.launches["ssm_scan"] == before + 2
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+    torch.testing.assert_close(got[0], ssm_scan_ref(xb, *args[1:])[0],
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("din,n", [(256, 64), (100, 16)])
+def test_ssm_scan_constant_row_ignores_its_neighbours(cuda, din, n):
+    """A constant row of A gives bitwise the same y and final state
+    whether the other rows of its block are constant or general."""
+    args = _scan_args(cuda, 2, 50, din, n, "per_head", din)
+    mixed = list(args)
+    mixed[2] = _on(_scan_a(np.random.default_rng(din), din, n, "general")
+                   .astype(np.float32), cuda)
+    mixed[2][::2] = args[2][::2]
+    y0, h0 = scan.ssm_scan(*args)
+    y1, h1 = scan.ssm_scan(*mixed)
+    assert torch.equal(y0[..., ::2], y1[..., ::2])
+    assert torch.equal(h0[:, ::2], h1[:, ::2])
+    assert not torch.equal(y0[..., 1::2], y1[..., 1::2])
 
 
 @pytest.mark.cuda

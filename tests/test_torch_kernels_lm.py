@@ -130,22 +130,32 @@ def test_flash_attention_tma_ready_copies_only_a_misaligned_view():
     assert t.is_contiguous() and torch.equal(t, aligned.transpose(1, 2))
 
 
-def _scan_inputs(seed, b, t, din, n, dt_shift=-1.0):
+def _scan_inputs(seed, b, t, din, n, dt_shift=-1.0, head=0):
+    """Random scan inputs; A general, or with head > 0 one value per head
+    of `head` channels broadcast over the states (Mamba-2, as the model's
+    _dt_bc builds it)."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, t, din)).astype(np.float32)
     dt = np.log1p(np.exp(rng.standard_normal((b, t, din)) + dt_shift))
     a = -np.exp(rng.standard_normal((din, n)) * 0.5)
+    if head:
+        a_h = -np.exp(rng.standard_normal(-(-din // head)) * 0.5)
+        a = np.repeat(a_h, head)[:din, None] * np.ones((1, n))
     bm = rng.standard_normal((b, t, n)).astype(np.float32)
     cm = rng.standard_normal((b, t, n)).astype(np.float32)
     dv = rng.standard_normal(din).astype(np.float32)
     return (x, dt.astype(np.float32), a.astype(np.float32), bm, cm, dv)
 
 
-# The shapes of tests/test_kernels.py's scan cases (random, general A).
-@pytest.mark.parametrize("b,t,din,n", [(1, 128, 128, 16), (2, 130, 100, 8),
-                                       (1, 64, 256, 64)])
-def test_ssm_scan_plain_matches_the_pallas_kernel(b, t, din, n):
-    args = _scan_inputs(b * t * din, b, t, din, n)
+# The shapes of tests/test_kernels.py's scan cases (random, general A),
+# and a Mamba-2 case (A per head of 80 channels, as zamba2's).
+@pytest.mark.parametrize("b,t,din,n,head", [
+    (1, 128, 128, 16, 0), (2, 130, 100, 8, 0), (1, 64, 256, 64, 0),
+    (1, 64, 160, 64, 80)],
+    ids=["1-128-128-16", "2-130-100-8", "1-64-256-64",
+         "per_head-1-64-160-64"])
+def test_ssm_scan_plain_matches_the_pallas_kernel(b, t, din, n, head):
+    args = _scan_inputs(b * t * din, b, t, din, n, head=head)
     want = jscan.ssm_scan(*(jnp.asarray(x) for x in args), force_kernel=True)
     y, h = scan.ssm_scan(*(T(x) for x in args))
     assert y.dtype == torch.float32 and h.dtype == torch.float32
@@ -154,9 +164,11 @@ def test_ssm_scan_plain_matches_the_pallas_kernel(b, t, din, n):
                                atol=2e-5)
 
 
-@pytest.mark.parametrize("b,t,din,n", [(2, 48, 32, 8), (1, 37, 64, 16)])
-def test_ssm_scan_final_state_matches_scan_chunked(b, t, din, n):
-    args = _scan_inputs(7 + t, b, t, din, n, dt_shift=0.0)
+@pytest.mark.parametrize("b,t,din,n,head", [
+    (2, 48, 32, 8, 0), (1, 37, 64, 16, 0), (2, 37, 160, 16, 80)],
+    ids=["2-48-32-8", "1-37-64-16", "per_head-2-37-160-16"])
+def test_ssm_scan_final_state_matches_scan_chunked(b, t, din, n, head):
+    args = _scan_inputs(7 + t, b, t, din, n, dt_shift=0.0, head=head)
     jargs = [jnp.asarray(x) for x in args]
     want_y, want_h = scan_chunked(*jargs, jnp.zeros((b, din, n), jnp.float32),
                                   unroll=8)
