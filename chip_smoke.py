@@ -584,14 +584,13 @@ def kernel_cases(blocks: dict, paths: Paths, device) -> list[dict]:
                     if mode != "rate":
                         kwm["rate"] = 0
                     args = (ring, d, q, t0)
-                    sort_n = fd_ops.sort_length(
-                        mode, d.shape[-1], 0 if q is None else q.shape[-1],
-                        kwm.get("rate", 0))
-                    stages = 0
-                    if sort_n:
-                        lg = sort_n.bit_length() - 1
-                        stages = lg * (lg + 1) // 2
-                    ops = n * b * (sort_n // 2 * stages + d.shape[-1])
+                    # One count and one rank visit per merged lane, one
+                    # deposit per emitted word, per chip and substep: the
+                    # work whatever sorts it.
+                    merged = fd_ops.sort_length(
+                        mode, d.shape[-1], 0 if q is None else q.shape[-1])
+                    emitted = kwm["rate"] if mode == "rate" else d.shape[-1]
+                    ops = n * b * (2 * merged + emitted)
                     cases.append(dict(
                         kernel="fused_drain",
                         mode=(f"{label} {mode} B{b} gate "

@@ -9,20 +9,21 @@
 //   over warps.
 // * lif_update: one LIF step of one neuron, each operation rounded as
 //   the reference and PyTorch's separate elementwise kernels round it.
-// * bitonic_sort: a shared-memory bitonic network on unique composite
-//   keys (sort key * n + lane in 32 bits, or key << 32 | lane in 64), so
-//   the result is the stable order by key with the lane index as
-//   tie-break.
+// * word_key: the merge stage's wrap-aware sort key of a wire word,
+//   (w - now + 128) & 255 for a valid word and 256 for any negative one,
+//   shared by the word sort and the drain's merge.
 // * counting_pass: one stable counting-sort pass over a row in one
-//   block.  Each warp owns a contiguous run of whole 32-lane groups
-//   (warp_chunk), counts its bins into its own column of a block
-//   histogram (warp_count), an exclusive scan in (bin, warp) order
-//   (block_exclusive_scan) gives every (bin, warp) its first output
-//   position, and the warp walks its lanes again in order, ranking each
-//   within its bin (warp_rank).  Lanes of one bin find each other with
-//   __match_any_sync; the histogram's rows are padded to n_warps + 1
-//   columns, so the bins of one warp fall in different banks.  No
-//   atomics, so the order is deterministic.
+//   group of whole warps (WarpGroup: the block, or warps that share a
+//   named barrier, so several rows can be sorted at once).  Each warp
+//   owns a contiguous run of whole 32-lane groups (warp_chunk), counts
+//   its bins into its own column of the group's histogram (warp_count),
+//   an exclusive scan in (bin, warp) order (exclusive_scan) gives every
+//   (bin, warp) its first output position, and the warp walks its lanes
+//   again in order, ranking each within its bin (warp_rank).  Lanes of
+//   one bin find each other with __match_any_sync; the histogram's rows
+//   are padded to n_warps + 1 columns, so the bins of one warp fall in
+//   different banks, and the padding column holds each bin's end after
+//   the scan.  No atomics, so the order is deterministic.
 // * bit_extract: a software pext (the bits of x under a mask, packed
 //   into the low bits in order of significance), which makes a radix
 //   sort pass only over the key bits that vary in a row.
@@ -64,6 +65,14 @@ __device__ __forceinline__ int floor_mod(int a, int b) {
 
 __device__ __forceinline__ int clamp_int(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// The merge stage's sort key of wire word w at clock now: the deadline's
+// distance from now + 128 modulo 256 for a valid word (w >= 0), 256 for a
+// sentinel or any other negative word (events.word_sort_key).
+__device__ __forceinline__ int word_key(int w, int now) {
+  return w >= 0 ? wrap_add(wrap_sub(w, now), kHalfWindow) & kTimeMask
+                : kTimeMod;
 }
 
 // One Euler step of a LIF neuron; returns whether it spiked.
@@ -132,42 +141,40 @@ __device__ int block_stable_rank(int key, bool member, int nb, int* hist,
   return rank;
 }
 
-// Ascending bitonic sort of a[0, n) in shared memory, n a power of two,
-// K an unsigned integer type.  The caller synchronises before; the
-// function synchronises after.
-template <typename K>
-__device__ void bitonic_sort(K* a, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const K x = a[i];
-          const K y = a[ixj];
-          const bool ascending = (i & k) == 0;
-          if ((x > y) == ascending) {
-            a[i] = y;
-            a[ixj] = x;
-          }
-        }
-      }
+// A set of whole warps that runs a counting pass together: thread `rank`
+// of `size` (a multiple of 32), synchronised on barrier `bar` (0: the
+// whole block, __syncthreads; 1 to 15: a named barrier of `size` threads).
+struct WarpGroup {
+  int rank;
+  int size;
+  int bar;
+  __device__ __forceinline__ int warp() const { return rank >> 5; }
+  __device__ __forceinline__ int warps() const { return size >> 5; }
+  __device__ __forceinline__ void sync() const {
+    if (bar == 0) {
       __syncthreads();
+    } else {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(size) : "memory");
     }
   }
+};
+
+__device__ __forceinline__ WarpGroup whole_block() {
+  return {static_cast<int>(threadIdx.x), static_cast<int>(blockDim.x), 0};
 }
 
 // The lanes [lo, hi) of a row of n that the calling warp owns in a
 // counting pass: whole 32-lane groups, contiguous, in lane order, so all
 // of warp w's lanes precede warp w + 1's.
-__device__ __forceinline__ void warp_chunk(int n, int& lo, int& hi) {
-  const int n_warps = blockDim.x >> 5;
-  const int groups = (((n + 31) >> 5) + n_warps - 1) / n_warps;
-  lo = min(n, static_cast<int>(threadIdx.x >> 5) * groups * 32);
+__device__ __forceinline__ void warp_chunk(const WarpGroup& g, int n, int& lo,
+                                           int& hi) {
+  const int groups = (((n + 31) >> 5) + g.warps() - 1) / g.warps();
+  lo = min(n, g.warp() * groups * 32);
   hi = min(n, lo + groups * 32);
 }
 
 // Count one 32-lane step of the warp into col[bin * stride] (the warp's
-// column of a block histogram).  bin < 0: the lane holds no element.
+// column of a group histogram).  bin < 0: the lane holds no element.
 // Every lane of the warp calls.
 __device__ __forceinline__ void warp_count(int bin, int* col, int stride) {
   const unsigned same = __match_any_sync(0xffffffffu, bin);
@@ -178,9 +185,9 @@ __device__ __forceinline__ void warp_count(int bin, int* col, int stride) {
 
 // Stable position of one 32-lane step of the warp: col[bin * stride]
 // holds the next free output position of each bin for this warp (the
-// histogram after block_exclusive_scan); the lanes of one bin take
-// consecutive positions in lane order and col advances past them.
-// Returns -1 where bin < 0.  Every lane of the warp calls.
+// histogram after exclusive_scan); the lanes of one bin take consecutive
+// positions in lane order and col advances past them.  Returns -1 where
+// bin < 0.  Every lane of the warp calls.
 __device__ __forceinline__ int warp_rank(int bin, int* col, int stride) {
   const unsigned same = __match_any_sync(0xffffffffu, bin);
   const int lane = threadIdx.x & 31;
@@ -192,16 +199,17 @@ __device__ __forceinline__ int warp_rank(int bin, int* col, int stride) {
   return pos;
 }
 
-// Exclusive prefix sum of a[0, n) in shared memory, in place.  Each
-// thread sums a contiguous segment, warps scan the segment sums with
-// shuffles, and one warp scans the warp sums in scratch (shared, 32
-// ints).  The caller synchronises before; the function synchronises
-// after.
-__device__ void block_exclusive_scan(int* a, int n, int* scratch) {
+// Exclusive prefix sum of a[0, n) in shared memory, in place, by group g.
+// Each thread sums a contiguous segment, warps scan the segment sums with
+// shuffles, and the group's first warp scans the warp sums in scratch
+// (shared, 32 ints).  The caller synchronises before; the function
+// synchronises after.
+__device__ void exclusive_scan(const WarpGroup& g, int* a, int n,
+                               int* scratch) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int lo = min(n, static_cast<int>(threadIdx.x) * per);
+  const int warp = g.warp();
+  const int per = (n + g.size - 1) / g.size;
+  const int lo = min(n, g.rank * per);
   const int hi = min(n, lo + per);
   int sum = 0;
   for (int i = lo; i < hi; ++i) sum += a[i];
@@ -211,9 +219,9 @@ __device__ void block_exclusive_scan(int* a, int n, int* scratch) {
     if (lane >= d) incl += y;
   }
   if (lane == 31) scratch[warp] = incl;
-  __syncthreads();
+  g.sync();
   if (warp == 0) {
-    const int v = lane < static_cast<int>(blockDim.x >> 5) ? scratch[lane] : 0;
+    const int v = lane < g.warps() ? scratch[lane] : 0;
     int vi = v;
     for (int d = 1; d < 32; d <<= 1) {
       const int y = __shfl_up_sync(0xffffffffu, vi, d);
@@ -221,40 +229,47 @@ __device__ void block_exclusive_scan(int* a, int n, int* scratch) {
     }
     scratch[lane] = vi - v;
   }
-  __syncthreads();
+  g.sync();
   int run = scratch[warp] + incl - sum;
   for (int i = lo; i < hi; ++i) {
     const int c = a[i];
     a[i] = run;
     run += c;
   }
-  __syncthreads();
+  g.sync();
 }
 
-// One stable counting-sort pass over a row of n lanes in one block
-// (blockDim.x a multiple of 32, every thread calls):
+// One stable counting-sort pass over a row of n lanes by group g (every
+// thread of the group calls):
 //   bin_of(i)      the bin of lane i, in [0, nb)
 //   place(i, pos)  lane i goes to position pos of the sorted row
-//   hist           shared, nb * (n_warps + 1) ints (scratch)
+//   hist           shared, nb * (g.warps() + 1) ints (scratch)
 //   scratch        shared, 32 ints
-// Lanes of one bin keep their lane order.  The caller synchronises
-// before (bin_of's inputs) and after (place's outputs).
+//   ends           null, or shared nb ints: ends[b] receives the number
+//                  of lanes in bins <= b
+// Lanes of one bin keep their lane order.  The caller synchronises the
+// group before (bin_of's inputs) and after (place's and ends' outputs).
 template <typename BinOf, typename Place>
-__device__ void counting_pass(int n, int nb, int* hist, int* scratch,
-                              BinOf bin_of, Place place) {
-  const int stride = (blockDim.x >> 5) + 1;
-  const int warp = threadIdx.x >> 5;
+__device__ void counting_pass(const WarpGroup& g, int n, int nb, int* hist,
+                              int* scratch, BinOf bin_of, Place place,
+                              int* ends = nullptr) {
+  const int stride = g.warps() + 1;
+  const int warp = g.warp();
   const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < nb * stride; i += blockDim.x) hist[i] = 0;
-  __syncthreads();
+  for (int i = g.rank; i < nb * stride; i += g.size) hist[i] = 0;
+  g.sync();
   int lo, hi;
-  warp_chunk(n, lo, hi);
+  warp_chunk(g, n, lo, hi);
   for (int base = lo; base < hi; base += 32) {
     const int i = base + lane;
     warp_count(i < hi ? bin_of(i) : -1, hist + warp, stride);
   }
-  __syncthreads();
-  block_exclusive_scan(hist, nb * stride, scratch);
+  g.sync();
+  exclusive_scan(g, hist, nb * stride, scratch);
+  // The padding column counts nothing, so it holds the end of its bin.
+  if (ends != nullptr)
+    for (int b = g.rank; b < nb; b += g.size)
+      ends[b] = hist[b * stride + stride - 1];
   for (int base = lo; base < hi; base += 32) {
     const int i = base + lane;
     const int pos = warp_rank(i < hi ? bin_of(i) : -1, hist + warp, stride);

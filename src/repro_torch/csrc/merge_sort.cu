@@ -41,7 +41,7 @@ using namespace repro;
 
 constexpr int kWordBins = kTimeMod + 1;
 constexpr int kDigitBins = 256;
-constexpr int kScratch = 34;  // block_exclusive_scan's 32 ints, AND, OR
+constexpr int kScratch = 34;  // exclusive_scan's 32 ints, AND, OR
 
 // Dynamic shared memory of each kernel; kept in step with the wrapper's
 // launch_plan (kernels/merge_sort/ops.py).
@@ -51,11 +51,6 @@ long long words_smem(int L, int threads) {
 
 long long soa_smem(int L, int threads) {
   return 4LL * (kDigitBins * (threads / 32 + 1) + kScratch) + 12LL * L;
-}
-
-__device__ __forceinline__ int word_key(int w, int now) {
-  return w >= 0 ? wrap_add(wrap_sub(w, now), kHalfWindow) & kTimeMask
-                : kTimeMod;
 }
 
 __global__ void __launch_bounds__(1024) merge_sort_words_kernel(
@@ -69,7 +64,8 @@ __global__ void __launch_bounds__(1024) merge_sort_words_kernel(
   const int* w = words + base;
   const int t = now[blockIdx.x];
   counting_pass(
-      L, kWordBins, hist, scratch, [&](int i) { return word_key(w[i], t); },
+      whole_block(), L, kWordBins, hist, scratch,
+      [&](int i) { return word_key(w[i], t); },
       [&](int i, int pos) { row[pos] = w[i]; });
   __syncthreads();
   for (int i = threadIdx.x; i < L; i += blockDim.x) out[base + i] = row[i];
@@ -122,7 +118,7 @@ __global__ void __launch_bounds__(1024) merge_sort_kernel(
     const int shift = 8 * p;
     const bool last = p + 1 == passes;
     counting_pass(
-        L, kDigitBins, hist, scratch,
+        whole_block(), L, kDigitBins, hist, scratch,
         [&](int i) { return static_cast<int>((key_in[i] >> shift) & 255u); },
         [&](int i, int pos) {
           if (!last) key_out[pos] = key_in[i];

@@ -1,8 +1,10 @@
 """Wrapper of the fused drain kernel (``csrc/fused_drain.cu``).
 
-On CUDA tensors it launches the kernel, one CTA per chip looping over the
-block's substeps; on CPU tensors it runs :func:`repro_torch.kernels.
-fused_drain.ref.fused_drain_ref`.
+On CUDA tensors it launches the kernel, one CTA per chip: warp groups
+sort the block's rows at once, each by one stable counting pass over the
+257 values of the deadline key, and in rate mode one warp then merges the
+queue into each row's head, substep by substep.  On CPU tensors it runs
+:func:`repro_torch.kernels.fused_drain.ref.fused_drain_ref`.
 """
 
 from __future__ import annotations
@@ -16,8 +18,14 @@ from repro_torch.kernels.fused_drain.ref import MODES, FusedDrainOut, fused_drai
 NAME = "fused_drain"
 I32 = torch.int32
 _ARGTYPES = [kc.P] * 5 + [kc.I] * 11 + [kc.LL] + [kc.P] * 6
-# One CTA per chip; the bitonic stages keep every thread busy.
+# Passthrough deposits one lane per thread.  A merging CTA has up to 32
+# warps, in up to 8 groups (one named barrier each) that sort rows at
+# once, a group one warp per 32 lanes of a row at most.
 THREADS = 1024
+MAX_WARPS = 32
+MAX_GROUPS = 8
+# Bins of the counting pass: 256 wrap keys and the sentinel.
+BINS = 257
 
 
 def fused_drain(ring: dl.DelayRing, delivered: torch.Tensor,
@@ -37,29 +45,39 @@ def fused_drain(ring: dl.DelayRing, delivered: torch.Tensor,
     return _launch(ring, delivered, queue, t0, **kw)
 
 
-def sort_length(mode: str, lanes: int, depth: int, rate: int) -> int:
-    """Power-of-two length of the in-kernel sort (0 in passthrough):
-    queue + lanes + rate sentinels in rate mode, the lanes in sort mode,
-    at least 128 as in the reference."""
+def sort_length(mode: str, lanes: int, depth: int) -> int:
+    """Lanes of the merged row that the counting pass sorts (0 in
+    passthrough): the queue, then the lanes, in rate mode; the lanes in
+    sort mode.  No padding: positions past it are sentinels."""
     if mode == "passthrough":
         return 0
-    need = depth + lanes + rate if mode == "rate" else lanes
-    n = 128
-    while n < need:
-        n *= 2
-    return n
+    return depth + lanes if mode == "rate" else lanes
 
 
-def launch_plan(mode, lanes, depth, rate, ring_depth, n_inputs
-                ) -> tuple[int, int]:
-    """Sort length and dynamic shared-memory bytes."""
-    sort_n = sort_length(mode, lanes, depth, rate)
-    q = depth if mode == "rate" else 0
-    smem = 4 * (ring_depth * n_inputs + 2 * sort_n + q + 2)
-    if smem > kc.MAX_SMEM:
-        raise ValueError(f"fused_drain needs {smem} B of shared memory, more "
-                         f"than a Hopper block has ({kc.MAX_SMEM})")
-    return sort_n, smem
+def launch_plan(mode, lanes, depth, rate, b, ring_depth, n_inputs
+                ) -> tuple[int, int, int]:
+    """Threads per CTA, warp groups and dynamic shared-memory bytes (the
+    kernel's ``layout``): the ring and two tallies per substep and, when
+    merging, per group a staged row, a histogram (``BINS`` x (warps + 1)
+    ints) and the scan's 32 ints; in rate mode also per substep the row's
+    bin ends and its head (the first ``min(lanes, rate + depth)`` sorted
+    words), the two queues and the queue's keys (padded to whole int4s).
+    Takes the most groups, up to ``MAX_GROUPS`` and ``b``, that fit a
+    Hopper block; raises ``ValueError`` where one does not."""
+    ints = ring_depth * n_inputs + 2 * b
+    if mode == "passthrough":
+        return THREADS, 1, 4 * ints
+    if mode == "rate":
+        ints += (b * (BINS + min(lanes, rate + depth)) + 2 * depth
+                 + -(-depth // 4) * 4)
+    for groups in range(max(1, min(b, MAX_GROUPS)), 0, -1):
+        warps = min(MAX_WARPS // groups, max(1, -(-lanes // 32)))
+        smem = 4 * (ints + groups * (lanes + BINS * (warps + 1) + 32))
+        if smem <= kc.MAX_SMEM:
+            return 32 * groups * warps, groups, smem
+    raise ValueError(f"fused_drain needs {smem} B of shared memory for "
+                     f"{lanes} lanes, more than a Hopper block has "
+                     f"({kc.MAX_SMEM})")
 
 
 def _launch(ring, delivered, queue, t0, *, mode, rate, extra_ahead, gate
@@ -69,7 +87,8 @@ def _launch(ring, delivered, queue, t0, *, mode, rate, extra_ahead, gate
     dev = delivered.device
     rate_mode = mode == "rate"
     q = queue.shape[-1] if rate_mode else 0
-    sort_n, smem = launch_plan(mode, lanes, q, rate, d, n_in)
+    threads, groups, smem = launch_plan(mode, lanes, q, rate, b, d,
+                                        n_in)
     delivered = delivered.to(I32).contiguous()
     ring_in = ring.ring.to(I32).contiguous()
     t0 = torch.as_tensor(t0, dtype=I32, device=dev).contiguous()
@@ -91,7 +110,7 @@ def _launch(ring, delivered, queue, t0, *, mode, rate, extra_ahead, gate
         (kc.check(gate_in, "gate", torch.bool, (n,))
          if gate_in is not None else None),
         n, b, lanes, q, d, n_in, MODES.index(mode), rate, extra_ahead,
-        sort_n, THREADS, smem,
+        threads, groups, smem,
         ring_out.data_ptr(), words.data_ptr(),
         queue_out.data_ptr() if rate_mode else None,
         dep_expired.data_ptr(), dropped.data_ptr())

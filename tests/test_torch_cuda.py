@@ -126,6 +126,147 @@ def test_fused_drain_kernel_matches_plain(cuda, mode):
         _equal(got[1:], want[1:])
 
 
+def _drain_block(rng, n, b, lanes, depth, t0, p=0.7, spread=(-6, 40),
+                 n_in=256):
+    """Delivered rows [n, b, lanes] and a queue [n, depth] of wire words
+    (valid with probability p, deadlines now + spread, addresses up to
+    past n_in so some are clipped), on the host."""
+    def words(shape, now):
+        addr = rng.integers(0, n_in + 40, shape)
+        dead = now + rng.integers(*spread, shape)
+        w = (addr << 8) | (dead & 0xFF)
+        return np.where(rng.random(shape) < p, w, -1).astype(np.int32)
+
+    return (words((n, b, lanes), t0[:, None, None]),
+            words((n, depth), t0[:, None]))
+
+
+def _check_drain_case(ring, delivered, queue, t0, **kw):
+    """The kernel against its plain version, bitwise, on every output;
+    returns the kernel's."""
+    before = kc.launches["fused_drain"]
+    got = fd.fused_drain(ring, delivered, queue, t0, **kw)
+    assert kc.launches["fused_drain"] == before + 1
+    want = fused_drain_ref(ring, delivered, queue, t0, **kw)
+    assert torch.equal(got.ring.ring, want.ring.ring)
+    for f in ("words", "dep_expired", "dropped"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    if kw.get("mode") == "rate":
+        assert torch.equal(got.queue, want.queue)
+    return got
+
+
+def _largest_drain_lanes(mode, depth, rate, b, d, n_in):
+    lo, hi = 1, 1 << 17
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        try:
+            fd.launch_plan(mode, mid, depth, rate, b, d, n_in)
+            lo = mid
+        except ValueError:
+            hi = mid - 1
+    return lo
+
+
+# The feedforward path's drain: 46 chips, 2944 lanes, queue depth 64, rate
+# 128, B 8, ring [32, 256].
+_PATH = dict(n=46, b=8, lanes=2944, depth=64, rate=128, d=32, n_in=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "path", "congested", "no_valid", "all_valid", "wrap", "word0",
+    "queue_row_ties", "mixed_gate", "sort_ragged", "rounds", "largest_rate",
+    "largest_sort"])
+def test_fused_drain_counting_merge_matches_plain(cuda, case):
+    """The counting merge bitwise against the plain drain at the path's
+    widths, and on the inputs that pin its hazards."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    c = dict(_PATH)
+    mode, gate, p, spread, extra = "rate", None, 0.7, (-6, 40), 0
+    if case == "path":
+        p = 0.06            # the queue fills and some substeps drop
+    elif case == "no_valid":
+        p = 0.0
+    elif case == "all_valid":
+        p = 1.0
+    elif case == "wrap":
+        spread = (-130, 130)  # keys over the whole window, both sides
+    elif case == "word0":
+        p = 0.02
+    elif case == "queue_row_ties":
+        spread = (6, 40)    # every other word after the tied deadline
+    elif case == "mixed_gate":
+        gate = torch.arange(c["n"], device=cuda) % 3 != 1
+        extra = 2
+    elif case == "sort_ragged":
+        mode, c["lanes"], gate = "sort", 2941, torch.arange(
+            c["n"], device=cuda) % 2 == 0
+    elif case == "rounds":
+        c.update(b=12, lanes=700)   # 8 groups: four of them sort two rows
+    elif case.startswith("largest"):
+        # one group of 32 warps sorting both rows in turn
+        mode = case.split("_")[1]
+        depth = c["depth"] if mode == "rate" else 0
+        c.update(n=5, b=2, lanes=_largest_drain_lanes(
+            mode, depth, c["rate"], 2, c["d"], c["n_in"]))
+    t0_np = ((np.arange(c["n"]) * 37 + 240) % 256).astype(np.int32)
+    delivered, queue = _drain_block(rng, c["n"], c["b"], c["lanes"],
+                                    c["depth"], t0_np, p, spread,
+                                    c["n_in"])
+    if case == "word0":
+        # word 0: address 0, deadline 0 mod 256, valid, on every row
+        t0_np[:] = 240
+        delivered[:, :, ::97] = 0
+    if case == "queue_row_ties":
+        # one deadline for the whole queue and the first 100 row lanes:
+        # equal keys across the boundary keep the queue lanes first
+        dead = (t0_np[:, None] + 5) & 0xFF
+        queue = ((np.arange(c["depth"])[None, :] << 8) | dead).astype(
+            np.int32)
+        delivered[:, 0, :100] = (((np.arange(100) + 100)[None, :] << 8)
+                                 | dead).astype(np.int32)
+    t0 = _on(t0_np, cuda)
+    ring = dl.DelayRing(
+        _on(rng.integers(0, 3, (c["n"], c["d"], c["n_in"])).astype(np.int32),
+            cuda), t0)
+    got = _check_drain_case(
+        ring, _on(delivered, cuda), _on(queue, cuda) if mode == "rate"
+        else None, t0, mode=mode, rate=c["rate"] if mode == "rate" else 0,
+        extra_ahead=extra, gate=gate)
+    if case in ("congested", "all_valid", "largest_rate"):
+        assert int(got.dropped.min()) > 0
+        assert bool((got.queue >= 0).all())
+    if case == "path":
+        assert int(got.dropped.max()) > 0
+    if case == "no_valid":
+        assert not bool((got.words >= 0).any())
+        assert int(got.dropped.max()) == 0
+    if case == "word0":
+        assert bool((got.words == 0).any())
+    if case == "queue_row_ties":
+        assert torch.equal(got.words[0, :, :c["depth"]], _on(queue, cuda))
+        assert torch.equal(got.words[0, :, c["depth"]:],
+                           _on(delivered[:, 0, :c["rate"] - c["depth"]],
+                               cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rate", "sort"])
+def test_fused_drain_refuses_one_lane_past_its_plan(cuda, mode):
+    depth = 64 if mode == "rate" else 0
+    lanes = _largest_drain_lanes(mode, depth, 128, 1, 32, 256) + 1
+    t0 = _on(np.zeros(2, np.int32), cuda)
+    ring = dl.DelayRing(torch.zeros((2, 32, 256), dtype=torch.int32,
+                                    device=cuda), t0)
+    delivered = torch.full((2, 1, lanes), -1, dtype=torch.int32, device=cuda)
+    queue = (torch.full((2, depth), -1, dtype=torch.int32, device=cuda)
+             if mode == "rate" else None)
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.fused_drain(ring, delivered, queue, t0, mode=mode,
+                       rate=128 if mode == "rate" else 0)
+
+
 def _lif_args(rng, shape, device):
     f32 = lambda lo, hi: _on(rng.uniform(lo, hi, shape).astype(np.float32),
                              device)

@@ -269,11 +269,84 @@ def test_fused_drain_rate_mode_needs_a_queue():
 
 
 def test_sort_length_covers_queue_lanes_and_rate():
-    assert fd.sort_length("passthrough", 1472, 0, 0) == 0
-    assert fd.sort_length("sort", 30, 0, 0) == 128
-    assert fd.sort_length("sort", 2944, 0, 0) == 4096
-    assert fd.sort_length("rate", 2944, 64, 128) == 4096
-    assert fd.sort_length("rate", 3968, 64, 128) == 8192
+    """The counting merge sorts the queue and the lanes unpadded; the
+    rate window past them is filled with sentinels, not sorted."""
+    assert fd.sort_length("passthrough", 1472, 0) == 0
+    assert fd.sort_length("sort", 30, 0) == 30
+    assert fd.sort_length("sort", 2944, 0) == 2944
+    assert fd.sort_length("rate", 2944, 64) == 3008
+    assert fd.sort_length("rate", 3968, 64) == 4032
+
+
+def _ff_drain_case(b, fill, seed=0):
+    """A block at the feedforward path's drain widths (2944 lanes, queue
+    depth 64, ring [32, 256]) on 3 chips with clocks across the 255 -> 0
+    wrap: rows of no valid word, a light load (the queue fills and some
+    substeps drop), a congested one and all words valid."""
+    p = {"empty": 0.0, "light": 0.06, "congested": 0.7, "full": 1.0}[fill]
+    rng = np.random.default_rng(seed + b + len(fill))
+    d, n_in, depth, lanes = 32, 256, 64, 2944
+    t0 = np.array([0, 250, 254], np.int32)
+
+    def words(shape, now):
+        addr = rng.integers(0, n_in + 40, shape)
+        dead = now + rng.integers(-6, 40, shape)
+        return np.asarray(jev.encode_word(addr, dead, rng.random(shape) < p))
+
+    delivered = words((N_CHIPS, b, lanes), t0[:, None, None])
+    queue = words((N_CHIPS, depth), t0[:, None])
+    ring = rng.integers(0, 3, (N_CHIPS, d, n_in)).astype(np.int32)
+    return ring, delivered, queue, t0
+
+
+@pytest.mark.parametrize("mode,fill,gate", [
+    ("rate", "light", "none"), ("rate", "congested", "none"),
+    ("rate", "congested", "mixed"), ("rate", "empty", "none"),
+    ("rate", "full", "mixed"), ("sort", "congested", "mixed"),
+    ("sort", "full", "none")])
+def test_fused_drain_plain_matches_reference_at_feedforward_widths(
+        mode, fill, gate):
+    """B 8 at the path's widths, rate 128: the merge queue congests and
+    drops (rate small against the lanes)."""
+    ring, delivered, queue, t0 = _ff_drain_case(8, fill)
+    case = (ring, delivered, queue if mode == "rate" else None, t0)
+    kw = dict(mode=mode, rate=128 if mode == "rate" else 0, extra_ahead=1)
+    want = _jax_drain(jfd_ref, case, GATES[gate], kw)
+    got = _port_drain(case, GATES[gate], kw)
+    _check_drain(want, got, mode)
+    if mode == "rate" and fill != "empty":
+        assert int(got.dropped.max()) > 0
+    if fill == "empty":
+        assert not bool(ev.word_valid(got.words).any())
+
+
+def test_fused_drain_launch_plan_at_the_feedforward_path():
+    """8 warp groups of 4 warps sort the block's 8 rows at once; B 1 takes
+    one group of 32 warps."""
+    ring = 32 * 256
+    rate_ints = 8 * (257 + 192) + 3 * 64    # heads, ends, queues, keys
+    assert fd.launch_plan("passthrough", 2944, 0, 0, 8, 32, 256) == (
+        1024, 1, 4 * (ring + 16))
+    assert fd.launch_plan("rate", 2944, 64, 128, 8, 32, 256) == (
+        1024, 8, 4 * (ring + 16 + rate_ints + 8 * (2944 + 257 * 5 + 32)))
+    assert fd.launch_plan("sort", 2944, 0, 0, 8, 32, 256) == (
+        1024, 8, 4 * (ring + 16 + 8 * (2944 + 257 * 5 + 32)))
+    assert fd.launch_plan("rate", 2944, 64, 128, 1, 32, 256)[:2] == (1024, 1)
+    assert fd.launch_plan("sort", 300, 0, 0, 4, 12, 40) == (
+        1024, 4, 4 * (12 * 40 + 8 + 4 * (300 + 257 * 9 + 32)))
+
+
+@pytest.mark.parametrize("mode,depth,rate,largest", [("rate", 64, 128, 37607),
+                                                     ("sort", 0, 0, 41391)])
+def test_fused_drain_launch_plan_refuses_one_lane_past_its_limit(
+        mode, depth, rate, largest):
+    """Past 8 groups' rows the plan takes fewer groups; one group's staged
+    row, 33 histogram columns and the rate mode's heads beside the ring
+    [32, 256] fill a Hopper block's 232,448 B at ``largest`` lanes (B 8)."""
+    assert fd.launch_plan(mode, largest, depth, rate, 8, 32, 256)[1:] == (
+        1, kc.MAX_SMEM)
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.launch_plan(mode, largest + 1, depth, rate, 8, 32, 256)
 
 
 # ---------------------------------------------------------------------------
