@@ -6,8 +6,9 @@
 Phases, each fatal on failure:
   1. build   the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
              one process per source, all started together); ptxas's
-             registers and spills per kernel, and no spill in the bf16
-             flash-attention instances of head size 80 and 128;
+             registers and spills per kernel, and no spill in the
+             flash-attention instances of head size 80 and 128 (bf16 and
+             float32);
   2. kernels each kernel against its plain PyTorch version on the card,
              bitwise on every output of the SNN kernels, on inputs taken
              from the first block of each path below, in every mode the
@@ -19,7 +20,8 @@ Phases, each fatal on failure:
              (CUDA events over a CUDA graph of back-to-back calls), the
              kernel's own device time (torch.profiler; the difference is
              the wrapper's tensor ops), the plain version's time (CUDA
-             events), bytes, the bound at 3.35 TB/s or 67 T op/s and, for
+             events), bytes, the bound at 3.35 TB/s or 67 T op/s (bf16
+             flash at 989 T op/s, float32 flash in 3xTF32 at 165) and, for
              the sorts, stable ``torch.sort`` plus the gather, for flash
              attention ``scaled_dot_product_attention``.  The sorts run
              on the entry phase's merge cycle (46 x 3136 lanes; each SoA
@@ -91,6 +93,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 SIMT_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores
 BF16_TC_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
+# float32-accurate products on tensor cores: 3xTF32, three TF32 products
+# (495 T op/s dense) for each.
+TF32X3_OPS_PER_S = 495e12 / 3
 REPLACES = {
     "fused_inject": "src/repro/kernels/fused_inject/kernel.py:186",
     "fused_lif_inject": "src/repro/kernels/fused_inject/kernel.py:277",
@@ -668,18 +673,27 @@ def kernel_phase(cases: list[dict]) -> dict:
     return main
 
 
-def flash_spills(log: str) -> dict[int, int]:
-    """Spill bytes (stores + loads) of each bf16 flash-attention instance
-    in ptxas's report, by DN (the head size rounded up to 16)."""
-    spills, dn = {}, None
+FLASH_INSTANCES = {"bf16": "flash_attention_wgmma_kernel",
+                   "f32": "flash_attention_tf32x3_kernel"}
+
+
+def flash_spills(log: str) -> dict[str, dict[int, int]]:
+    """Spill bytes (stores + loads) of each flash-attention instance in
+    ptxas's report, by type ("bf16", "f32") and DN (the largest head size
+    the instance serves)."""
+    spills = {kind: {} for kind in FLASH_INSTANCES}
+    key = None
     for line in log.splitlines():
-        m = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", line)
         if "Compiling entry function" in line:
-            dn = int(m.group(1)) if m else None
+            key = None
+            for kind, name in FLASH_INSTANCES.items():
+                m = re.search(name + r"ILi(\d+)E", line)
+                if m:
+                    key = (kind, int(m.group(1)))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and dn is not None:
-            spills[dn] = int(m.group(1)) + int(m.group(2))
+        if m and key is not None:
+            spills[key[0]][key[1]] = int(m.group(1)) + int(m.group(2))
     return spills
 
 
@@ -746,11 +760,10 @@ def lm_kernel_cases(device, seed: int) -> list[dict]:
             tol=((2**-8, 2**-8 * float(v.float().abs().max())) if bf16
                  else (0.0, 5e-5)),
             library=library, design=fa_ops.design(dtype),
-            device_names=("flash_attention_kernel",
-                          "flash_attention_wgmma_kernel"),
+            device_names=tuple(FLASH_INSTANCES.values()),
             library_tol=(0.0, 2e-2 if bf16 else 1e-4), inputs=args,
             ops=4 * d * b * hq * causal_pairs(sq, skv, q_offset),
-            ops_per_s=BF16_TC_OPS_PER_S if bf16 else SIMT_OPS_PER_S))
+            ops_per_s=BF16_TC_OPS_PER_S if bf16 else TF32X3_OPS_PER_S))
 
     b, t, di, n, head = 4, 2048, 5120, 64, 80
     softplus = torch.nn.functional.softplus
@@ -1321,12 +1334,13 @@ def main() -> int:
                                           "entry function")):
                     print(f"[build] {name}: {line.strip()}")
     spills = flash_spills((build / "flash_attention.log").read_text())
-    print(f"[build] flash_attention bf16 spill bytes by DN: {spills}")
-    for dn in (80, 128):
-        if spills.get(dn, 1):
-            raise AssertionError(f"flash_attention bf16 DN {dn}: ptxas "
-                                 f"spills {spills.get(dn)} bytes (or no "
-                                 f"report)")
+    for kind, by_dn in spills.items():
+        print(f"[build] flash_attention {kind} spill bytes by DN: {by_dn}")
+        for dn in (80, 128):
+            if by_dn.get(dn, 1):
+                raise AssertionError(f"flash_attention {kind} DN {dn}: "
+                                     f"ptxas spills {by_dn.get(dn)} bytes "
+                                     f"(or no report)")
 
     paths = Paths(device, args.seed, args.steps)
     blocks = paths.first_blocks()

@@ -24,8 +24,9 @@
 // Bound: operations, 4 * D per unmasked (query, key) pair and head
 // against 2 (Sq + 2 Skv) D bytes per head: at the prefill shapes (Sq =
 // Skv = 2048) some 500 operations per byte, above the H100's ~295 bf16
-// tensor-core operations per byte of device memory.  Two designs, chosen
-// by the type alone:
+// tensor-core operations per byte of device memory; in float32 some 250
+// per byte, above the ~49 of 3xTF32 (a third of the 495 T op/s of TF32).
+// Two designs, chosen by the type alone:
 //
 // * bfloat16: tensor cores (flash_attention_wgmma_kernel).  One CTA per
 //   128-row q tile: two consumer warpgroups of 64 rows and one producer
@@ -60,14 +61,37 @@
 //   within 2^-8 |want| + 2^-8 max|v| of the f32 plain version (half an
 //   ulp of the output, plus P's rounding, at most 2^-9 sum(p |v|) / l,
 //   doubled as l is summed from unrounded p).
-// * float32: CUDA cores (flash_attention_kernel), kept for the f32
-//   checks, where tensor cores would not keep float32's digits.  Each of
-//   the 256 threads owns a 4 x 4 block of the 64 x 64 score tile (rows
-//   ty + 16 i, cols tx + 16 j) and the same 4 rows of the output, cols tx
-//   + 16 j (j < NJ = ceil(D / 16), in registers); row maxima and sums
-//   reduce over the 16 lanes of a half-warp with shuffles.  q and k tiles
-//   sit in shared memory with an odd row stride (D + 1), so the 16 lanes
-//   reading 16 k rows hit 16 banks.
+// * float32: tensor cores in 3xTF32 (flash_attention_tf32x3_kernel<DN>,
+//   DN = D rounded up to 16, 32, 64, 80, 96, 128, 192 or 256; columns past
+//   D are zeros in shared memory, so the loops carry no runtime bound and
+//   each product chain interleaves with the next).  A TF32 product keeps
+//   11 bits of each factor, too few for float32's checks, so each operand
+//   x is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna's
+//   rounding, hopper.cuh) and each product is three mma.sync m16n8k8 with
+//   f32 sums, small terms first: lo hi, hi lo, hi hi (x kept to about
+//   2^-22 |x|; the lo lo term and lo's own rounding are below that).  One
+//   CTA of four warps owns 64 q rows, 16 per warp (FlashAttention-2's
+//   split: nothing is exchanged between warps).  Each warp splits its q
+//   rows once into A fragments in shared memory.  k and v tiles of BK keys
+//   (32 for DN <= 80, 16 to 128, else 8: two CTAs on an SM up to DN 96)
+//   land raw by cp.async, the next tile's copies in flight during this
+//   one's products; the CTA then splits each tile once for its four warps
+//   into B fragments laid out as a lane reads them, hi, hi, lo, lo in 16
+//   bytes, so each three-product step is one shared load.  S = Q K^T runs
+//   DN / 8 k-steps whose columns are permuted alike in Q and K (k-index t
+//   is column 2t, t + 4 is 2t + 1), so a lane's raw k pair is one 8-byte
+//   read; raw k rows are DN | 8 floats apart and raw v rows DN + 4 (the
+//   split's reads hit 32 banks per half-warp).  The online softmax runs on
+//   the S fragment in registers: row max and sum over the quad of lanes
+//   that holds a row, masks only on tiles that cross the causal diagonal
+//   or the Skv edge, expf as the plain version, l kept per thread until
+//   the end.  The fragment is then P's A operand for O += P V as it
+//   stands: lane (g, t) holds keys 2t and 2t + 1 of each 8, taken as
+//   k-indices t and t + 4, and v's fragments are split in that key order,
+//   so P needs no shuffle and no trip through shared memory.  A warp whose
+//   rows all lie before a tile's first key, or past Sq, skips the tile's
+//   products.  O stays in f32 registers (DN / 2 a thread); the epilogue
+//   stores O / l as float2 for rows below Sq and columns below D.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -75,192 +99,7 @@
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kTX = 16;
-constexpr int kTY = 16;
-constexpr int kThreads = kTX * kTY;
-constexpr int kRows = kBQ / kTY;  // score rows per thread
-constexpr int kCols = kBK / kTX;  // score cols per thread
 constexpr float kNegInf = -3.4028234663852886e38f;  // finfo(float32).min
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ float half_warp_max(float x) {
-  for (int off = kTX / 2; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-  for (int off = kTX / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int hq, int hkv, int sq, int skv, int d,
-    int q_offset, int causal, float scale) {
-  extern __shared__ float smem[];
-  const int ds = d + 1;
-  float* qs = smem;              // [kBQ][ds]
-  float* ks = qs + kBQ * ds;     // [kBK][ds]
-  float* vs = ks + kBK * ds;     // [kBK][d]
-  float* ps = vs + kBK * d;      // [kBQ][kBK]
-
-  const int bh = blockIdx.y;
-  const int b = bh / hq;
-  const int kvh = b * hkv + (bh % hq) / (hq / hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int tid = threadIdx.x;
-  const int tx = tid % kTX;
-  const int ty = tid / kTX;
-  const T* qp = q + static_cast<long long>(bh) * sq * d;
-  const T* kp = k + static_cast<long long>(kvh) * skv * d;
-  const T* vp = v + static_cast<long long>(kvh) * skv * d;
-
-  for (int i = tid; i < kBQ * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    qs[r * ds + c] = q0 + r < sq
-        ? to_f32(qp[static_cast<long long>(q0 + r) * d + c]) : 0.0f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][NJ];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-  }
-
-  // Causal skip: k tiles starting after the q tile's last row.
-  const int k_end = causal ? min(skv, q0 + q_offset + kBQ) : skv;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    const int kn = min(kBK, skv - k0);
-    __syncthreads();  // the previous tile's ks, vs and ps are consumed
-    for (int i = tid; i < kBK * d; i += kThreads) {
-      const int r = i / d, c = i % d;
-      const long long src = static_cast<long long>(k0 + r) * d + c;
-      ks[r * ds + c] = r < kn ? to_f32(kp[src]) : 0.0f;
-      vs[r * d + c] = r < kn ? to_f32(vp[src]) : 0.0f;
-    }
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.0f;
-    for (int e = 0; e < d; ++e) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = qs[(ty + kTY * i) * ds + e];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = ks[(tx + kTX * j) * ds + e];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + ty + kTY * i + q_offset;
-      bool ok[kCols];
-      float m_cur = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = k0 + tx + kTX * j;
-        ok[j] = col < skv && (!causal || row >= col);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        m_cur = fmaxf(m_cur, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(m_cur));
-      const float safe = m_new == kNegInf ? 0.0f : m_new;
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - safe) : 0.0f;
-        ps[(ty + kTY * i) * kBK + tx + kTX * j] = p;
-        rs += p;
-      }
-      const float alpha = m[i] == kNegInf ? 0.0f : expf(m[i] - safe);
-      l[i] = alpha * l[i] + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    for (int kk = 0; kk < kn; ++kk) {
-      float pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty + kTY * i) * kBK + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = tx + kTX * j;
-        if (c < d) {
-          const float vv = vs[kk * d + c];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-        }
-      }
-    }
-  }
-
-  T* op = out + static_cast<long long>(bh) * sq * d;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = q0 + ty + kTY * i;
-    if (r >= sq) continue;
-    const float l_safe = l[i] == 0.0f ? 1.0f : l[i];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + kTX * j;
-      if (c < d) store(&op[static_cast<long long>(r) * d + c], acc[i][j] / l_safe);
-    }
-  }
-}
-
-template <typename T, int NJ>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int hq, int hkv, int sq, int skv, int d, int q_offset, int causal,
-           float scale, cudaStream_t stream) {
-  static size_t allowed = 48 * 1024;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(kBQ + kBK) * (d + 1) + kBK * d + kBQ * kBK);
-  cudaError_t err = repro::allow_smem(flash_attention_kernel<T, NJ>, smem, allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBQ - 1) / kBQ, batch * hq);
-  flash_attention_kernel<T, NJ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), hq, hkv, sq, skv, d, q_offset, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int batch,
-             int hq, int hkv, int sq, int skv, int d, int q_offset, int causal,
-             float scale, cudaStream_t stream) {
-  const int nj = (d + kTX - 1) / kTX;
-#define REPRO_FLASH_CASE(N)                                                   \
-  if (nj <= N)                                                               \
-    return launch<T, N>(q, k, v, out, batch, hq, hkv, sq, skv, d, q_offset,   \
-                        causal, scale, stream);
-  REPRO_FLASH_CASE(1)
-  REPRO_FLASH_CASE(2)
-  REPRO_FLASH_CASE(4)
-  REPRO_FLASH_CASE(5)
-  REPRO_FLASH_CASE(8)
-  REPRO_FLASH_CASE(16)
-#undef REPRO_FLASH_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 
 // ---- bfloat16: wgmma on TMA-fed tiles ------------------------------------
 
@@ -604,11 +443,273 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
 #undef REPRO_FLASH_WG_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// ---- float32: 3xTF32 on mma.sync -----------------------------------------
+
+constexpr int kTfWarps = 4;
+constexpr int kTfBQ = 16 * kTfWarps;  // q rows per CTA, 16 per warp
+constexpr int kTfThreads = 32 * kTfWarps;
+
+// A lane's 16 bytes of a split fragment: hi, hi, lo, lo of two values, or
+// the four hi (or lo) values of an A fragment.
+struct alignas(16) TfFrag {
+  uint32_t x[4];
+};
+
+template <int DN>
+struct TfTile {
+  static constexpr int kNT = DN / 8;  // column blocks of 8
+  // Keys per k/v tile: as many as keep two CTAs on an SM up to DN 96 (at
+  // DN 80, BK 64 leaves room for one and ran slower).
+  static constexpr int kBK = DN <= 80 ? 32 : DN <= 128 ? 16 : 8;
+  static constexpr int kLdk = DN | 8;  // raw k row stride, 8 mod 16
+  static constexpr int kLdv = DN + 4;  // raw v row stride, 4 mod 8
+  // Shared memory, in TfFrag: q's A fragments [warp][kk][hi, lo][lane],
+  // k's B fragments [kk][n][lane], v's [kc][n][lane], then the raw k and
+  // v tiles as cp.async lands them.
+  static constexpr int kQFrags = kTfWarps * kNT * 2 * 32;
+  static constexpr int kKFrags = kNT * (kBK / 8) * 32;
+  static constexpr int kRawFloats = kBK * (kLdk + kLdv);
+  static constexpr int kSmem =
+      16 * (kQFrags + 2 * kKFrags) + 4 * kRawFloats;
+};
+
+template <int DN>
+__global__ void __launch_bounds__(kTfThreads) flash_attention_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int hq, int hkv,
+    int sq, int skv, int d, int q_offset, int causal, float scale) {
+  using T = TfTile<DN>;
+  constexpr int NT = T::kNT;
+  constexpr int BK = T::kBK;
+  extern __shared__ TfFrag tf_smem[];
+  TfFrag* qf = tf_smem;
+  TfFrag* kf = qf + T::kQFrags;
+  TfFrag* vf = kf + T::kKFrags;
+  float* kraw = reinterpret_cast<float*>(vf + T::kKFrags);
+  float* vraw = kraw + BK * T::kLdk;
+
+  const int bh = blockIdx.y;
+  const int kvh = bh / hq * hkv + bh % hq / (hq / hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTfBQ;
+  const int k_end = causal ? min(skv, q0 + q_offset + kTfBQ) : skv;
+  const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+  const int nt = d / 8;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int first = q0 + 16 * warp;  // the warp's first row
+  const int row = first + g;         // this thread's rows: row, row + 8
+  const float* kp = k + static_cast<long long>(kvh) * skv * d;
+  const float* vp = v + static_cast<long long>(kvh) * skv * d;
+
+  // The raw k and v rows of tile j, DN columns: zeros past Skv and past
+  // d (their source clamped to an element that exists).
+  auto load_kv = [&](int j) {
+#pragma unroll
+    for (int i0 = 0; i0 < BK * DN / 4; i0 += kTfThreads) {
+      const int i = i0 + tid;
+      if (i >= BK * DN / 4) break;
+      const int r = i / (DN / 4), c = 4 * (i % (DN / 4));
+      const bool in = j * BK + r < skv && c < d;
+      const long long src =
+          static_cast<long long>(min(j * BK + r, skv - 1)) * d + (in ? c : 0);
+      sm::cp_async<16>(kraw + r * T::kLdk + c, kp + src, in ? 16 : 0);
+      sm::cp_async<16>(vraw + r * T::kLdv + c, vp + src, in ? 16 : 0);
+    }
+    sm::cp_async_commit();
+  };
+  if (n_tiles > 0) load_kv(0);
+
+  // Each warp splits its own q rows once, into A fragments: k-step kk
+  // takes columns 8 kk + 2t and + 1 as k-indices t and t + 4 (k is
+  // permuted alike below, so the product is unchanged); zeros past d.
+  for (int kk = 0; kk < NT; ++kk) {
+    float2 qv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      qv[h] = row + 8 * h < sq && kk < nt
+          ? *reinterpret_cast<const float2*>(
+                q + (static_cast<long long>(bh) * sq + row + 8 * h) * d +
+                8 * kk + 2 * t)
+          : make_float2(0.0f, 0.0f);
+    TfFrag hi, lo;
+    sm::split_tf32(qv[0].x, hi.x[0], lo.x[0]);
+    sm::split_tf32(qv[1].x, hi.x[1], lo.x[1]);
+    sm::split_tf32(qv[0].y, hi.x[2], lo.x[2]);
+    sm::split_tf32(qv[1].y, hi.x[3], lo.x[3]);
+    qf[((warp * NT + kk) * 2) * 32 + lane] = hi;
+    qf[((warp * NT + kk) * 2 + 1) * 32 + lane] = lo;
+  }
+
+  float o[NT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    sm::cp_async_wait_all();
+    __syncthreads();  // raw tile j has landed; every warp is done with j - 1
+    // Split the tile once for all four warps, into the B fragments as a
+    // lane reads them (one 16-byte load for the three products).  k: lane
+    // (g, t) of block (kk, n) holds key 8n + g, columns 8 kk + 2t, + 1.
+    // v: lane (g, t) of block (kc, n) holds keys 8 kc + 2t, + 1 (P's
+    // permuted k-indices t, t + 4), column 8n + g.
+#pragma unroll
+    for (int r0 = 0; r0 < BK / 8 * NT; r0 += kTfWarps) {
+      const int r = r0 + warp;
+      if (r >= BK / 8 * NT) break;
+      const int n = r / NT, kk = r % NT;
+      const float2 kv = *reinterpret_cast<const float2*>(
+          kraw + (8 * n + g) * T::kLdk + 8 * kk + 2 * t);
+      TfFrag f;
+      sm::split_tf32(kv.x, f.x[0], f.x[2]);
+      sm::split_tf32(kv.y, f.x[1], f.x[3]);
+      kf[(kk * (BK / 8) + n) * 32 + lane] = f;
+      const float* vr = vraw + (8 * n + 2 * t) * T::kLdv + 8 * kk + g;
+      sm::split_tf32(vr[0], f.x[0], f.x[2]);
+      sm::split_tf32(vr[T::kLdv], f.x[1], f.x[3]);
+      vf[(n * NT + kk) * 32 + lane] = f;
+    }
+    __syncthreads();  // the fragments are in; the raw tile is free
+    if (j + 1 < n_tiles) load_kv(j + 1);
+    const int k0 = j * BK;
+    // A tile wholly after the warp's rows, or a warp wholly past Sq.
+    if (first >= sq || (causal && k0 > first + 15 + q_offset)) continue;
+
+    // S = Q K^T.
+    float s[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      const TfFrag a_hi = qf[((warp * NT + kk) * 2) * 32 + lane];
+      const TfFrag a_lo = qf[((warp * NT + kk) * 2 + 1) * 32 + lane];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        const TfFrag b = kf[(kk * (BK / 8) + n) * 32 + lane];
+        sm::mma_tf32x3(s[n], a_hi.x, a_lo.x, {b.x[0], b.x[1]},
+                       {b.x[2], b.x[3]});
+      }
+    }
+
+    // The online softmax on the fragment: s[n][e] is row row + 8 (e / 2),
+    // key k0 + 8n + 2t + e % 2; p = exp(s - safe) is 0 where masked.
+    const bool edge =
+        k0 + BK > skv || (causal && k0 + BK - 1 > first + q_offset);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = k0 + 8 * n + 2 * t + e % 2;
+        const bool ok =
+            !edge || (c < skv && (!causal || c <= row + 8 * (e / 2) + q_offset));
+        s[n][e] = ok ? s[n][e] * scale : kNegInf;
+        mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
+      }
+    float safe[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      safe[h] = m_new == kNegInf ? 0.0f : m_new;
+      alpha[h] = m[h] == kNegInf ? 0.0f : expf(m[h] - safe[h]);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - safe[e / 2]);
+        l[e / 2] += s[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e / 2];
+
+    // O += P V: P's A fragment is the S fragment as it stands (keys 2t and
+    // 2t + 1 of chunk kc as k-indices t and t + 4).
+#pragma unroll
+    for (int kc = 0; kc < BK / 8; ++kc) {
+      uint32_t a_hi[4], a_lo[4];
+      sm::split_tf32(s[kc][0], a_hi[0], a_lo[0]);
+      sm::split_tf32(s[kc][2], a_hi[1], a_lo[1]);
+      sm::split_tf32(s[kc][1], a_hi[2], a_lo[2]);
+      sm::split_tf32(s[kc][3], a_hi[3], a_lo[3]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const TfFrag b = vf[(kc * NT + n) * 32 + lane];
+        sm::mma_tf32x3(o[n], a_hi, a_lo, {b.x[0], b.x[1]}, {b.x[2], b.x[3]});
+      }
+    }
+  }
+
+  float* op = out + static_cast<long long>(bh) * sq * d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(l[h]);
+    const int r = row + 8 * h;
+    if (r >= sq) continue;
+    const bool none = l[h] == 0.0f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      if (n < nt)
+        *reinterpret_cast<float2*>(&op[static_cast<long long>(r) * d + 8 * n +
+                                       2 * t]) =
+            make_float2(none ? 0.0f : o[n][2 * h] / l[h],
+                        none ? 0.0f : o[n][2 * h + 1] / l[h]);
+  }
+}
+
+template <int DN>
+int launch_tf32x3(const void* q, const void* k, const void* v, void* out,
+                  int batch, int hq, int hkv, int sq, int skv, int d,
+                  int q_offset, int causal, float scale, cudaStream_t stream) {
+  using T = TfTile<DN>;
+  static size_t allowed = 48 * 1024;
+  cudaError_t err =
+      repro::allow_smem(flash_attention_tf32x3_kernel<DN>, T::kSmem, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + kTfBQ - 1) / kTfBQ, batch * hq);
+  flash_attention_tf32x3_kernel<DN><<<grid, kTfThreads, T::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, sq,
+      skv, d, q_offset, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_tf32x3(const void* q, const void* k, const void* v, void* out,
+                    int batch, int hq, int hkv, int sq, int skv, int d,
+                    int q_offset, int causal, float scale,
+                    cudaStream_t stream) {
+  if (skv == 0)  // no key: every row has l = 0, so every output is 0
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, sizeof(float) * batch * hq * sq * d, stream));
+#define REPRO_FLASH_TF_CASE(N)                                               \
+  if (d <= N)                                                                \
+    return launch_tf32x3<N>(q, k, v, out, batch, hq, hkv, sq, skv, d,         \
+                            q_offset, causal, scale, stream);
+  REPRO_FLASH_TF_CASE(16)
+  REPRO_FLASH_TF_CASE(32)
+  REPRO_FLASH_TF_CASE(64)
+  REPRO_FLASH_TF_CASE(80)
+  REPRO_FLASH_TF_CASE(96)
+  REPRO_FLASH_TF_CASE(128)
+  REPRO_FLASH_TF_CASE(192)
+  REPRO_FLASH_TF_CASE(256)
+#undef REPRO_FLASH_TF_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 }  // namespace
 
 // q [batch, hq, sq, d], k and v [batch, hkv, skv, d], out like q, all
-// contiguous, of one type: dtype 0 = float32 (the CUDA-core kernel), 1 =
-// bfloat16 (the tensor-core kernel; q, k and v 16-byte aligned for TMA).
+// contiguous, of one type: dtype 0 = float32 (3xTF32 on mma.sync; q, k
+// and v 16-byte aligned for cp.async), 1 = bfloat16 (wgmma; q, k and v
+// 16-byte aligned for TMA).
 // hq a multiple of hkv; d a multiple of 8, at most 256.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int batch, int hq,
@@ -619,8 +720,8 @@ extern "C" int flash_attention_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, batch, hq, hkv, sq, skv, d, q_offset,
-                           causal, scale, s);
+    return dispatch_tf32x3(q, k, v, out, batch, hq, hkv, sq, skv, d,
+                           q_offset, causal, scale, s);
   if (dtype == 1)
     return dispatch_wgmma(q, k, v, out, batch, hq, hkv, sq, skv, d, q_offset,
                           causal, scale, s);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks: shared-memory barriers (mbarrier),
 // TMA tile loads and stores, per-thread asynchronous copies (cp.async),
-// register reallocation between warpgroups, and the warpgroup matrix
-// multiply (wgmma) on bf16 operands with f32 sums.
+// register reallocation between warpgroups, the warpgroup matrix
+// multiply (wgmma) on bf16 operands with f32 sums, and the warp-level
+// mma.sync on TF32 operands with the hi/lo split of 3xTF32.
 //
 // Layout contract between TMA and wgmma.  A tile is loaded as column
 // boxes of 64 bf16 (128 bytes) by rows, with the 128-byte swizzle: row r
@@ -311,6 +312,51 @@ REPRO_WGMMA(256, REPRO_WG_R128, REPRO_WG_O128, 128, 129, 130, 131, 132, 133)
 #undef REPRO_WG_W
 #undef REPRO_WG_RW
 #undef REPRO_WG_F8
+
+// ---- mma.sync on TF32 ---------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits), ties away from zero, as a b32
+// register holding the TF32 value (mma.sync's tf32 operand): the rounding
+// of cvt.rna.tf32.f32, which ptxas compiles to these two integer
+// operations behind a test for inf and NaN.  Here inf stays inf and a NaN
+// stays a NaN or becomes inf; split_tf32's lo is then NaN, so a NaN input
+// still gives a NaN product.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi): x to about 2^-22
+// |x| in two TF32 values.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a b, m16n8k8, TF32 operands, f32 sums: a [16 x 8] row-major, b
+// [8 x 8] column-major.  Lane (g, t) = (lane / 4, lane % 4) holds a0 (row
+// g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, col
+// g), b1 (t + 4, g); d0, d1 (row g, cols 2t, 2t + 1), d2, d3 (row g + 8,
+// the same).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32 from split operands (split_tf32): lo hi, hi lo, then
+// hi hi, the small terms first.
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi);
+  mma_tf32(d, a_hi, b_lo);
+  mma_tf32(d, a_hi, b_hi);
+}
 
 // ---- host: TMA descriptors ----------------------------------------------
 

@@ -1,9 +1,11 @@
 """Wrapper of the flash-attention kernels (``csrc/flash_attention.cu``).
 
 On CUDA tensors it launches a kernel, whatever the sizes (there is no
-small-shape shortcut on the card): bfloat16 inputs the tensor-core kernel
-(``wgmma`` on TMA-fed tiles), float32 inputs the CUDA-core kernel; the
-type alone decides (:func:`design`).  On CPU tensors it runs
+small-shape shortcut on the card), both on tensor cores: bfloat16 inputs
+``wgmma`` on TMA-fed tiles, float32 inputs 3xTF32 on ``mma.sync`` (each
+operand split into two TF32 values and each product summed from three,
+which keeps float32's accuracy); the type alone decides (:func:`design`).
+On CPU tensors it runs
 :func:`repro_torch.kernels.flash_attention.ref.attention_ref`.
 """
 
@@ -17,15 +19,16 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_DESIGNS = {torch.float32: "simt", torch.bfloat16: "wgmma"}
+_DESIGNS = {torch.float32: "mma_tf32x3", torch.bfloat16: "wgmma"}
 _ARGTYPES = [kc.P] * 4 + [kc.I] * 8 + [kc.F, kc.I, kc.P]
-# TMA reads a tensor from a 16-byte aligned base address.
+# TMA (bf16) and the 16-byte cp.async copies (float32) read a tensor from
+# a 16-byte aligned base address.
 TMA_ALIGN = 16
 
 
 def design(dtype: torch.dtype) -> str:
     """The kernel that serves ``dtype`` on the card: ``"wgmma"`` (bf16,
-    tensor cores) or ``"simt"`` (float32, CUDA cores)."""
+    ``wgmma``) or ``"mma_tf32x3"`` (float32, 3xTF32 on ``mma.sync``)."""
     if dtype not in _DESIGNS:
         raise ValueError(f"flash_attention takes float32 or bfloat16, not "
                          f"{dtype}")

@@ -440,9 +440,10 @@ FLASH_SHAPES = [
     (1, 2, 2, 100, 300, 64, False, 0),
     (1, 2, 1, 1, 77, 256, True, 76),
     (1, 3, 3, 65, 65, 8, True, 0)]
-# The tensor-core kernel's edges: head sizes that are not a multiple of 64
-# (TMA zero-fills the columns past D) or of 16, a single key, a ragged q
-# tile, GQA group 4.
+# The tensor-core kernels' edges, run in both types: head sizes that are
+# not a multiple of 64 (TMA zero-fills the columns past D) or of 16 (the
+# float32 instance skips the column blocks past D), a single key, a
+# ragged q tile, GQA group 4.
 FLASH_BF16_EDGES = [
     (1, 2, 2, 150, 150, 16, True, 0),
     (1, 2, 2, 150, 170, 72, True, 0),
@@ -461,12 +462,13 @@ FLASH_BF16_EDGES = [
     "b,hq,hkv,sq,skv,d,causal,q_offset,dtype",
     [(*shape, dtype) for dtype in ("float32", "bfloat16")
      for shape in FLASH_SHAPES]
-    + [(*shape, "bfloat16") for shape in FLASH_BF16_EDGES])
+    + [(*shape, "bfloat16") for shape in FLASH_BF16_EDGES]
+    + [(*shape, "float32") for shape in FLASH_BF16_EDGES])
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, skv, d,
                                               causal, q_offset, dtype):
-    """Within 2e-5 in float32 (the CUDA-core kernel; the sums run in
-    another order); bfloat16 (the tensor-core kernel) within the bound of
-    :func:`_check_flash_bf16`."""
+    """Within 2e-5 in float32 (3xTF32 keeps each product to about 2^-22
+    of its size, and the sums run in another order); bfloat16 within the
+    bound of :func:`_check_flash_bf16`."""
     q, k, v = _flash_inputs(cuda, b, hq, hkv, sq, skv, d,
                             getattr(torch, dtype))
     before = kc.launches["flash_attention"]
@@ -478,6 +480,21 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, skv, d,
     else:
         want = attention_ref(q, k, v, causal=causal, q_offset=q_offset)
         torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32_on_a_peaked_softmax(cuda):
+    """Scores eight times larger (q x 8) in float32: 3xTF32's error grows
+    with |s|, so the bound is 2^-20 max|s| max|v| (the design emulated on
+    the CPU lands at a tenth of it, ``tests/test_torch_kernels_lm.py``)."""
+    q, k, v = _flash_inputs(cuda, 2, 8, 2, 200, 200, 128, torch.float32)
+    q = q * 8
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    kr = k.repeat_interleave(4, dim=1)
+    max_s = float((q @ kr.transpose(-1, -2)).abs().max()) / 128 ** 0.5
+    torch.testing.assert_close(got, want, rtol=0, atol=2**-20 * max_s
+                               * float(v.abs().max()))
 
 
 def _flash_inputs(device, b, hq, hkv, sq, skv, d, dtype):

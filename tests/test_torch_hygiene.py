@@ -60,6 +60,31 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok": true' not in proc.stdout
 
 
+def test_chip_smoke_reads_flash_spills_of_both_types():
+    """``chip_smoke.flash_spills`` reads ptxas's report per instance: the
+    bf16 (wgmma) and float32 (3xTF32) kernels by DN, so a spill at DN 80
+    or 128 in either fails the build phase."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_128"
+        "flash_attention_wgmma_kernelILi80EEEv14CUtensorMap_st' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_129"
+        "flash_attention_tf32x3_kernelILi128EEEvPKfS2_S2_Pfiiiiiiif' for "
+        "'sm_90a'",
+        "    8 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_1"
+        "12other_kernelEv' for 'sm_90a'",
+        "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads"])
+    assert smoke.flash_spills(log) == {"bf16": {80: 0}, "f32": {128: 24}}
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -101,13 +101,117 @@ def test_flash_attention_guards():
 
 
 def test_flash_attention_design_is_chosen_by_type_alone():
-    """bf16 goes to the tensor-core kernel, float32 to the CUDA-core one;
-    any other type raises with the wrapper's message."""
+    """bf16 goes to the wgmma kernel, float32 to the 3xTF32 one on
+    mma.sync; any other type raises with the wrapper's message."""
     assert fa.design(torch.bfloat16) == "wgmma"
-    assert fa.design(torch.float32) == "simt"
+    assert fa.design(torch.float32) == "mma_tf32x3"
     with pytest.raises(ValueError, match="float32 or bfloat16, not "
                                          "torch.float16"):
         fa.design(torch.float16)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: half away
+    from zero at bit 13, on the int32 view of the bits."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_tf32(a: torch.Tensor, b: torch.Tensor, terms: int):
+    """a @ b as the card's mma.sync sums it from TF32 operands: 1xTF32
+    (hi hi) or 3xTF32 (lo hi + hi lo + hi hi, hi = tf32(x), lo = tf32(x -
+    hi)), the products in float64, the result in float32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    f64 = lambda x: x.double()  # noqa: E731
+    out = f64(a_hi) @ f64(b_hi)
+    if terms == 3:
+        out = f64(a_lo) @ f64(b_hi) + f64(a_hi) @ f64(b_lo) + out
+    return out.float()
+
+
+def _attention_tf32(q, k, v, terms: int, *, causal: bool, q_offset: int):
+    """``attention_ref`` with both products (Q K^T and P V) in 1xTF32 or
+    3xTF32 (:func:`_matmul_tf32`): the arithmetic of the float32 kernel's
+    design on the CPU."""
+    hq, sq, d = q.shape[1:]
+    group, skv = hq // k.shape[1], k.shape[2]
+    kr = k.repeat_interleave(group, dim=1)
+    vr = v.repeat_interleave(group, dim=1)
+    s = _matmul_tf32(q, kr.transpose(-1, -2), terms) * float(1.0 / d ** 0.5)
+    row = torch.arange(sq)[:, None] + q_offset
+    mask = (row >= torch.arange(skv)[None, :] if causal
+            else torch.ones((sq, skv), dtype=torch.bool))
+    s = torch.where(mask, s, torch.finfo(torch.float32).min)
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    return _matmul_tf32(p, vr, terms) / torch.where(l == 0, 1.0, l)
+
+
+def _card_flash_inputs(b, hq, hkv, sq, skv, d):
+    """The inputs ``tests/test_torch_cuda.py`` gives the card's kernel."""
+    rng = np.random.default_rng(sq + skv + d)
+    return tuple(T(rng.standard_normal(shape).astype(np.float32))
+                 for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                               (b, hkv, skv, d)))
+
+
+def _max_abs_score(q, k):
+    """max |(q . k) scale| over every (query, key) pair and head."""
+    k = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    return float((q @ k.transpose(-1, -2)).abs().max()) / q.shape[-1] ** 0.5
+
+
+# The float32 shapes of the card's flash tests, and the serve-check's
+# launch (zamba2's 32 heads of 80 over a 300-token prompt).
+CARD_F32_SHAPES = [
+    (1, 4, 4, 130, 190, 80, True, 0),
+    (2, 8, 2, 200, 200, 128, True, 0),
+    (1, 4, 2, 64, 192, 16, True, 128),
+    (1, 2, 2, 100, 300, 64, False, 0),
+    (1, 2, 1, 1, 77, 256, True, 76),
+    (1, 3, 3, 65, 65, 8, True, 0),
+    (1, 32, 32, 300, 300, 80, True, 0)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,q_offset",
+                         CARD_F32_SHAPES)
+def test_flash_f32_design_needs_three_tf32_products(b, hq, hkv, sq, skv, d,
+                                                    causal, q_offset):
+    """Why the float32 kernel sums three TF32 products: with them its
+    arithmetic lies within the card test's 2e-5 of the plain version (the
+    emulation lands near 1e-6), with one product (TF32 alone, 11 bits of
+    each factor) it misses 2e-5 on every shape."""
+    q, k, v = _card_flash_inputs(b, hq, hkv, sq, skv, d)
+    want = attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    err = {terms: float((_attention_tf32(q, k, v, terms, causal=causal,
+                                         q_offset=q_offset) - want)
+                        .abs().max())
+           for terms in (1, 3)}
+    assert err[3] <= 2e-5, err
+    assert err[1] > 2e-5, err
+
+
+def test_flash_f32_design_on_a_peaked_softmax():
+    """Scores eight times larger (q x 8): 3xTF32's error grows with |s|,
+    so the card's peaked case is held to 2^-20 max|s| max|v|; the
+    emulated design lies within it."""
+    q, k, v = _card_flash_inputs(2, 8, 2, 200, 200, 128)
+    q = q * 8
+    want = attention_ref(q, k, v, causal=True)
+    got = _attention_tf32(q, k, v, 3, causal=True, q_offset=0)
+    bound = 2**-20 * _max_abs_score(q, k) * float(v.abs().max())
+    assert float((got - want).abs().max()) <= bound
+
+
+def test_tf32_rounding_is_half_away_from_zero_at_bit_13():
+    """The emulation's cvt.rna: 1 + 2^-11 (a tie) rounds up to 1 + 2^-10,
+    -(1 + 2^-11) down to -(1 + 2^-10), 1 + 2^-12 to 1, and a TF32 value
+    stays as it is."""
+    x = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 1 + 2**-10,
+                      3.0], dtype=torch.float32)
+    want = torch.tensor([1 + 2**-10, -(1 + 2**-10), 1.0, 1 + 2**-10, 3.0],
+                        dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
 
 
 def test_flash_attention_tma_ready_copies_only_a_misaligned_view():
