@@ -23,7 +23,13 @@ Phases, each fatal on failure:
              events), bytes, the bound at 3.35 TB/s or 67 T op/s (bf16
              flash at 989 T op/s, float32 flash in 3xTF32 at 165) and, for
              the sorts, stable ``torch.sort`` plus the gather, for flash
-             attention ``scaled_dot_product_attention``.  The sorts run
+             attention ``scaled_dot_product_attention``.  ``bucket_pack``
+             (the wafer's flush) and ``lif_step`` print their launch plan,
+             must put exactly one kernel on the card per wrapper call
+             (torch.profiler), and print the host time per wrapper call
+             (1,000 calls, one synchronise); beside ``lif_step``, the
+             launch floor: one ``torch.add`` over the same [46, 512]
+             float32, timed the same way.  The sorts run
              on the entry phase's merge cycle (46 x 3136 lanes; each SoA
              row prints its radix passes) and the SoA sort also on
              deadlines over the whole int32 range (4 passes);
@@ -263,6 +269,19 @@ def device_ms(fn, names, iters: int) -> float | None:
             total += t
             count += evt.count
     return total / count / 1e3 if count and total > 0 else None
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host time per call: a host clock over ``calls`` back-to-back calls,
+    then one synchronise (the wrapper's Python and launch cost, where the
+    card keeps up)."""
+    fn()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t_start) / calls * 1e6
 
 
 def run_path(net, cfg, params, ext, device, b: int):
@@ -518,11 +537,14 @@ def kernel_cases(blocks: dict, paths: Paths, device) -> list[dict]:
             inputs=args, ops=args[2].numel() * 12))
 
     args, _ = blocks["feedforward"]["lif_step"]
+    n = args[0].numel()
     cases.append(dict(
         kernel="lif_step", mode=f"{tuple(args[0].shape)}", main=True,
         run=lambda a=args: lif_ops.lif_step(*a),
         plain=lambda a=args: lif_step_ref(*a), inputs=args,
-        ops=args[0].numel() * 12))
+        ops=n * 12, host=True, sole_kernel="lif_step_kernel",
+        plan=f"one neuron per thread, {-(-n // 256)} CTAs of 256 threads",
+        floor=lambda x=args[0], y=args[2]: torch.add(x, y)))
 
     words, now = merge_lanes(blocks)
     rows, lanes = words.shape
@@ -566,16 +588,22 @@ def kernel_cases(blocks: dict, paths: Paths, device) -> list[dict]:
 
     (bid, addr, dead, valid), kw = blocks["wafer"]["flush_pack"]
     args = (bid, addr, dead, valid)
+    bp_rows, bp_lanes = bid.shape[0] * bid.shape[1], bid.shape[-1]
 
     def bp_plain(a=args, k=kw):
         rows, counts, overflow = bucket_pack_ref(
             a[0].to(torch.int32), ev.encode_word(*a[1:]), **k)
         return rows.permute(1, 2, 0, 3).contiguous(), counts, overflow
 
+    threads, smem = bp_ops.launch_plan(bp_lanes, kw["n_buckets"],
+                                       kw["capacity"])
     cases.append(dict(
         kernel="bucket_pack", mode=f"flush B{bid.shape[0]}", main=True,
         run=lambda a=args, k=kw: bp_ops.flush_pack(*a, **k), plain=bp_plain,
-        inputs=args, ops=bid.numel()))
+        inputs=args, ops=bid.numel(), host=True,
+        sole_kernel="bucket_pack_kernel",
+        plan=(f"one CTA per row, {bp_rows} CTAs of {threads} threads, "
+              f"{smem} B shared memory")))
 
     def drain_cases(label, ring, delivered, queue, t0, kw, modes):
         n, b_full = delivered.shape[:2]
@@ -618,6 +646,8 @@ def kernel_phase(cases: list[dict]) -> dict:
     """Compare, then time; returns the main case of each kernel.  A case
     with ``tol = (rtol, atol)`` is held to that tolerance against its
     ``want`` (default: its plain version), else bitwise."""
+    from repro_torch.kernels import common as kc
+
     main = {}
     for case in cases:
         label = f"{case['kernel']} [{case['mode']}]"
@@ -661,6 +691,27 @@ def kernel_phase(cases: list[dict]) -> dict:
               f"ops={case['ops']} bound_ms={row['bound_ms']:.5f} "
               f"({row['bound_by']})"
               + ("" if lms is None else f" library_ms={lms:.5f}"))
+        if "sole_kernel" in case:
+            _, names = kc.card_kernels(case["run"])
+            if len(names) != 1 or case["sole_kernel"] not in names[0]:
+                raise AssertionError(f"{label}: one call put {names} on the "
+                                     f"card, not one {case['sole_kernel']}")
+            print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
+                  f"plan: {case['plan']}; one kernel per call "
+                  f"({case['sole_kernel']})")
+        if case.get("host"):
+            row["host_us"] = host_us(case["run"])
+            print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
+                  f"host_us per wrapper call={row['host_us']:.2f} "
+                  f"(1000 calls, one synchronise)")
+        if "floor" in case:
+            row["launch_floor_ms"] = graph_ms(case["floor"])
+            row["launch_floor_host_us"] = host_us(case["floor"])
+            print(f"[kernel] launch floor: one torch.add over "
+                  f"{tuple(case['inputs'][0].shape)} float32 "
+                  f"ms={row['launch_floor_ms']:.5f} host_us="
+                  f"{row['launch_floor_host_us']:.2f} (beside "
+                  f"{case['kernel']} ms={row['ms']:.5f})")
         if "design" in case:
             print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
                   f"design={case['design']} TFLOP/s="
@@ -1370,7 +1421,9 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             mode=row["mode"], device_ms=row["device_ms"],
-            bytes=row["bytes"], ops=row["ops"], launches_by=launches))
+            bytes=row["bytes"], ops=row["ops"], launches_by=launches,
+            **{k: row[k] for k in ("host_us", "launch_floor_ms")
+               if k in row}))
         if not launches:
             raise AssertionError(f"kernel {name} launched on no path or "
                                  f"entry point")

@@ -2,14 +2,19 @@
 // elementwise.
 //
 // Replaces the TPU kernel lif_step_pallas
-// (src/repro/kernels/lif_step/kernel.py, _kernel).  The TPU kernel ran
+// (src/repro/kernels/lif_step/kernel.py:45, _kernel).  The TPU kernel ran
 // over 1024-lane blocks and needed the wrapper to pad the neuron axis;
 // here one thread owns one neuron and the grid is bounds-checked.  The
 // update itself is repro::lif_update (common.cuh), which fused_inject.cu's
-// fused_lif_inject shares, with the reference's rounding.
+// fused_lif_inject shares, with the reference's rounding (no FMA
+// contraction, expf), so it equals the plain version bitwise.
 //
 // Bound: bytes.  Eight 4-byte streams in, three out, a few operations per
-// neuron.
+// neuron: 44 B a neuron, about 1 MB at the network's [46, 512].  The
+// inputs are read through the read-only data cache (__ldg).  Blocks of 256
+// threads put the network's [46, 512] on 92 SMs; at that size one neuron
+// per thread ran faster on an H100 than four neurons per thread on 16-byte
+// loads and stores (PERF.md section 6).
 #include "common.cuh"
 
 namespace {
@@ -23,10 +28,11 @@ __global__ void lif_step_kernel(
     float* __restrict__ spikes) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float vi = v[i];
-  int r = refrac[i];
-  const bool spike = repro::lif_update(vi, r, current[i], tau_m[i], v_th[i],
-                                       v_reset[i], v_rest[i], refrac_period[i]);
+  float vi = __ldg(v + i);
+  int r = __ldg(refrac + i);
+  const bool spike = repro::lif_update(
+      vi, r, __ldg(current + i), __ldg(tau_m + i), __ldg(v_th + i),
+      __ldg(v_reset + i), __ldg(v_rest + i), __ldg(refrac_period + i));
   v_out[i] = vi;
   refrac_out[i] = r;
   spikes[i] = spike ? 1.0f : 0.0f;

@@ -10,7 +10,8 @@ launches its kernel only for CUDA tensors and raises when the launch
 fails; for CPU tensors it runs the plain PyTorch version.
 
 ``launches`` counts kernel launches per kernel (one per wrapper call that
-reached the card), so a run can show that it went through the kernels.
+reached the card), so a run can show that it went through the kernels;
+:func:`card_kernels` lists what one call put on the card.
 ``KERNELS`` maps each kernel to the source (and library) it is built
 from; ``fused_inject.cu`` and ``merge_sort.cu`` each hold two kernels.
 """
@@ -41,6 +42,7 @@ MAX_SMEM = 232448
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}   # (source, symbol) -> function
 
 
 def resolve_device(device) -> torch.device:
@@ -122,8 +124,12 @@ def build(names=SOURCES) -> Path:
 
 def kernel_fn(name: str, symbol: str, argtypes):
     """The C entry point ``symbol`` of kernel ``name``, its source built
-    and loaded on first use, with its ctypes signature set."""
+    and loaded on first use, with its ctypes signature set once (the
+    function is cached per source and symbol)."""
     src = KERNELS[name]
+    fn = _fns.get((src, symbol))
+    if fn is not None:
+        return fn
     lib = _libs.get(src)
     if lib is None:
         lib = ctypes.CDLL(str(build((src,)) / f"lib{src}.so"))
@@ -133,6 +139,7 @@ def kernel_fn(name: str, symbol: str, argtypes):
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    _fns[(src, symbol)] = fn
     return fn
 
 
@@ -144,6 +151,27 @@ def launch(name: str, fn, *args) -> None:
         msg = _libs[KERNELS[name]].repro_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
     launches[name] += 1
+
+
+def card_kernels(fn, tries: int = 5):
+    """``fn()``'s result and the names of the CUDA kernels (and copies or
+    fills) that one call of it put on the card, from torch.profiler, after
+    one warm-up call.  A profiler session now and then records no device
+    activity at all; such a session is run again."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if names:
+            return out, names
+    raise AssertionError(f"torch.profiler recorded no device activity in "
+                         f"{tries} sessions")
 
 
 def check(x: torch.Tensor, name: str, dtype, shape) -> int:

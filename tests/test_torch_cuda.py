@@ -98,6 +98,61 @@ def test_bucket_pack_kernel_matches_plain(cuda):
     assert torch.equal(overflow, want_overflow)
 
 
+def _edge_lanes(rng, shape, nb, cap):
+    """Lanes with out-of-range and negative bucket ids, masked-off addr and
+    deadline bits, an all-invalid first row, word 0 (addr 0 or 2^14,
+    deadline 0 or 256) and one bucket over capacity in the last row."""
+    bid = rng.integers(-3, nb + 3, shape).astype(np.int32)
+    addr = rng.integers(-5, 1 << 15, shape).astype(np.int32)
+    dead = rng.integers(-300, 600, shape).astype(np.int32)
+    valid = rng.random(shape) < 0.8
+    flat = [x.reshape(-1, shape[-1]) for x in (bid, addr, dead, valid)]
+    flat[3][0] = False
+    zero = rng.random(shape[-1]) < 0.05
+    for row in range(1, flat[0].shape[0]):
+        flat[1][row, zero] = rng.choice([0, 1 << 14], int(zero.sum()))
+        flat[2][row, zero] = rng.choice([0, 256], int(zero.sum()))
+    flat[0][-1, : 3 * cap] = 1
+    flat[3][-1, : 3 * cap] = True
+    return bid, addr, dead, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bucket_pack", "flush_pack"])
+@pytest.mark.parametrize("shape", ["ragged", "long", "many_rows", "wafer"])
+def test_bucket_pack_lanes_match_plain(cuda, shape, layout):
+    """Bitwise against the plain version: lanes not a multiple of 32
+    (1000), rows longer than 1024 lanes (the tile loop), more rows than the
+    card has SMs, and the wafer's 46 rows of 2048; one launch of the one
+    kernel per call and no other CUDA work."""
+    nb, cap = 40, 16
+    lanes = {"ragged": 1000, "long": 2 * 1024 + 777, "many_rows": 300,
+             "wafer": 2048}[shape]
+    lead = {"ragged": (1, 3), "long": (2, 2), "many_rows": (2, 100),
+            "wafer": (1, 46)}[shape]
+    rng = np.random.default_rng(len(shape))
+    bid, addr, dead, valid = (_on(x, cuda) for x in _edge_lanes(
+        rng, lead + (lanes,), nb, cap))
+    fn = bp.bucket_pack if layout == "bucket_pack" else bp.flush_pack
+    run = lambda: fn(bid, addr, dead, valid, n_buckets=nb, capacity=cap)
+    before = kc.launches["bucket_pack"]
+    run()
+    assert kc.launches["bucket_pack"] == before + 1
+    got, names = kc.card_kernels(run)
+    assert len(names) == 1 and "bucket_pack_kernel" in names[0], names
+    rows, counts, overflow = bucket_pack_ref(
+        bid, ev.encode_word(addr, dead, valid), n_buckets=nb, capacity=cap)
+    if layout == "flush_pack":
+        rows = rows.permute(1, 2, 0, 3)
+    got_rows = got[0] if layout == "flush_pack" else got.words
+    assert torch.equal(got_rows, rows)
+    assert torch.equal(got[1] if layout == "flush_pack" else got.counts,
+                       counts)
+    assert torch.equal(got[2] if layout == "flush_pack" else got.overflow,
+                       overflow)
+    assert int(overflow.reshape(-1)[-1]) > 0 and int(counts[0, 0].sum()) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["passthrough", "sort", "rate"])
 def test_fused_drain_kernel_matches_plain(cuda, mode):
@@ -291,6 +346,50 @@ def test_lif_step_kernel_matches_plain(cuda):
                              nr.LIFParams(*args[3:]))
     assert kc.launches["lif_step"] == before + 2
     assert torch.equal(spk, got[2]) and torch.equal(state.v, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["aligned", "ragged", "misaligned",
+                                  "broadcast", "network"])
+def test_lif_step_routes_match_plain(cuda, case):
+    """Bitwise against the plain version at [46, 512], at [46, 511] (n not
+    a multiple of the block), on a contiguous view one element into its
+    storage (4-byte, not 16-byte aligned), with parameters of shape [512]
+    broadcast against [46, 512], and on the network's call through
+    ``snn.neuron.lif_step``.  Where every argument is ready (all but the
+    broadcast case), the wrapper puts nothing on the card but the
+    kernel."""
+    rng = np.random.default_rng(len(case))
+    shape = (46, 511) if case == "ragged" else (46, 512)
+    args = list(_lif_args(rng, shape, cuda))
+    if case == "misaligned":
+        n = args[0].numel()
+        base = torch.empty(n + 1, dtype=torch.float32, device=cuda)
+        args[0] = base[..., 1:]
+        args[0].copy_(_lif_args(rng, (n,), cuda)[0])
+        shape = (n,)
+        args[1:] = [x.reshape(-1) for x in args[1:]]
+    if case == "broadcast":
+        args[3:] = [x[0] for x in args[3:]]
+    if case == "network":
+        run = lambda: nr.lif_step(nr.LIFState(args[0], args[1]), args[2],
+                                  nr.LIFParams(*args[3:]))
+    else:
+        run = lambda: lif.lif_step(*args)
+    before = kc.launches["lif_step"]
+    run()
+    assert kc.launches["lif_step"] == before + 1
+    got, names = kc.card_kernels(run)
+    if case == "network":
+        (state, spikes) = got
+        got = (state.v, state.refrac, spikes)
+    want = lif_step_ref(*(x.broadcast_to(shape) for x in args))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    kernels = [x for x in names if "lif_step_kernel" in x]
+    assert len(kernels) == 1
+    if case != "broadcast":
+        assert names == kernels
 
 
 def _sort_words(rng, lanes, kind, now):

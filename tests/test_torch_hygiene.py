@@ -137,6 +137,25 @@ def test_kernel_build_is_keyed_by_the_sources():
     assert set(kc.KERNELS.values()) == set(kc.SOURCES)
 
 
+def test_kernel_fn_sets_each_signature_once(monkeypatch):
+    """The ctypes function of a (source, symbol) is looked up and given its
+    signature on the first call only; later calls return it as it is."""
+    looked_up = []
+
+    class Lib:
+        def __getattr__(self, symbol):
+            looked_up.append(symbol)
+            return type("Fn", (), {})()
+
+    monkeypatch.setitem(kc._libs, "lif_step", Lib())
+    monkeypatch.setattr(kc, "_fns", {})
+    argtypes = [kc.P, kc.LL]
+    first = kc.kernel_fn("lif_step", "lif_step_launch", argtypes)
+    assert kc.kernel_fn("lif_step", "lif_step_launch", argtypes) is first
+    assert looked_up == ["lif_step_launch"]
+    assert first.argtypes == argtypes and first.restype is kc.I
+
+
 def _c_params(source: str, symbol: str) -> list[str]:
     """The parameter types of ``extern "C" int symbol(...)`` in a CUDA
     source, as ctypes names: a pointer, ``long long``, ``float`` or

@@ -186,6 +186,76 @@ def test_flush_pack_block_layout_matches_per_substep_kernel():
         same(want, slab[c], "slab")
 
 
+def _block_pack_np(bid, words, nb, cap, threads):
+    """The card kernel's arithmetic on ``[rows, L]`` lanes, in numpy: one
+    CTA of T = ``threads`` threads per row ranks tile k, the lanes ``[k*T,
+    (k+1)*T)``, warp by warp -- a warp's count per bucket, the exclusive
+    scan of those counts over the warps, the lane's rank among its warp's
+    members of its bucket -- and adds the members of earlier tiles.  -1
+    fills ``[count_b, C)``."""
+    rows, lanes = bid.shape
+    n_warps = threads // 32
+    out = np.full((rows, nb, cap), -1, np.int32)
+    counts = np.zeros((rows, nb), np.int32)
+    lower = np.tri(32, k=-1, dtype=bool)        # lane j < lane i
+    for row in range(rows):
+        key = np.where((words[row] >= 0) & (bid[row] >= 0) & (bid[row] < nb),
+                       bid[row], -1)
+        running = np.zeros(nb, np.int64)
+        for lo in range(0, lanes, threads):
+            w = np.full(threads, -1)
+            part = key[lo:lo + threads]
+            w[:len(part)] = part
+            w = w.reshape(n_warps, 32)
+            hist = np.stack([(w == b).sum(1) for b in range(nb)])
+            in_warp = ((w[:, :, None] == w[:, None, :]) & lower).sum(2)
+            offset = running[:, None] + np.cumsum(hist, 1) - hist
+            for wi, li in zip(*np.nonzero(w >= 0)):
+                b = w[wi, li]
+                slot = offset[b, wi] + in_warp[wi, li]
+                if slot < cap:
+                    out[row, b, slot] = words[row, lo + wi * 32 + li]
+            running += hist.sum(1)
+        counts[row] = running
+    overflow = np.maximum(counts - cap, 0).sum(-1).astype(np.int32)
+    return out, counts, overflow
+
+
+@pytest.mark.parametrize("lanes", [10, 300, 1000, 1024, 2048, 2500])
+@pytest.mark.parametrize("nb", [7, 46])
+def test_bucket_pack_block_arithmetic_equals_plain(nb, lanes):
+    """The kernel's per-warp ranks, scanned over the warps, plus the
+    earlier tiles' per-bucket totals give the plain version's slab, counts
+    and overflow: rows shorter than a warp's multiple (10, 300, 1000), one
+    whole tile (1024), two (2048, the wafer's rows) and a ragged last tile
+    (2500); out-of-range and negative ids, an all-invalid row and buckets
+    over capacity."""
+    cap = 12
+    bid, addr, dead, valid = _pack_lanes(nb * lanes, (3, lanes), -2, nb + 2)
+    valid[0] = False
+    words = np.asarray(jev.encode_word(addr, dead, valid))
+    threads = bp.launch_plan(lanes, nb, cap)[0]
+    got = _block_pack_np(bid, words, nb, cap, threads)
+    want = bp.bucket_pack(*map(T, (bid, addr, dead, valid)), n_buckets=nb,
+                          capacity=cap)
+    for g, w, name in zip(got, want, ("words", "counts", "overflow")):
+        same(g, w, name)
+    assert not got[1][0].any()
+    assert (got[2][1:] > 0).any() == (lanes > nb * cap)
+
+
+def test_bucket_pack_launch_plan():
+    """One lane per thread up to 1024 threads (longer rows loop over
+    tiles); shared memory holds the cells, the per-warp bucket histogram
+    and the running counts, and a plan past a Hopper block's is refused."""
+    assert bp.launch_plan(2048, 46, 32) == (1024, 4 * 46 * (32 + 32 + 1))
+    assert bp.launch_plan(1000, 46, 32)[0] == 1024
+    assert bp.launch_plan(300, 7, 12) == (320, 4 * 7 * (12 + 10 + 1))
+    assert bp.launch_plan(1, 7, 12)[0] == 32
+    with pytest.raises(ValueError, match="shared memory"):
+        bp.launch_plan(1 << 16, 2000, 32)
+
+
 # ---------------------------------------------------------------------------
 # fused_drain
 # ---------------------------------------------------------------------------

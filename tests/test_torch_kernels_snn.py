@@ -110,6 +110,18 @@ def test_neuron_lif_step_runs_the_kernel_wrapper_and_matches_jax():
     same(jspk, spk, "spikes")
 
 
+def test_lif_step_fast_path_takes_only_ready_arguments():
+    """Arguments go to the launch as they are only when every one is a
+    tensor of ``v``'s shape, type and device, contiguous."""
+    args = [T(x) for x in _lif_inputs((3, 8), 0)[0]]
+    v = args[0]
+    assert lif._ready(args, v.device, v.shape)
+    for i, bad in ((3, args[3][0]), (1, args[1].long()), (0, v.double()),
+                   (2, args[2].t().contiguous().t()), (5, 0.0)):
+        assert not lif._ready(args[:i] + [bad] + args[i + 1:], v.device,
+                              v.shape)
+
+
 # ---------------------------------------------------------------------------
 # merge_sort_words / merge_sort
 # ---------------------------------------------------------------------------
