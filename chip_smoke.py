@@ -24,12 +24,16 @@ Phases, each fatal on failure:
              flash at 989 T op/s, float32 flash in 3xTF32 at 165) and, for
              the sorts, stable ``torch.sort`` plus the gather, for flash
              attention ``scaled_dot_product_attention``.  ``bucket_pack``
-             (the wafer's flush) and ``lif_step`` print their launch plan,
-             must put exactly one kernel on the card per wrapper call
+             (the wafer's flush), ``lif_step`` and every case of
+             ``fused_inject`` and ``fused_lif_inject`` print their launch
+             plan (grid, threads, shared bytes, ptxas's registers), must
+             put exactly one kernel on the card per wrapper call
              (torch.profiler), and print the host time per wrapper call
              (1,000 calls, one synchronise); beside ``lif_step``, the
              launch floor: one ``torch.add`` over the same [46, 512]
-             float32, timed the same way.  The sorts run
+             float32, and beside ``fused_inject``, a write floor: one
+             ``torch.full`` of the slab's shape with -1, each timed the
+             same way.  The sorts run
              on the entry phase's merge cycle (46 x 3136 lanes; each SoA
              row prints its radix passes) and the SoA sort also on
              deadlines over the whole int32 range (4 passes);
@@ -284,6 +288,20 @@ def host_us(fn, calls: int = 1000) -> float:
     return (time.perf_counter() - t_start) / calls * 1e6
 
 
+def ptxas_registers(log: str, kernel: str) -> int | None:
+    """Registers per thread that ptxas reports for the entry function
+    ``kernel`` (matched with the length prefix of its mangled name, so
+    ``fused_inject_kernel`` is not ``fused_lif_inject_kernel``)."""
+    mangled, hit = f"{len(kernel)}{kernel}E", False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            hit = mangled in line
+        m = re.search(r"Used (\d+) registers", line)
+        if m and hit:
+            return int(m.group(1))
+    return None
+
+
 def run_path(net, cfg, params, ext, device, b: int):
     """Drive ``net.run`` block by block on ``ext [T, n_chips, n_in]``;
     returns the record and the ring deposits of the run, counted as
@@ -510,6 +528,11 @@ def kernel_cases(blocks: dict, paths: Paths, device) -> list[dict]:
     from repro_torch.kernels.merge_sort.ref import (merge_sort_ref,
                                                    merge_sort_words_ref)
 
+    def fused_plan(plan, n, b):
+        # A launch plan gives threads first and shared bytes last.
+        return (f"one CTA per (chip, substep), grid ({n}, {b}), {plan[0]} "
+                f"threads, {plan[-1]} B shared memory")
+
     cases = []
     (events, table, t0), kw = blocks["feedforward"]["fused_inject"]
     for mode, bpc in (("full", kw["buckets_per_chip"]), ("simplified", 1)):
@@ -517,24 +540,37 @@ def kernel_cases(blocks: dict, paths: Paths, device) -> list[dict]:
             ev_b = ev.EventBuffer(*(x[:b].contiguous() for x in events))
             kwm = dict(kw, mode=mode, buckets_per_chip=bpc)
             args = (ev_b, table, t0)
-            lanes = ev_b.addr.numel()
+            n, lanes = ev_b.addr.shape[1], ev_b.addr.shape[2]
+            nb = n * bpc
+            slab = (n, nb, b, kw["capacity"])
             cases.append(dict(
                 kernel="fused_inject", mode=f"{mode} B{b}",
                 main=(mode == "full" and b == events.addr.shape[0]),
                 run=lambda a=args, k=kwm: fi_ops.fused_inject(*a, **k),
                 plain=lambda a=args, k=kwm: fused_inject_ref(*a, **k),
-                inputs=(ev_b, table, t0), ops=lanes))
+                inputs=(ev_b, table, t0), ops=ev_b.addr.numel(), host=True,
+                sole_kernel="fused_inject_kernel",
+                plan=fused_plan(fi_ops.launch_plan(lanes, n, nb,
+                                                   kw["capacity"]), n, b),
+                floor=(f"write floor: one torch.full of the slab {slab} "
+                       f"int32 with -1",
+                       lambda sh=slab: torch.full(sh, -1, dtype=torch.int32,
+                                                  device=device))))
 
     c = paths.ff_cfg.comm
     for mode, bpc, b in (("full", c.buckets_per_chip, c.superstep),
                          ("simplified", 1, 1)):
         args, kwm = lif_inject_call(paths, device, mode, bpc, b)
+        n, neurons = args[2].shape[1:]
         cases.append(dict(
             kernel="fused_lif_inject", mode=f"{mode} B{b}",
             main=mode == "full",
             run=lambda a=args, k=kwm: fi_ops.fused_lif_inject(*a, **k),
             plain=lambda a=args, k=kwm: fused_lif_inject_ref(*a, **k),
-            inputs=args, ops=args[2].numel() * 12))
+            inputs=args, ops=args[2].numel() * 12, host=True,
+            sole_kernel="fused_lif_inject_kernel",
+            plan=fused_plan(fi_ops.lif_launch_plan(
+                neurons, n, n * bpc, c.bucket_capacity), n, b)))
 
     args, _ = blocks["feedforward"]["lif_step"]
     n = args[0].numel()
@@ -544,7 +580,8 @@ def kernel_cases(blocks: dict, paths: Paths, device) -> list[dict]:
         plain=lambda a=args: lif_step_ref(*a), inputs=args,
         ops=n * 12, host=True, sole_kernel="lif_step_kernel",
         plan=f"one neuron per thread, {-(-n // 256)} CTAs of 256 threads",
-        floor=lambda x=args[0], y=args[2]: torch.add(x, y)))
+        floor=(f"launch floor: one torch.add over {tuple(args[0].shape)} "
+               f"float32", lambda x=args[0], y=args[2]: torch.add(x, y))))
 
     words, now = merge_lanes(blocks)
     rows, lanes = words.shape
@@ -648,6 +685,7 @@ def kernel_phase(cases: list[dict]) -> dict:
     ``want`` (default: its plain version), else bitwise."""
     from repro_torch.kernels import common as kc
 
+    build = kc.build_dir()
     main = {}
     for case in cases:
         label = f"{case['kernel']} [{case['mode']}]"
@@ -696,22 +734,24 @@ def kernel_phase(cases: list[dict]) -> dict:
             if len(names) != 1 or case["sole_kernel"] not in names[0]:
                 raise AssertionError(f"{label}: one call put {names} on the "
                                      f"card, not one {case['sole_kernel']}")
+            src = kc.KERNELS[case["kernel"]]
+            regs = ptxas_registers((build / f"{src}.log").read_text(),
+                                   case["sole_kernel"])
             print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
-                  f"plan: {case['plan']}; one kernel per call "
-                  f"({case['sole_kernel']})")
+                  f"plan: {case['plan']}; ptxas {regs} registers; one "
+                  f"kernel per call ({case['sole_kernel']})")
         if case.get("host"):
             row["host_us"] = host_us(case["run"])
             print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
                   f"host_us per wrapper call={row['host_us']:.2f} "
                   f"(1000 calls, one synchronise)")
         if "floor" in case:
-            row["launch_floor_ms"] = graph_ms(case["floor"])
-            row["launch_floor_host_us"] = host_us(case["floor"])
-            print(f"[kernel] launch floor: one torch.add over "
-                  f"{tuple(case['inputs'][0].shape)} float32 "
-                  f"ms={row['launch_floor_ms']:.5f} host_us="
-                  f"{row['launch_floor_host_us']:.2f} (beside "
-                  f"{case['kernel']} ms={row['ms']:.5f})")
+            label, floor = case["floor"]
+            row["floor_ms"] = graph_ms(floor)
+            row["floor_host_us"] = host_us(floor)
+            print(f"[kernel] {label} ms={row['floor_ms']:.5f} host_us="
+                  f"{row['floor_host_us']:.2f} (beside {case['kernel']} "
+                  f"{case['mode']} ms={row['ms']:.5f})")
         if "design" in case:
             print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
                   f"design={case['design']} TFLOP/s="
@@ -1422,8 +1462,7 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             mode=row["mode"], device_ms=row["device_ms"],
             bytes=row["bytes"], ops=row["ops"], launches_by=launches,
-            **{k: row[k] for k in ("host_us", "launch_floor_ms")
-               if k in row}))
+            **{k: row[k] for k in ("host_us", "floor_ms") if k in row}))
         if not launches:
             raise AssertionError(f"kernel {name} launched on no path or "
                                  f"entry point")

@@ -84,10 +84,11 @@ __device__ __forceinline__ int word_key(int w, int now) {
 // into one FMA (the reference rounds the product first), expf (not
 // __expf) is the correctly rounded library exp, and -1.0f / tau stays in
 // float.
-__device__ __forceinline__ bool lif_update(float& v, int& refrac, float current,
-                                           float tau, float v_th, float v_reset,
-                                           float v_rest, int refrac_period) {
-  const float decay = expf(__fdiv_rn(-1.0f, tau));
+// lif_update_decay takes decay = expf(__fdiv_rn(-1.0f, tau)) computed
+// once, for a neuron stepped several times.
+__device__ __forceinline__ bool lif_update_decay(float& v, int& refrac, float current,
+                                                 float decay, float v_th, float v_reset,
+                                                 float v_rest, int refrac_period) {
   const bool active = refrac <= 0;
   const float leak = __fadd_rn(v_rest, __fmul_rn(decay, __fsub_rn(v, v_rest)));
   const float v_int = active ? __fadd_rn(leak, current) : v;
@@ -96,6 +97,13 @@ __device__ __forceinline__ bool lif_update(float& v, int& refrac, float current,
   v = spike ? v_reset : v_int;
   refrac = spike ? refrac_period : (left > 0 ? left : 0);
   return spike;
+}
+
+__device__ __forceinline__ bool lif_update(float& v, int& refrac, float current,
+                                           float tau, float v_th, float v_reset,
+                                           float v_rest, int refrac_period) {
+  return lif_update_decay(v, refrac, current, expf(__fdiv_rn(-1.0f, tau)), v_th,
+                          v_reset, v_rest, refrac_period);
 }
 
 // Sum of v over the warp, added to *dst in shared memory by lane 0.

@@ -1,9 +1,14 @@
 """Wrappers of the fused inject kernels (``csrc/fused_inject.cu``).
 
-On CUDA tensors ``fused_inject`` launches its kernel, one CTA per (chip,
-substep), and ``fused_lif_inject`` its kernel, one CTA per chip; on CPU
-tensors they run the plain versions in ``ref.py``.  The fused path needs
-fan-out 1; the fabric packs fan-out > 1 through ``bucket_pack``.
+On CUDA tensors ``fused_inject`` and ``fused_lif_inject`` each launch
+their kernel, one CTA per (chip, substep); on CPU tensors they run the
+plain versions in ``ref.py``.  The fused path needs fan-out 1; the fabric
+packs fan-out > 1 through ``bucket_pack``.
+
+Arguments that already are contiguous tensors of the kernel's type and
+shape on the card (the network's calls) go to the launch as they are;
+others are converted first.  The outputs of one call are views of one
+``int32`` buffer, the slab first.
 
 ``fused_lif_inject`` is an entry point of its own: the network does not
 call it (nor does the reference's), since under STDP the weights, and so
@@ -12,6 +17,9 @@ yet, so it takes no ``reach`` and culls nothing as lost.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -26,7 +34,11 @@ from repro_torch.kernels.fused_inject.ref import (FusedInjectOut,
 NAME = "fused_inject"
 I32, F32 = torch.int32, torch.float32
 _ARGTYPES = [kc.P] * 8 + [kc.I] * 9 + [kc.LL] + [kc.P] * 7
-_LIF_ARGTYPES = [kc.P] * 13 + [kc.I] * 9 + [kc.LL] * 2 + [kc.P] * 11
+_LIF_ARGTYPES = [kc.P] * 13 + [kc.I] * 9 + [kc.LL] + [kc.P] * 11
+_LUT_DTYPES = (I32, I32, I32, torch.bool)
+_LIF_NAMES = ("v", "refrac", "currents", "tau_m", "v_th", "v_reset",
+              "v_rest", "refrac_period")
+_LIF_DTYPES = (F32, I32, F32, F32, F32, F32, F32, I32)
 
 
 def fused_inject(events: ev.EventBuffer, table: rt.RoutingTable,
@@ -50,31 +62,49 @@ def _check_mode_and_fanout(mode: str, table: rt.RoutingTable) -> None:
         raise ValueError(f"fused inject requires fanout 1, got {table.fanout}")
 
 
+def _threads(lanes: int) -> int:
+    return min(512, max(32, -(-lanes // 32) * 32))
+
+
+def _scratch_bytes(threads: int, n_chips: int, nb: int, capacity: int) -> int:
+    """The inject scratch: a lane index per cell, each warp's counts by
+    bucket and by destination chip and its two stats, and each bucket's
+    running count (``inject_scratch_ints`` in the source)."""
+    return 4 * (nb * capacity + (threads // 32) * (nb + n_chips + 2) + nb)
+
+
+@functools.lru_cache(maxsize=64)
 def launch_plan(e: int, n_chips: int, nb: int, capacity: int
                 ) -> tuple[int, int]:
-    """Threads per CTA and dynamic shared-memory bytes."""
-    threads = min(1024, max(32, -(-e // 32) * 32))
-    smem = nb * capacity * 8 + 4 * ((threads // 32) * nb + nb + n_chips + 3)
+    """Threads per CTA (one lane per thread, up to 512, so three CTAs fit
+    on an SM; longer rows loop over tiles) and dynamic shared-memory
+    bytes; the grid is (n_chips, B).  At the feedforward cell (512
+    lanes, 46 chips, 92 buckets, C 32) that is 512 threads and 21104 B."""
+    threads = _threads(e)
+    smem = _scratch_bytes(threads, n_chips, nb, capacity)
     if smem > kc.MAX_SMEM:
         raise ValueError(f"fused_inject needs {smem} B of shared memory, "
                          f"more than a Hopper block has ({kc.MAX_SMEM})")
     return threads, smem
 
 
+@functools.lru_cache(maxsize=64)
 def lif_launch_plan(n: int, n_chips: int, nb: int, capacity: int
-                    ) -> tuple[int, int, int]:
-    """Threads per CTA, the inject scratch's bytes and all dynamic
-    shared-memory bytes of ``fused_lif_inject``: the inject scratch of
-    :func:`launch_plan` for ``n`` event lanes, then the compaction scan's
-    per-warp counts and running total and one fired flag per neuron.  At
-    the feedforward cell (46 chips x 512 neurons, 2 buckets per chip,
-    C 32) that is 512 threads and 30004 + 68 + 512 = 30584 B."""
-    threads, inject = launch_plan(n, n_chips, nb, capacity)
-    smem = inject + 4 * (threads // 32 + 1) + n
+                    ) -> tuple[int, int]:
+    """Threads per CTA and dynamic shared-memory bytes of
+    ``fused_lif_inject``, whose grid is (n_chips, B) as
+    :func:`launch_plan`'s: the inject scratch for ``n`` event lanes, then
+    the compaction's spike counts per warp of two tiles and one fired
+    flag per neuron.  At the feedforward cell (46 chips x 512 neurons, 2
+    buckets per chip, C 32) that is 512 threads and 21104 + 128 + 512 =
+    21744 B."""
+    threads = _threads(n)
+    smem = (_scratch_bytes(threads, n_chips, nb, capacity)
+            + 4 * 2 * (threads // 32) + n)
     if smem > kc.MAX_SMEM:
         raise ValueError(f"fused_lif_inject needs {smem} B of shared memory, "
                          f"more than a Hopper block has ({kc.MAX_SMEM})")
-    return threads, inject, smem
+    return threads, smem
 
 
 def fused_lif_inject(v: torch.Tensor, refrac: torch.Tensor,
@@ -97,27 +127,80 @@ def fused_lif_inject(v: torch.Tensor, refrac: torch.Tensor,
     return _launch_lif(v, refrac, currents, params, table, t0, **kw)
 
 
-_LUT_DTYPES = (I32, I32, I32, torch.bool)
+def _ready(xs, dtypes, shapes, device) -> bool:
+    """Whether every argument can go to the kernel as it is: a contiguous
+    tensor of its type and shape on ``device``."""
+    for x, dt, shape in zip(xs, dtypes, shapes):
+        if not (isinstance(x, torch.Tensor) and x.dtype == dt
+                and x.device == device and x.shape == shape
+                and x.is_contiguous()):
+            return False
+    return True
 
 
-def _lut_args(table: rt.RoutingTable, n: int, n_lut: int):
-    """The table's four arrays as kernel arguments; returns the tensors
-    (kept alive by the caller until the launch) and their pointers."""
-    lut = [x.to(dt).contiguous() for x, dt in zip(table, _LUT_DTYPES)]
-    ptrs = [kc.check(x, f"table.{f}", dt, (n, n_lut, 1))
-            for f, x, dt in zip(table._fields, lut, _LUT_DTYPES)]
-    return lut, ptrs
+def _prepared(xs, names, dtypes, shapes, device):
+    """The arguments converted for the kernel (broadcast, typed,
+    contiguous, on ``device``), then checked."""
+    xs = [torch.as_tensor(x, device=device).broadcast_to(sh).to(dt)
+          .contiguous() for x, dt, sh in zip(xs, dtypes, shapes)]
+    for x, name, dt, sh in zip(xs, names, dtypes, shapes):
+        kc.check(x, name, dt, sh)
+    return xs
 
 
-def _inject_out(b: int, n: int, nb: int, capacity: int, dev
-                ) -> FusedInjectOut:
-    return FusedInjectOut(
-        slab=torch.empty((n, nb, b, capacity), dtype=I32, device=dev),
-        counts=torch.empty((b, n, nb), dtype=I32, device=dev),
-        sent=torch.empty((b, n), dtype=I32, device=dev),
-        overflow=torch.empty((b, n), dtype=I32, device=dev),
-        wrap_expired=torch.empty((b, n), dtype=I32, device=dev),
-        traffic=torch.empty((b, n, n), dtype=I32, device=dev))
+@functools.lru_cache(maxsize=64)
+def _layout(shapes):
+    """Elements of a buffer holding ``shapes`` one after another, and the
+    (shape, strides, offset) of each, contiguous."""
+    views, offset = [], 0
+    for sh in shapes:
+        strides = tuple(math.prod(sh[i + 1:]) for i in range(len(sh)))
+        views.append((sh, strides, offset))
+        offset += math.prod(sh)
+    return offset, tuple(views)
+
+
+def _outputs(device, shapes, n_float: int = 0):
+    """Contiguous views of one int32 buffer, one per shape, in order (the
+    first, the slab, at its start: 16-byte aligned for the kernel's
+    vector stores); the last ``n_float`` viewed as float32."""
+    total, views = _layout(shapes)
+    buf = torch.empty(total, dtype=I32, device=device)
+    floats = buf.view(F32) if n_float else None
+    first_float = len(views) - n_float
+    return [(buf if i < first_float else floats).as_strided(*view)
+            for i, view in enumerate(views)]
+
+
+def _inject_shapes(b: int, n: int, nb: int, capacity: int):
+    """slab, counts, sent, overflow, wrap_expired, traffic."""
+    return ((n, nb, b, capacity), (b, n, nb), (b, n), (b, n), (b, n),
+            (b, n, n))
+
+
+def _launch(events, table, t0, *, n_chips, buckets_per_chip, capacity, mode,
+            time_window) -> FusedInjectOut:
+    b, n, e = events.addr.shape
+    if n != n_chips:
+        raise ValueError(f"events carry {n} chips, expected {n_chips}")
+    dev = events.addr.device
+    n_lut = table.n_neurons
+    args = (*events, *table, t0)
+    dtypes = (I32, I32, torch.bool) + _LUT_DTYPES + (I32,)
+    shapes = ((b, n, e),) * 3 + ((n, n_lut, 1),) * 4 + ((n,),)
+    if not _ready(args, dtypes, shapes, dev):
+        names = ("addr", "time", "valid") + tuple(
+            f"table.{f}" for f in table._fields) + ("t0",)
+        args = _prepared(args, names, dtypes, shapes, dev)
+    nb = n_chips * buckets_per_chip
+    out = _outputs(dev, _inject_shapes(b, n, nb, capacity))
+    threads, smem = launch_plan(e, n, nb, capacity)
+    kc.launch(
+        NAME, kc.kernel_fn(NAME, "fused_inject_launch", _ARGTYPES),
+        *(x.data_ptr() for x in args), b, n, e, n_lut, buckets_per_chip,
+        capacity, int(mode == "full"), time_window, threads, smem,
+        *(x.data_ptr() for x in out))
+    return FusedInjectOut(*out)
 
 
 def _launch_lif(v, refrac, currents, params, table, t0, *, event_capacity,
@@ -129,59 +212,28 @@ def _launch_lif(v, refrac, currents, params, table, t0, *, event_capacity,
     if table.n_neurons != n_neurons:
         raise ValueError(f"the table has {table.n_neurons} entries per chip, "
                          f"the chips {n_neurons} neurons")
-    nb = n_chips * buckets_per_chip
     dev = currents.device
     shape = (n, n_neurons)
-    names = ("v", "refrac", "currents") + params._fields
-    dtypes = (F32, I32, F32, F32, F32, F32, F32, I32)
-    shapes = (shape, shape, (b, n, n_neurons)) + (shape,) * 5
-    ins = [torch.as_tensor(x, device=dev).broadcast_to(sh).to(dt).contiguous()
-           for x, dt, sh in zip((v, refrac, currents, *params), dtypes,
-                                shapes)]
-    lut, lut_ptrs = _lut_args(table, n, n_neurons)
-    t0 = torch.as_tensor(t0, dtype=I32, device=dev).contiguous()
-    v_out = torch.empty(shape, dtype=F32, device=dev)
-    refrac_out = torch.empty(shape, dtype=I32, device=dev)
-    spikes = torch.empty((b, n, n_neurons), dtype=F32, device=dev)
-    voltage = torch.empty((b, n, n_neurons), dtype=F32, device=dev)
-    out = _inject_out(b, n, nb, capacity, dev)
-    threads, inject_smem, smem = lif_launch_plan(n_neurons, n, nb, capacity)
-    fn = kc.kernel_fn("fused_lif_inject", "fused_lif_inject_launch",
-                      _LIF_ARGTYPES)
+    args = (v, refrac, currents, *params, *table, t0)
+    dtypes = _LIF_DTYPES + _LUT_DTYPES + (I32,)
+    shapes = (shape, shape, (b, n, n_neurons)) + (shape,) * 5 \
+        + ((n, n_neurons, 1),) * 4 + ((n,),)
+    if not _ready(args, dtypes, shapes, dev):
+        names = _LIF_NAMES + tuple(f"table.{f}" for f in table._fields) \
+            + ("t0",)
+        args = _prepared(args, names, dtypes, shapes, dev)
+    nb = n_chips * buckets_per_chip
+    *out, refrac_out, v_out, spikes, voltage = _outputs(
+        dev, _inject_shapes(b, n, nb, capacity) + (
+            shape, shape, (b, n, n_neurons), (b, n, n_neurons)), n_float=3)
+    threads, smem = lif_launch_plan(n_neurons, n, nb, capacity)
     kc.launch(
-        "fused_lif_inject", fn,
-        *(kc.check(x, name, dt, sh)
-          for x, name, dt, sh in zip(ins, names, dtypes, shapes)),
-        *lut_ptrs, kc.check(t0, "t0", I32, (n,)),
-        b, n, n_neurons, buckets_per_chip, capacity, int(mode == "full"),
-        time_window, event_capacity, threads, inject_smem, smem,
-        v_out.data_ptr(), refrac_out.data_ptr(), spikes.data_ptr(),
+        "fused_lif_inject",
+        kc.kernel_fn("fused_lif_inject", "fused_lif_inject_launch",
+                     _LIF_ARGTYPES),
+        *(x.data_ptr() for x in args), b, n, n_neurons, buckets_per_chip,
+        capacity, int(mode == "full"), time_window, event_capacity, threads,
+        smem, v_out.data_ptr(), refrac_out.data_ptr(), spikes.data_ptr(),
         voltage.data_ptr(), *(x.data_ptr() for x in out))
     return FusedLifInjectOut(v=v_out, refrac=refrac_out, spikes=spikes,
-                             voltage=voltage, inject=out)
-
-
-def _launch(events, table, t0, *, n_chips, buckets_per_chip, capacity, mode,
-            time_window) -> FusedInjectOut:
-    b, n, e = events.addr.shape
-    if n != n_chips:
-        raise ValueError(f"events carry {n} chips, expected {n_chips}")
-    nb = n_chips * buckets_per_chip
-    n_lut = table.n_neurons
-    addr = events.addr.to(I32).contiguous()
-    time = events.time.to(I32).contiguous()
-    valid = events.valid.bool().contiguous()
-    t0 = torch.as_tensor(t0, dtype=I32, device=addr.device).contiguous()
-    lut, lut_ptrs = _lut_args(table, n, n_lut)
-    out = _inject_out(b, n, nb, capacity, addr.device)
-    threads, smem = launch_plan(e, n, nb, capacity)
-    fn = kc.kernel_fn(NAME, "fused_inject_launch", _ARGTYPES)
-    kc.launch(
-        NAME, fn,
-        kc.check(addr, "addr", I32, (b, n, e)),
-        kc.check(time, "time", I32, (b, n, e)),
-        kc.check(valid, "valid", torch.bool, (b, n, e)),
-        *lut_ptrs, kc.check(t0, "t0", I32, (n,)),
-        b, n, e, n_lut, buckets_per_chip, capacity, int(mode == "full"),
-        time_window, threads, smem, *(x.data_ptr() for x in out))
-    return out
+                             voltage=voltage, inject=FusedInjectOut(*out))

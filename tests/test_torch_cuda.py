@@ -82,6 +82,63 @@ def test_fused_inject_kernel_matches_plain(cuda, b, mode):
     _equal(got, fused_inject_ref(events, table, t0, **kw))
 
 
+def _inject_block(rng, b, e, kind, device, n=40):
+    """An event block and a table: ``in_range`` destinations, ``negative``
+    ones down to -2, or ``minus_one`` on every entry (every admitted
+    lane's bucket wraps and lanes collide on cells); row (0, 0) all
+    invalid, and chip 1's in-range entries all to chip 1 (its buckets
+    overflow)."""
+    t0 = np.array([0, 100, 250, 254, 7], np.int32)
+    addr = rng.integers(-3, n + 3, (b, N_CHIPS, e)).astype(np.int32)
+    time = (t0[None, :, None] + rng.integers(0, b + 1, (b, N_CHIPS, e))
+            ).astype(np.int32)
+    valid = rng.random((b, N_CHIPS, e)) < 0.7
+    valid[0, 0] = False
+    dest = rng.integers({"in_range": 0, "negative": -2}.get(kind, -1),
+                        N_CHIPS if kind != "minus_one" else 0,
+                        (N_CHIPS, n, 1)).astype(np.int32)
+    dest[1] = np.where(dest[1] < 0, dest[1], 1)
+    events = ev.EventBuffer(_on(addr, device), _on(time, device),
+                            _on(valid, device))
+    table = rt.RoutingTable(
+        _on(dest, device),
+        _on(rng.integers(0, n, (N_CHIPS, n, 1)).astype(np.int32), device),
+        _on(rng.choice([0, 3, 9, 12, 130], (N_CHIPS, n, 1)).astype(np.int32),
+            device),
+        _on(rng.random((N_CHIPS, n, 1)) < 0.9, device))
+    return events, table, _on(t0, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["simplified", "full"])
+@pytest.mark.parametrize("kind,lanes,cap", [
+    ("in_range", 512, 32), ("in_range", 70, 3), ("negative", 1500, 8),
+    ("minus_one", 512, 32)])
+def test_fused_inject_edge_rows_match_plain(cuda, kind, lanes, cap, mode):
+    """Bitwise against the plain version, B 8: in-range tables (words
+    stored straight into the slab; the sentinel by 16-byte stores at C 32,
+    by words at C 3), rows of 1500 lanes (three tiles of 512, the cells
+    resolved in shared memory), a table of dest_chip -1 throughout (the
+    block vote finds wrapping lanes), an all-invalid row and buckets over
+    capacity; one launch of the one kernel per call."""
+    events, table, t0 = _inject_block(np.random.default_rng(lanes + cap), 8,
+                                      lanes, kind, cuda)
+    kw = dict(n_chips=N_CHIPS, buckets_per_chip=2, capacity=cap, mode=mode,
+              time_window=4)
+    run = lambda: fi.fused_inject(events, table, t0, **kw)
+    before = kc.launches["fused_inject"]
+    run()
+    assert kc.launches["fused_inject"] == before + 1
+    got, names = kc.card_kernels(run)
+    assert len(names) == 1 and "fused_inject_kernel" in names[0], names
+    want = fused_inject_ref(events, table, t0, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want.sent[0, 0]) == 0
+    if kind != "minus_one":
+        assert int(want.overflow.sum()) > 0
+
+
 @pytest.mark.cuda
 def test_bucket_pack_kernel_matches_plain(cuda):
     rng = np.random.default_rng(0)
@@ -515,6 +572,44 @@ def test_fused_lif_inject_kernel_matches_plain(cuda, b, mode):
     for name in ("v", "refrac", "spikes", "voltage"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     _equal(got.inject, want.inject)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["simplified", "full"])
+@pytest.mark.parametrize("b", [1, 8])
+def test_fused_lif_inject_tiles_and_cut_match_plain(cuda, b, mode):
+    """N = 2000 neurons (four tiles of 512 for the LIF update, the
+    compaction and the inject) and an event_capacity of 40, below the
+    spikes of most substeps, so the cut bites; bitwise, one launch of the
+    one kernel per call."""
+    rng = np.random.default_rng(2000 + b + len(mode))
+    n = 2000
+    v, refrac, _, *params = _lif_args(rng, (N_CHIPS, n), cuda)
+    currents = _on(rng.normal(0.5, 0.8, (b, N_CHIPS, n)).astype(np.float32),
+                   cuda)
+    table = rt.RoutingTable(
+        _on(rng.integers(-1, N_CHIPS, (N_CHIPS, n, 1)).astype(np.int32),
+            cuda),
+        _on(rng.integers(0, n, (N_CHIPS, n, 1)).astype(np.int32), cuda),
+        _on(rng.integers(b, 20, (N_CHIPS, n, 1)).astype(np.int32), cuda),
+        _on(rng.random((N_CHIPS, n, 1)) < 0.9, cuda))
+    t0 = _on(np.array([0, 100, 250, 254, 7], np.int32), cuda)
+    kw = dict(event_capacity=40, n_chips=N_CHIPS, buckets_per_chip=2,
+              capacity=16, mode=mode, time_window=4)
+    lifp = nr.LIFParams(*params)
+    run = lambda: fi.fused_lif_inject(v, refrac, currents, lifp, table, t0,
+                                      **kw)
+    before = kc.launches["fused_lif_inject"]
+    run()
+    assert kc.launches["fused_lif_inject"] == before + 1
+    got, names = kc.card_kernels(run)
+    assert len(names) == 1 and "fused_lif_inject_kernel" in names[0], names
+    want = fused_lif_inject_ref(v, refrac, currents, lifp, table, t0, **kw)
+    for name in ("v", "refrac", "spikes", "voltage"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for g, w in zip(got.inject, want.inject):
+        assert torch.equal(g, w)
+    assert int((want.spikes.sum(-1) > kw["event_capacity"]).sum()) > 0
 
 
 @pytest.mark.cuda

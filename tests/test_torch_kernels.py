@@ -53,7 +53,9 @@ def _inject_case(b, case, seed=0):
     """Event block [B, n_chips, E] with negative and out-of-range source
     addresses, per-chip clocks across the 255 -> 0 wrap, and a fan-out-1
     LUT per chip.  ``tight`` forces bucket overflow, ``far`` puts delays
-    outside the admission window, ``negative`` routes to dest chip -1."""
+    outside the admission window, ``negative`` routes to dest chips -2 and
+    -1, ``wrapped`` every entry to -1 (every admitted lane's bucket wraps,
+    and lanes collide on cells)."""
     rng = np.random.default_rng(seed + 10 * b + len(case))
     n, e = 24, 20
     t0 = np.array([0, 120, 250], np.int32)
@@ -63,6 +65,8 @@ def _inject_case(b, case, seed=0):
     valid = rng.random((b, N_CHIPS, e)) < 0.7
     lo = -2 if case == "negative" else 0
     dest = rng.integers(lo, N_CHIPS, (N_CHIPS, n, 1))
+    if case == "wrapped":
+        dest[:] = -1
     if case == "far":
         delay = rng.choice([-3, 0, 1, 2, 127, 128, 200], (N_CHIPS, n, 1))
     else:
@@ -89,7 +93,8 @@ def _check_inject(want, got):
              getattr(got, f), f)
 
 
-@pytest.mark.parametrize("case", ["random", "tight", "far", "negative"])
+@pytest.mark.parametrize("case", ["random", "tight", "far", "negative",
+                                  "wrapped"])
 @pytest.mark.parametrize("mode", ["simplified", "full"])
 @pytest.mark.parametrize("b", [1, 4])
 def test_fused_inject_plain_matches_reference(b, mode, case):

@@ -344,7 +344,13 @@ def test_fused_lif_inject_rejects_fanout_above_one():
 
 
 def test_lif_launch_plan_at_the_feedforward_cell():
-    assert fi.lif_launch_plan(512, 46, 92, 32) == (512, 30004, 30584)
+    """Both fused kernels run one CTA of 512 threads per (chip, substep),
+    a grid of (46, B): the inject scratch (a lane index per cell, each
+    warp's counts by bucket and chip and its two stats, the running
+    counts), and for ``fused_lif_inject`` the spike counts of two tiles
+    and the fired flags."""
+    assert fi.launch_plan(512, 46, 92, 32) == (512, 21104)
+    assert fi.lif_launch_plan(512, 46, 92, 32) == (512, 21744)
     assert ms.launch_plan(3136, "words") == (1024, 46604)
     assert ms.launch_plan(3136, "soa") == (1024, 71560)
     with pytest.raises(ValueError, match="shared memory"):
