@@ -36,7 +36,14 @@ Phases, each fatal on failure:
              same way.  The sorts run
              on the entry phase's merge cycle (46 x 3136 lanes; each SoA
              row prints its radix passes) and the SoA sort also on
-             deadlines over the whole int32 range (4 passes);
+             deadlines over the whole int32 range (4 passes).  Also the
+             pipelined path's drains (rate mode, ``extra_ahead`` 8: its
+             first steady stage with the gate all on, and the prologue
+             with the gate all off, which must emit sentinels, keep the
+             ring and the queue and expire nothing) and the flow path's
+             pack of one substep into column k of the slab in place (46
+             rows of 512 send-queue lanes ahead of 2,048 fresh ones, its
+             first and fourth substeps);
   3. entry   the entry points off the network's path, counters zeroed
              first: ``merge_drain_words(use_pallas=True)`` on the first
              feedforward block's delivered words must equal
@@ -58,6 +65,23 @@ Phases, each fatal on failure:
              wafer's fan-out-4 LUT: its first 16 steps equal a plain run
              on the CPU, then 3 surrogate-gradient steps of a rate loss
              (T 16) with a finite, nonzero gradient;
+     pipelined  the feedforward path's widths and config on the
+             pipelined schedule (``pipeline=True``), a LUT with delays 16
+             to 24 (> 2B - 1): fused_inject, fused_drain and lif_step must
+             launch; its first 16 steps equal a plain run on the CPU
+             (spikes, integer stats, ring, merge queue); spikes, ring and
+             every integer stat equal the serial run on the card; a
+             streaming drive of 4 ``pipeline_block`` calls closes
+             conservation with the in-flight leg, and ``flush_pending``
+             empties it;
+     flow    the dense path's network (wafer widths and LUT, LIF) on the
+             event path under ``FlowControlConfig(capacity=16,
+             drain_rate=8, retransmit_depth=512)``: bucket_pack (one launch
+             per substep), fused_drain and lif_step must launch; the gate
+             must bind (stalled words or a non-empty send queue); its
+             first 16 steps equal a plain run on the CPU (spikes, stats,
+             credits, send queue); Σ sent == deposits + expired +
+             overflow + merge_dropped + stalled + queued;
   8. serve-check  zamba2-2.7b at full width, one pattern repeat (6
              layers), float32, batch 1, prompt 300, 8 teacher-forced decode
              steps: the card (kernels) against the plain path on the CPU
@@ -118,6 +142,9 @@ REPLACES = {
     "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:61",
 }
 PLAIN_CHECK_STEPS = 16
+# Paths driven by one run call (deposits counted from the ring's pops),
+# each also held against its first steps on the CPU.
+WHOLE_RUNS = ("plastic", "dense", "pipelined", "flow")
 
 
 def tree_clone(x):
@@ -143,12 +170,16 @@ def nbytes(*xs) -> int:
 
 
 @contextlib.contextmanager
-def capture(module, name: str, store: dict):
-    """Record the arguments of the first call of ``module.name``."""
+def capture(module, name: str, store: dict, keys=None):
+    """Record the arguments of the first calls of ``module.name``: call i
+    under ``keys[i]`` (default: the first call under ``name``)."""
     orig = getattr(module, name)
+    keys = list(keys or (name,))
 
     def wrapped(*args, **kwargs):
-        store.setdefault(name, (tree_clone(args), dict(kwargs)))
+        if keys:
+            store[keys.pop(0)] = (tree_clone(args), {
+                k: tree_clone(v) for k, v in kwargs.items()})
         return orig(*args, **kwargs)
 
     setattr(module, name, wrapped)
@@ -327,16 +358,32 @@ def run_path(net, cfg, params, ext, device, b: int):
     return state, rec, deposits
 
 
-def check_conservation(label: str, state, rec, deposits):
+def check_conservation(label: str, state, rec, deposits, carried=None):
+    """Σ sent == deposits + expired + overflow + merge_dropped + stalled +
+    the merge and send queues' occupancy + the in-flight words of a
+    pipeline carry.  ``carried`` is a carry whose block's stats are not in
+    ``rec`` yet (a run stopped between two stages): its sent and
+    source-side legs are added."""
     s = rec.stats
-    total = lambda x: int(x.sum(dtype=torch.int64))
-    queued = 0 if state.merge is None else int(state.merge.occupancy().sum())
+    total = lambda x: int(x.sum(dtype=torch.int64))  # noqa: E731
+    queued = sum(int(q.occupancy().sum()) for q in (state.merge, state.sendq)
+                 if q is not None)
+    in_flight = 0
     lhs = total(s.sent)
-    rhs = (int(deposits) + total(s.expired) + total(s.overflow)
-           + total(s.merge_dropped) + queued)
+    legs = (total(s.expired) + total(s.overflow) + total(s.merge_dropped)
+            + total(s.stalled))
+    if carried is not None:
+        in_flight = int(carried.occupancy().sum())
+        inj = carried.inject
+        lhs += total(inj.sent)
+        legs += sum(total(x) for x in (inj.overflow, inj.stalled,
+                                       inj.wrap_expired, inj.lost))
+    rhs = int(deposits) + legs + queued + in_flight
     print(f"[{label}] conservation: sent {lhs} == deposits {int(deposits)} "
           f"+ expired {total(s.expired)} + overflow {total(s.overflow)} + "
-          f"merge_dropped {total(s.merge_dropped)} + queued {queued} "
+          f"merge_dropped {total(s.merge_dropped)} + stalled "
+          f"{total(s.stalled)} + queued {queued} + in flight {in_flight}"
+          f"{'' if carried is None else ' + the carried block legs'} "
           f"= {rhs}")
     if lhs != rhs:
         raise AssertionError(f"{label}: conservation violated")
@@ -377,6 +424,7 @@ class Paths:
 
     def __init__(self, device, seed: int, steps: int):
         from repro_torch.configs import bss2
+        from repro_torch.core import fabric as fb
         from repro_torch.core import pulse_comm as pc
         from repro_torch.core import routing as rt
         from repro_torch.snn import network as net
@@ -411,6 +459,18 @@ class Paths:
         self.ff_ext = self._ext(rng, ff_comm)
         self.dense_ext = self._ext(rng, base.comm)
         self.pc = pc
+        # pipelined: the feedforward path on the pipelined schedule, with
+        # delays 16 to 24 > 2B - 1, so it must equal the serial schedule.
+        self.pipe_cfg = dataclasses.replace(self.ff_cfg, pipeline=True)
+        self.pipe_params = self.ff_params._replace(table=rt.random_table(
+            gen, c.neurons_per_chip, c.n_chips, min_delay=16, max_delay=24,
+            device=device))
+        # flow: the dense path's network (wafer widths and LUT, LIF,
+        # weights on the 1/64 grid) on the event path under credits with
+        # a send queue, and the same input.
+        self.flow_cfg = net.NetworkConfig(
+            comm=base.comm, neuron_model="lif", flow=fb.FlowControlConfig(
+                capacity=16, drain_rate=8, retransmit_depth=512))
 
     def _ext(self, rng, comm):
         """Background input: each synapse row receives a spike with
@@ -429,7 +489,11 @@ class Paths:
             ("plastic", self.ff_cfg, self.ff_params, self.ff_ext,
              ("fused_inject", "fused_drain", "lif_step"), True),
             ("dense", self.dense_cfg, self.dense_params, self.dense_ext,
-             ("lif_step",), False))
+             ("lif_step",), False),
+            ("pipelined", self.pipe_cfg, self.pipe_params, self.ff_ext,
+             ("fused_inject", "fused_drain", "lif_step"), False),
+            ("flow", self.flow_cfg, self.dense_params, self.dense_ext,
+             ("bucket_pack", "fused_drain", "lif_step"), False))
 
     def drive(self, cfg, params, state, ext, plastic: bool, device=None):
         """One ``run`` or ``run_plastic`` call; returns ``(state, record,
@@ -462,6 +526,21 @@ class Paths:
                 _, store["record"] = self.net.run(
                     cfg, params, state, ext[:cfg.comm.superstep],
                     device=self.device)
+            out[label] = store
+        # The pipelined path's first two drains (the prologue, then block
+        # 0 drained in stage 2), and the flow path's packs of its first
+        # and fourth substeps (the queue's lanes ahead of the fresh ones).
+        for label, cfg, params, ext, steps, cap in (
+                ("pipelined", self.pipe_cfg, self.pipe_params, self.ff_ext,
+                 2 * self.pipe_cfg.comm.superstep,
+                 (fd_ops, "fused_drain", ("prologue", "steady"))),
+                ("flow", self.flow_cfg, self.dense_params, self.dense_ext, 4,
+                 (bp_ops, "flush_pack_column", ("first", "fourth")))):
+            store = {}
+            with capture(*cap[:2], store, cap[2]):
+                state = self.net.init_state(cfg, params, device=self.device)
+                self.net.run(cfg, params, state, ext[:steps],
+                             device=self.device)
             out[label] = store
         return out
 
@@ -676,6 +755,70 @@ def kernel_cases(blocks: dict, paths: Paths, device) -> list[dict]:
     (ring, delivered, queue, t0), kw = blocks["feedforward"]["fused_drain"]
     drain_cases("feedforward", ring, delivered, queue, t0, kw,
                 ("rate", "sort", "passthrough"))
+
+    # The pipelined schedule's drains: block 0 drained in stage 2 (deposit
+    # guard widened by B, gate all on), and the prologue (gate all off).
+    def prologue_check(got, q, r):
+        if (bool((got.words >= 0).any()) or int(got.dep_expired.sum())
+                or not torch.equal(got.queue, q)
+                or not torch.equal(got.ring.ring, r.ring)):
+            raise AssertionError("fused_drain prologue: the closed gate let "
+                                 "words, expiries or queue changes through")
+
+    for key, gate_open in (("steady", True), ("prologue", False)):
+        (ring, delivered, queue, t0), kw = blocks["pipelined"][key]
+        n, b = delivered.shape[:2]
+        if (kw["extra_ahead"] != b or kw["mode"] != "rate"
+                or not bool((kw["gate"] == gate_open).all())):
+            raise AssertionError(f"pipelined {key} drain captured with "
+                                 f"{kw}")
+        args = (ring, delivered, queue, t0)
+        merged = fd_ops.sort_length("rate", delivered.shape[-1],
+                                    queue.shape[-1])
+        cases.append(dict(
+            kernel="fused_drain",
+            mode=(f"pipelined rate B{b} extra_ahead {b} gate all "
+                  f"{'on' if gate_open else 'off'}"), main=False,
+            run=lambda a=args, k=kw: fd_ops.fused_drain(*a, **k),
+            plain=lambda a=args, k=kw: fused_drain_ref(*a, **k),
+            check=(None if gate_open else
+                   lambda got, q=queue, r=ring: prologue_check(got, q, r)),
+            inputs=(ring.ring, delivered, queue, t0),
+            ops=n * b * (2 * merged + kw["rate"])))
+
+    # The credit-gated inject's pack of one substep into column k of the
+    # block's slab, in place: the send queue's lanes ahead of the fresh.
+    depth = paths.flow_cfg.flow.retransmit_depth
+    for key in ("first", "fourth"):
+        (bid, addr, dead, valid), kw = blocks["flow"][key]
+        args = (bid, addr, dead, valid)
+        slab0, k, cap = kw["slab"], kw["substep"], kw["capacity"]
+        target = slab0.clone()
+
+        def column_run(a=args, s=target, k=k, cap=cap):
+            counts, overflow = bp_ops.flush_pack_column(
+                *a, slab=s, substep=k, capacity=cap)
+            return s, counts, overflow
+
+        def column_plain(a=args, s0=slab0, k=k, cap=cap):
+            rows, counts, overflow = bucket_pack_ref(
+                a[0].to(torch.int32), ev.encode_word(*a[1:]),
+                n_buckets=s0.shape[1], capacity=cap)
+            s = s0.clone()
+            s[:, :, k] = rows
+            return s, counts, overflow
+
+        n, lanes = bid.shape
+        queued = int(valid[:, :depth].sum())
+        threads, smem = bp_ops.launch_plan(lanes, slab0.shape[1], cap)
+        cases.append(dict(
+            kernel="bucket_pack",
+            mode=(f"flow column, {key} substep, {n} x {lanes} lanes "
+                  f"({depth} queue lanes, {queued} valid)"), main=False,
+            run=column_run, plain=column_plain, inputs=args + (slab0,),
+            ops=bid.numel(), host=True, sole_kernel="bucket_pack_kernel",
+            plan=(f"one CTA per row, {n} CTAs of {threads} threads, {smem} "
+                  f"B shared memory, into column {k} of the slab")))
     return cases
 
 
@@ -695,6 +838,8 @@ def kernel_phase(cases: list[dict]) -> dict:
         tol = case.get("tol")
         err = (compare(label, got, want) if tol is None
                else compare_close(label, got, want, *tol))
+        if case.get("check") is not None:
+            case["check"](got)
         del want
         moved = nbytes(case["inputs"]) + nbytes(got)
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -963,13 +1108,13 @@ def path_phase(paths: Paths, device) -> dict:
                                      "plain run on the CPU")
             print(f"[feedforward] demo spike times equal the plain CPU run; "
                   f"launches {demo_counts}")
-        if label in ("plastic", "dense"):
+        if label in WHOLE_RUNS:
             check_against_cpu(paths, label, cfg, params, ext, plastic)
         torch.cuda.synchronize()
         kc.reset_launches()
         pops = []
         t_start = time.perf_counter()
-        if plastic or label == "dense":
+        if label in WHOLE_RUNS:
             state = net.init_state(cfg, params, device=device)
             ring0 = state.ring.ring.sum(dtype=torch.float64)
             with tally_pops(pops):
@@ -993,7 +1138,8 @@ def path_phase(paths: Paths, device) -> dict:
         print(f"[{label}] spikes {int(rec.spikes.sum())}, sent "
               f"{int(s.sent.sum())}, overflow {int(s.overflow.sum())}, "
               f"expired {int(s.expired.sum())}, merge_dropped "
-              f"{int(s.merge_dropped.sum())}, mean utilization "
+              f"{int(s.merge_dropped.sum())}, stalled "
+              f"{int(s.stalled.sum())}, mean utilization "
               f"{float(s.utilization.mean()):.4f}")
         check_record(label, rec, ext.shape[0], c.n_chips, c.neurons_per_chip)
         if label == "dense":
@@ -1001,6 +1147,16 @@ def path_phase(paths: Paths, device) -> dict:
             gradient_steps(paths, cfg, params, ext)
         else:
             check_conservation(label, state, rec, int(deposits))
+        if label == "pipelined":
+            check_pipelined(paths, device, state, rec)
+        if label == "flow":
+            queued = int(state.sendq.occupancy().sum())
+            print(f"[flow] credit gate: {int(s.stalled.sum())} words stalled "
+                  f"past the send queue, {queued} still queued at the end, "
+                  f"{int(state.flow.notifications.sum())} credit "
+                  f"notifications")
+            if int(s.stalled.sum()) == 0 and queued == 0:
+                raise AssertionError("flow: the credit gate never bound")
         if plastic:
             w = learnt.crossbar.w
             if not bool(torch.isfinite(w).all()):
@@ -1015,6 +1171,67 @@ def path_phase(paths: Paths, device) -> dict:
                 raise AssertionError(f"{label}: kernel {k} never launched")
         counts[label]["steps_per_s"] = ext.shape[0] / wall
     return counts
+
+
+def check_pipelined(paths: Paths, device, state, rec, blocks: int = 4):
+    """The pipelined run against the serial run of the same config and
+    LUT on the card (spikes, ring, every integer stat bitwise); then a
+    streaming drive of ``pipeline_block`` calls on the run's own events,
+    whose conservation closes with the in-flight leg, and its flush."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import delays as dl
+    from repro_torch.core import events as ev
+    from repro_torch.core import fabric as fb
+
+    net, c = paths.net, paths.pipe_cfg.comm
+    serial = dataclasses.replace(paths.pipe_cfg, pipeline=False)
+    sstate, srec = net.run(serial, paths.pipe_params,
+                           net.init_state(serial, paths.pipe_params,
+                                          device=device),
+                           paths.ff_ext, device=device)
+    same = [torch.equal(srec.spikes, rec.spikes),
+            torch.equal(sstate.ring.ring, state.ring.ring)]
+    same += [torch.equal(getattr(srec.stats, f), getattr(rec.stats, f))
+             for f in rec.stats._fields if f != "utilization"]
+    if not all(same):
+        raise AssertionError("pipelined: differs from the serial run")
+    print(f"[pipelined] equals the serial run on the card: spikes, ring "
+          f"and every integer stat ({int(rec.stats.sent.sum())} sent); "
+          f"the carry is empty after the run "
+          f"({int(state.pending.occupancy().sum())} in flight)")
+
+    b = c.superstep
+    fabric = fb.PulseFabric(c, device=device)
+    ring = dl.init(c.ring_depth, c.n_inputs_per_chip,
+                   batch_shape=(c.n_chips,), device=device)
+    merge, pending, stats = fabric.init_merge(), None, []
+    for f in range(blocks):
+        bufs = [ev.from_spikes(rec.spikes[t] > 0.5, t, c.event_capacity)[0]
+                for t in range(f * b, (f + 1) * b)]
+        res = fabric.pipeline_block(
+            ev.EventBuffer(*(torch.stack(x) for x in zip(*bufs))),
+            paths.pipe_params.table, ring, None, merge, None, pending)
+        ring = dl.DelayRing(ring=res.ring.ring, now=res.ring.now + b)
+        merge, pending = res.merge, res.pending
+        stats.append(res.stats)
+    cat = lambda xs: type(xs[0])(*(torch.cat(v) for v in zip(*xs)))  # noqa
+    in_flight = int(pending.occupancy().sum())
+    if in_flight == 0:
+        raise AssertionError("pipelined streaming: the carry is empty")
+    check_conservation(
+        f"pipelined streaming, {blocks} blocks",
+        SimpleNamespace(merge=merge, sendq=None),
+        SimpleNamespace(stats=cat(stats)), ring.ring.sum(dtype=torch.int64),
+        carried=pending)
+    res = fabric.flush_pending(ring, pending, None, merge)
+    if int(res.pending.occupancy().sum()) != 0:
+        raise AssertionError("pipelined: the flush left words in flight")
+    check_conservation(
+        "pipelined streaming, flushed",
+        SimpleNamespace(merge=res.merge, sendq=None),
+        SimpleNamespace(stats=cat(stats + [res.stats])),
+        res.ring.ring.sum(dtype=torch.int64))
 
 
 def check_dense_delivery(cfg, params, rec, deposits):
@@ -1032,9 +1249,11 @@ def check_dense_delivery(cfg, params, rec, deposits):
 
 def check_against_cpu(paths: Paths, label, cfg, params, ext, plastic):
     """The path's first steps on the card against the plain versions on
-    the CPU from the same weights: spikes equal, learnt weights within
-    1e-5, and each neuron's voltage within 1e-5 of the largest |v| on its
-    own trajectory (at least 1).  The card's expf and the CPU's exp may
+    the CPU from the same weights: spikes equal, on the event paths every
+    integer stat, the ring and the carries (credits, send and merge
+    queues) bitwise, learnt weights within 1e-5, and each neuron's
+    voltage within 1e-5 of the largest |v| on its own trajectory (at
+    least 1).  The card's expf and the CPU's exp may
     differ in the last bit, and the card sums the crossbar in another
     order once STDP has made the weights non-dyadic; a neuron's voltage
     keeps such an ulp of its largest value through the leak and through
@@ -1045,12 +1264,21 @@ def check_against_cpu(paths: Paths, label, cfg, params, ext, plastic):
     out = {}
     for dev, p in ((paths.device, params), (cpu, cpu_params)):
         state = paths.net.init_state(cfg, p, device=dev)
-        _, rec, learnt = paths.drive(cfg, p, state, ext[:t].to(dev), plastic,
-                                     device=dev)
-        out[dev.type] = (rec, learnt)
-    (grec, gp), (crec, cp) = out["cuda"], out["cpu"]
+        final, rec, learnt = paths.drive(cfg, p, state, ext[:t].to(dev),
+                                         plastic, device=dev)
+        out[dev.type] = (rec, learnt, final)
+    (grec, gp, gfinal), (crec, cp, cfinal) = out["cuda"], out["cpu"]
     if not torch.equal(grec.spikes.cpu(), crec.spikes):
         raise AssertionError(f"{label}: spikes differ from the CPU run")
+    if cfg.comm_mode == "event":
+        pairs = [(getattr(grec.stats, f), getattr(crec.stats, f))
+                 for f in crec.stats._fields if f != "utilization"]
+        for name in ("ring", "flow", "sendq", "merge"):
+            if getattr(cfinal, name) is not None:
+                pairs += zip(getattr(gfinal, name), getattr(cfinal, name))
+        if not all(torch.equal(g.cpu(), w) for g, w in pairs):
+            raise AssertionError(f"{label}: stats, ring or carries differ "
+                                 f"from the CPU run")
     scale = crec.voltage.abs().amax(0, keepdim=True).clamp(min=1.0)
     rel = float(((grec.voltage.cpu() - crec.voltage).abs() / scale).max())
     dw = float((gp.crossbar.w.cpu() - cp.crossbar.w).abs().max())
@@ -1059,7 +1287,10 @@ def check_against_cpu(paths: Paths, label, cfg, params, ext, plastic):
                              f"largest |v|) / weights {dw} differ from the "
                              f"CPU run")
     print(f"[{label}] first {t} steps equal the plain CPU run: "
-          f"{int(crec.spikes.sum())} spikes equal, max |dv| / max|v| "
+          f"{int(crec.spikes.sum())} spikes equal"
+          + (", integer stats, ring and carries bitwise"
+             if cfg.comm_mode == "event" else "")
+          + f", max |dv| / max|v| "
           f"{rel:.3g} (|v| up to {float(scale.max()):.4g}), max |dw| "
           f"{dw:.3g}")
 
@@ -1140,10 +1371,12 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
             t_start = time.perf_counter()
-            for i in range(1, n_blocks + 1):
+            # A pipelined run is one call (its stages, then one flush);
+            # the others take a call per block.
+            for i, j in ([(1, n_blocks + 1)] if cfg.pipeline else
+                         [(i, i + 1) for i in range(1, n_blocks + 1)]):
                 state, _, params = paths.drive(cfg, params, state,
-                                               ext[i * b:(i + 1) * b],
-                                               plastic)
+                                               ext[i * b:j * b], plastic)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t_start
         out[label] = profile_row(prof, wall, n_blocks * b)

@@ -5,8 +5,9 @@ from the JAX package.
 the JAX package's ``NetworkParams`` / ``NetworkState`` / ``STDPState``
 (any array type numpy can read, fields by name) and return the port's
 versions on ``device``, so both packages compute from identical weights
-and state.  A ring keeps its dtype: int32 in event mode, float32 in
-dense mode.  ``lm_params_from_jax`` maps a language model's parameter
+and state; a state taken mid-run keeps its carries (credits, send
+queue, merge queue, the pipeline's in-flight block).  A ring keeps its
+dtype: int32 in event mode, float32 in dense mode.  ``lm_params_from_jax`` maps a language model's parameter
 tree (nested dicts) leaf by leaf, each keeping its dtype.  Nothing here
 imports JAX: every leaf goes through ``numpy.asarray``.
 """
@@ -17,7 +18,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import delays as dl
+from repro_torch.core import flowcontrol as fc
 from repro_torch.core import merge as mg
+from repro_torch.core import pulse_comm as pc
 from repro_torch.core import routing as rt
 from repro_torch.kernels import common as kc
 from repro_torch.snn import network as net
@@ -50,18 +53,39 @@ def params_from_jax(params, *, device="cuda") -> net.NetworkParams:
         table=table_from_jax(params.table, device=device))
 
 
+def pending_from_jax(pending, *, device="cuda") -> pc.PipelineCarry:
+    """The JAX local fabric's pipeline carry, its fields batched over a
+    leading chip axis, as the port's: the block's stats go from ``[n_chips,
+    B, ...]`` to the port's ``[B, n_chips, ...]``."""
+    device = kc.resolve_device(device)
+    inject = pc.InjectStats(*(
+        tensor(getattr(pending.inject, f), device).transpose(0, 1)
+        .contiguous() for f in pc.InjectStats._fields))
+    return pc.PipelineCarry(
+        words=tensor(pending.words, device),
+        link=_fields(pc.LinkStats, pending.link, device), inject=inject,
+        t0=tensor(pending.t0, device, torch.int32),
+        valid=tensor(pending.valid, device, torch.bool))
+
+
 def state_from_jax(state, *, device="cuda") -> net.NetworkState:
-    """Neuron state, delay ring and clock, step counter and merge queue."""
+    """Neuron state, delay ring and clock, step counter and the carries
+    (credit state, merge queue, send queue, pipeline carry) where the
+    state has them."""
     device = kc.resolve_device(device)
     cls = nr.LIFState if not hasattr(state.neuron, "w") else nr.AdExState
-    merge = None
-    if getattr(state, "merge", None) is not None:
-        merge = mg.MergeBuffer(words=tensor(state.merge.words, device))
+    carry = lambda name, fn: (None if getattr(state, name, None) is None
+                              else fn(getattr(state, name)))
     return net.NetworkState(
         neuron=_fields(cls, state.neuron, device),
         ring=_fields(dl.DelayRing, state.ring, device),
         t=tensor(state.t, device, torch.int32),
-        merge=merge)
+        flow=carry("flow", lambda x: _fields(fc.RingState, x, device)),
+        merge=carry("merge", lambda x: mg.MergeBuffer(
+            words=tensor(x.words, device))),
+        sendq=carry("sendq", lambda x: _fields(fc.SendQueue, x, device)),
+        pending=carry("pending",
+                      lambda x: pending_from_jax(x, device=device)))
 
 
 def stdp_state_from_jax(state, *, device="cuda") -> sd.STDPState:

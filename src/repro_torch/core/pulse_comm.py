@@ -126,6 +126,18 @@ def bucket_ids(cfg: PulseCommConfig, routed: rt.RoutedEvents) -> torch.Tensor:
                                  window=cfg.time_window)
 
 
+def admit(routed: rt.RoutedEvents, now: torch.Tensor, defer):
+    """The 8-bit wrap contract at the injection boundary: a lane stays
+    valid iff ``defer < deadline - now < 128``, with ``now`` and ``defer``
+    broadcast against the lanes' leading axes.  Returns ``(routed,
+    wrap_expired)``, the valid lanes that failed the window counted over
+    the lane axis."""
+    diff = routed.deadline - now[..., None]
+    in_window = (diff > defer) & (diff < ev.TIME_MOD // 2)
+    wrap_expired = (routed.valid & ~in_window).sum(-1, dtype=I32)
+    return routed._replace(valid=routed.valid & in_window), wrap_expired
+
+
 def route_block(events: ev.EventBuffer, table: rt.RoutingTable,
                 t0: torch.Tensor):
     """Route a block ``[B, n_chips, E]`` and admit it into the wrap
@@ -135,32 +147,41 @@ def route_block(events: ev.EventBuffer, table: rt.RoutingTable,
     routed = rt.route(events, table)
     sent = routed.valid.sum(-1, dtype=I32)
     k = torch.arange(b, dtype=I32, device=t0.device)[:, None]
-    now = t0[None, :] + k
-    defer = (b - 1) - k
-    diff = routed.deadline - now[..., None]
-    in_window = (diff > defer[..., None]) & (diff < ev.TIME_MOD // 2)
-    wrap_expired = (routed.valid & ~in_window).sum(-1, dtype=I32)
-    return routed._replace(valid=routed.valid & in_window), sent, wrap_expired
+    routed, wrap_expired = admit(routed, t0[None, :] + k,
+                                 ((b - 1) - k)[..., None])
+    return routed, sent, wrap_expired
 
 
-def aggregate_into(cfg: PulseCommConfig, routed: rt.RoutedEvents):
-    """Bucket assignment and flush-pack of a whole block.
+def aggregate_into(cfg: PulseCommConfig, routed: rt.RoutedEvents,
+                   flushbuf: FlushBuffer | None = None,
+                   substep: int | None = None):
+    """Bucket assignment and flush-pack, by the ``bucket_pack`` kernel on
+    a CUDA device and by its plain version on the CPU.
 
-    ``routed`` carries ``[B, n_chips, L]`` lanes (every substep of the
-    block: without flow control the substeps do not depend on each
-    other), packed by the ``bucket_pack`` kernel on a CUDA device and by
-    its plain version on the CPU.  Returns ``(flushbuf, counts[B, n_chips,
-    n_buckets], overflow[B, n_chips], traffic[B, n_chips, n_chips])``.
+    Without ``flushbuf``, ``routed`` carries a whole block ``[B, n_chips,
+    L]`` (without flow control the substeps do not depend on each other),
+    packed into a new slab; counts are ``[B, n_chips, n_buckets]``,
+    overflow ``[B, n_chips]``, traffic ``[B, n_chips, n_chips]``.  With
+    ``flushbuf`` and ``substep``, ``routed`` is one substep ``[n_chips,
+    L]``, packed into column ``substep`` of ``flushbuf.slab`` in place
+    (the credit gate's loop); counts are ``[n_chips, n_buckets]``.
+    Returns ``(flushbuf, counts, overflow, traffic)``.
     """
     from repro_torch.kernels.bucket_pack import ops as bp_ops
 
-    slab, counts, overflow = bp_ops.flush_pack(
-        bucket_ids(cfg, routed), routed.dest_addr, routed.deadline,
-        routed.valid, n_buckets=cfg.n_buckets,
-        capacity=cfg.bucket_capacity)
+    lanes = (bucket_ids(cfg, routed), routed.dest_addr, routed.deadline,
+             routed.valid)
     traffic = tp.exchange_matrix(routed.dest_chip, routed.valid, cfg.n_chips)
-    return (FlushBuffer(slab=slab, phase=slab.shape[-2]), counts, overflow,
-            traffic)
+    if flushbuf is None:
+        slab, counts, overflow = bp_ops.flush_pack(
+            *lanes, n_buckets=cfg.n_buckets, capacity=cfg.bucket_capacity)
+        return (FlushBuffer(slab=slab, phase=slab.shape[-2]), counts,
+                overflow, traffic)
+    counts, overflow = bp_ops.flush_pack_column(
+        *lanes, slab=flushbuf.slab, substep=substep,
+        capacity=cfg.bucket_capacity)
+    return (FlushBuffer(slab=flushbuf.slab, phase=substep + 1), counts,
+            overflow, traffic)
 
 
 class LinkStats(NamedTuple):
@@ -225,16 +246,70 @@ class InjectStats(NamedTuple):
 
 
 def inject_stats(cfg: PulseCommConfig, *, counts, sent, overflow,
-                 wrap_expired, traffic) -> InjectStats:
+                 wrap_expired, traffic, stalled=None) -> InjectStats:
     """Wire bytes and utilization from the per-substep bucket counts
-    ``[B, n_chips, n_buckets]``, with the reference's formulas
-    (utilization is ``mean(fill) / C`` in f32)."""
+    ``[B, n_chips, n_buckets]`` (after the credit gate), with the
+    reference's formulas (utilization is ``mean(fill) / C`` in f32);
+    ``stalled`` defaults to zeros (no flow control)."""
     fill = torch.clamp(counts, max=cfg.bucket_capacity)
     n_packets = (counts > 0).sum(-1, dtype=I32)
     wire = n_packets * HEADER_BYTES + fill.sum(-1, dtype=I32) * EVENT_BYTES
     zeros = torch.zeros_like(sent)
     return InjectStats(
-        sent=sent, overflow=overflow, stalled=zeros,
+        sent=sent, overflow=overflow,
+        stalled=zeros if stalled is None else stalled,
         wrap_expired=wrap_expired, lost=zeros, wire_bytes=wire.to(I32),
         utilization=fill.float().mean(-1) / float(cfg.bucket_capacity),
         traffic=traffic)
+
+
+class PipelineCarry(NamedTuple):
+    """The in-flight block of the pipelined schedule: issued (exchanged)
+    but not yet drained.
+
+    words  : int32[n_chips(dst), n_chips(src), bpc, B, C], the exchanged
+             block (:class:`IssuedFlush` layout; sentinel = empty lane)
+    link   : the exchange's link accounting, ``[n_chips, 1]``
+    inject : the block's source-side stats, ``[B, n_chips, ...]``,
+             reported when the block is drained
+    t0     : int32[n_chips] block-start clock of the carried block
+    valid  : bool[n_chips], False = pipeline empty (prologue, after a
+             flush)
+
+    :meth:`occupancy` is the in-flight leg of the conservation identity
+    ``sent == deposited + expired + overflow + merge_dropped + stalled +
+    queue occupancies + in_flight``.
+    """
+
+    words: torch.Tensor
+    link: LinkStats
+    inject: InjectStats
+    t0: torch.Tensor
+    valid: torch.Tensor
+
+    def occupancy(self) -> torch.Tensor:
+        """Valid in-flight words per chip (0 where the pipeline is
+        empty)."""
+        n = ev.word_valid(self.words).flatten(1).sum(-1, dtype=I32)
+        return torch.where(self.valid, n, 0)
+
+
+def pipeline_init(cfg: PulseCommConfig, n_ports: int = 1,
+                  device=None) -> PipelineCarry:
+    """An empty carry (``valid`` False, every stat zero, so draining it
+    deposits nothing and reports zeros)."""
+    n, b = cfg.n_chips, cfg.superstep
+    z = torch.zeros((b, n), dtype=I32, device=device)
+    link = torch.zeros((n, n_ports), dtype=I32, device=device)
+    return PipelineCarry(
+        words=ev.sentinel_words((n, n, cfg.buckets_per_chip, b,
+                                 cfg.bucket_capacity), device=device),
+        link=LinkStats(words=link, backlog=link.clone()),
+        inject=InjectStats(
+            sent=z, overflow=z, stalled=z, wrap_expired=z, lost=z,
+            wire_bytes=z,
+            utilization=torch.zeros((b, n), dtype=torch.float32,
+                                    device=device),
+            traffic=torch.zeros((b, n, n), dtype=I32, device=device)),
+        t0=torch.zeros((n,), dtype=I32, device=device),
+        valid=torch.zeros((n,), dtype=torch.bool, device=device))

@@ -2,7 +2,10 @@
 
 On CUDA tensors one launch packs every row, one CTA per row: the kernel
 reads the event's lanes (bucket id, addr, deadline, valid) and builds each
-wire word in registers.  Contiguous int32 lanes and a bool ``valid`` go to
+wire word in registers.  :func:`flush_pack` packs a whole block into a new
+flush slab; :func:`flush_pack_column` packs one substep into column k of
+an existing slab in place (the credit-gated inject, substep by
+substep).  Contiguous int32 lanes and a bool ``valid`` go to
 the launch as they are.  On CPU tensors the lanes are encoded into words
 and :func:`repro_torch.kernels.bucket_pack.ref.bucket_pack_ref` runs.
 """
@@ -65,6 +68,26 @@ def flush_pack(bucket_id, addr, deadline, valid, *, n_buckets: int,
     return slab, counts.reshape(b, n, n_buckets), overflow.reshape(b, n)
 
 
+def flush_pack_column(bucket_id, addr, deadline, valid, *,
+                      slab: torch.Tensor, substep: int, capacity: int):
+    """Pack one substep ``[n_chips, L]`` into column ``substep`` of the
+    flush slab ``[n_chips, n_buckets, B, capacity]``, in place: every cell
+    of the column is written (sentinels where no word lands), the other
+    columns are left as they are.  Returns ``(counts[n_chips, n_buckets],
+    overflow[n_chips])``."""
+    n, n_buckets, b = slab.shape[:3]
+    if not bucket_id.is_cuda:
+        rows, counts, overflow = bucket_pack_ref(
+            bucket_id.to(I32), ev.encode_word(addr, deadline, valid),
+            n_buckets=n_buckets, capacity=capacity)
+        slab[:, :, substep] = rows
+        return counts, overflow
+    return _launch(
+        bucket_id, addr, deadline, valid, slab, n_outer=1, n_inner=n,
+        strides=(0, n_buckets * b * capacity, b * capacity),
+        n_buckets=n_buckets, capacity=capacity, offset=substep * capacity)
+
+
 @functools.lru_cache(maxsize=64)
 def launch_plan(lanes: int, n_buckets: int, capacity: int
                 ) -> tuple[int, int]:
@@ -97,14 +120,16 @@ def _lanes(x, like, dtype, rows, lanes):
 
 
 def _launch(bucket_id, addr, deadline, valid, out, *, n_outer, n_inner,
-            strides, n_buckets, capacity):
+            strides, n_buckets, capacity, offset=0):
     """Row r = o * n_inner + i of the ``[rows, L]`` lanes lands at ``out``
-    offset ``o * strides[0] + i * strides[1]``, bucket stride
+    offset ``offset + o * strides[0] + i * strides[1]``, bucket stride
     ``strides[2]``."""
     rows, lanes = n_outer * n_inner, bucket_id.shape[-1]
-    if not out.is_contiguous() or out.numel() != rows * n_buckets * capacity:
-        raise ValueError("bucket_pack output must be contiguous and hold "
-                         "every row")
+    end = (offset + (n_outer - 1) * strides[0] + (n_inner - 1) * strides[1]
+           + (n_buckets - 1) * strides[2] + capacity)
+    if out.dtype != I32 or not out.is_contiguous() or end > out.numel():
+        raise ValueError("bucket_pack output must be contiguous int32 and "
+                         "hold every row")
     # The lanes stay referenced until the launch: a copy freed earlier
     # could hand its memory to the outputs below.
     lanes_in = [_lanes(x, bucket_id, dt, rows, lanes)
@@ -115,6 +140,7 @@ def _launch(bucket_id, addr, deadline, valid, out, *, n_outer, n_inner,
     threads, smem = launch_plan(lanes, n_buckets, capacity)
     kc.launch(NAME, kc.kernel_fn(NAME, "bucket_pack_launch", _ARGTYPES),
               *(x.data_ptr() for x in lanes_in), n_outer, n_inner, lanes,
-              n_buckets, capacity, threads, smem, out.data_ptr(),
+              n_buckets, capacity, threads, smem,
+              out.data_ptr() + offset * out.element_size(),
               *strides, counts.data_ptr(), overflow.data_ptr())
     return counts, overflow

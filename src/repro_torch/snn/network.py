@@ -10,7 +10,13 @@ of two communication paths:
   superstep` at the block-start clock, one exchange per block.
   Admission only puts events on the wire with more slack than their
   remaining deferral, so no event injected in a block is popped inside it
-  and the schedule equals the per-step one.
+  and the schedule equals the per-step one.  With ``pipeline=True`` the
+  blocks go through :meth:`~repro_torch.core.fabric.PulseFabric.
+  pipeline_block` instead: block f is injected and exchanged, block f-1
+  (carried in ``NetworkState.pending``) drained, and the run ends with
+  the carry's flush.  Spikes and voltages are never lagged; the stats
+  are realigned to their blocks.  With ``flow`` the credit state and the
+  send queue ride in ``NetworkState.flow`` / ``.sendq``.
 * ``dense`` — the differentiable path: the routing table applied as a
   scatter-add of float spike values into float delay rings (infinite
   capacity), per step, never blocked.  It carries surrogate gradients
@@ -20,9 +26,8 @@ of two communication paths:
 crossbar learns from the delivered input spikes (pre) and the output
 spikes (post), updated every substep.
 
-The pipelined schedule, flow control, topologies, health masks,
-telemetry and the shard forms are later slices of the port and raise
-``NotImplementedError``.
+Topologies, health masks, telemetry and the shard forms are later
+slices of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ class NetworkConfig:
     neuron_model: str = "lif"          # "lif" | "adex"
     comm_mode: str = "event"
     record_voltage: bool = True
-    flow: Any = None
+    flow: fb.FlowControlConfig | None = None
     topology: Any = None
     pipeline: bool = False
     healthy: Any = None
@@ -63,9 +68,11 @@ class NetworkConfig:
             raise ValueError(self.neuron_model)
         if self.comm_mode not in ("event", "dense"):
             raise ValueError(self.comm_mode)
+        if self.pipeline and self.comm_mode != "event":
+            raise ValueError(
+                "pipeline=True overlaps the event path's exchange; the "
+                "dense comm_mode has no exchange to pipeline")
         unported = {
-            "pipeline=True": self.pipeline,
-            "flow control": self.flow is not None,
             "a topology": self.topology is not None,
             "healthy / dead_links": (self.healthy is not None
                                      or bool(self.dead_links)),
@@ -87,7 +94,10 @@ class NetworkState(NamedTuple):
     ring: dl.DelayRing           # ring [n_chips, D, n_inputs] (f32 in dense
                                  # mode), now [n_chips]
     t: torch.Tensor              # int32[] simulation step
+    flow: Any = None             # credit state when cfg.flow is set
     merge: Any = None            # merge queue (full mode, merge_rate > 0)
+    sendq: Any = None            # send queue (flow.retransmit_depth > 0)
+    pending: Any = None          # in-flight block (cfg.pipeline)
 
 
 class StepRecord(NamedTuple):
@@ -131,7 +141,7 @@ def init_state(cfg: NetworkConfig, params: NetworkParams, *,
     device = kc.resolve_device(device)
     c = cfg.comm
     _, ninit = _neuron_fns(cfg)
-    fabric = fb.PulseFabric(c, device=device)
+    fabric = fb.PulseFabric(c, flow=cfg.flow, device=device)
     return NetworkState(
         neuron=ninit(params.neuron),
         ring=dl.init(c.ring_depth, c.n_inputs_per_chip,
@@ -139,7 +149,9 @@ def init_state(cfg: NetworkConfig, params: NetworkParams, *,
                             else I32),
                      batch_shape=(c.n_chips,), device=device),
         t=torch.zeros((), dtype=I32, device=device),
-        merge=fabric.init_merge())
+        flow=fabric.init_flow(), merge=fabric.init_merge(),
+        sendq=fabric.init_sendq(),
+        pending=fabric.init_pending() if cfg.pipeline else None)
 
 
 def dense_route(cfg: pc.PulseCommConfig, spikes: torch.Tensor,
@@ -187,8 +199,9 @@ def _block(cfg: NetworkConfig, fabric: fb.PulseFabric, params: NetworkParams,
            stdp_state: sd.STDPState | None = None):
     """One block of B substeps of [pop ring, crossbar, dynamics, (STDP),
     spikes -> events (event mode) or dense route (dense mode)], then, in
-    event mode, one fabric superstep at the block-start clock.  Returns
-    ``(state, spikes[B, ...], voltage[B, ...], stats, w, stdp_state)``."""
+    event mode, one fabric superstep (or pipelined stage, whose stats are
+    the previous block's) at the block-start clock.  Returns ``(state,
+    spikes[B, ...], voltage[B, ...], stats, w, stdp_state)``."""
     c = cfg.comm
     b = ext_block.shape[0]
     dense = cfg.comm_mode == "dense"
@@ -213,16 +226,24 @@ def _block(cfg: NetworkConfig, fabric: fb.PulseFabric, params: NetworkParams,
                      else torch.zeros_like(nstate.v))
     if dense:
         stats = _zero_stats(c, b, ring.ring.device)
-        merge = state.merge
+        carries = dict(flow=state.flow, merge=state.merge,
+                       sendq=state.sendq, pending=state.pending)
     else:
         events = ev.EventBuffer(*(torch.stack(x) for x in zip(*ebs)))
         ring0 = dl.DelayRing(ring=ring.ring, now=ring.now - b)
-        res = fabric.superstep(events, params.table, ring0, None,
-                               state.merge)
+        if cfg.pipeline:
+            res = fabric.pipeline_block(events, params.table, ring0,
+                                        state.flow, state.merge, state.sendq,
+                                        state.pending)
+        else:
+            res = fabric.superstep(events, params.table, ring0, state.flow,
+                                   state.merge, state.sendq)
         ring = dl.DelayRing(ring=res.ring.ring, now=res.ring.now + b)
-        stats, merge = res.stats, res.merge
+        stats = res.stats
+        carries = dict(flow=res.flow, merge=res.merge, sendq=res.sendq,
+                       pending=res.pending)
     state = NetworkState(neuron=nstate, ring=ring, t=state.t + b,
-                         merge=merge)
+                         **carries)
     return (state, torch.stack(spikes), torch.stack(volts), stats, w,
             stdp_state)
 
@@ -236,12 +257,14 @@ def _check_device(params: NetworkParams, device: torch.device):
 def step(cfg: NetworkConfig, params: NetworkParams, state: NetworkState,
          ext_input: torch.Tensor, *, device="cuda"
          ) -> tuple[NetworkState, StepRecord]:
-    """One step (event mode needs ``comm.superstep == 1``); ``ext_input
-    [n_chips, n_inputs]``.  The record has no time axis."""
-    if _block_length(cfg) != 1:
+    """One step (event mode needs ``comm.superstep == 1`` and the serial
+    schedule); ``ext_input [n_chips, n_inputs]``.  The record has no time
+    axis."""
+    if _block_length(cfg) != 1 or cfg.pipeline:
         raise ValueError(
-            f"comm.superstep={cfg.comm.superstep}: drive the network with "
-            "run(), which scans whole blocks")
+            f"comm.superstep={cfg.comm.superstep}, pipeline={cfg.pipeline}:"
+            " the exchange schedule is defined over whole blocks; drive "
+            "the network with run(), which scans whole blocks")
     state, rec = run(cfg, params, state, torch.as_tensor(ext_input)[None],
                      device=device)
     return state, StepRecord(spikes=rec.spikes[0], voltage=rec.voltage[0],
@@ -266,9 +289,12 @@ def _run(cfg, params, state, ext_inputs, device, stdp_cfg=None,
     if t_total % b:
         raise ValueError(f"run length T={t_total} must be a multiple of "
                          f"comm.superstep={b}")
-    fabric = fb.PulseFabric(cfg.comm, device=device)
-    if fabric.merge_enabled and state.merge is None:
-        state = state._replace(merge=fabric.init_merge())
+    fabric = fb.PulseFabric(cfg.comm, flow=cfg.flow, device=device)
+    flow, merge, sendq = fabric._init_missing(state.flow, state.merge,
+                                              state.sendq)
+    state = state._replace(flow=flow, merge=merge, sendq=sendq)
+    if cfg.pipeline and state.pending is None:
+        state = state._replace(pending=fabric.init_pending())
     w = params.crossbar.w
     spikes, volts, stats = [], [], []
     for t in range(0, t_total, b):
@@ -278,6 +304,14 @@ def _run(cfg, params, state, ext_inputs, device, stdp_cfg=None,
         spikes.append(spk)
         volts.append(volt)
         stats.append(st)
+    if cfg.pipeline:
+        # The epilogue: drain the carried last block; each stage reported
+        # the block before it, so drop the prologue's and append this.
+        res = fabric.flush_pending(state.ring, state.pending, state.flow,
+                                   state.merge, state.sendq)
+        stats = stats[1:] + [res.stats]
+        state = state._replace(ring=res.ring, merge=res.merge,
+                               pending=res.pending)
     rec = StepRecord(spikes=torch.cat(spikes), voltage=torch.cat(volts),
                      stats=pc.CommStats(*(torch.cat(x) for x in zip(*stats))))
     return state, rec, w, stdp_state
@@ -288,7 +322,8 @@ def run(cfg: NetworkConfig, params: NetworkParams, state: NetworkState,
         ) -> tuple[NetworkState, StepRecord]:
     """Run T steps on ``device`` (in event mode T a multiple of
     ``comm.superstep``); ``ext_inputs [T, n_chips, n_inputs]``.  Records
-    are stacked along time."""
+    are stacked along time.  A pipelined run ends with the carry's flush
+    (``state.pending`` comes back empty)."""
     state, rec, _, _ = _run(cfg, params, state, ext_inputs, device)
     return state, rec
 

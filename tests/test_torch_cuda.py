@@ -389,6 +389,122 @@ def _lif_args(rng, shape, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rate", "sort", "passthrough"])
+@pytest.mark.parametrize("gate", ["open", "closed"])
+def test_fused_drain_pipelined_gates_match_plain(cuda, mode, gate):
+    """The pipelined schedule's drains at the path's widths: a steady
+    stage (``extra_ahead`` B, gate all true; deposits within 2B - 1 of
+    the clock expire) and the prologue (gate all false: sentinel words,
+    the queue kept, no deposit and no expiry)."""
+    rng = np.random.default_rng(len(mode) + len(gate))
+    c = dict(_PATH)
+    t0_np = ((np.arange(c["n"]) * 37 + 240) % 256).astype(np.int32)
+    delivered, queue = _drain_block(rng, c["n"], c["b"], c["lanes"],
+                                    c["depth"], t0_np, 0.06, (-6, 40),
+                                    c["n_in"])
+    t0 = _on(t0_np, cuda)
+    ring = dl.DelayRing(
+        _on(rng.integers(0, 3, (c["n"], c["d"], c["n_in"])).astype(np.int32),
+            cuda), t0)
+    rate = mode == "rate"
+    got = _check_drain_case(
+        ring, _on(delivered, cuda), _on(queue, cuda) if rate else None, t0,
+        mode=mode, rate=c["rate"] if rate else 0, extra_ahead=c["b"],
+        gate=torch.full((c["n"],), gate == "open", device=cuda))
+    if gate == "closed":
+        assert torch.equal(got.ring.ring, ring.ring)
+        assert not bool((got.words >= 0).any())
+        assert int(got.dep_expired.abs().sum()) == 0
+        if rate:
+            assert torch.equal(got.queue, _on(queue, cuda))
+    else:
+        assert int(got.dep_expired.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [100, 2560])
+def test_bucket_pack_column_matches_plain(cuda, lanes):
+    """One substep packed into column k of an existing slab in place, as
+    the credit-gated inject does: the column equals the plain version's,
+    every other column keeps its words, one launch."""
+    rng = np.random.default_rng(lanes)
+    n, nb, b, cap = N_CHIPS, 2 * N_CHIPS, 3, 16
+    bid, addr, dead, valid = (_on(x, cuda) for x in _edge_lanes(
+        rng, (n, lanes), nb, cap))
+    slab0 = _on(rng.integers(-1, 1 << 22, (n, nb, b, cap)).astype(np.int32),
+                cuda)
+    for k in range(b):
+        slab = slab0.clone()
+        before = kc.launches["bucket_pack"]
+        counts, overflow = bp.flush_pack_column(
+            bid, addr, dead, valid, slab=slab, substep=k, capacity=cap)
+        assert kc.launches["bucket_pack"] == before + 1
+        want = slab0.cpu().clone()
+        want_counts, want_overflow = bp.flush_pack_column(
+            bid.cpu(), addr.cpu(), dead.cpu(), valid.cpu(), slab=want,
+            substep=k, capacity=cap)
+        assert torch.equal(slab.cpu(), want)
+        assert torch.equal(counts.cpu(), want_counts)
+        assert torch.equal(overflow.cpu(), want_overflow)
+        others = [j for j in range(b) if j != k]
+        assert torch.equal(slab[:, :, others], slab0[:, :, others])
+
+
+@pytest.mark.cuda
+def test_pipelined_flow_network_on_the_card_matches_the_cpu(cuda):
+    """A small network on the pipelined schedule under credits with a
+    send queue, fan-out 2, B 2: spikes, every integer stat, the ring, the
+    credits and the queue equal the same run on the CPU (voltages within
+    1e-5: ``expf`` against ``exp``)."""
+    from repro_torch.core import fabric as fb
+    from repro_torch.core import pulse_comm as pc
+    from repro_torch.snn import network as net
+    from repro_torch.snn import synapse as sy
+
+    comm = pc.PulseCommConfig(n_chips=4, neurons_per_chip=64,
+                              n_inputs_per_chip=64, event_capacity=64,
+                              fanout=2, bucket_capacity=8,
+                              buckets_per_chip=2, ring_depth=24,
+                              mode="full", merge_rate=8, merge_depth=16,
+                              superstep=2)
+    cfg = net.NetworkConfig(comm=comm, pipeline=True,
+                            flow=fb.FlowControlConfig(
+                                capacity=3, drain_rate=2,
+                                retransmit_depth=32))
+    gen = torch.Generator().manual_seed(0)
+    table = rt.random_table(gen, 64, 4, fanout=2, min_delay=6, max_delay=20)
+    params = net.init_params(gen, cfg, table=table, device="cpu")
+    params = params._replace(crossbar=sy.Crossbar(
+        w=torch.round(params.crossbar.w * 64) / 64))
+    ext = torch.as_tensor((np.random.default_rng(0).random((32, 4, 64))
+                           < 0.1).astype(np.float32))
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        p = type(params)(*(type(x)(*(t.to(device) for t in x))
+                           for x in params))
+        kc.reset_launches()
+        final, rec = net.run(cfg, p, net.init_state(cfg, p, device=device),
+                             ext.to(device), device=device)
+        out.append((final, rec, dict(kc.launches)))
+    (gf, gr, launches), (cf, cr, _) = out
+    assert launches["bucket_pack"] == 32 and launches["fused_drain"] == 17
+    assert torch.equal(gr.spikes.cpu(), cr.spikes)
+    torch.testing.assert_close(gr.voltage.cpu(), cr.voltage, rtol=0,
+                               atol=1e-5)
+    for f in pc.CommStats._fields:
+        if f != "utilization":
+            assert torch.equal(getattr(gr.stats, f).cpu(),
+                               getattr(cr.stats, f)), f
+    assert torch.equal(gf.ring.ring.cpu(), cf.ring.ring)
+    for name in ("flow", "sendq", "merge"):
+        for a, b in zip(getattr(gf, name), getattr(cf, name)):
+            assert torch.equal(a.cpu(), b), name
+    assert int(cr.stats.sent.sum()) > 0
+    assert int(cr.stats.stalled.sum()) + int(
+        cf.sendq.occupancy().sum()) > 0
+
+
+@pytest.mark.cuda
 def test_lif_step_kernel_matches_plain(cuda):
     """Bitwise: the kernel rounds each operation as PyTorch's separate
     elementwise kernels do (no FMA contraction, expf)."""

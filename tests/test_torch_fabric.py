@@ -134,13 +134,13 @@ def test_fabric_guards():
                       ring)
     with pytest.raises(ValueError, match="superstep"):
         fab.step(ev.EventBuffer(*(T(x[0]) for x in events)), tables, ring)
-    with pytest.raises(NotImplementedError):
-        fab.superstep(ev.EventBuffer(*(T(x[:2]) for x in events)), tables,
-                      ring, flow=object())
+    with pytest.raises(ValueError, match=r"\[F, B=2"):
+        fab.run_pipelined(ev.EventBuffer(*(T(x[:2]) for x in events)),
+                          tables, ring)
 
 
 @pytest.mark.parametrize("kw", [dict(transport="shard_map"),
-                                dict(flow=object()), dict(healthy=[0, 1]),
+                                dict(healthy=[0, 1]),
                                 dict(dead_links=((0, 1),))])
 def test_unported_fabric_features_raise(kw):
     cfg = pc.PulseCommConfig(n_chips=4)

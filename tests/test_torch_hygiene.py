@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import demo, stdp_demo
+from repro_torch import demo, quickstart, stdp_demo
 from repro_torch.launch import serve
 from repro_torch.core import fabric as fb
 from repro_torch.core import pulse_comm as pc
@@ -103,6 +103,7 @@ def test_entry_points_default_to_the_card():
         lambda: fb.PulseFabric(comm),
         lambda: demo.main(),
         lambda: stdp_demo.main(),
+        lambda: quickstart.main(),
         lambda: serve.main(["--arch", "zamba2-2.7b", "--reduced"]),
         lambda: serve.main([]),
     ]
@@ -112,12 +113,22 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(pipeline=True), dict(flow=object()),
     dict(topology=object()), dict(healthy=[0]), dict(dead_links=((0, 1),)),
     dict(telemetry=True)])
 def test_unported_network_features_raise(kw):
     with pytest.raises(NotImplementedError):
         net.NetworkConfig(comm=pc.PulseCommConfig(n_chips=2), **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(pipeline=True),
+                                dict(flow=fb.FlowControlConfig()),
+                                dict(pipeline=True,
+                                     flow=fb.FlowControlConfig())])
+def test_pipeline_and_flow_configs_build(kw):
+    net.NetworkConfig(comm=pc.PulseCommConfig(n_chips=2), **kw)
+    with pytest.raises(ValueError, match="dense"):
+        net.NetworkConfig(comm=pc.PulseCommConfig(n_chips=2),
+                          comm_mode="dense", **dict(kw, pipeline=True))
 
 
 @pytest.mark.parametrize("name", ["shard_step",
