@@ -40,10 +40,13 @@ Phases, each fatal on failure:
              pipelined path's drains (rate mode, ``extra_ahead`` 8: its
              first steady stage with the gate all on, and the prologue
              with the gate all off, which must emit sentinels, keep the
-             ring and the queue and expire nothing) and the flow path's
+             ring and the queue and expire nothing), the flow path's
              pack of one substep into column k of the slab in place (46
              rows of 512 send-queue lanes ahead of 2,048 fresh ones, its
-             first and fourth substeps);
+             first and fourth substeps), and ``fused_inject`` on the
+             degraded path's first block with its reach row (``lost``
+             bitwise), beside the same block with a row of ones and with
+             no row, and ``fused_lif_inject`` with the reach row;
   3. entry   the entry points off the network's path, counters zeroed
              first: ``merge_drain_words(use_pallas=True)`` on the first
              feedforward block's delivered words must equal
@@ -82,6 +85,22 @@ Phases, each fatal on failure:
              first 16 steps equal a plain run on the CPU (spikes, stats,
              credits, send queue); Σ sent == deposits + expired +
              overflow + merge_dropped + stalled + queued;
+     routed  the feedforward path's config and LUT through
+             ``topology.switch_tree(2, 23, link_latency=1,
+             trunk_latency=1)`` (chip -> FPGA -> switch: path latency 2
+             within a group, 4 across): fused_inject, fused_drain and
+             lif_step must launch; its first 16 steps equal a plain run
+             on the CPU (spikes, every integer stat, ``link_words [B, 46,
+             4]`` included, ring, merge queue); conservation closes; the
+             same widths in simplified mode (1 bucket per chip) equal,
+             spike for spike, a run on the dense transport whose LUT
+             delays are raised by ``latency[src, dest]``;
+     degraded  the same on ``topology.torus2d(2, 23, link_latency=1)``
+             with chips 7 and 30 dead and link (12, 2) cut: fused_inject
+             (with its reach row), fused_drain and lif_step must launch;
+             ``lost_to_failure`` > 0, no traffic and no link word to or
+             from a dead chip; conservation with the lost leg; its first
+             16 steps equal a plain run on the CPU;
   8. serve-check  zamba2-2.7b at full width, one pattern repeat (6
              layers), float32, batch 1, prompt 300, 8 teacher-forced decode
              steps: the card (kernels) against the plain path on the CPU
@@ -144,7 +163,10 @@ REPLACES = {
 PLAIN_CHECK_STEPS = 16
 # Paths driven by one run call (deposits counted from the ring's pops),
 # each also held against its first steps on the CPU.
-WHOLE_RUNS = ("plastic", "dense", "pipelined", "flow")
+WHOLE_RUNS = ("plastic", "dense", "pipelined", "flow", "routed", "degraded")
+# The degraded path's failures: two dead chips and one cut link.
+DEAD_CHIPS = (7, 30)
+CUT_LINKS = ((12, 2),)
 
 
 def tree_clone(x):
@@ -360,10 +382,10 @@ def run_path(net, cfg, params, ext, device, b: int):
 
 def check_conservation(label: str, state, rec, deposits, carried=None):
     """Σ sent == deposits + expired + overflow + merge_dropped + stalled +
-    the merge and send queues' occupancy + the in-flight words of a
-    pipeline carry.  ``carried`` is a carry whose block's stats are not in
-    ``rec`` yet (a run stopped between two stages): its sent and
-    source-side legs are added."""
+    lost_to_failure + the merge and send queues' occupancy + the in-flight
+    words of a pipeline carry.  ``carried`` is a carry whose block's stats
+    are not in ``rec`` yet (a run stopped between two stages): its sent
+    and source-side legs are added."""
     s = rec.stats
     total = lambda x: int(x.sum(dtype=torch.int64))  # noqa: E731
     queued = sum(int(q.occupancy().sum()) for q in (state.merge, state.sendq)
@@ -371,7 +393,7 @@ def check_conservation(label: str, state, rec, deposits, carried=None):
     in_flight = 0
     lhs = total(s.sent)
     legs = (total(s.expired) + total(s.overflow) + total(s.merge_dropped)
-            + total(s.stalled))
+            + total(s.stalled) + total(s.lost_to_failure))
     if carried is not None:
         in_flight = int(carried.occupancy().sum())
         inj = carried.inject
@@ -382,7 +404,8 @@ def check_conservation(label: str, state, rec, deposits, carried=None):
     print(f"[{label}] conservation: sent {lhs} == deposits {int(deposits)} "
           f"+ expired {total(s.expired)} + overflow {total(s.overflow)} + "
           f"merge_dropped {total(s.merge_dropped)} + stalled "
-          f"{total(s.stalled)} + queued {queued} + in flight {in_flight}"
+          f"{total(s.stalled)} + lost {total(s.lost_to_failure)} + queued "
+          f"{queued} + in flight {in_flight}"
           f"{'' if carried is None else ' + the carried block legs'} "
           f"= {rhs}")
     if lhs != rhs:
@@ -427,6 +450,7 @@ class Paths:
         from repro_torch.core import fabric as fb
         from repro_torch.core import pulse_comm as pc
         from repro_torch.core import routing as rt
+        from repro_torch.core import topology as tpo
         from repro_torch.snn import network as net
         from repro_torch.snn import synapse as sy
 
@@ -471,6 +495,16 @@ class Paths:
         self.flow_cfg = net.NetworkConfig(
             comm=base.comm, neuron_model="lif", flow=fb.FlowControlConfig(
                 capacity=16, drain_rate=8, retransmit_depth=512))
+        # routed: the feedforward path through the paper's chip -> FPGA ->
+        # switch stack; degraded: through a 2 x 23 torus with two chips
+        # dead and one link cut.
+        self.routed_cfg = dataclasses.replace(
+            self.ff_cfg, topology=tpo.switch_tree(2, 23, link_latency=1,
+                                                  trunk_latency=1))
+        self.degraded_cfg = dataclasses.replace(
+            self.ff_cfg, topology=tpo.torus2d(2, 23, link_latency=1),
+            healthy=tuple(i for i in range(c.n_chips)
+                          if i not in DEAD_CHIPS), dead_links=CUT_LINKS)
 
     def _ext(self, rng, comm):
         """Background input: each synapse row receives a spike with
@@ -493,7 +527,11 @@ class Paths:
             ("pipelined", self.pipe_cfg, self.pipe_params, self.ff_ext,
              ("fused_inject", "fused_drain", "lif_step"), False),
             ("flow", self.flow_cfg, self.dense_params, self.dense_ext,
-             ("bucket_pack", "fused_drain", "lif_step"), False))
+             ("bucket_pack", "fused_drain", "lif_step"), False),
+            ("routed", self.routed_cfg, self.ff_params, self.ff_ext,
+             ("fused_inject", "fused_drain", "lif_step"), False),
+            ("degraded", self.degraded_cfg, self.ff_params, self.ff_ext,
+             ("fused_inject", "fused_drain", "lif_step"), False))
 
     def drive(self, cfg, params, state, ext, plastic: bool, device=None):
         """One ``run`` or ``run_plastic`` call; returns ``(state, record,
@@ -516,7 +554,9 @@ class Paths:
         out = {}
         for label, cfg, params, ext in (
                 ("wafer", self.wafer_cfg, self.wafer_params, self.wafer_ext),
-                ("feedforward", self.ff_cfg, self.ff_params, self.ff_ext)):
+                ("feedforward", self.ff_cfg, self.ff_params, self.ff_ext),
+                ("degraded", self.degraded_cfg, self.ff_params,
+                 self.ff_ext)):
             store = {}
             with capture(fi_ops, "fused_inject", store), \
                     capture(fd_ops, "fused_drain", store), \
@@ -650,6 +690,52 @@ def kernel_cases(blocks: dict, paths: Paths, device) -> list[dict]:
             sole_kernel="fused_lif_inject_kernel",
             plan=fused_plan(fi_ops.lif_launch_plan(
                 neurons, n, n * bpc, c.bucket_capacity), n, b)))
+
+    # The degraded path's first block with its reach row (lost bitwise),
+    # beside the same block with a row of ones and with none (a null
+    # pointer: the kernel reads nothing more).
+    (events, table, t0), kw = blocks["degraded"]["fused_inject"]
+    reach = kw["reach"]
+    if reach is None:
+        raise AssertionError("degraded: fused_inject ran without a reach row")
+
+    def lost_check(got):
+        if int(got.lost.sum()) == 0:
+            raise AssertionError("fused_inject reach row: nothing culled")
+
+    b, n, lanes = events.addr.shape
+    nb = n * kw["buckets_per_chip"]
+    for label, row in (("reach row", reach),
+                       ("row of ones", torch.ones_like(reach)),
+                       ("no reach row", None)):
+        kwm = dict(kw, reach=row)
+        cases.append(dict(
+            kernel="fused_inject", mode=f"degraded full B{b} {label}",
+            main=False,
+            run=lambda a=(events, table, t0), k=kwm: fi_ops.fused_inject(
+                *a, **k),
+            plain=lambda a=(events, table, t0), k=kwm: fused_inject_ref(
+                *a, **k),
+            check=lost_check if label == "reach row" else None,
+            inputs=(events, table, t0, row), ops=events.addr.numel(),
+            host=True, sole_kernel="fused_inject_kernel",
+            plan=fused_plan(fi_ops.launch_plan(lanes, n, nb, kw["capacity"],
+                                               row is not None), n, b)))
+    args, kwm = lif_inject_call(paths, device, c.mode, c.buckets_per_chip,
+                                c.superstep)
+    kwm = dict(kwm, reach=reach)
+    n, neurons = args[2].shape[1:]
+    cases.append(dict(
+        kernel="fused_lif_inject", mode=f"full B{c.superstep} reach row",
+        main=False,
+        run=lambda a=args, k=kwm: fi_ops.fused_lif_inject(*a, **k),
+        plain=lambda a=args, k=kwm: fused_lif_inject_ref(*a, **k),
+        check=lambda got: lost_check(got.inject),
+        inputs=args + (reach,), ops=args[2].numel() * 12, host=True,
+        sole_kernel="fused_lif_inject_kernel",
+        plan=fused_plan(fi_ops.lif_launch_plan(
+            neurons, n, n * c.buckets_per_chip, c.bucket_capacity, True),
+            n, c.superstep)))
 
     args, _ = blocks["feedforward"]["lif_step"]
     n = args[0].numel()
@@ -1092,6 +1178,7 @@ def path_phase(paths: Paths, device) -> dict:
     """Run every path with the launch counters zeroed just before each;
     returns launches per kernel and path."""
     from repro_torch import demo
+    from repro_torch.core import topology as tpo
     from repro_torch.kernels import common as kc
 
     net = paths.net
@@ -1157,6 +1244,29 @@ def path_phase(paths: Paths, device) -> dict:
                   f"notifications")
             if int(s.stalled.sum()) == 0 and queued == 0:
                 raise AssertionError("flow: the credit gate never bound")
+        if cfg.topology is not None:
+            plan = tpo.compile_routes(cfg.topology, cfg.healthy,
+                                      cfg.dead_links)
+            print(f"[{label}] {cfg.topology.kind} {cfg.topology.dims or ''}"
+                  f" max path latency {int(plan.latency.max())}: "
+                  f"link_words {tuple(s.link_words.shape)}, per port "
+                  f"{s.link_words.sum((0, 1)).tolist()}, backlog "
+                  f"{int(s.link_backlog.sum())}, lost_to_failure "
+                  f"{int(s.lost_to_failure.sum())}")
+        if label == "routed":
+            check_compensated(paths, device)
+        if label == "degraded":
+            dead = list(DEAD_CHIPS)
+            touching = [int(s.traffic[:, :, dead].sum()),
+                        int(s.traffic[:, dead].sum()),
+                        int(s.link_words[:, dead].sum())]
+            print(f"[degraded] chips {dead} dead, link {CUT_LINKS} cut: "
+                  f"{int(s.lost_to_failure.sum())} words lost to failure; "
+                  f"traffic to / from the dead chips and their link words "
+                  f"{touching}")
+            if int(s.lost_to_failure.sum()) == 0 or any(touching):
+                raise AssertionError("degraded: nothing lost, or traffic "
+                                     "touched a dead chip")
         if plastic:
             w = learnt.crossbar.w
             if not bool(torch.isfinite(w).all()):
@@ -1232,6 +1342,40 @@ def check_pipelined(paths: Paths, device, state, rec, blocks: int = 4):
         SimpleNamespace(merge=res.merge, sendq=None),
         SimpleNamespace(stats=cat(stats + [res.stats])),
         res.ring.ring.sum(dtype=torch.int64))
+
+
+def check_compensated(paths: Paths, device):
+    """The reference's acceptance identity at full width: the routed
+    path's widths in simplified mode (1 bucket per chip) equal, spike for
+    spike, a run on the dense transport whose LUT delays are raised by
+    the path latency ``latency[src, dest]``."""
+    from repro_torch.core import topology as tpo
+    from repro_torch.snn import network as net
+
+    topo = paths.routed_cfg.topology
+    comm = dataclasses.replace(paths.ff_cfg.comm, mode="simplified",
+                               buckets_per_chip=1)
+    routed = dataclasses.replace(paths.routed_cfg, comm=comm)
+    dense = dataclasses.replace(routed, topology=None)
+    table = paths.ff_params.table
+    n = comm.n_chips
+    lat = torch.as_tensor(tpo.compile_routes(topo).latency, device=device)
+    comp = paths.ff_params._replace(table=table._replace(
+        delay=table.delay + lat[torch.arange(n, device=device)[:, None, None],
+                                table.dest_chip.long()]))
+    out = []
+    for cfg, params in ((routed, paths.ff_params), (dense, comp)):
+        _, rec = net.run(cfg, params, net.init_state(cfg, params,
+                                                     device=device),
+                         paths.ff_ext, device=device)
+        out.append(rec)
+    if not torch.equal(out[0].spikes, out[1].spikes):
+        raise AssertionError("routed: spikes differ from the dense run with "
+                             "latency-compensated delays")
+    print(f"[routed] simplified, 1 bucket per chip: "
+          f"{int(out[0].spikes.sum())} spikes equal, spike for spike, the "
+          f"dense-transport run with delays raised by latency[src, dest] "
+          f"({int(out[0].stats.sent.sum())} sent)")
 
 
 def check_dense_delivery(cfg, params, rec, deposits):

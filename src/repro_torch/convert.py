@@ -6,8 +6,10 @@ the JAX package's ``NetworkParams`` / ``NetworkState`` / ``STDPState``
 (any array type numpy can read, fields by name) and return the port's
 versions on ``device``, so both packages compute from identical weights
 and state; a state taken mid-run keeps its carries (credits, send
-queue, merge queue, the pipeline's in-flight block).  A ring keeps its
-dtype: int32 in event mode, float32 in dense mode.  ``lm_params_from_jax`` maps a language model's parameter
+queue, merge queue, the pipeline's in-flight block, whose link leg has the
+topology's ports).  A ring keeps its dtype: int32 in event mode, float32
+in dense mode.  ``topology_from_jax`` rebuilds a JAX ``Topology`` as the
+port's, its pod graph included.  ``lm_params_from_jax`` maps a language model's parameter
 tree (nested dicts) leaf by leaf, each keeping its dtype.  Nothing here
 imports JAX: every leaf goes through ``numpy.asarray``.
 """
@@ -22,6 +24,7 @@ from repro_torch.core import flowcontrol as fc
 from repro_torch.core import merge as mg
 from repro_torch.core import pulse_comm as pc
 from repro_torch.core import routing as rt
+from repro_torch.core import topology as tpo
 from repro_torch.kernels import common as kc
 from repro_torch.snn import network as net
 from repro_torch.snn import neuron as nr
@@ -53,10 +56,21 @@ def params_from_jax(params, *, device="cuda") -> net.NetworkParams:
         table=table_from_jax(params.table, device=device))
 
 
+def topology_from_jax(topo) -> tpo.Topology:
+    """A JAX ``Topology`` (or anything with its fields) as the port's."""
+    kw = {f.name: getattr(topo, f.name)
+          for f in tpo.Topology.__dataclass_fields__.values()}
+    kw["dims"] = tuple(int(k) for k in kw["dims"])
+    if kw["pod_graph"] is not None:
+        kw["pod_graph"] = topology_from_jax(kw["pod_graph"])
+    return tpo.Topology(**kw)
+
+
 def pending_from_jax(pending, *, device="cuda") -> pc.PipelineCarry:
     """The JAX local fabric's pipeline carry, its fields batched over a
     leading chip axis, as the port's: the block's stats go from ``[n_chips,
-    B, ...]`` to the port's ``[B, n_chips, ...]``."""
+    B, ...]`` to the port's ``[B, n_chips, ...]``; the link leg is
+    ``[n_chips, n_ports]`` in both."""
     device = kc.resolve_device(device)
     inject = pc.InjectStats(*(
         tensor(getattr(pending.inject, f), device).transpose(0, 1)

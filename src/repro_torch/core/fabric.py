@@ -12,8 +12,17 @@ One block of B substeps runs three phases, the chips on a leading axis:
    depend on each other through the credits, so they run one by one:
    route, re-offer the send queue, admit, one ``bucket_pack`` launch into
    column k, then the credit gate;
-2. *exchange*: one swap of the source and destination chip axes;
+2. *exchange*: one swap of the source and destination chip axes, through
+   a :class:`repro_torch.core.topology.RoutedTransport` when the fabric
+   is given a topology (the timestamps then shifted by the path latency,
+   per-port link words and backlog counted);
 3. *drain*: one ``fused_drain`` launch (passthrough, sort or rate mode).
+
+With a health mask (``healthy``, ``dead_links``) the routes are
+recompiled around the failures and a lane whose destination its chip
+cannot reach is culled at injection (inside ``fused_inject`` at fan-out
+1) into ``CommStats.lost_to_failure``; words that still arrive at a dead
+chip (a carry from before the failure) are culled at the drain.
 
 :meth:`PulseFabric.superstep` runs the three in order.  The pipelined
 schedule (:meth:`PulseFabric.pipeline_block`) injects and exchanges
@@ -22,8 +31,8 @@ pulse_comm.PipelineCarry`; its deposits clear the B slots popped during
 the extra block (``extra_ahead=B``).
 
 Kernels run when the tensors lie on a CUDA device; on the CPU the same
-wrappers run their plain PyTorch versions.  Topologies, health masks and
-multi-GPU transports are later slices and raise ``NotImplementedError``.
+wrappers run their plain PyTorch versions.  Multi-GPU transports are a
+later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import delays as dl
@@ -39,6 +49,7 @@ from repro_torch.core import flowcontrol as fc
 from repro_torch.core import merge as mg
 from repro_torch.core import pulse_comm as pc
 from repro_torch.core import routing as rt
+from repro_torch.core import topology as tpo
 from repro_torch.core import transport as tp
 from repro_torch.kernels import common as kc
 from repro_torch.kernels.fused_drain import ops as fd_ops
@@ -90,22 +101,94 @@ class PulseFabric:
     ``table [n_chips, N, K]``, ``ring [n_chips, D, n_inputs]`` with
     ``ring.now [n_chips]``.  Substep k runs at ``ring.now + k``; the caller
     advances the clock by B afterwards.
+
+    ``transport`` is ``"local"`` (the dense exchange), a
+    :class:`~repro_torch.core.topology.Topology` or a
+    :class:`~repro_torch.core.topology.RoutedTransport`.  ``healthy``
+    (alive chips: indices or a bool mask) and ``dead_links`` ((chip,
+    port) pairs, which need a topology) run the fabric degraded; then
+    ``reach`` is the deliverability table, bool ``[n_chips(src),
+    n_chips(dst)]`` on the fabric's device (None at full health).
     """
 
     def __init__(self, cfg: pc.PulseCommConfig, transport="local", *,
                  flow: FlowControlConfig | None = None, healthy=None,
                  dead_links=(), device="cuda"):
-        if transport != "local":
-            raise NotImplementedError(
-                "only the single-device 'local' transport is ported; "
-                "topologies and multi-GPU transports are later slices")
-        if healthy is not None or dead_links:
-            raise NotImplementedError(
-                "health masks and dead links are not ported yet")
         self.cfg = cfg
         self.flow = flow
         self.device = kc.resolve_device(device)
-        self.transport = tp.LocalTransport(cfg.n_chips)
+        self._spec = transport
+        self.healthy = tpo.normalize_healthy(cfg.n_chips, healthy)
+        self.dead_links = tpo.normalize_dead_links(dead_links)
+        if isinstance(transport, tpo.Topology):
+            transport = tpo.RoutedTransport(topology=transport)
+        if isinstance(transport, tpo.RoutedTransport):
+            if transport.n_chips != cfg.n_chips:
+                raise ValueError(f"topology has {transport.n_chips} chips, "
+                                 f"config {cfg.n_chips}")
+            if cfg.superstep > 1:
+                # A block of B steps has B steps of link capacity to drain.
+                transport = transport.with_flush_rounds(cfg.superstep)
+        elif transport == "local":
+            transport = tp.LocalTransport(cfg.n_chips)
+        else:
+            raise NotImplementedError(
+                f"transport {transport!r}: the port takes 'local', a "
+                "Topology or a RoutedTransport; multi-GPU transports are "
+                "ROADMAP section 1, item 7")
+        # Degraded: rebind a routed transport onto the plan recompiled
+        # around the failures; ``reach`` is the deliverability table the
+        # inject stage culls against, ``_dead`` the dead chips the drain
+        # culls at (None where every chip lives).
+        self.reach = self._dead = None
+        if self.healthy is not None or self.dead_links:
+            alive = tpo.alive_mask(cfg.n_chips, self.healthy)
+            if isinstance(transport, tpo.RoutedTransport):
+                transport = transport.with_health(self.healthy,
+                                                  self.dead_links)
+                reach = transport.plan.hops >= 0
+            else:
+                if self.dead_links:
+                    raise ValueError(
+                        "dead_links need a routed topology transport; "
+                        "dense transports model no individual links")
+                reach = np.ones((cfg.n_chips, cfg.n_chips), bool)
+            self.reach = torch.as_tensor(
+                reach & alive[:, None] & alive[None, :], device=self.device)
+            if not alive.all():
+                self._dead = torch.as_tensor(~alive, device=self.device)
+        self.transport = transport
+        max_lat = self.max_path_latency
+        if max_lat >= ev.TIME_MOD // 2:
+            # An admitted word's deadline lies within 128 steps ahead; a
+            # shift below 128 keeps it under 256, so an over-delayed word
+            # wraps onto a negative difference and expires at deposit.
+            raise ValueError(
+                f"transport path latency {max_lat} reaches the 8-bit wrap "
+                f"half-window ({ev.TIME_MOD // 2}); a delivered word could "
+                "alias onto a future deadline")
+        if cfg.superstep > 1 and (cfg.superstep + max_lat + cfg.ring_depth
+                                  >= ev.TIME_MOD // 2):
+            raise ValueError(
+                f"superstep {cfg.superstep} + transport path latency "
+                f"{max_lat} + ring_depth {cfg.ring_depth} reaches the 8-bit "
+                f"wrap half-window ({ev.TIME_MOD // 2}); a deferred word "
+                "could alias onto a future deadline - lower the superstep "
+                "or shorten the topology's paths")
+
+    @property
+    def max_path_latency(self) -> int:
+        """The transport's longest path latency (0 on the dense path)."""
+        return int(getattr(self.transport, "max_path_latency", 0))
+
+    def degrade(self, healthy=None, dead_links=()) -> "PulseFabric":
+        """A fabric on the same config and transport whose routes are
+        recompiled around the given failures (full health: the baseline);
+        every carry keeps its shape, so ring, credits, queues and the
+        pipeline carry thread straight across."""
+        return PulseFabric(self.cfg, self._spec, flow=self.flow,
+                           healthy=healthy, dead_links=dead_links,
+                           device=self.device)
 
     # -- carries -------------------------------------------------------------
 
@@ -145,8 +228,10 @@ class PulseFabric:
 
     @property
     def _n_ports(self) -> int:
-        """Ports of the transport's link stats: one on the local path."""
-        return 1
+        """Ports of the transport's link stats: the topology's, one on the
+        dense path."""
+        topo = getattr(self.transport, "topology", None)
+        return 1 if topo is None else topo.n_ports
 
     def init_pending(self) -> pc.PipelineCarry:
         """An empty pipeline carry: the prologue block, whose drain
@@ -174,15 +259,16 @@ class PulseFabric:
 
     def _check_pipeline_guard(self) -> None:
         """A word waits up to two blocks before its deposit on the
-        pipelined schedule, so ``2B + ring_depth`` (no path latency on
-        the local path) must stay inside the 8-bit half-window."""
+        pipelined schedule, so ``2B + path latency + ring_depth`` must
+        stay inside the 8-bit half-window."""
         b, d = self.cfg.superstep, self.cfg.ring_depth
-        if 2 * b + d >= ev.TIME_MOD // 2:
+        lat = self.max_path_latency
+        if 2 * b + lat + d >= ev.TIME_MOD // 2:
             raise ValueError(
                 f"pipelined schedule: 2*superstep ({2 * b}) + transport "
-                f"path latency 0 + ring_depth {d} reaches the 8-bit wrap "
-                f"half-window ({ev.TIME_MOD // 2}); an in-flight word could "
-                "alias onto a future deadline")
+                f"path latency {lat} + ring_depth {d} reaches the 8-bit "
+                f"wrap half-window ({ev.TIME_MOD // 2}); an in-flight word "
+                "could alias onto a future deadline")
 
     # -- the serial schedule -------------------------------------------------
 
@@ -316,44 +402,53 @@ class PulseFabric:
         tensor ops over the whole block, then one ``bucket_pack``
         launch."""
         cfg = self.cfg
-        routed, sent, wrap_expired = pc.route_block(events, table, t0)
+        routed, sent, wrap_expired, lost = pc.route_block(events, table, t0,
+                                                          self.reach)
         flushbuf, counts, overflow, traffic = pc.aggregate_into(cfg, routed)
         inject = pc.inject_stats(cfg, counts=counts, sent=sent,
                                  overflow=overflow,
-                                 wrap_expired=wrap_expired, traffic=traffic)
+                                 wrap_expired=wrap_expired, traffic=traffic,
+                                 lost=lost)
         return flushbuf.slab, inject
 
     def _inject_block_fused(self, events, table, t0):
-        """Fan-out 1 without flow control: one ``fused_inject`` launch."""
+        """Fan-out 1 without flow control: one ``fused_inject`` launch
+        (with the reach cull under a health mask)."""
         cfg = self.cfg
         out = fi_ops.fused_inject(
-            events, table, t0, n_chips=cfg.n_chips,
+            events, table, t0, reach=self.reach, n_chips=cfg.n_chips,
             buckets_per_chip=cfg.buckets_per_chip,
             capacity=cfg.bucket_capacity, mode=cfg.mode,
             time_window=cfg.time_window)
         inject = pc.inject_stats(cfg, counts=out.counts, sent=out.sent,
                                  overflow=out.overflow,
                                  wrap_expired=out.wrap_expired,
-                                 traffic=out.traffic)
+                                 traffic=out.traffic, lost=out.lost)
         return out.slab, inject
 
     def _inject_block_gated(self, events, table, flow, sendq, t0):
         """With flow control, at any fan-out: substep by substep (the
         credits of substep k depend on substep k-1), route, re-offer the
-        send queue ahead of the fresh lanes, admit, pack into column k
-        (one ``bucket_pack`` launch), then the credit gate.  ``sent``
-        counts each substep's fresh lanes only: a queued word was counted
-        when it was first offered."""
+        send queue ahead of the fresh lanes, cull against the health mask
+        (after the requeue, so a queued word for a chip that died while
+        it waited is culled too; before the window, so a culled word is
+        never also expired), admit, pack into column k (one
+        ``bucket_pack`` launch), then the credit gate.  ``sent`` counts
+        each substep's fresh lanes only: a queued word was counted when
+        it was first offered."""
         cfg = self.cfg
         b = events.addr.shape[0]
         flushbuf = pc.flush_init(cfg, device=t0.device)
-        per_k = []
+        per_k, lost_k = [], []
         for k in range(b):
             now_k = t0 + k
             routed = rt.route(ev.EventBuffer(*(x[k] for x in events)), table)
             sent = routed.valid.sum(-1, dtype=I32)
             if self.sendq_enabled:
                 routed = self._requeue(routed, sendq, now_k)
+            if self.reach is not None:
+                routed, lost = pc.cull(routed, self.reach)
+                lost_k.append(lost)
             routed, wrap_expired = pc.admit(routed, now_k, (b - 1) - k)
             flushbuf, counts, overflow, traffic = pc.aggregate_into(
                 cfg, routed, flushbuf, k)
@@ -365,10 +460,10 @@ class PulseFabric:
                           stalled))
         counts, sent, overflow, wrap_expired, traffic, stalled = (
             torch.stack(x) for x in zip(*per_k))
-        inject = pc.inject_stats(cfg, counts=counts, sent=sent,
-                                 overflow=overflow,
-                                 wrap_expired=wrap_expired, traffic=traffic,
-                                 stalled=stalled)
+        inject = pc.inject_stats(
+            cfg, counts=counts, sent=sent, overflow=overflow,
+            wrap_expired=wrap_expired, traffic=traffic, stalled=stalled,
+            lost=torch.stack(lost_k) if lost_k else None)
         return flushbuf.slab, inject, flow, sendq
 
     def _requeue(self, routed: rt.RoutedEvents, sendq: fc.SendQueue,
@@ -438,12 +533,23 @@ class PulseFabric:
 
     def _drain_block(self, ring, merge, issued, inject, t0, *,
                      extra_ahead: int = 0, gate=None):
-        """Phase 3: one ``fused_drain`` launch, then the per-substep
-        ``CommStats``; the exchange's link words are attributed to the
-        last substep of the block.  ``extra_ahead`` widens the deposit
-        guard, ``gate [n_chips]`` masks an empty pipeline carry."""
+        """Phase 3: the path-latency shift, then one ``fused_drain``
+        launch, then the per-substep ``CommStats``; the exchange's link
+        words and backlog are attributed to the last substep of the
+        block.  ``extra_ahead`` widens the deposit guard, ``gate
+        [n_chips]`` masks an empty pipeline carry.  Under a health mask
+        the words that arrive at a dead chip (only a carry from before the
+        failure can hold any) are culled into ``lost_to_failure``."""
         cfg = self.cfg
-        delivered_words, link = pc.exchange_flush_complete(cfg, issued)
+        delivered_words, link = pc.exchange_flush_complete(cfg, issued,
+                                                           self.transport)
+        lost = inject.lost
+        if self._dead is not None:
+            dead = self._dead if gate is None else self._dead & gate
+            arrived = ev.word_valid(delivered_words).sum(-1, dtype=I32)
+            lost = lost + torch.where(dead[:, None], arrived, 0).T
+            delivered_words = torch.where(self._dead[:, None, None],
+                                          ev.WORD_SENTINEL, delivered_words)
         dmode = ("rate" if self.merge_enabled
                  else "sort" if cfg.mode == "full" else "passthrough")
         fused = fd_ops.fused_drain(
@@ -452,15 +558,17 @@ class PulseFabric:
             gate=gate)
         if dmode == "rate":
             merge = mg.MergeBuffer(words=fused.queue)
-        link_words = torch.zeros_like(inject.sent)[..., None].repeat(
-            1, 1, link.words.shape[-1])
-        link_words[-1] = link.words
+        b = inject.sent.shape[0]
+        link_words, link_backlog = (
+            torch.cat([torch.zeros((b - 1,) + x.shape, dtype=I32,
+                                   device=x.device), x[None]])
+            for x in (link.words, link.backlog))
         stats = pc.CommStats(
             sent=inject.sent, overflow=inject.overflow,
             merge_dropped=fused.dropped,
             expired=inject.wrap_expired + fused.dep_expired,
             stalled=inject.stalled, utilization=inject.utilization,
             wire_bytes=inject.wire_bytes, traffic=inject.traffic,
-            link_words=link_words, link_backlog=torch.zeros_like(link_words),
-            lost_to_failure=inject.lost)
+            link_words=link_words, link_backlog=link_backlog,
+            lost_to_failure=lost)
         return fused.ring, pc.Delivered(words=fused.words), stats, merge

@@ -3,7 +3,8 @@
 
 Layouts on the local path: the flush slab is ``[n_chips(src), n_buckets,
 B, capacity]``; per-substep accounting is ``[B, n_chips, ...]``, as the
-JAX fabric returns it.
+JAX fabric returns it.  The exchange goes through the dense transport or
+a :class:`repro_torch.core.topology.RoutedTransport`.
 """
 
 from __future__ import annotations
@@ -90,8 +91,8 @@ class CommStats(NamedTuple):
     utilization: torch.Tensor    # f32
     wire_bytes: torch.Tensor
     traffic: torch.Tensor        # [..., n_chips]
-    link_words: torch.Tensor     # [..., 1] off-chip words of the exchange
-    link_backlog: torch.Tensor   # [..., 1]
+    link_words: torch.Tensor     # [..., n_ports] words of the exchange
+    link_backlog: torch.Tensor   # [..., n_ports] words past link capacity
     lost_to_failure: torch.Tensor
 
 
@@ -138,18 +139,39 @@ def admit(routed: rt.RoutedEvents, now: torch.Tensor, defer):
     return routed._replace(valid=routed.valid & in_window), wrap_expired
 
 
+def cull(routed: rt.RoutedEvents, reach: torch.Tensor):
+    """The health mask at the injection boundary: a valid lane whose
+    in-range destination chip its source cannot reach (``reach
+    [n_chips(src), n_chips(dst)]`` bool, the source chips on the lanes'
+    second-to-last axis) leaves the wire.  Out-of-range destinations keep
+    their drop at the exchange.  Returns ``(routed, lost)``, ``lost`` the
+    culled lanes counted over the lane axis."""
+    n = reach.shape[-1]
+    dest = routed.dest_chip
+    in_range = (dest >= 0) & (dest < n)
+    row = reach.expand(dest.shape[:-1] + (n,))
+    ok = ~in_range | row.gather(-1, dest.clamp(0, n - 1).long())
+    lost = (routed.valid & ~ok).sum(-1, dtype=I32)
+    return routed._replace(valid=routed.valid & ok), lost
+
+
 def route_block(events: ev.EventBuffer, table: rt.RoutingTable,
-                t0: torch.Tensor):
-    """Route a block ``[B, n_chips, E]`` and admit it into the wrap
-    window, with the remaining deferral ``B-1-k`` as extra slack.
-    Returns ``(routed, sent[B, n_chips], wrap_expired[B, n_chips])``."""
+                t0: torch.Tensor, reach: torch.Tensor | None = None):
+    """Route a block ``[B, n_chips, E]``, cull it against ``reach`` (see
+    :func:`cull`; None culls nothing) and admit it into the wrap window,
+    with the remaining deferral ``B-1-k`` as extra slack.  Returns
+    ``(routed, sent, wrap_expired, lost)``, counts ``[B, n_chips]`` (``lost``
+    None without ``reach``)."""
     b = events.addr.shape[0]
     routed = rt.route(events, table)
     sent = routed.valid.sum(-1, dtype=I32)
+    lost = None
+    if reach is not None:
+        routed, lost = cull(routed, reach)
     k = torch.arange(b, dtype=I32, device=t0.device)[:, None]
     routed, wrap_expired = admit(routed, t0[None, :] + k,
                                  ((b - 1) - k)[..., None])
-    return routed, sent, wrap_expired
+    return routed, sent, wrap_expired, lost
 
 
 def aggregate_into(cfg: PulseCommConfig, routed: rt.RoutedEvents,
@@ -185,51 +207,52 @@ def aggregate_into(cfg: PulseCommConfig, routed: rt.RoutedEvents,
 
 
 class LinkStats(NamedTuple):
-    words: torch.Tensor     # int32[n_chips, 1]
-    backlog: torch.Tensor   # int32[n_chips, 1]
+    words: torch.Tensor     # int32[n_chips, n_ports]
+    backlog: torch.Tensor   # int32[n_chips, n_ports]
 
 
 class IssuedFlush(NamedTuple):
     """An exchanged block: ``words[n_chips(dst), n_chips(src), bpc, B, C]``
-    and its link accounting."""
+    (on a routed transport with the timestamps not yet shifted by the path
+    latency) and its link accounting."""
 
     words: torch.Tensor
     link: LinkStats
 
 
 def exchange_flush_issue(cfg: PulseCommConfig, slab: torch.Tensor,
-                         transport: tp.LocalTransport | None = None
-                         ) -> IssuedFlush:
-    """Exchange the filled slabs of every chip in one swap.
-
-    ``link_words`` is each source chip's off-chip word count: its valid
-    words minus those addressed to itself.
+                         transport=None) -> IssuedFlush:
+    """Exchange the filled slabs of every chip at once through
+    ``transport`` (by default the dense ``LocalTransport``).  The dense transport's ``link_words`` is
+    each source chip's off-chip word count; a routed transport judges
+    backlog against its ``flush_rounds`` (the fabric binds B: the block
+    carries B steps and has B steps to drain) and moves the block without
+    the latency shift, which :func:`exchange_flush_complete` applies.
     """
     n, bpc = cfg.n_chips, cfg.buckets_per_chip
-    b = slab.shape[-2]
     transport = transport or tp.LocalTransport(n)
-    block = slab.reshape(n, n, bpc, b, cfg.bucket_capacity)
-    valid = ev.word_valid(block)
-    mine = torch.arange(n, device=slab.device)
-    off_chip = (valid.sum((1, 2, 3, 4), dtype=I32)
-                - valid[mine, mine].sum((1, 2, 3), dtype=I32))
-    return IssuedFlush(
-        words=transport.all_to_all(block),
-        link=LinkStats(words=off_chip[:, None],
-                       backlog=torch.zeros_like(off_chip)[:, None]))
+    block = slab.reshape(n, n, bpc, slab.shape[-2], cfg.bucket_capacity)
+    words, link_words, link_backlog = transport.exchange_words_start(block)
+    return IssuedFlush(words=words, link=LinkStats(words=link_words,
+                                                   backlog=link_backlog))
 
 
-def exchange_flush_complete(cfg: PulseCommConfig, issued: IssuedFlush):
-    """Unpack the exchanged block into per-substep lanes
-    ``[n_chips, B, lanes_in]`` (lane order: source chip, bucket, slot)."""
-    words = issued.words
+def exchange_flush_complete(cfg: PulseCommConfig, issued: IssuedFlush,
+                            transport=None):
+    """Shift the timestamps by the path latency (a routed transport's,
+    from its own plan) and unpack the exchanged block into per-substep
+    lanes ``[n_chips, B, lanes_in]`` (lane order: source chip, bucket,
+    slot)."""
+    transport = transport or tp.LocalTransport(cfg.n_chips)
+    words = transport.exchange_words_finish(issued.words)
     n, b = words.shape[0], words.shape[3]
     out = words.permute(0, 3, 1, 2, 4).reshape(n, b, cfg.lanes_in)
     return out, issued.link
 
 
-def exchange_flush(cfg: PulseCommConfig, slab: torch.Tensor):
-    return exchange_flush_complete(cfg, exchange_flush_issue(cfg, slab))
+def exchange_flush(cfg: PulseCommConfig, slab: torch.Tensor, transport=None):
+    return exchange_flush_complete(
+        cfg, exchange_flush_issue(cfg, slab, transport), transport)
 
 
 class InjectStats(NamedTuple):
@@ -246,11 +269,13 @@ class InjectStats(NamedTuple):
 
 
 def inject_stats(cfg: PulseCommConfig, *, counts, sent, overflow,
-                 wrap_expired, traffic, stalled=None) -> InjectStats:
+                 wrap_expired, traffic, stalled=None,
+                 lost=None) -> InjectStats:
     """Wire bytes and utilization from the per-substep bucket counts
     ``[B, n_chips, n_buckets]`` (after the credit gate), with the
     reference's formulas (utilization is ``mean(fill) / C`` in f32);
-    ``stalled`` defaults to zeros (no flow control)."""
+    ``stalled`` and ``lost`` default to zeros (no flow control, no health
+    mask)."""
     fill = torch.clamp(counts, max=cfg.bucket_capacity)
     n_packets = (counts > 0).sum(-1, dtype=I32)
     wire = n_packets * HEADER_BYTES + fill.sum(-1, dtype=I32) * EVENT_BYTES
@@ -258,7 +283,8 @@ def inject_stats(cfg: PulseCommConfig, *, counts, sent, overflow,
     return InjectStats(
         sent=sent, overflow=overflow,
         stalled=zeros if stalled is None else stalled,
-        wrap_expired=wrap_expired, lost=zeros, wire_bytes=wire.to(I32),
+        wrap_expired=wrap_expired, lost=zeros if lost is None else lost,
+        wire_bytes=wire.to(I32),
         utilization=fill.float().mean(-1) / float(cfg.bucket_capacity),
         traffic=traffic)
 
@@ -269,7 +295,7 @@ class PipelineCarry(NamedTuple):
 
     words  : int32[n_chips(dst), n_chips(src), bpc, B, C], the exchanged
              block (:class:`IssuedFlush` layout; sentinel = empty lane)
-    link   : the exchange's link accounting, ``[n_chips, 1]``
+    link   : the exchange's link accounting, ``[n_chips, n_ports]``
     inject : the block's source-side stats, ``[B, n_chips, ...]``,
              reported when the block is drained
     t0     : int32[n_chips] block-start clock of the carried block

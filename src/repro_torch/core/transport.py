@@ -18,13 +18,26 @@ I32 = torch.int32
 
 @dataclasses.dataclass(frozen=True)
 class LocalTransport:
-    """Every chip on one device; ``all_to_all`` swaps the source and
-    destination chip axes (a view)."""
+    """Every chip on one device, every pair one hop with no latency: the
+    exchange swaps the source and destination chip axes (a view).  The
+    same two halves as a routed transport's, so one exchange drives
+    both."""
 
     n_chips: int
 
-    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
-        return x.transpose(0, 1)
+    def exchange_words_start(self, x: torch.Tensor):
+        """Move a block ``[n_chips(src), n_chips(dst), ...]``; its link
+        words ``[n_chips, 1]`` are each source chip's off-chip words (its
+        valid words minus those addressed to itself), its backlog zeros."""
+        valid = (x >= 0).flatten(2)
+        mine = torch.arange(self.n_chips, device=x.device)
+        off_chip = (valid.sum((1, 2), dtype=I32)
+                    - valid[mine, mine].sum(-1, dtype=I32))[:, None]
+        return x.transpose(0, 1), off_chip, torch.zeros_like(off_chip)
+
+    def exchange_words_finish(self, y: torch.Tensor) -> torch.Tensor:
+        """No path latency to apply."""
+        return y
 
 
 def exchange_matrix(dest_chip: torch.Tensor, valid: torch.Tensor,

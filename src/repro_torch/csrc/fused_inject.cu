@@ -11,7 +11,10 @@
 // inject_substep (one CTA, one chip, one substep k, against clock
 // t0 + k), per event lane:
 //   route (a negative address wraps once, then clamps, as JAX's gather),
-//   admit B-1-k < deadline - now < 128 (else wrap_expired), bucket id
+//   the reach cull (with a reach row, an offered lane whose in-range
+//   destination chip the row marks unreachable is dropped into lost and
+//   never admitted, so never also counted wrap_expired), admit
+//   B-1-k < deadline - now < 128 (else wrap_expired), bucket id
 //   (full mode adds floor(deadline / time_window) mod bpc), stable rank
 //   within the bucket (an out-of-range bucket is ranked against the
 //   clipped one and counts towards none), overflow past C, word
@@ -24,14 +27,21 @@
 //
 // fused_inject: the CTA's events are one row of the block.
 //
+// The reach table (bool [n_chips, n_chips], each source chip's row of
+// deliverable destinations) is optional: a null pointer means every chip
+// reaches every chip, and then no lane reads anything more.  With one,
+// each CTA copies its chip's row into shared memory once, ahead of the
+// lanes' routing: fused_inject after its lanes' loads (a row of one
+// tile) with one barrier of its own, fused_lif_inject ahead of the LIF
+// steps, covered by the compaction's barrier.
+//
 // fused_lif_inject: CTA (chip, k) runs repro::lif_update for substeps
 // 0..k from the block's initial state (the recurrence is per neuron, so
 // recomputing it gives the bits that carrying it would; its current rows
 // are loaded together, one decay per neuron), writes substep k's spikes
 // and membrane (and the final state when k = B-1), compacts the spikes in
 // lane order with the FPGA interface's cut rank < event_capacity, and
-// runs inject_substep on the events addr = lane, time = now_k.  There are
-// no health masks in the port yet, so nothing is culled as lost.
+// runs inject_substep on the events addr = lane, time = now_k.
 //
 // Bound: bytes, but a CTA is a chain of latencies: the work per lane is a
 // few dozen operations.  The design shortens that chain.
@@ -43,7 +53,7 @@
 //   whose latency the compaction's barrier hides.
 // * Each warp counts its lanes into its own column of the histograms
 //   (buckets by __match_any_sync, destination chips by shared atomics,
-//   sent and expired by warp sums), cleared by the warp itself, so no
+//   sent, expired and lost by warp sums), cleared by the warp itself, so no
 //   barrier precedes the counts.  Then two barriers per tile: after the
 //   counts (a block vote rides on it, below), and after one thread per
 //   bucket has scanned its column of counts over the warps, written the
@@ -87,6 +97,7 @@ struct InjectOut {
   int* sent;
   int* overflow;
   int* wrap_expired;
+  int* lost;
   int* traffic;
 };
 
@@ -159,18 +170,21 @@ struct HeldLane {
   __device__ __forceinline__ void entry(Lane&) const {}
 };
 
-// A lane after routing and admission.
+// A lane after routing, the reach cull and admission.
 struct Routed {
   bool sent;     // offered: a valid event with a valid table entry
-  bool expired;  // offered, outside the admission window
+  bool lost;     // offered, to an in-range chip the reach row cannot reach
+  bool expired;  // offered, reachable, outside the admission window
   bool v;        // admitted
   int dest_chip;
   int bid;
   int word;
 };
 
+// `reach` is the CTA's reach row in shared memory, or null (no cull).
 __device__ __forceinline__ Routed route(const Lane& l, int now, int defer, int bpc,
-                                        int full_mode, int window) {
+                                        int full_mode, int window,
+                                        const unsigned char* reach, int n_chips) {
   Routed r;
   const bool ok = l.valid && l.entry_valid;
   r.dest_chip = ok ? l.chip : 0;
@@ -178,9 +192,13 @@ __device__ __forceinline__ Routed route(const Lane& l, int now, int defer, int b
   const int deadline = wrap_add(l.time, l.delay);
   const int diff = wrap_sub(deadline, now);
   const bool in_window = diff > defer && diff < kHalfWindow;
+  bool reachable = true;
+  if (reach != nullptr && r.dest_chip >= 0 && r.dest_chip < n_chips)
+    reachable = reach[r.dest_chip] != 0;
   r.sent = ok;
-  r.expired = ok && !in_window;
-  r.v = ok && in_window;
+  r.lost = ok && !reachable;
+  r.expired = ok && reachable && !in_window;
+  r.v = ok && reachable && in_window;
   r.bid = wrap_mul(r.dest_chip, bpc);
   if (full_mode) r.bid = wrap_add(r.bid, floor_mod(floor_div(deadline, window), bpc));
   r.word = ((dest_addr & kAddrMask) << kAddrShift) | (deadline & kTimeMask);
@@ -191,11 +209,20 @@ __device__ __forceinline__ Routed route(const Lane& l, int now, int defer, int b
 //   owner    nb * C    the lane that holds each cell, -1 empty (staged)
 //   hist     warps * nb       each warp's bucket counts, then first ranks
 //   tcol     warps * n_chips  each warp's admitted events by destination
-//   tally    warps * 2        each warp's sent and wrap_expired
+//   tally    warps * 3        each warp's sent, wrap_expired and lost
 //   running  nb        each bucket's members so far
+// and, with a reach table, the chip's reach row as n_chips bytes after
+// the kernel's other scratch.
 __device__ __forceinline__ int inject_scratch_ints(int nb, int C, int n_chips,
                                                    int n_warps) {
-  return nb * C + n_warps * (nb + n_chips + 2) + nb;
+  return nb * C + n_warps * (nb + n_chips + 3) + nb;
+}
+
+// Copies row `chip` of the reach table into `row` (shared memory).
+__device__ __forceinline__ void load_reach_row(const unsigned char* reach, int chip,
+                                               int n_chips, unsigned char* row) {
+  const unsigned char* src = reach + static_cast<size_t>(chip) * n_chips;
+  for (int i = threadIdx.x; i < n_chips; i += blockDim.x) row[i] = __ldg(src + i);
 }
 
 __device__ __forceinline__ void clear_cells(int* owner, int n) {
@@ -205,13 +232,15 @@ __device__ __forceinline__ void clear_cells(int* owner, int n) {
 }
 
 // One substep of the inject chain for one chip, every thread of the CTA
-// taking part; `smem` holds the scratch above (16-byte aligned).
+// taking part; `smem` holds the scratch above (16-byte aligned), `reach`
+// the chip's reach row in shared memory (visible to every thread) or
+// null.
 template <class Events>
 __device__ __forceinline__ void inject_substep(const Events& events, int E, int chip,
                                                int k, int B, int n_chips, int bpc,
                                                int C, int full_mode, int time_window,
-                                               int now, const InjectOut& out,
-                                               int* smem) {
+                                               int now, const unsigned char* reach,
+                                               const InjectOut& out, int* smem) {
   const int nb = n_chips * bpc;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -220,7 +249,7 @@ __device__ __forceinline__ void inject_substep(const Events& events, int E, int 
   int* hist = owner + nb * C;
   int* tcol = hist + n_warps * nb;
   int* tally = tcol + n_warps * n_chips;
-  int* running = tally + 2 * n_warps;
+  int* running = tally + 3 * n_warps;
 
   const int defer = B - 1 - k;
   const int window = time_window > 1 ? time_window : 1;
@@ -233,7 +262,7 @@ __device__ __forceinline__ void inject_substep(const Events& events, int E, int 
   bool staged = E > tile;
   if (staged) clear_cells(owner, nb * C);
   for (int i = lane; i < n_chips; i += 32) tcol[warp * n_chips + i] = 0;
-  int sent = 0, expired = 0;  // this warp's, over the tiles so far
+  int sent = 0, expired = 0, lost = 0;  // this warp's, over the tiles so far
 
   // At least one pass, so an empty row still writes its outputs.
   int base = 0;
@@ -243,7 +272,7 @@ __device__ __forceinline__ void inject_substep(const Events& events, int E, int 
     Lane lane_in;
     events.event(e, lane_in);
     events.entry(lane_in);
-    const Routed r = route(lane_in, now, defer, bpc, full_mode, window);
+    const Routed r = route(lane_in, now, defer, bpc, full_mode, window, reach, n_chips);
     const bool member = r.v && r.bid >= 0 && r.bid < nb;
     const int key = clamp_int(r.bid, 0, nb - 1);
     for (int i = lane; i < nb; i += 32) hist[warp * nb + i] = 0;
@@ -256,9 +285,11 @@ __device__ __forceinline__ void inject_substep(const Events& events, int E, int 
     if (dest >= 0) atomicAdd(tcol + warp * n_chips + dest, 1);
     sent += __reduce_add_sync(0xffffffffu, r.sent ? 1 : 0);
     expired += __reduce_add_sync(0xffffffffu, r.expired ? 1 : 0);
+    lost += __reduce_add_sync(0xffffffffu, r.lost ? 1 : 0);
     if (!more && lane == 0) {
-      tally[2 * warp] = sent;
-      tally[2 * warp + 1] = expired;
+      tally[3 * warp] = sent;
+      tally[3 * warp + 1] = expired;
+      tally[3 * warp + 2] = lost;
     }
     // A kept lane whose negative bucket wraps into range may land on a
     // cell that another lane holds.
@@ -288,13 +319,15 @@ __device__ __forceinline__ void inject_substep(const Events& events, int E, int 
       } else {
         if (base == 0) out.overflow[o] = 0;  // the warps add to it below
         if (!more) {
-          int s = 0, x = 0;
+          int s = 0, x = 0, l = 0;
           for (int w = 0; w < n_warps; ++w) {
-            s += tally[2 * w];
-            x += tally[2 * w + 1];
+            s += tally[3 * w];
+            x += tally[3 * w + 1];
+            l += tally[3 * w + 2];
           }
           out.sent[o] = s;
           out.wrap_expired[o] = x;
+          out.lost[o] = l;
         }
       }
     }
@@ -347,16 +380,39 @@ __device__ __forceinline__ void inject_substep(const Events& events, int E, int 
 __global__ void __launch_bounds__(512, 3) fused_inject_kernel(
     const int* __restrict__ addr, const int* __restrict__ time,
     const unsigned char* __restrict__ valid, Lut lut, const int* __restrict__ t0,
-    int B, int n_chips, int E, int N, int bpc, int C, int full_mode,
-    int time_window, InjectOut out) {
+    const unsigned char* __restrict__ reach, int B, int n_chips, int E, int N,
+    int bpc, int C, int full_mode, int time_window, InjectOut out) {
   extern __shared__ int4 smem4[];
+  int* smem = reinterpret_cast<int*>(smem4);
   const int chip = blockIdx.x;
   const int k = blockIdx.y;
+  const int now = wrap_add(__ldg(t0 + chip), k);
   const size_t row = (static_cast<size_t>(k) * n_chips + chip) * E;
   const RowEvents events{addr + row, time + row, valid + row, E,
                          lut, static_cast<size_t>(chip) * N, N};
-  inject_substep(events, E, chip, k, B, n_chips, bpc, C, full_mode, time_window,
-                 wrap_add(__ldg(t0 + chip), k), out, reinterpret_cast<int*>(smem4));
+  if (reach == nullptr) {
+    inject_substep(events, E, chip, k, B, n_chips, bpc, C, full_mode, time_window, now,
+                   nullptr, out, smem);
+    return;
+  }
+  unsigned char* reach_row = reinterpret_cast<unsigned char*>(
+      smem + inject_scratch_ints(n_chips * bpc, C, n_chips, blockDim.x >> 5));
+  if (E <= static_cast<int>(blockDim.x)) {
+    // One tile: the lane and its table entry are loaded ahead of the
+    // row, their latency under its barrier.
+    Lane held;
+    events.event(threadIdx.x, held);
+    events.entry(held);
+    load_reach_row(reach, chip, n_chips, reach_row);
+    __syncthreads();
+    inject_substep(HeldLane{held}, E, chip, k, B, n_chips, bpc, C, full_mode,
+                   time_window, now, reach_row, out, smem);
+    return;
+  }
+  load_reach_row(reach, chip, n_chips, reach_row);
+  __syncthreads();
+  inject_substep(events, E, chip, k, B, n_chips, bpc, C, full_mode, time_window, now,
+                 reach_row, out, smem);
 }
 
 struct Neurons {
@@ -438,20 +494,27 @@ __device__ __forceinline__ int spike_rank(bool spike, int* count, int& before) {
 }
 
 __global__ void __launch_bounds__(512, 3) fused_lif_inject_kernel(
-    Neurons in, Lut lut, const int* __restrict__ t0, int B, int n_chips, int N,
-    int bpc, int C, int full_mode, int time_window, int event_capacity,
-    NeuronsOut nout, InjectOut out) {
+    Neurons in, Lut lut, const int* __restrict__ t0,
+    const unsigned char* __restrict__ reach, int B, int n_chips, int N, int bpc,
+    int C, int full_mode, int time_window, int event_capacity, NeuronsOut nout,
+    InjectOut out) {
   extern __shared__ int4 smem4[];
   int* smem = reinterpret_cast<int*>(smem4);
   const int n_warps = blockDim.x >> 5;
   // After the inject scratch: the spike counts per warp of two tiles,
-  // then the fired flags (rows of several tiles).
+  // then the fired flags (rows of several tiles), then the reach row.
   int* counts = smem + inject_scratch_ints(n_chips * bpc, C, n_chips, n_warps);
   unsigned char* fired = reinterpret_cast<unsigned char*>(counts + 2 * n_warps);
+  unsigned char* reach_row = nullptr;
 
   const int chip = blockIdx.x;
   const int k = blockIdx.y;
   const int now = wrap_add(__ldg(t0 + chip), k);
+  if (reach != nullptr) {
+    // Visible after the compaction's first barrier.
+    reach_row = fired + N;
+    load_reach_row(reach, chip, n_chips, reach_row);
+  }
   const size_t nrow = static_cast<size_t>(chip) * N;
   const size_t row = static_cast<size_t>(n_chips) * N;
   int before = 0;
@@ -467,7 +530,7 @@ __global__ void __launch_bounds__(512, 3) fused_lif_inject_kernel(
     const int rank = spike_rank(spike, counts, before);
     held.valid = spike && rank < event_capacity;
     inject_substep(HeldLane{held}, N, chip, k, B, n_chips, bpc, C, full_mode,
-                   time_window, now, out, smem);
+                   time_window, now, reach_row, out, smem);
     return;
   }
   for (int base = 0, t = 0; base < N; base += blockDim.x, ++t) {
@@ -478,48 +541,50 @@ __global__ void __launch_bounds__(512, 3) fused_lif_inject_kernel(
   }
   __syncthreads();
   inject_substep(SpikeEvents{fired, N, now, lut, nrow}, N, chip, k, B, n_chips, bpc, C,
-                 full_mode, time_window, now, out, smem);
+                 full_mode, time_window, now, reach_row, out, smem);
 }
 
 }  // namespace
 
 // Events are [B, n_chips, E] (valid as bytes); the table's dest_chip,
 // dest_addr, delay and valid (bytes) are each [n_chips, N]; t0 is
-// [n_chips].  Outputs: slab [n_chips, NB, B, C]; counts [B, n_chips,
-// NB]; sent, overflow, wrap_expired [B, n_chips]; traffic [B, n_chips,
-// n_chips].
+// [n_chips]; reach is [n_chips, n_chips] bytes or null.  Outputs: slab
+// [n_chips, NB, B, C]; counts [B, n_chips, NB]; sent, overflow,
+// wrap_expired, lost [B, n_chips]; traffic [B, n_chips, n_chips].
 extern "C" int fused_inject_launch(
     const int* addr, const int* time, const unsigned char* valid,
     const int* lut_chip, const int* lut_addr, const int* lut_delay,
-    const unsigned char* lut_valid, const int* t0, int B, int n_chips,
-    int E, int N, int bpc, int C, int full_mode, int time_window, int threads,
-    long long smem_bytes, int* slab, int* counts, int* sent, int* overflow,
-    int* wrap_expired, int* traffic, void* stream) {
+    const unsigned char* lut_valid, const int* t0, const unsigned char* reach,
+    int B, int n_chips, int E, int N, int bpc, int C, int full_mode,
+    int time_window, int threads, long long smem_bytes, int* slab, int* counts,
+    int* sent, int* overflow, int* wrap_expired, int* lost, int* traffic,
+    void* stream) {
   static size_t allowed = 48 * 1024;
   cudaError_t err = repro::allow_smem(fused_inject_kernel, smem_bytes, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(n_chips, B);
   fused_inject_kernel<<<grid, threads, smem_bytes,
                         static_cast<cudaStream_t>(stream)>>>(
-      addr, time, valid, Lut{lut_chip, lut_addr, lut_delay, lut_valid}, t0, B,
-      n_chips, E, N, bpc, C, full_mode, time_window,
-      InjectOut{slab, counts, sent, overflow, wrap_expired, traffic});
+      addr, time, valid, Lut{lut_chip, lut_addr, lut_delay, lut_valid}, t0, reach,
+      B, n_chips, E, N, bpc, C, full_mode, time_window,
+      InjectOut{slab, counts, sent, overflow, wrap_expired, lost, traffic});
   return static_cast<int>(cudaGetLastError());
 }
 
 // v, refrac, the five neuron parameters and the table's four arrays are
-// [n_chips, N]; currents [B, n_chips, N]; t0 [n_chips].  Outputs: v and
-// refrac [n_chips, N]; spikes and voltage [B, n_chips, N]; the inject
-// outputs as fused_inject_launch's.
+// [n_chips, N]; currents [B, n_chips, N]; t0 [n_chips]; reach as
+// fused_inject_launch's.  Outputs: v and refrac [n_chips, N]; spikes and
+// voltage [B, n_chips, N]; the inject outputs as fused_inject_launch's.
 extern "C" int fused_lif_inject_launch(
     const float* v, const int* refrac, const float* currents, const float* tau_m,
     const float* v_th, const float* v_reset, const float* v_rest,
     const int* refrac_period, const int* lut_chip, const int* lut_addr,
-    const int* lut_delay, const unsigned char* lut_valid, const int* t0, int B,
-    int n_chips, int N, int bpc, int C, int full_mode, int time_window,
-    int event_capacity, int threads, long long smem_bytes, float* v_out,
-    int* refrac_out, float* spikes, float* voltage, int* slab, int* counts,
-    int* sent, int* overflow, int* wrap_expired, int* traffic, void* stream) {
+    const int* lut_delay, const unsigned char* lut_valid, const int* t0,
+    const unsigned char* reach, int B, int n_chips, int N, int bpc, int C,
+    int full_mode, int time_window, int event_capacity, int threads,
+    long long smem_bytes, float* v_out, int* refrac_out, float* spikes,
+    float* voltage, int* slab, int* counts, int* sent, int* overflow,
+    int* wrap_expired, int* lost, int* traffic, void* stream) {
   static size_t allowed = 48 * 1024;
   cudaError_t err = repro::allow_smem(fused_lif_inject_kernel, smem_bytes, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -527,9 +592,9 @@ extern "C" int fused_lif_inject_launch(
   fused_lif_inject_kernel<<<grid, threads, smem_bytes,
                             static_cast<cudaStream_t>(stream)>>>(
       Neurons{v, refrac, currents, tau_m, v_th, v_reset, v_rest, refrac_period},
-      Lut{lut_chip, lut_addr, lut_delay, lut_valid}, t0, B, n_chips, N, bpc, C,
-      full_mode, time_window, event_capacity,
+      Lut{lut_chip, lut_addr, lut_delay, lut_valid}, t0, reach, B, n_chips, N, bpc,
+      C, full_mode, time_window, event_capacity,
       NeuronsOut{v_out, refrac_out, spikes, voltage},
-      InjectOut{slab, counts, sent, overflow, wrap_expired, traffic});
+      InjectOut{slab, counts, sent, overflow, wrap_expired, lost, traffic});
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,8 +12,13 @@ others are converted first.  The outputs of one call are views of one
 
 ``fused_lif_inject`` is an entry point of its own: the network does not
 call it (nor does the reference's), since under STDP the weights, and so
-a block's currents, change every substep.  The port has no health masks
-yet, so it takes no ``reach`` and culls nothing as lost.
+a block's currents, change every substep.
+
+Both take ``reach``, bool ``[n_chips(src), n_chips(dst)]`` (each chip's
+row of deliverable destinations, the fabric's health mask) or None: a
+routed lane whose in-range destination its chip cannot reach is dropped
+into ``lost`` before admission.  With None the kernels get a null
+pointer and read nothing more.
 """
 
 from __future__ import annotations
@@ -33,8 +38,8 @@ from repro_torch.kernels.fused_inject.ref import (FusedInjectOut,
 
 NAME = "fused_inject"
 I32, F32 = torch.int32, torch.float32
-_ARGTYPES = [kc.P] * 8 + [kc.I] * 9 + [kc.LL] + [kc.P] * 7
-_LIF_ARGTYPES = [kc.P] * 13 + [kc.I] * 9 + [kc.LL] + [kc.P] * 11
+_ARGTYPES = [kc.P] * 9 + [kc.I] * 9 + [kc.LL] + [kc.P] * 8
+_LIF_ARGTYPES = [kc.P] * 14 + [kc.I] * 9 + [kc.LL] + [kc.P] * 12
 _LUT_DTYPES = (I32, I32, I32, torch.bool)
 _LIF_NAMES = ("v", "refrac", "currents", "tau_m", "v_th", "v_reset",
               "v_rest", "refrac_period")
@@ -42,14 +47,16 @@ _LIF_DTYPES = (F32, I32, F32, F32, F32, F32, F32, I32)
 
 
 def fused_inject(events: ev.EventBuffer, table: rt.RoutingTable,
-                 t0: torch.Tensor, *, n_chips: int, buckets_per_chip: int,
-                 capacity: int, mode: str = "simplified",
+                 t0: torch.Tensor, *, reach: torch.Tensor | None = None,
+                 n_chips: int, buckets_per_chip: int, capacity: int,
+                 mode: str = "simplified",
                  time_window: int = 1) -> FusedInjectOut:
     """Inject one block: ``events [B, n_chips, E]``, ``table [n_chips, N,
-    1]``, ``t0 [n_chips]``."""
+    1]``, ``t0 [n_chips]``, ``reach [n_chips, n_chips]`` or None."""
     _check_mode_and_fanout(mode, table)
-    kw = dict(n_chips=n_chips, buckets_per_chip=buckets_per_chip,
-              capacity=capacity, mode=mode, time_window=time_window)
+    kw = dict(reach=reach, n_chips=n_chips,
+              buckets_per_chip=buckets_per_chip, capacity=capacity,
+              mode=mode, time_window=time_window)
     if not events.addr.is_cuda:
         return fused_inject_ref(events, table, t0, **kw)
     return _launch(events, table, t0, **kw)
@@ -68,20 +75,24 @@ def _threads(lanes: int) -> int:
 
 def _scratch_bytes(threads: int, n_chips: int, nb: int, capacity: int) -> int:
     """The inject scratch: a lane index per cell, each warp's counts by
-    bucket and by destination chip and its two stats, and each bucket's
-    running count (``inject_scratch_ints`` in the source)."""
-    return 4 * (nb * capacity + (threads // 32) * (nb + n_chips + 2) + nb)
+    bucket and by destination chip and its three stats (sent,
+    wrap_expired, lost), and each bucket's running count
+    (``inject_scratch_ints`` in the source)."""
+    return 4 * (nb * capacity + (threads // 32) * (nb + n_chips + 3) + nb)
 
 
 @functools.lru_cache(maxsize=64)
-def launch_plan(e: int, n_chips: int, nb: int, capacity: int
-                ) -> tuple[int, int]:
+def launch_plan(e: int, n_chips: int, nb: int, capacity: int,
+                reach: bool = False) -> tuple[int, int]:
     """Threads per CTA (one lane per thread, up to 512, so three CTAs fit
     on an SM; longer rows loop over tiles) and dynamic shared-memory
-    bytes; the grid is (n_chips, B).  At the feedforward cell (512
-    lanes, 46 chips, 92 buckets, C 32) that is 512 threads and 21104 B."""
+    bytes, plus the chip's reach row (``n_chips`` bytes) with a reach
+    table; the grid is (n_chips, B).  At the feedforward cell (512
+    lanes, 46 chips, 92 buckets, C 32) that is 512 threads and 21168 B
+    (21214 with a reach row)."""
     threads = _threads(e)
-    smem = _scratch_bytes(threads, n_chips, nb, capacity)
+    smem = _scratch_bytes(threads, n_chips, nb, capacity) + (
+        n_chips if reach else 0)
     if smem > kc.MAX_SMEM:
         raise ValueError(f"fused_inject needs {smem} B of shared memory, "
                          f"more than a Hopper block has ({kc.MAX_SMEM})")
@@ -89,18 +100,18 @@ def launch_plan(e: int, n_chips: int, nb: int, capacity: int
 
 
 @functools.lru_cache(maxsize=64)
-def lif_launch_plan(n: int, n_chips: int, nb: int, capacity: int
-                    ) -> tuple[int, int]:
+def lif_launch_plan(n: int, n_chips: int, nb: int, capacity: int,
+                    reach: bool = False) -> tuple[int, int]:
     """Threads per CTA and dynamic shared-memory bytes of
     ``fused_lif_inject``, whose grid is (n_chips, B) as
     :func:`launch_plan`'s: the inject scratch for ``n`` event lanes, then
-    the compaction's spike counts per warp of two tiles and one fired
-    flag per neuron.  At the feedforward cell (46 chips x 512 neurons, 2
-    buckets per chip, C 32) that is 512 threads and 21104 + 128 + 512 =
-    21744 B."""
+    the compaction's spike counts per warp of two tiles, one fired flag
+    per neuron and, with a reach table, the chip's row.  At the
+    feedforward cell (46 chips x 512 neurons, 2 buckets per chip, C 32)
+    that is 512 threads and 21168 + 128 + 512 = 21808 B."""
     threads = _threads(n)
     smem = (_scratch_bytes(threads, n_chips, nb, capacity)
-            + 4 * 2 * (threads // 32) + n)
+            + 4 * 2 * (threads // 32) + n + (n_chips if reach else 0))
     if smem > kc.MAX_SMEM:
         raise ValueError(f"fused_lif_inject needs {smem} B of shared memory, "
                          f"more than a Hopper block has ({kc.MAX_SMEM})")
@@ -109,16 +120,17 @@ def lif_launch_plan(n: int, n_chips: int, nb: int, capacity: int
 
 def fused_lif_inject(v: torch.Tensor, refrac: torch.Tensor,
                      currents: torch.Tensor, params, table: rt.RoutingTable,
-                     t0: torch.Tensor, *, event_capacity: int, n_chips: int,
+                     t0: torch.Tensor, *, reach: torch.Tensor | None = None,
+                     event_capacity: int, n_chips: int,
                      buckets_per_chip: int, capacity: int,
                      mode: str = "simplified",
                      time_window: int = 1) -> FusedLifInjectOut:
     """B substeps of LIF, spike compaction and inject: ``v, refrac
     [n_chips, N]``, ``currents [B, n_chips, N]``, ``params`` LIF
     parameters broadcasting to ``[n_chips, N]``, ``table [n_chips, N,
-    1]``, ``t0 [n_chips]``."""
+    1]``, ``t0 [n_chips]``, ``reach [n_chips, n_chips]`` or None."""
     _check_mode_and_fanout(mode, table)
-    kw = dict(event_capacity=event_capacity, n_chips=n_chips,
+    kw = dict(reach=reach, event_capacity=event_capacity, n_chips=n_chips,
               buckets_per_chip=buckets_per_chip, capacity=capacity,
               mode=mode, time_window=time_window)
     if not currents.is_cuda:
@@ -173,13 +185,25 @@ def _outputs(device, shapes, n_float: int = 0):
 
 
 def _inject_shapes(b: int, n: int, nb: int, capacity: int):
-    """slab, counts, sent, overflow, wrap_expired, traffic."""
+    """slab, counts, sent, overflow, wrap_expired, lost, traffic."""
     return ((n, nb, b, capacity), (b, n, nb), (b, n), (b, n), (b, n),
-            (b, n, n))
+            (b, n), (b, n, n))
 
 
-def _launch(events, table, t0, *, n_chips, buckets_per_chip, capacity, mode,
-            time_window) -> FusedInjectOut:
+def _reach_arg(reach, n: int, device):
+    """The reach table as contiguous bytes on ``device`` and its pointer
+    (None and 0 without one).  The caller holds the tensor until the
+    launch."""
+    if reach is None:
+        return None, 0
+    if not (isinstance(reach, torch.Tensor) and reach.dtype == torch.bool
+            and reach.device == device and reach.is_contiguous()):
+        reach = torch.as_tensor(reach, device=device).bool().contiguous()
+    return reach, kc.check(reach, "reach", torch.bool, (n, n))
+
+
+def _launch(events, table, t0, *, reach, n_chips, buckets_per_chip,
+            capacity, mode, time_window) -> FusedInjectOut:
     b, n, e = events.addr.shape
     if n != n_chips:
         raise ValueError(f"events carry {n} chips, expected {n_chips}")
@@ -192,20 +216,22 @@ def _launch(events, table, t0, *, n_chips, buckets_per_chip, capacity, mode,
         names = ("addr", "time", "valid") + tuple(
             f"table.{f}" for f in table._fields) + ("t0",)
         args = _prepared(args, names, dtypes, shapes, dev)
+    reach, reach_ptr = _reach_arg(reach, n, dev)
     nb = n_chips * buckets_per_chip
     out = _outputs(dev, _inject_shapes(b, n, nb, capacity))
-    threads, smem = launch_plan(e, n, nb, capacity)
+    threads, smem = launch_plan(e, n, nb, capacity, reach is not None)
     kc.launch(
         NAME, kc.kernel_fn(NAME, "fused_inject_launch", _ARGTYPES),
-        *(x.data_ptr() for x in args), b, n, e, n_lut, buckets_per_chip,
+        *(x.data_ptr() for x in args), reach_ptr, b, n, e, n_lut,
+        buckets_per_chip,
         capacity, int(mode == "full"), time_window, threads, smem,
         *(x.data_ptr() for x in out))
     return FusedInjectOut(*out)
 
 
-def _launch_lif(v, refrac, currents, params, table, t0, *, event_capacity,
-                n_chips, buckets_per_chip, capacity, mode, time_window
-                ) -> FusedLifInjectOut:
+def _launch_lif(v, refrac, currents, params, table, t0, *, reach,
+                event_capacity, n_chips, buckets_per_chip, capacity, mode,
+                time_window) -> FusedLifInjectOut:
     b, n, n_neurons = currents.shape
     if n != n_chips:
         raise ValueError(f"currents carry {n} chips, expected {n_chips}")
@@ -222,16 +248,19 @@ def _launch_lif(v, refrac, currents, params, table, t0, *, event_capacity,
         names = _LIF_NAMES + tuple(f"table.{f}" for f in table._fields) \
             + ("t0",)
         args = _prepared(args, names, dtypes, shapes, dev)
+    reach, reach_ptr = _reach_arg(reach, n, dev)
     nb = n_chips * buckets_per_chip
     *out, refrac_out, v_out, spikes, voltage = _outputs(
         dev, _inject_shapes(b, n, nb, capacity) + (
             shape, shape, (b, n, n_neurons), (b, n, n_neurons)), n_float=3)
-    threads, smem = lif_launch_plan(n_neurons, n, nb, capacity)
+    threads, smem = lif_launch_plan(n_neurons, n, nb, capacity,
+                                    reach is not None)
     kc.launch(
         "fused_lif_inject",
         kc.kernel_fn("fused_lif_inject", "fused_lif_inject_launch",
                      _LIF_ARGTYPES),
-        *(x.data_ptr() for x in args), b, n, n_neurons, buckets_per_chip,
+        *(x.data_ptr() for x in args), reach_ptr, b, n, n_neurons,
+        buckets_per_chip,
         capacity, int(mode == "full"), time_window, event_capacity, threads,
         smem, v_out.data_ptr(), refrac_out.data_ptr(), spikes.data_ptr(),
         voltage.data_ptr(), *(x.data_ptr() for x in out))

@@ -1,7 +1,9 @@
 """Plain PyTorch version of the fused inject path: the composed chain of
 the reference (``repro.kernels.fused_inject.ref.fused_inject_ref``) over
-a whole block and every chip at once — route, wrap-window admission,
-bucket ids, and the reference flush-pack into a fresh slab.
+a whole block and every chip at once — route, the reach cull (lanes to
+an in-range destination their chip cannot reach drop into ``lost``),
+wrap-window admission, bucket ids, and the reference flush-pack into a
+fresh slab.
 
 :func:`fused_lif_inject_ref` puts the LIF update in front, as the
 reference's ``fused_lif_inject_ref`` does: per substep the plain LIF
@@ -29,6 +31,7 @@ class FusedInjectOut(NamedTuple):
     sent         : int32[B, n_chips] routed events offered
     overflow     : int32[B, n_chips] bucket-capacity drops
     wrap_expired : int32[B, n_chips] admission-window drops
+    lost         : int32[B, n_chips] culled by the reach row
     traffic      : int32[B, n_chips, n_chips] events by destination
     """
 
@@ -37,17 +40,20 @@ class FusedInjectOut(NamedTuple):
     sent: torch.Tensor
     overflow: torch.Tensor
     wrap_expired: torch.Tensor
+    lost: torch.Tensor
     traffic: torch.Tensor
 
 
 def fused_inject_ref(events: ev.EventBuffer, table: rt.RoutingTable,
-                     t0: torch.Tensor, *, n_chips: int,
-                     buckets_per_chip: int, capacity: int,
+                     t0: torch.Tensor, *, reach: torch.Tensor | None = None,
+                     n_chips: int, buckets_per_chip: int, capacity: int,
                      mode: str = "simplified",
                      time_window: int = 1) -> FusedInjectOut:
     """``events [B, n_chips, E]``, ``table [n_chips, N, 1]``,
-    ``t0 [n_chips]``."""
-    routed, sent, wrap_expired = pc.route_block(events, table, t0)
+    ``t0 [n_chips]``, ``reach [n_chips(src), n_chips(dst)]`` bool (None:
+    every chip reaches every chip)."""
+    routed, sent, wrap_expired, lost = pc.route_block(events, table, t0,
+                                                      reach)
     if mode == "simplified":
         bid = bk.static_bucket_ids(routed.dest_chip, n_chips=n_chips,
                                    streams=buckets_per_chip)
@@ -62,6 +68,7 @@ def fused_inject_ref(events: ev.EventBuffer, table: rt.RoutingTable,
         slab=packed.words.permute(1, 2, 0, 3).contiguous(),
         counts=packed.counts, sent=sent, overflow=packed.overflow,
         wrap_expired=wrap_expired,
+        lost=torch.zeros_like(sent) if lost is None else lost,
         traffic=tp.exchange_matrix(routed.dest_chip, routed.valid, n_chips))
 
 
@@ -80,6 +87,7 @@ class FusedLifInjectOut(NamedTuple):
 def fused_lif_inject_ref(v: torch.Tensor, refrac: torch.Tensor,
                          currents: torch.Tensor, params,
                          table: rt.RoutingTable, t0: torch.Tensor, *,
+                         reach: torch.Tensor | None = None,
                          event_capacity: int, n_chips: int,
                          buckets_per_chip: int, capacity: int,
                          mode: str = "simplified",
@@ -87,7 +95,8 @@ def fused_lif_inject_ref(v: torch.Tensor, refrac: torch.Tensor,
     """``v, refrac [n_chips, N]``, ``currents [B, n_chips, N]`` (known for
     the whole block: under the superstep admission rule no event injected
     in a block is delivered inside it), ``params`` LIF parameters
-    ``[n_chips, N]``, ``table [n_chips, N, 1]``, ``t0 [n_chips]``."""
+    ``[n_chips, N]``, ``table [n_chips, N, 1]``, ``t0 [n_chips]``,
+    ``reach`` as :func:`fused_inject_ref`'s."""
     ebs, spikes, voltage = [], [], []
     for k in range(currents.shape[0]):
         v, refrac, spk = lif_step_ref(
@@ -99,7 +108,7 @@ def fused_lif_inject_ref(v: torch.Tensor, refrac: torch.Tensor,
                                   event_capacity)[0])
     events = ev.EventBuffer(*(torch.stack(x) for x in zip(*ebs)))
     inject = fused_inject_ref(
-        events, table, t0, n_chips=n_chips, buckets_per_chip=buckets_per_chip,
+        events, table, t0, reach=reach, n_chips=n_chips, buckets_per_chip=buckets_per_chip,
         capacity=capacity, mode=mode, time_window=time_window)
     return FusedLifInjectOut(v=v, refrac=refrac, spikes=torch.stack(spikes),
                              voltage=torch.stack(voltage), inject=inject)

@@ -16,7 +16,10 @@ of two communication paths:
   (carried in ``NetworkState.pending``) drained, and the run ends with
   the carry's flush.  Spikes and voltages are never lagged; the stats
   are realigned to their blocks.  With ``flow`` the credit state and the
-  send queue ride in ``NetworkState.flow`` / ``.sendq``.
+  send queue ride in ``NetworkState.flow`` / ``.sendq``.  With a
+  ``topology`` the exchange is routed through it (path latency on the
+  deadlines, per-port link stats); ``healthy`` / ``dead_links`` run the
+  fabric degraded, unreachable traffic culled into ``lost_to_failure``.
 * ``dense`` — the differentiable path: the routing table applied as a
   scatter-add of float spike values into float delay rings (infinite
   capacity), per step, never blocked.  It carries surrogate gradients
@@ -26,8 +29,8 @@ of two communication paths:
 crossbar learns from the delivered input spikes (pre) and the output
 spikes (post), updated every substep.
 
-Topologies, health masks, telemetry and the shard forms are later
-slices of the port and raise ``NotImplementedError``.
+Telemetry and the shard forms are later slices of the port (ROADMAP
+section 1, items 6 and 7) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from repro_torch.core import events as ev
 from repro_torch.core import fabric as fb
 from repro_torch.core import pulse_comm as pc
 from repro_torch.core import routing as rt
+from repro_torch.core import topology as tpo
 from repro_torch.kernels import common as kc
 from repro_torch.snn import neuron as nr
 from repro_torch.snn import stdp as sd
@@ -57,10 +61,10 @@ class NetworkConfig:
     comm_mode: str = "event"
     record_voltage: bool = True
     flow: fb.FlowControlConfig | None = None
-    topology: Any = None
+    topology: tpo.Topology | None = None     # switched network (None: dense)
     pipeline: bool = False
-    healthy: Any = None
-    dead_links: tuple = ()
+    healthy: Any = None                      # alive chips (indices / mask)
+    dead_links: tuple = ()                   # cut (chip, port) pairs
     telemetry: Any = None
 
     def __post_init__(self):
@@ -72,15 +76,17 @@ class NetworkConfig:
             raise ValueError(
                 "pipeline=True overlaps the event path's exchange; the "
                 "dense comm_mode has no exchange to pipeline")
-        unported = {
-            "a topology": self.topology is not None,
-            "healthy / dead_links": (self.healthy is not None
-                                     or bool(self.dead_links)),
-            "telemetry": self.telemetry not in (None, False),
-        }
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if self.topology is not None:
+            if not isinstance(self.topology, tpo.Topology):
+                raise TypeError(f"topology must be a Topology, got "
+                                f"{type(self.topology).__name__}")
+            if self.topology.n_chips != self.comm.n_chips:
+                raise ValueError(
+                    f"topology has {self.topology.n_chips} chips, comm "
+                    f"config {self.comm.n_chips}")
+        if self.telemetry not in (None, False):
+            raise NotImplementedError(
+                "telemetry is not ported yet (ROADMAP section 1, item 6)")
 
 
 class NetworkParams(NamedTuple):
@@ -112,6 +118,16 @@ def _neuron_fns(cfg: NetworkConfig):
     return nr.adex_step, nr.adex_init
 
 
+def local_fabric(cfg: NetworkConfig, *, device="cuda") -> fb.PulseFabric:
+    """The fabric of the single-device forms: routed through
+    ``cfg.topology`` when one is set, degraded by ``cfg.healthy`` /
+    ``cfg.dead_links``."""
+    transport = cfg.topology if cfg.topology is not None else "local"
+    return fb.PulseFabric(cfg.comm, transport=transport, flow=cfg.flow,
+                          healthy=cfg.healthy, dead_links=cfg.dead_links,
+                          device=device)
+
+
 def init_params(generator: torch.Generator, cfg: NetworkConfig, *,
                 table: rt.RoutingTable | None = None,
                 weight_scale: float = 0.3, device="cuda") -> NetworkParams:
@@ -141,7 +157,7 @@ def init_state(cfg: NetworkConfig, params: NetworkParams, *,
     device = kc.resolve_device(device)
     c = cfg.comm
     _, ninit = _neuron_fns(cfg)
-    fabric = fb.PulseFabric(c, flow=cfg.flow, device=device)
+    fabric = local_fabric(cfg, device=device)
     return NetworkState(
         neuron=ninit(params.neuron),
         ring=dl.init(c.ring_depth, c.n_inputs_per_chip,
@@ -180,7 +196,8 @@ def dense_route(cfg: pc.PulseCommConfig, spikes: torch.Tensor,
 
 def _zero_stats(c: pc.PulseCommConfig, b: int, device) -> pc.CommStats:
     """The dense path's stats for a block of ``b`` steps: it has no
-    fabric, so every counter is 0."""
+    fabric, so every counter is 0 (one link port, with or without a
+    topology, as the reference's)."""
     z = torch.zeros((b, c.n_chips), dtype=I32, device=device)
     link = torch.zeros((b, c.n_chips, 1), dtype=I32, device=device)
     return pc.CommStats(
@@ -289,7 +306,7 @@ def _run(cfg, params, state, ext_inputs, device, stdp_cfg=None,
     if t_total % b:
         raise ValueError(f"run length T={t_total} must be a multiple of "
                          f"comm.superstep={b}")
-    fabric = fb.PulseFabric(cfg.comm, flow=cfg.flow, device=device)
+    fabric = local_fabric(cfg, device=device)
     flow, merge, sendq = fabric._init_missing(state.flow, state.merge,
                                               state.sendq)
     state = state._replace(flow=flow, merge=merge, sendq=sendq)
@@ -348,7 +365,8 @@ def run_plastic(cfg: NetworkConfig, params: NetworkParams,
 def shard_step(*args, **kwargs):
     """The shard forms (one GPU per chip) come with the multi-GPU
     transport."""
-    raise NotImplementedError("the shard forms are not ported yet")
+    raise NotImplementedError("the shard forms are not ported yet (ROADMAP "
+                              "section 1, item 7)")
 
 
 shard_superstep = shard_pipeline_block = shard_flush_pending = shard_step

@@ -139,6 +139,122 @@ def test_fused_inject_edge_rows_match_plain(cuda, kind, lanes, cap, mode):
         assert int(want.overflow.sum()) > 0
 
 
+def _reach(device):
+    """Unreachable pairs: chip 1 reaches only itself, chips 0 and 3 do not
+    reach chip 2."""
+    reach = np.ones((N_CHIPS, N_CHIPS), bool)
+    reach[1] = False
+    reach[1, 1] = True
+    reach[[0, 3], 2] = False
+    return _on(reach, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["simplified", "full"])
+@pytest.mark.parametrize("kind,lanes", [("in_range", 512), ("negative", 1500),
+                                        ("in_range", 70)])
+def test_fused_inject_with_reach_matches_plain(cuda, kind, lanes, mode):
+    """The reach cull, B 8, bitwise against the plain version (``lost``
+    included): one tile (the row loaded after the lanes, under its own
+    barrier), three tiles of 512, and a short row; one launch of the one
+    kernel per call."""
+    events, table, t0 = _inject_block(np.random.default_rng(lanes + 1), 8,
+                                      lanes, kind, cuda)
+    kw = dict(reach=_reach(cuda), n_chips=N_CHIPS, buckets_per_chip=2,
+              capacity=8, mode=mode, time_window=4)
+    run = lambda: fi.fused_inject(events, table, t0, **kw)
+    before = kc.launches["fused_inject"]
+    run()
+    assert kc.launches["fused_inject"] == before + 1
+    got, names = kc.card_kernels(run)
+    assert len(names) == 1 and "fused_inject_kernel" in names[0], names
+    want = fused_inject_ref(events, table, t0, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # Chip 1's in-range entries all go to chip 1 itself, which it
+    # reaches; chips 0 and 3 lose their words for chip 2.
+    assert int(want.lost[:, [0, 3]].sum()) > 0
+    assert int(want.lost[:, 1].sum()) == 0
+    free = fi.fused_inject(events, table, t0, **dict(kw, reach=None))
+    assert int(free.lost.sum()) == 0
+    assert torch.equal(free.sent, want.sent)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [300, 700])
+def test_fused_lif_inject_with_reach_matches_plain(cuda, n):
+    """``fused_lif_inject`` with a reach row (one tile and two), B 8,
+    bitwise, ``lost`` included."""
+    rng = np.random.default_rng(n)
+    v, refrac, _, *params = _lif_args(rng, (N_CHIPS, n), cuda)
+    currents = _on(rng.normal(0.5, 0.8, (8, N_CHIPS, n)).astype(np.float32),
+                   cuda)
+    table = rt.RoutingTable(
+        _on(rng.integers(-1, N_CHIPS, (N_CHIPS, n, 1)).astype(np.int32),
+            cuda),
+        _on(rng.integers(0, n, (N_CHIPS, n, 1)).astype(np.int32), cuda),
+        _on(rng.integers(8, 20, (N_CHIPS, n, 1)).astype(np.int32), cuda),
+        _on(rng.random((N_CHIPS, n, 1)) < 0.9, cuda))
+    t0 = _on(np.array([0, 100, 250, 254, 7], np.int32), cuda)
+    kw = dict(reach=_reach(cuda), event_capacity=200, n_chips=N_CHIPS,
+              buckets_per_chip=2, capacity=16, mode="full", time_window=4)
+    lifp = nr.LIFParams(*params)
+    before = kc.launches["fused_lif_inject"]
+    got = fi.fused_lif_inject(v, refrac, currents, lifp, table, t0, **kw)
+    assert kc.launches["fused_lif_inject"] == before + 1
+    want = fused_lif_inject_ref(v, refrac, currents, lifp, table, t0, **kw)
+    for name in ("v", "refrac", "spikes", "voltage"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for g, w in zip(got.inject, want.inject):
+        assert torch.equal(g, w)
+    assert int(want.inject.lost.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_degraded_routed_network_on_the_card_matches_the_cpu(cuda):
+    """A network on a degraded torus (a dead chip, a cut link) with the
+    fused inject and its reach row: spikes, ring and every integer stat
+    on the card equal the CPU's."""
+    from repro_torch.core import topology as tpo
+    from repro_torch.core import pulse_comm as pc
+    from repro_torch.snn import network as net
+
+    comm = pc.PulseCommConfig(n_chips=8, neurons_per_chip=64,
+                              n_inputs_per_chip=64, event_capacity=64,
+                              bucket_capacity=8, buckets_per_chip=2,
+                              mode="full", merge_rate=8, ring_depth=20,
+                              superstep=4)
+    cfg = net.NetworkConfig(comm=comm, topology=tpo.torus2d(
+        2, 4, link_latency=1), healthy=(0, 1, 2, 3, 4, 6, 7),
+        dead_links=((1, 2),))
+    gen = torch.Generator().manual_seed(0)
+    table = rt.random_table(gen, 64, 8, min_delay=6, max_delay=12)
+    params = net.init_params(gen, cfg, table=table, device="cpu")
+    params = params._replace(crossbar=params.crossbar._replace(
+        w=torch.round(params.crossbar.w * 64) / 64))
+    ext = (torch.rand((16, 8, 64), generator=gen) < 0.1).float() * 2
+    out = {}
+    for dev in ("cpu", cuda):
+        p = type(params)(*(_tree_to(x, dev) for x in params))
+        final, rec = net.run(cfg, p, net.init_state(cfg, p, device=dev),
+                             ext.to(dev), device=dev)
+        out[str(dev)] = (final, rec)
+    (cf, cr), (gf, gr) = out["cpu"], out[str(cuda)]
+    assert torch.equal(gr.spikes.cpu(), cr.spikes)
+    assert torch.equal(gf.ring.ring.cpu(), cf.ring.ring)
+    for f in cr.stats._fields:
+        if f != "utilization":
+            assert torch.equal(getattr(gr.stats, f).cpu(),
+                               getattr(cr.stats, f)), f
+    assert int(cr.stats.lost_to_failure.sum()) > 0
+
+
+def _tree_to(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return type(x)(*(_tree_to(v, device) for v in x))
+
+
 @pytest.mark.cuda
 def test_bucket_pack_kernel_matches_plain(cuda):
     rng = np.random.default_rng(0)

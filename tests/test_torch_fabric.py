@@ -140,9 +140,12 @@ def test_fabric_guards():
 
 
 @pytest.mark.parametrize("kw", [dict(transport="shard_map"),
-                                dict(healthy=[0, 1]),
-                                dict(dead_links=((0, 1),))])
+                                dict(transport=("pod", "chip")),
+                                dict(transport="shard_map", healthy=[0, 1])])
 def test_unported_fabric_features_raise(kw):
+    """The multi-GPU transports (ROADMAP section 1, item 7); topologies
+    and health masks are held in tests/test_torch_topology.py and
+    tests/test_torch_degraded.py."""
     cfg = pc.PulseCommConfig(n_chips=4)
     with pytest.raises(NotImplementedError):
         fb.PulseFabric(cfg, device="cpu", **kw)

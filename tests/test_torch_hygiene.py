@@ -23,6 +23,7 @@ from repro_torch import demo, quickstart, stdp_demo
 from repro_torch.launch import serve
 from repro_torch.core import fabric as fb
 from repro_torch.core import pulse_comm as pc
+from repro_torch.core import topology as tpo
 from repro_torch.kernels import common as kc
 from repro_torch.snn import network as net
 
@@ -47,6 +48,17 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     bad = {m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")}
     assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+def test_import_check_covers_the_topology_module():
+    """``core/topology.py`` (numpy route compiler and the routed exchange)
+    is among the files checked above, and imports neither JAX nor the
+    JAX package."""
+    path = ROOT / "src" / "repro_torch" / "core" / "topology.py"
+    assert path in PORT_FILES
+    assert _imported_modules(path) == {"__future__", "dataclasses",
+                                       "functools", "typing", "numpy",
+                                       "torch", "repro_torch.core"}
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -112,12 +124,29 @@ def test_entry_points_default_to_the_card():
             call()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(topology=object()), dict(healthy=[0]), dict(dead_links=((0, 1),)),
-    dict(telemetry=True)])
+@pytest.mark.parametrize("kw", [dict(telemetry=True),
+                                dict(telemetry=object())])
 def test_unported_network_features_raise(kw):
-    with pytest.raises(NotImplementedError):
+    """Telemetry is ROADMAP section 1, item 6."""
+    with pytest.raises(NotImplementedError, match="item 6"):
         net.NetworkConfig(comm=pc.PulseCommConfig(n_chips=2), **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(topology=tpo.ring(2)), dict(healthy=[0]),
+    dict(topology=tpo.ring(2), dead_links=((0, 1),))])
+def test_topology_and_health_configs_build(kw):
+    """Topologies and health masks are ported (held against JAX in
+    tests/test_torch_topology.py and tests/test_torch_degraded.py); a
+    topology of another chip count, or no Topology at all, is refused."""
+    net.NetworkConfig(comm=pc.PulseCommConfig(n_chips=2), **kw)
+    with pytest.raises(ValueError, match="chips"):
+        net.NetworkConfig(comm=pc.PulseCommConfig(n_chips=4), **kw,
+                          **({} if "topology" in kw
+                             else dict(topology=tpo.ring(2))))
+    with pytest.raises(TypeError, match="Topology"):
+        net.NetworkConfig(comm=pc.PulseCommConfig(n_chips=2),
+                          **dict(kw, topology=object()))
 
 
 @pytest.mark.parametrize("kw", [dict(pipeline=True),
@@ -135,7 +164,7 @@ def test_pipeline_and_flow_configs_build(kw):
                                   "shard_superstep", "shard_pipeline_block",
                                   "shard_flush_pending"])
 def test_unported_entry_points_raise(name):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 7"):
         getattr(net, name)()
 
 

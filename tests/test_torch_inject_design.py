@@ -263,13 +263,14 @@ def test_outputs_are_views_of_one_buffer_slab_first():
     """One allocation per call: every output a contiguous view of its
     shape, the slab at the buffer's start, the others after it, the last
     ones (``fused_lif_inject``'s membrane, spikes and voltage) float32."""
-    shapes = fi._inject_shapes(8, 46, 92, 32) + ((46, 512), (8, 46, 512))
+    inject = fi._inject_shapes(8, 46, 92, 32)
+    shapes = inject + ((46, 512), (8, 46, 512))
     out = fi._outputs(torch.device("cpu"), shapes, n_float=2)
     base = out[0].untyped_storage().data_ptr()
     offset = 0
     for i, (x, sh) in enumerate(zip(out, shapes)):
         assert x.shape == sh and x.is_contiguous()
-        assert x.dtype == (torch.int32 if i < 6 else torch.float32)
+        assert x.dtype == (torch.int32 if i < len(inject) else torch.float32)
         assert x.untyped_storage().data_ptr() == base
         assert x.data_ptr() == base + 4 * offset
         offset += x.numel()

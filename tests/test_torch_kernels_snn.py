@@ -1,6 +1,7 @@
 """Port parity, the SNN kernels of the learning slice: the plain PyTorch
 versions of ``lif_step``, ``merge_sort_words``, ``merge_sort`` and
-``fused_lif_inject``, and the merge buffer with ``use_pallas=True``,
+``fused_lif_inject`` (and ``fused_inject`` and ``fused_lif_inject`` with a
+reach row, ``lost`` included), and the merge buffer with ``use_pallas=True``,
 against the JAX package's Pallas kernels in interpret mode (and its
 ``ref.py`` oracles), on the CPU.
 
@@ -18,6 +19,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import events as jev  # noqa: E402
 from repro.core import merge as jmg  # noqa: E402
 from repro.core import routing as jrt  # noqa: E402
 from repro.kernels.fused_inject import ops as jfi  # noqa: E402
@@ -25,6 +27,7 @@ from repro.kernels.lif_step import ops as jlif  # noqa: E402
 from repro.kernels.merge_sort import ops as jms  # noqa: E402
 from repro.kernels.merge_sort.ref import merge_sort_ref as jms_ref  # noqa: E402
 from repro.snn import neuron as jnr  # noqa: E402
+from repro_torch.core import events as ev  # noqa: E402
 from repro_torch.core import merge as mg  # noqa: E402
 from repro_torch.core import routing as rt  # noqa: E402
 from repro_torch.kernels import common as kc  # noqa: E402
@@ -343,14 +346,99 @@ def test_fused_lif_inject_rejects_fanout_above_one():
                             buckets_per_chip=1, capacity=4)
 
 
+def _reach():
+    """A reach table with unreachable pairs: chip 1 reaches only itself,
+    chip 0 does not reach chip 2."""
+    reach = np.ones((N_CHIPS, N_CHIPS), bool)
+    reach[1, [0, 2]] = False
+    reach[0, 2] = False
+    return reach
+
+
+def _check_inject_fields(want, got):
+    """Every field of the inject outputs, ``lost`` included (JAX's are
+    chip-first, the port's substep-first)."""
+    same(want.slab, got.slab, "slab")
+    for f in ("counts", "sent", "overflow", "wrap_expired", "lost",
+              "traffic"):
+        same(np.swapaxes(np.asarray(getattr(want, f)), 0, 1),
+             getattr(got, f), f)
+
+
+@pytest.mark.parametrize("mode", ["simplified", "full"])
+@pytest.mark.parametrize("b", [1, 4])
+def test_fused_inject_with_reach_plain_matches_pallas_interpret(b, mode):
+    """The reach cull against the TPU kernel: lanes to an unreachable
+    in-range chip drop into ``lost`` (never also ``wrap_expired``, though
+    some of their deadlines fall outside the window), destinations one
+    past the last chip keep their drop at the exchange."""
+    rng = np.random.default_rng(40 + b + len(mode))
+    n, e = 24, 20
+    t0 = np.array([0, 120, 250], np.int32)
+    addr = rng.integers(-3, n + 3, (b, N_CHIPS, e)).astype(np.int32)
+    time = (t0[None, :, None]
+            + rng.integers(0, b + 1, (b, N_CHIPS, e))).astype(np.int32)
+    valid = rng.random((b, N_CHIPS, e)) < 0.8
+    table = jrt.RoutingTable(
+        dest_chip=rng.integers(0, N_CHIPS + 1, (N_CHIPS, n, 1)).astype(
+            np.int32),
+        dest_addr=rng.integers(0, n, (N_CHIPS, n, 1)).astype(np.int32),
+        delay=rng.choice([1, 3, 9, 12, 130], (N_CHIPS, n, 1)).astype(
+            np.int32),
+        valid=rng.random((N_CHIPS, n, 1)) < 0.9)
+    reach = _reach()
+    kw = dict(n_chips=N_CHIPS, buckets_per_chip=2, capacity=3, mode=mode,
+              time_window=4)
+    want = jax.vmap(
+        lambda e_, tb, r, t: jfi.fused_inject(e_, tb, r, t, interpret=True,
+                                              **kw),
+        in_axes=(1, 0, 0, 0))(
+        jev.EventBuffer(*map(jnp.asarray, (addr, time, valid))),
+        jrt.RoutingTable(*map(jnp.asarray, table)), jnp.asarray(reach),
+        jnp.asarray(t0))
+    got = fi.fused_inject(ev.EventBuffer(T(addr), T(time), T(valid)),
+                          rt.RoutingTable(*map(T, table)), T(t0),
+                          reach=T(reach), **kw)
+    _check_inject_fields(want, got)
+    assert int(got.lost.sum()) > 0 and int(got.wrap_expired.sum()) > 0
+    assert int(got.lost[:, 1].sum()) > 0
+
+
+@pytest.mark.parametrize("mode", ["simplified", "full"])
+@pytest.mark.parametrize("b", [1, 4])
+def test_fused_lif_inject_with_reach_plain_matches_pallas_interpret(b, mode):
+    """``fused_lif_inject`` with a reach row, chip by chip against the
+    TPU kernel, ``lost`` included."""
+    v, refrac, cur, params, table, t0 = _lif_inject_case(b, 20 * b + len(mode))
+    reach = _reach()
+    kw = dict(event_capacity=4, n_chips=N_CHIPS, buckets_per_chip=2,
+              capacity=3, mode=mode, time_window=4)
+    want = jax.vmap(
+        lambda v_, r_, c_, p_, tb, re, t: jfi.fused_lif_inject(
+            v_, r_, c_, p_, tb, re, t, interpret=True, **kw),
+        in_axes=(0, 0, 1, 0, 0, 0, 0))(
+        jnp.asarray(v), jnp.asarray(refrac), jnp.asarray(cur),
+        jnr.LIFParams(*map(jnp.asarray, params)),
+        jrt.RoutingTable(*map(jnp.asarray, table)), jnp.asarray(reach),
+        jnp.asarray(t0))
+    got = fi.fused_lif_inject(
+        T(v), T(refrac), T(cur), nr.LIFParams(*map(T, params)),
+        rt.RoutingTable(*map(T, table)), T(t0), reach=T(reach), **kw)
+    same(np.swapaxes(np.asarray(want.spikes), 0, 1), got.spikes, "spikes")
+    _check_inject_fields(want.inject, got.inject)
+    assert int(got.inject.lost.sum()) > 0
+
+
 def test_lif_launch_plan_at_the_feedforward_cell():
     """Both fused kernels run one CTA of 512 threads per (chip, substep),
     a grid of (46, B): the inject scratch (a lane index per cell, each
-    warp's counts by bucket and chip and its two stats, the running
-    counts), and for ``fused_lif_inject`` the spike counts of two tiles
-    and the fired flags."""
-    assert fi.launch_plan(512, 46, 92, 32) == (512, 21104)
-    assert fi.lif_launch_plan(512, 46, 92, 32) == (512, 21744)
+    warp's counts by bucket and chip and its three stats, the running
+    counts), for ``fused_lif_inject`` the spike counts of two tiles and
+    the fired flags, and with a reach table the chip's row (46 bytes)."""
+    assert fi.launch_plan(512, 46, 92, 32) == (512, 21168)
+    assert fi.lif_launch_plan(512, 46, 92, 32) == (512, 21808)
+    assert fi.launch_plan(512, 46, 92, 32, True) == (512, 21214)
+    assert fi.lif_launch_plan(512, 46, 92, 32, True) == (512, 21854)
     assert ms.launch_plan(3136, "words") == (1024, 46604)
     assert ms.launch_plan(3136, "soa") == (1024, 71560)
     with pytest.raises(ValueError, match="shared memory"):
