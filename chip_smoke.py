@@ -101,6 +101,32 @@ Phases, each fatal on failure:
              ``lost_to_failure`` > 0, no traffic and no link word to or
              from a dead chip; conservation with the lost leg; its first
              16 steps equal a plain run on the CPU;
+     resilient  the slice's main path: the degraded path's widths and
+             LUT at B 1 through ``torus2d(2, 23, link_latency=1)`` from
+             full health, telemetry ``MetricsConfig(flight_depth=16)``,
+             under ``ResilientRunner(ckpt_every=4)`` for T 32 with chips
+             7 and 30 killed at steps 13 and 22 (``FabricFaultInjector``:
+             inputs masked, dead chips' neuron and ring rows frozen, the
+             network rebuilt with ``healthy=`` on the survivors):
+             fused_inject (with its reach row after the first recovery),
+             fused_drain and lif_step must launch, and no kernel library
+             may be built or loaded again; the recoveries must be (13,
+             12, all but 7) and (22, 20, all but 7 and 30), the records
+             cover T, and from each resume point spikes and every integer
+             stat equal an uninterrupted run on the survivors from the
+             same checkpoint; no spike from a dead chip after its kill;
+             ``lost_to_failure`` > 0; two flight dumps whose blocks equal
+             the failing trajectory's per-step stats; the whole drill on
+             the CPU gives the same records, recoveries, final state
+             (integers bitwise, voltages within 1e-5 of max(|v|, 1), the
+             telemetry EMAs within 1e-6 relative) and dumps; then the
+             checkpoint's bytes and ms per save and per restore;
+     telemetry  the feedforward (B 8) and pipelined paths with
+             ``telemetry=True``: spikes, ring and every stat equal the run
+             without; the carry after 16 steps equals the CPU's (integers
+             bitwise, floats within 1e-6 relative); ``check_conservation``
+             closes from ``metrics_summary``'s totals with the queued and
+             in-flight legs;
   8. serve-check  zamba2-2.7b at full width, one pattern repeat (6
              layers), float32, batch 1, prompt 300, 8 teacher-forced decode
              steps: the card (kernels) against the plain path on the CPU
@@ -115,8 +141,13 @@ Phases, each fatal on failure:
              and in bf16 (``consistency``); tok/s and peak memory;
  10. profile where a block's time goes on each path (torch.profiler):
              wall and device-busy time per step, the idle share, kernel
-             launches per step and the costliest kernels; for the serve
-             paths per prefill and per decode step;
+             launches per step, the costliest kernels and the device time
+             under each phase scope (``fabric/inject``,
+             ``fabric/exchange``, ``fabric/drain``,
+             ``obs/metrics_update``, ...); feedforward again with
+             telemetry on; 8 steps of the resilient path on its 44
+             survivors; for the serve paths per prefill and per decode
+             step;
  11. summary the ``kernels`` JSON line, the card's name and power limit,
              and last the ``{"ok": true, ...}`` line.
 
@@ -446,6 +477,7 @@ class Paths:
     """The path runs and the first-block kernel inputs of each."""
 
     def __init__(self, device, seed: int, steps: int):
+        from repro_torch import obs
         from repro_torch.configs import bss2
         from repro_torch.core import fabric as fb
         from repro_torch.core import pulse_comm as pc
@@ -505,6 +537,13 @@ class Paths:
             self.ff_cfg, topology=tpo.torus2d(2, 23, link_latency=1),
             healthy=tuple(i for i in range(c.n_chips)
                           if i not in DEAD_CHIPS), dead_links=CUT_LINKS)
+        # resilient: the degraded path's widths and LUT at B 1 through the
+        # same torus at full health, with telemetry, under ResilientRunner
+        # (chips 7 and 30 die mid-run).
+        self.resilient_cfg = dataclasses.replace(
+            self.ff_cfg, comm=dataclasses.replace(ff_comm, superstep=1),
+            topology=tpo.torus2d(2, 23, link_latency=1),
+            telemetry=obs.MetricsConfig(flight_depth=FLIGHT_DEPTH))
 
     def _ext(self, rng, comm):
         """Background input: each synapse row receives a spike with
@@ -1471,12 +1510,431 @@ def gradient_steps(paths: Paths, cfg, params, ext, steps: int = 3,
           f"nonzero ({(time.perf_counter() - t_start) / steps:.3f} s/step)")
 
 
+RESILIENT_FAILURES = ((7, 13), (30, 22))
+RESILIENT_STEPS = 32
+RESILIENT_EVERY = 4
+FLIGHT_DEPTH = 16
+# The phase scopes (``repro_torch.obs.phase_scope``) whose device time the
+# profile phase reads; their annotations are not kernels.
+SCOPES = ("fabric/inject", "fabric/exchange", "fabric/drain", "fabric/flush",
+          "pulse_comm/exchange_issue", "pulse_comm/exchange_complete",
+          "obs/metrics_update", "fabric/recovery_dump")
+
+
+def drill_fns(net, cfg, params, injector, ext, device):
+    """The drill's ``(make_step, detect)``, as tests/test_resilience.py
+    builds them: inputs masked by the true alive mask, the dead chips'
+    neuron and ring rows frozen, the network rebuilt with ``healthy=``
+    on the survivors; detection from the injector's schedule."""
+    from repro_torch.core import resilience as rsl
+
+    def make_step(healthy):
+        hcfg = dataclasses.replace(cfg, healthy=tuple(healthy))
+
+        def step_fn(state, t):
+            alive = injector.alive_at(t, device=device)
+            new_state, rec = net.step(hcfg, params, state,
+                                      ext[t] * alive[:, None], device=device)
+            fzn, fzr = rsl.freeze(alive, (state.neuron, state.ring),
+                                  (new_state.neuron, new_state.ring))
+            new_state = new_state._replace(neuron=fzn, ring=fzr)
+            return new_state, rec._replace(
+                spikes=rec.spikes * alive[:, None].to(rec.spikes.dtype))
+        return step_fn
+
+    def detect(state, t, healthy):
+        surviving = tuple(c for c in injector.healthy_after(t)
+                          if c in healthy)
+        return surviving if surviving != tuple(healthy) else None
+
+    return make_step, detect
+
+
+def run_drill(paths: Paths, device, workdir: Path) -> dict:
+    """The resilient path on ``device``: ``ResilientRunner`` over T 32
+    steps with checkpoints every 4, chips 7 and 30 killed at steps 13 and
+    22.  Each rebuild after a failure also restores the checkpoint it
+    resumes from, for the uninterrupted reference runs."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core import resilience as rsl
+    from repro_torch.runtime import ResilientRunner
+
+    cfg = paths.resilient_cfg
+    params = tree_to(paths.ff_params, device)
+    injector = rsl.FabricFaultInjector(n_chips=cfg.comm.n_chips,
+                                       chip_failures=RESILIENT_FAILURES)
+    make_step, detect = drill_fns(paths.net, cfg, params, injector,
+                                  paths.ff_ext.to(device), device)
+    state0 = paths.net.init_state(cfg, params, device=device)
+    ckpt_dir, flight_dir = workdir / "ckpt", workdir / "flight"
+    flight_dir.mkdir(parents=True)
+    resumes = {}
+
+    def rebuild(healthy):
+        last = ckpt.latest_step(str(ckpt_dir))
+        if last is not None and len(healthy) < cfg.comm.n_chips:
+            resumes[healthy] = (last + 1, ckpt.restore(
+                str(ckpt_dir), last, ckpt.tree_map(torch.zeros_like,
+                                                   state0)))
+        return make_step(healthy)
+
+    runner = ResilientRunner(
+        make_step=rebuild, detect=detect, ckpt_dir=str(ckpt_dir),
+        n_chips=cfg.comm.n_chips, ckpt_every=RESILIENT_EVERY,
+        flight_of=lambda s: s.metrics.flight, flight_dir=str(flight_dir))
+    t_start = time.perf_counter()
+    final, healthy = runner.run(state0, RESILIENT_STEPS)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(runner=runner, final=final, healthy=healthy, state0=state0,
+                resumes=resumes, make_step=make_step,
+                wall=time.perf_counter() - t_start)
+
+
+def _int_stats_equal(a, b) -> bool:
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in a._fields if f != "utilization")
+
+
+def _flight_row_of(stats, t0: int) -> dict:
+    """The flight-ring row a B-1 step's ``CommStats`` gives (per-chip
+    fields, link words and the end-of-step backlog summed over ports)."""
+    from repro_torch.obs import metrics as obm
+
+    row = {f: getattr(stats, f).tolist() for f in obm.SCALAR_FIELDS}
+    row["link_words"] = stats.link_words.sum(-1).tolist()
+    row["link_backlog"] = stats.link_backlog.sum(-1).tolist()
+    return row
+
+
+def check_states_close(label: str, got, want):
+    """Every leaf of two states: integers bitwise; voltages within 1e-5 of
+    max(|v|, 1); other floats (the telemetry EMAs) within 1e-6
+    relative."""
+    from repro_torch import checkpoint as ckpt
+
+    g, w = ckpt.tree_flatten_with_path(got)[0], ckpt.tree_leaves(want)
+    if len(g) != len(w):
+        raise AssertionError(f"{label}: {len(g)} leaves vs {len(w)}")
+    worst = 0.0
+    for (path, a), b in zip(g, w):
+        a, b = a.cpu(), b.cpu()
+        name = "/".join(map(str, path))
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{label}: {name} {a.dtype}"
+                                 f"{tuple(a.shape)} vs {b.dtype}"
+                                 f"{tuple(b.shape)}")
+        if not a.dtype.is_floating_point:
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: {name} differs")
+            continue
+        scale = (b.abs().clamp(min=1.0) if name == "neuron/v"
+                 else b.abs().clamp(min=1e-30))
+        tol = 1e-5 if name == "neuron/v" else 1e-6
+        rel = float(((a.double() - b.double()).abs() / scale).max()) \
+            if a.numel() else 0.0
+        worst = max(worst, rel)
+        if rel > tol:
+            raise AssertionError(f"{label}: {name} differs by {rel:.3g} "
+                                 f"relative (tolerance {tol:g})")
+    return worst
+
+
+def resilient_phase(paths: Paths, device) -> dict:
+    """The slice's main path: the wafer-width network under
+    ``ResilientRunner`` through two chip failures, counters zeroed just
+    before; then its checks against uninterrupted runs on the survivors,
+    the flight dumps, the same drill on the CPU, and the checkpoint's
+    cost.  Returns the drill's launches per kernel."""
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import obs
+    from repro_torch.kernels import common as kc
+    from repro_torch.kernels.fused_inject import ops as fi_ops
+    from repro_torch.runtime import RecoveryEvent
+
+    cfg, c = paths.resilient_cfg, paths.resilient_cfg.comm
+    n = c.n_chips
+    libs = dict(kc._libs)
+    built = {p: p.stat().st_mtime_ns for p in kc.build_dir().glob("*.so")}
+    reach_calls = []
+    orig_inject = fi_ops.fused_inject
+
+    def inject(*args, **kwargs):
+        reach_calls.append(kwargs.get("reach") is not None)
+        return orig_inject(*args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        torch.cuda.synchronize()
+        kc.reset_launches()
+        fi_ops.fused_inject = inject
+        try:
+            card = run_drill(paths, device, workdir / "card")
+        finally:
+            fi_ops.fused_inject = orig_inject
+        counts = dict(kc.launches)
+        runner = card["runner"]
+        steps_run = RESILIENT_STEPS + sum(
+            r.detected_at - r.resumed_from + 1 for r in runner.recoveries)
+        print(f"[resilient] {n} chips x {c.neurons_per_chip} "
+              f"{cfg.neuron_model}, {cfg.topology.kind} "
+              f"{cfg.topology.dims}, {c.mode}, bpc {c.buckets_per_chip}, "
+              f"merge_rate {c.merge_rate}, B {c.superstep}, T "
+              f"{RESILIENT_STEPS}, checkpoints every {RESILIENT_EVERY}, "
+              f"chips killed {RESILIENT_FAILURES}: {steps_run} steps run "
+              f"in {card['wall']:.3f} s; launches {counts}; fused_inject "
+              f"with a reach row {sum(reach_calls)} of {len(reach_calls)} "
+              f"calls")
+        for k in ("fused_inject", "fused_drain", "lif_step"):
+            if counts[k] == 0:
+                raise AssertionError(f"resilient: kernel {k} never launched")
+        if not any(reach_calls):
+            raise AssertionError("resilient: fused_inject never ran with a "
+                                 "reach row")
+        if dict(kc._libs) != libs or {
+                p: p.stat().st_mtime_ns
+                for p in kc.build_dir().glob("*.so")} != built:
+            raise AssertionError("resilient: a rebuild of the fabric built "
+                                 "or loaded a kernel library again")
+
+        h1 = tuple(i for i in range(n) if i != 7)
+        h2 = tuple(i for i in range(n) if i not in (7, 30))
+        want = [RecoveryEvent(13, 12, h1), RecoveryEvent(22, 20, h2)]
+        print(f"[resilient] recoveries (detected at, resumed from, "
+              f"survivors): {[(r.detected_at, r.resumed_from, len(r.healthy)) for r in runner.recoveries]}")
+        if runner.recoveries != want or card["healthy"] != h2:
+            raise AssertionError(f"resilient: recoveries "
+                                 f"{runner.recoveries}, not {want}")
+        if sorted(runner.records) != list(range(RESILIENT_STEPS)):
+            raise AssertionError("resilient: records do not cover T")
+
+        # From each resume point: an uninterrupted run on the survivors
+        # from the same checkpoint; its steps up to the next resume point
+        # are the records (the failing trajectory's later steps feed the
+        # second flight dump).
+        make_step = card["make_step"]
+        records, ref_stats = runner.records, {}
+        state = card["state0"]
+        full = make_step(tuple(range(n)))
+        for t in range(13 + 1):
+            state, rec = full(state, t)
+            ref_stats[("full", t)] = rec.stats
+        ends = {h1: (20, 22), h2: (RESILIENT_STEPS, RESILIENT_STEPS - 1)}
+        for healthy, (resume, state) in card["resumes"].items():
+            step_fn = make_step(healthy)
+            upto, last = ends[healthy]
+            for t in range(resume, last + 1):
+                state, rec = step_fn(state, t)
+                ref_stats[(healthy, t)] = rec.stats
+                if t < upto and not (
+                        torch.equal(rec.spikes, records[t].spikes)
+                        and _int_stats_equal(rec.stats, records[t].stats)):
+                    raise AssertionError(f"resilient: step {t} differs from "
+                                         f"the uninterrupted run on "
+                                         f"{len(healthy)} chips")
+            print(f"[resilient] steps {resume} to {upto - 1} equal an "
+                  f"uninterrupted run on {len(healthy)} chips from the "
+                  f"step-{resume - 1} checkpoint (spikes, every integer "
+                  f"stat)")
+        check_states_close("resilient final state vs the uninterrupted run",
+                           card["final"], state)
+        for chip, kill in RESILIENT_FAILURES:
+            late = sum(int(records[t].spikes[chip].sum())
+                       for t in range(kill, RESILIENT_STEPS))
+            if late:
+                raise AssertionError(f"resilient: chip {chip} spiked after "
+                                     f"its kill at {kill}")
+        s = {f: sum(int(getattr(records[t].stats, f).sum())
+                    for t in records) for f in ("sent", "lost_to_failure",
+                                                "expired", "merge_dropped")}
+        spikes = sum(int(records[t].spikes.sum()) for t in records)
+        print(f"[resilient] {spikes} spikes, {s['sent']} sent, "
+              f"{s['lost_to_failure']} lost to failure, {s['expired']} "
+              f"expired, {s['merge_dropped']} merge_dropped over the "
+              f"records; no spike from a dead chip after its kill")
+        if s["lost_to_failure"] == 0:
+            raise AssertionError("resilient: nothing lost to failure")
+
+        dumps = [obs.load_flight(p) for p in runner.flight_dumps]
+        if len(dumps) != 2:
+            raise AssertionError(f"resilient: {len(dumps)} flight dumps")
+        for dump, failure, trail in zip(dumps, want, (("full",) * 14,
+                                                      ("full",) * 12
+                                                      + (h1,) * 11)):
+            seqs = [b["seq"] for b in dump["blocks"]]
+            first = failure.detected_at + 1 - min(FLIGHT_DEPTH,
+                                                 failure.detected_at + 1)
+            if seqs != list(range(first, failure.detected_at + 1)):
+                raise AssertionError(f"resilient: dump blocks {seqs}")
+            for b in dump["blocks"]:
+                key = (trail[b["seq"]], b["seq"])
+                if b["per_chip"] != _flight_row_of(ref_stats[key], b["seq"]):
+                    raise AssertionError(f"resilient: flight block "
+                                         f"{b['seq']} differs from the "
+                                         f"failing trajectory")
+            print(f"[resilient] flight dump at step {dump['failure']['step']}"
+                  f": blocks {seqs[0]} to {seqs[-1]} equal the failing "
+                  f"trajectory's per-step stats; "
+                  f"{len(dump['recoveries'])} earlier recoveries")
+
+        t_start = time.perf_counter()
+        cpu = run_drill(paths, torch.device("cpu"), workdir / "cpu")
+        cpu_s = time.perf_counter() - t_start
+        if cpu["runner"].recoveries != runner.recoveries:
+            raise AssertionError("resilient: CPU recoveries differ")
+        vmax = 0.0
+        for t in range(RESILIENT_STEPS):
+            g, w = records[t], cpu["runner"].records[t]
+            if not (torch.equal(g.spikes.cpu(), w.spikes)
+                    and _int_stats_equal(g.stats, w.stats)):
+                raise AssertionError(f"resilient: step {t} differs from the "
+                                     f"CPU run")
+            vmax = max(vmax, float(((g.voltage.cpu() - w.voltage).abs()
+                                    / w.voltage.abs().clamp(min=1.0)).max()))
+        if vmax > 1e-5:
+            raise AssertionError(f"resilient: voltages differ from the CPU "
+                                 f"run by {vmax:.3g}")
+        worst = check_states_close("resilient final state vs the CPU run",
+                                   card["final"], cpu["final"])
+        cpu_dumps = [obs.load_flight(p) for p in cpu["runner"].flight_dumps]
+        if cpu_dumps != dumps:
+            raise AssertionError("resilient: flight dumps differ from the "
+                                 "CPU run's")
+        print(f"[resilient] the drill on the CPU ({cpu_s:.1f} s): the same "
+              f"records (spikes, every integer stat; voltages within "
+              f"{vmax:.3g} of max(|v|, 1)), recoveries and final state "
+              f"(floats within {worst:.3g} relative); flight dumps equal "
+              f"row for row")
+
+        final = card["final"]
+        size = nbytes(ckpt.tree_leaves(final))
+        save_ms, restore_ms = [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(final, str(workdir / "timing"), i)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            target = ckpt.tree_map(torch.zeros_like, final)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            back = ckpt.restore(str(workdir / "timing"), i, target)
+            torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+        compare("checkpoint round trip", back, final)
+        on_disk = sum(p.stat().st_size for p in
+                      Path(ckpt.step_dir(str(workdir / "timing"), 0)).iterdir())
+        print(f"[resilient] checkpoint of the network state: {size} bytes "
+              f"in {len(ckpt.tree_leaves(final))} leaves ({on_disk} on "
+              f"disk); save ms {[round(x, 3) for x in save_ms]}, restore "
+              f"onto the card ms {[round(x, 3) for x in restore_ms]}")
+    counts["steps_per_s"] = steps_run / card["wall"]
+    counts["checkpoint"] = dict(bytes=size, save_ms=save_ms,
+                                restore_ms=restore_ms)
+    return counts
+
+
+def telemetry_phase(paths: Paths, device) -> dict:
+    """Telemetry on the feedforward (B 8) and pipelined paths: on equals
+    off on the card (spikes, ring, every stat), the carry after 16 steps
+    equals the CPU's, and ``check_conservation`` closes from
+    ``metrics_summary``'s totals with the queued and in-flight legs."""
+    from repro_torch import obs
+
+    net, out = paths.net, {}
+    for label, cfg, params in (
+            ("feedforward", paths.ff_cfg, paths.ff_params),
+            ("pipelined", paths.pipe_cfg, paths.pipe_params)):
+        on = dataclasses.replace(cfg, telemetry=True)
+        ext = paths.ff_ext
+        runs = {}
+        for name, ccfg in (("off", cfg), ("on", on)):
+            state = net.init_state(ccfg, params, device=device)
+            ring0 = state.ring.ring.sum(dtype=torch.float64)
+            pops = []
+            with tally_pops(pops):
+                final, rec = net.run(ccfg, params, state, ext, device=device)
+            deposits = (final.ring.ring.sum(dtype=torch.float64) - ring0
+                        + sum(pops))
+            runs[name] = (final, rec, deposits)
+        (foff, roff, _), (fon, ron, deposits) = runs["off"], runs["on"]
+        same = [torch.equal(roff.spikes, ron.spikes),
+                torch.equal(foff.ring.ring, fon.ring.ring)]
+        same += [torch.equal(getattr(roff.stats, f), getattr(ron.stats, f))
+                 for f in roff.stats._fields]
+        if not all(same):
+            raise AssertionError(f"telemetry {label}: the run with "
+                                 f"telemetry differs from the run without")
+        summary = obs.metrics_summary(fon.metrics)
+        queued = fon.merge.occupancy() if fon.merge is not None else 0
+        in_flight = (fon.pending.occupancy() if fon.pending is not None
+                     else 0)
+        report = obs.check_conservation(
+            summary["totals"], delivered=int(deposits), queued=queued,
+            in_flight=in_flight)
+        carries = []
+        for dev in (device, torch.device("cpu")):
+            p = tree_to(params, dev)
+            final, _ = net.run(on, p, net.init_state(on, p, device=dev),
+                               ext[:PLAIN_CHECK_STEPS].to(dev), device=dev)
+            carries.append(final.metrics)
+        worst = check_states_close(f"telemetry {label}: carry vs the CPU",
+                                   *carries)
+        print(f"[telemetry] {label}: telemetry on equals off on the card "
+              f"(spikes, ring, every stat); {summary['steps']} substeps in "
+              f"{summary['blocks']} fabric calls; conservation from the "
+              f"carry's totals: injected {report.injected} == delivered "
+              f"{report.delivered} + queued {report.queued} + in flight "
+              f"{report.in_flight} + dropped {sum(report.legs.values())}; "
+              f"the carry after {PLAIN_CHECK_STEPS} steps equals the CPU's "
+              f"(integers bitwise, floats within {worst:.3g} relative)")
+        out[label] = dict(totals=summary["totals"], ema=summary["ema"])
+        if label == "feedforward":
+            out["ab"] = telemetry_ab(paths, device, cfg, on, params, ext,
+                                     fon, ron)
+    return out
+
+
+def telemetry_ab(paths: Paths, device, off, on, params, ext, state,
+                 rec) -> dict:
+    """Wall ms per step of the feedforward path without and with
+    telemetry, in turns (off, on, on, off, after a warm-up of each), and
+    the host µs of one ``metrics_update`` call on a block's stats."""
+    from repro_torch import obs
+
+    net, walls = paths.net, {"off": [], "on": []}
+    for name, ccfg in (("off", off), ("on", on)):
+        net.run(ccfg, params, net.init_state(ccfg, params, device=device),
+                ext[:16], device=device)
+    for name in ("off", "on", "on", "off"):
+        ccfg = on if name == "on" else off
+        state0 = net.init_state(ccfg, params, device=device)
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        net.run(ccfg, params, state0, ext, device=device)
+        torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t_start) * 1e3
+                           / ext.shape[0])
+    b = off.comm.superstep
+    stats = type(rec.stats)(*(x[:b] for x in rec.stats))
+    mcfg = obs.MetricsConfig()
+    us = host_us(lambda: obs.metrics_update(mcfg, state.metrics, stats,
+                                            merge=state.merge))
+    print(f"[telemetry] feedforward wall ms/step in turns: off "
+          f"{walls['off'][0]:.4f}, on {walls['on'][0]:.4f}, on "
+          f"{walls['on'][1]:.4f}, off {walls['off'][1]:.4f}; host µs per "
+          f"metrics_update call {us:.2f} (1000 calls, one synchronise)")
+    return dict(wall_ms_per_step=walls, metrics_update_host_us=us)
+
+
 def profile_row(prof, wall: float, units: float) -> dict:
     """Per unit (a step, a prefill, a decode step) of a profiled window:
     wall and device busy time (sum of kernel times on the one stream),
     the idle share, kernel launches and the costliest kernels."""
     kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and e.key not in SCOPES and not e.key.startswith("serve/")]
     dev_us = lambda e: (getattr(e, "self_device_time_total", None)  # noqa: E731
                         or getattr(e, "device_time_total", 0.0))
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
@@ -1486,7 +1944,48 @@ def profile_row(prof, wall: float, units: float) -> dict:
         device_busy_ms_per_step=busy_ms / units,
         idle_share=1.0 - busy_ms / (wall * 1e3),
         kernel_launches_per_step=sum(e.count for e in kernels) / units,
-        top_kernels=[(e.key[:60], dev_us(e) / 1e3 / units) for e in top])
+        top_kernels=[(e.key[:60], dev_us(e) / 1e3 / units) for e in top],
+        scopes=scope_ms(prof, units))
+
+
+def scope_ms(prof, units: float) -> dict:
+    """Device ms and launches per unit under each phase scope that ran,
+    from the profile's trace: every kernel, copy or fill whose launch
+    (the CUDA runtime or driver call, matched to it by its correlation
+    id) lies inside one of the scope's host-side ranges.  The kernels of
+    the ctypes launchers belong to no PyTorch op, so the annotations'
+    own ``device_time_total`` misses them."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    ranges, calls, device_us = {}, [], {}
+    for e in events:
+        cat, args = e.get("cat", ""), e.get("args") or {}
+        if e.get("ph") != "X":
+            continue
+        if cat == "user_annotation" and e.get("name") in SCOPES:
+            ranges.setdefault(e["name"], []).append(
+                (e.get("tid"), e["ts"], e["ts"] + e.get("dur", 0.0)))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            calls.append((e.get("tid"), e["ts"], args["correlation"]))
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset") \
+                and "correlation" in args:
+            c = args["correlation"]
+            device_us[c] = device_us.get(c, 0.0) + e.get("dur", 0.0)
+    out = {}
+    for name, spans in ranges.items():
+        us, n = 0.0, 0
+        for tid, t0, t1 in spans:
+            for ctid, ts, corr in calls:
+                if ctid == tid and t0 <= ts <= t1 and corr in device_us:
+                    us += device_us[corr]
+                    n += 1
+        out[name] = dict(ms=us / 1e3 / units, launches=n / units)
+    return {name: out[name] for name in SCOPES if name in out}
 
 
 def print_profile(label: str, row: dict, unit: str = "step") -> None:
@@ -1496,6 +1995,9 @@ def print_profile(label: str, row: dict, unit: str = "step") -> None:
           f"{row['kernel_launches_per_step']:.1f} kernel launches/{unit}")
     for name, ms in row["top_kernels"]:
         print(f"[profile] {label}:   {ms:.5f} ms/{unit}  {name}")
+    for name, sc in row.get("scopes", {}).items():
+        print(f"[profile] {label}:   scope {name}: {sc['ms']:.5f} ms/{unit} "
+              f"device, {sc['launches']:.1f} launches/{unit}")
 
 
 PROFILER_ACTS = [torch.profiler.ProfilerActivity.CPU,
@@ -1504,10 +2006,18 @@ PROFILER_ACTS = [torch.profiler.ProfilerActivity.CPU,
 
 def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
     """Where a block's time goes: torch.profiler over ``blocks`` blocks of
-    each path (after one warm-up block), per step."""
+    each path (after one warm-up block), per step; the feedforward path
+    again with telemetry on; and 8 steps of the resilient path on the
+    survivors of both failures."""
+    from repro_torch.core import resilience as rsl
+
     net = paths.net
     out = {}
-    for label, cfg, params, ext, _, plastic in paths.runs():
+    runs = list(paths.runs())
+    ff = next(r for r in runs if r[0] == "feedforward")
+    runs.append(("feedforward+telemetry",
+                 dataclasses.replace(ff[1], telemetry=True)) + ff[2:])
+    for label, cfg, params, ext, _, plastic in runs:
         b = cfg.comm.superstep if cfg.comm_mode == "event" else 8
         n_blocks = min(blocks, ext.shape[0] // b - 1)
         state = net.init_state(cfg, params, device=device)
@@ -1525,6 +2035,25 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
             wall = time.perf_counter() - t_start
         out[label] = profile_row(prof, wall, n_blocks * b)
         print_profile(label, out[label])
+
+    cfg = paths.resilient_cfg
+    survivors = tuple(i for i in range(cfg.comm.n_chips)
+                      if i not in (7, 30))
+    injector = rsl.FabricFaultInjector(n_chips=cfg.comm.n_chips,
+                                       chip_failures=RESILIENT_FAILURES)
+    step_fn = drill_fns(net, cfg, paths.ff_params, injector, paths.ff_ext,
+                        device)[0](survivors)
+    state = net.init_state(cfg, paths.ff_params, device=device)
+    state, _ = step_fn(state, 23)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
+        t_start = time.perf_counter()
+        for t in range(24, 32):
+            state, _ = step_fn(state, t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+    out["resilient"] = profile_row(prof, wall, 8)
+    print_profile("resilient (44 survivors)", out["resilient"])
     return out
 
 
@@ -1819,6 +2348,8 @@ def main() -> int:
     entry = entry_phase(blocks, paths, device)
     counts = path_phase(paths, device)
     counts["entry"] = entry
+    counts["resilient"] = resilient_phase(paths, device)
+    telemetry = telemetry_phase(paths, device)
     check = serve_check(device, args.seed)
     counts["serve-check"] = check["launches"]
     serve_counts, serve_metrics, serve_profiles = serve_phase(device,
@@ -1855,6 +2386,7 @@ def main() -> int:
                      if "steps_per_s" in c},
         serve=serve_metrics,
         serve_check={k: v for k, v in check.items() if k != "launches"},
+        checkpoint=counts["resilient"]["checkpoint"], telemetry=telemetry,
         profile=profile)
     print(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@ and state; a state taken mid-run keeps its carries (credits, send
 queue, merge queue, the pipeline's in-flight block, whose link leg has the
 topology's ports).  A ring keeps its dtype: int32 in event mode, float32
 in dense mode.  ``topology_from_jax`` rebuilds a JAX ``Topology`` as the
-port's, its pod graph included.  ``lm_params_from_jax`` maps a language model's parameter
+port's, its pod graph included.  ``metrics_from_jax`` takes a telemetry
+carry (``MetricsCarry`` with its flight ring), field for field in the
+same layout.  ``lm_params_from_jax`` maps a language model's parameter
 tree (nested dicts) leaf by leaf, each keeping its dtype.  Nothing here
 imports JAX: every leaf goes through ``numpy.asarray``.
 """
@@ -26,6 +28,7 @@ from repro_torch.core import pulse_comm as pc
 from repro_torch.core import routing as rt
 from repro_torch.core import topology as tpo
 from repro_torch.kernels import common as kc
+from repro_torch.obs import metrics as obm
 from repro_torch.snn import network as net
 from repro_torch.snn import neuron as nr
 from repro_torch.snn import stdp as sd
@@ -82,10 +85,20 @@ def pending_from_jax(pending, *, device="cuda") -> pc.PipelineCarry:
         valid=tensor(pending.valid, device, torch.bool))
 
 
+def metrics_from_jax(metrics, *, device="cuda") -> obm.MetricsCarry:
+    """The JAX telemetry carry as the port's (the same fields, shapes and
+    dtypes: int32 counters, float32 EMAs, the flight ring)."""
+    device = kc.resolve_device(device)
+    return obm.MetricsCarry(
+        *(tensor(getattr(metrics, f), device)
+          for f in obm.MetricsCarry._fields[:-1]),
+        flight=_fields(obm.FlightRing, metrics.flight, device))
+
+
 def state_from_jax(state, *, device="cuda") -> net.NetworkState:
     """Neuron state, delay ring and clock, step counter and the carries
-    (credit state, merge queue, send queue, pipeline carry) where the
-    state has them."""
+    (credit state, merge queue, send queue, pipeline carry, telemetry)
+    where the state has them."""
     device = kc.resolve_device(device)
     cls = nr.LIFState if not hasattr(state.neuron, "w") else nr.AdExState
     carry = lambda name, fn: (None if getattr(state, name, None) is None
@@ -99,7 +112,9 @@ def state_from_jax(state, *, device="cuda") -> net.NetworkState:
             words=tensor(x.words, device))),
         sendq=carry("sendq", lambda x: _fields(fc.SendQueue, x, device)),
         pending=carry("pending",
-                      lambda x: pending_from_jax(x, device=device)))
+                      lambda x: pending_from_jax(x, device=device)),
+        metrics=carry("metrics",
+                      lambda x: metrics_from_jax(x, device=device)))
 
 
 def stdp_state_from_jax(state, *, device="cuda") -> sd.STDPState:

@@ -54,6 +54,7 @@ from repro_torch.core import transport as tp
 from repro_torch.kernels import common as kc
 from repro_torch.kernels.fused_drain import ops as fd_ops
 from repro_torch.kernels.fused_inject import ops as fi_ops
+from repro_torch.obs.trace import phase_scope
 
 I32 = torch.int32
 
@@ -294,11 +295,14 @@ class PulseFabric:
         self._check(events, ring)
         flow, merge, sendq = self._init_missing(flow, merge, sendq)
         t0 = ring.now
-        slab, inject, flow, sendq = self._inject_block(events, table, flow,
-                                                       sendq, t0)
-        issued = pc.exchange_flush_issue(self.cfg, slab, self.transport)
-        ring, delivered, stats, merge = self._drain_block(
-            ring, merge, issued, inject, t0)
+        with phase_scope("fabric/inject"):
+            slab, inject, flow, sendq = self._inject_block(
+                events, table, flow, sendq, t0)
+        with phase_scope("fabric/exchange"):
+            issued = pc.exchange_flush_issue(self.cfg, slab, self.transport)
+        with phase_scope("fabric/drain"):
+            ring, delivered, stats, merge = self._drain_block(
+                ring, merge, issued, inject, t0)
         return FabricResult(ring=ring, delivered=delivered, stats=stats,
                             flow=flow, merge=merge, sendq=sendq)
 
@@ -321,14 +325,17 @@ class PulseFabric:
         if pending is None:
             pending = self.init_pending()
         t0 = ring.now
-        slab, inject, flow, sendq = self._inject_block(events, table, flow,
-                                                       sendq, t0)
-        issued = pc.exchange_flush_issue(self.cfg, slab, self.transport)
-        ring, delivered, stats, merge = self._drain_block(
-            ring, merge, pc.IssuedFlush(words=pending.words,
-                                        link=pending.link),
-            pending.inject, pending.t0, extra_ahead=self.cfg.superstep,
-            gate=pending.valid)
+        with phase_scope("fabric/inject"):
+            slab, inject, flow, sendq = self._inject_block(
+                events, table, flow, sendq, t0)
+        with phase_scope("fabric/exchange"):
+            issued = pc.exchange_flush_issue(self.cfg, slab, self.transport)
+        with phase_scope("fabric/drain"):
+            ring, delivered, stats, merge = self._drain_block(
+                ring, merge, pc.IssuedFlush(words=pending.words,
+                                            link=pending.link),
+                pending.inject, pending.t0, extra_ahead=self.cfg.superstep,
+                gate=pending.valid)
         pending = pc.PipelineCarry(
             words=issued.words, link=issued.link, inject=inject,
             t0=t0.clone(), valid=torch.ones_like(pending.valid))
@@ -343,10 +350,11 @@ class PulseFabric:
         empty carry.  ``flow`` and ``sendq`` pass through."""
         if self.merge_enabled and merge is None:
             merge = self.init_merge()
-        ring, delivered, stats, merge = self._drain_block(
-            ring, merge, pc.IssuedFlush(words=pending.words,
-                                        link=pending.link),
-            pending.inject, pending.t0, gate=pending.valid)
+        with phase_scope("fabric/flush"):
+            ring, delivered, stats, merge = self._drain_block(
+                ring, merge, pc.IssuedFlush(words=pending.words,
+                                            link=pending.link),
+                pending.inject, pending.t0, gate=pending.valid)
         return FabricResult(ring=ring, delivered=delivered, stats=stats,
                             flow=flow, merge=merge, sendq=sendq,
                             pending=self.init_pending())

@@ -18,6 +18,7 @@ from repro_torch.core import buckets as bk
 from repro_torch.core import events as ev
 from repro_torch.core import routing as rt
 from repro_torch.core import transport as tp
+from repro_torch.obs.trace import phase_scope
 
 I32 = torch.int32
 
@@ -231,8 +232,10 @@ def exchange_flush_issue(cfg: PulseCommConfig, slab: torch.Tensor,
     """
     n, bpc = cfg.n_chips, cfg.buckets_per_chip
     transport = transport or tp.LocalTransport(n)
-    block = slab.reshape(n, n, bpc, slab.shape[-2], cfg.bucket_capacity)
-    words, link_words, link_backlog = transport.exchange_words_start(block)
+    with phase_scope("pulse_comm/exchange_issue"):
+        block = slab.reshape(n, n, bpc, slab.shape[-2], cfg.bucket_capacity)
+        words, link_words, link_backlog = transport.exchange_words_start(
+            block)
     return IssuedFlush(words=words, link=LinkStats(words=link_words,
                                                    backlog=link_backlog))
 
@@ -244,9 +247,10 @@ def exchange_flush_complete(cfg: PulseCommConfig, issued: IssuedFlush,
     lanes ``[n_chips, B, lanes_in]`` (lane order: source chip, bucket,
     slot)."""
     transport = transport or tp.LocalTransport(cfg.n_chips)
-    words = transport.exchange_words_finish(issued.words)
-    n, b = words.shape[0], words.shape[3]
-    out = words.permute(0, 3, 1, 2, 4).reshape(n, b, cfg.lanes_in)
+    with phase_scope("pulse_comm/exchange_complete"):
+        words = transport.exchange_words_finish(issued.words)
+        n, b = words.shape[0], words.shape[3]
+        out = words.permute(0, 3, 1, 2, 4).reshape(n, b, cfg.lanes_in)
     return out, issued.link
 
 

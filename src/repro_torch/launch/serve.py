@@ -9,9 +9,15 @@ loop, on random weights made from ``--seed`` (``repro.launch.serve``).
 Prefill runs the flash-attention and ssm_scan kernels on the card (their
 plain versions on the CPU); decode is plain torch.  Weights and prompt
 tokens come from ``torch.Generator``s, so they differ from those of
-``repro.launch.serve`` for the same seed.  ``--metrics-out`` and
-``--events-jsonl`` need the telemetry exporters, which are not ported
-yet.
+``repro.launch.serve`` for the same seed.
+
+Telemetry: ``--metrics-out PATH`` writes a Prometheus text exposition of
+the serve latencies and throughput (``repro_serve_*`` gauges labelled
+with the arch and batch), and ``--events-jsonl PATH`` appends the
+prefill and decode events as JSONL, both through
+:mod:`repro_torch.obs`'s exporters.  ``SpanTimer`` spans time the
+synchronised prefill (``serve/prefill``) and each decode step's dispatch
+(``serve/decode_step``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from repro_torch import configs as C
 from repro_torch.kernels import common as kc
 from repro_torch.models import lm
+from repro_torch.obs import JsonlLogger, SpanTimer, prometheus_text
 
 
 def _sync(device: torch.device) -> None:
@@ -52,10 +59,6 @@ def main(argv=None) -> torch.Tensor:
     """Serve one batch; returns the generated ids [batch, gen] (int32, on
     the device)."""
     args = parse_args(argv)
-    if args.metrics_out or args.events_jsonl:
-        raise NotImplementedError(
-            "--metrics-out and --events-jsonl need the telemetry exporters "
-            "(obs), which are not ported yet (ROADMAP section 1, item 6)")
     device = kc.resolve_device(args.device)
     cfg = C.get(args.arch)
     if args.reduced:
@@ -66,15 +69,20 @@ def main(argv=None) -> torch.Tensor:
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                            device=device, dtype=torch.int32)
 
+    timer = SpanTimer()
+    events = []                      # (kind, fields) for --events-jsonl
+
     _sync(device)
     t0 = time.perf_counter()
-    with torch.no_grad():
+    with timer.span("serve/prefill"), torch.no_grad():
         logits, cache = lm.prefill(cfg, params, {"tokens": tokens})
         cache = lm.pad_cache(cfg, cache, s + args.gen)
-    _sync(device)
+        _sync(device)
     t_prefill = time.perf_counter() - t0
     print(f"prefill: {b}x{s} in {t_prefill * 1e3:.1f} ms "
           f"({b * s / t_prefill:,.0f} tok/s)")
+    events.append(("prefill", dict(batch=b, prompt_len=s,
+                                   ms=t_prefill * 1e3)))
 
     def sample(lg):
         if args.temperature <= 0:
@@ -88,8 +96,9 @@ def main(argv=None) -> torch.Tensor:
     t0 = time.perf_counter()
     with torch.no_grad():
         for i in range(args.gen - 1):
-            logits_i, cache = lm.decode(cfg, params, tok, cache, s + i)
-            tok = sample(logits_i)
+            with timer.span("serve/decode_step"):
+                logits_i, cache = lm.decode(cfg, params, tok, cache, s + i)
+                tok = sample(logits_i)
             out_tokens.append(tok)
     _sync(device)
     t_dec = time.perf_counter() - t0
@@ -98,6 +107,28 @@ def main(argv=None) -> torch.Tensor:
     print(f"decode: {args.gen} steps x batch {b} in {t_dec * 1e3:.1f} ms "
           f"({tok_s:,.0f} tok/s)")
     print("sample output ids:", ids[0][:16].tolist())
+    events.append(("decode", dict(batch=b, steps=args.gen, ms=t_dec * 1e3,
+                                  tok_s=tok_s)))
+    if args.events_jsonl:
+        with JsonlLogger(args.events_jsonl) as log:
+            for kind, fields in events:
+                log.emit(kind, **fields)
+    if args.metrics_out:
+        spans = timer.summary()
+        flat = {
+            "prefill_ms": t_prefill * 1e3,
+            "prefill_tok_s": b * s / max(t_prefill, 1e-9),
+            "decode_ms": t_dec * 1e3,
+            "decode_tok_s": tok_s,
+            "decode_ms_per_step":
+                spans.get("serve/decode_step", {}).get("mean_ms", 0.0),
+            "tokens_generated": b * args.gen,
+        }
+        with open(args.metrics_out, "w") as f:
+            f.write(prometheus_text(
+                flat, prefix="repro_serve",
+                labels={"arch": args.arch, "batch": str(b)}))
+        print(f"# metrics exposition -> {args.metrics_out}")
     return ids
 
 

@@ -29,8 +29,14 @@ of two communication paths:
 crossbar learns from the delivered input spikes (pre) and the output
 spikes (post), updated every substep.
 
-Telemetry and the shard forms are later slices of the port (ROADMAP
-section 1, items 6 and 7) and raise ``NotImplementedError``.
+Telemetry (``telemetry=True`` or a :class:`repro_torch.obs.MetricsConfig`)
+threads a :class:`repro_torch.obs.MetricsCarry` through the run in
+``NetworkState.metrics``, folded in after every fabric call with no host
+sync; the spike path never reads it, so a run is the same with it on or
+off.  The dense path has no fabric and folds nothing in.
+
+The shard forms are a later slice of the port (ROADMAP section 1, item
+7) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ from repro_torch.core import pulse_comm as pc
 from repro_torch.core import routing as rt
 from repro_torch.core import topology as tpo
 from repro_torch.kernels import common as kc
+from repro_torch.obs import metrics as obm
+from repro_torch.obs.trace import phase_scope
 from repro_torch.snn import neuron as nr
 from repro_torch.snn import stdp as sd
 from repro_torch.snn import synapse as sy
@@ -65,7 +73,7 @@ class NetworkConfig:
     pipeline: bool = False
     healthy: Any = None                      # alive chips (indices / mask)
     dead_links: tuple = ()                   # cut (chip, port) pairs
-    telemetry: Any = None
+    telemetry: Any = None                    # True or obs.MetricsConfig
 
     def __post_init__(self):
         if self.neuron_model not in ("lif", "adex"):
@@ -84,9 +92,11 @@ class NetworkConfig:
                 raise ValueError(
                     f"topology has {self.topology.n_chips} chips, comm "
                     f"config {self.comm.n_chips}")
-        if self.telemetry not in (None, False):
-            raise NotImplementedError(
-                "telemetry is not ported yet (ROADMAP section 1, item 6)")
+        if not (self.telemetry in (None, False, True) or isinstance(
+                self.telemetry, obm.MetricsConfig)):
+            raise TypeError(f"telemetry must be True or an obs."
+                            f"MetricsConfig, got "
+                            f"{type(self.telemetry).__name__}")
 
 
 class NetworkParams(NamedTuple):
@@ -104,6 +114,7 @@ class NetworkState(NamedTuple):
     merge: Any = None            # merge queue (full mode, merge_rate > 0)
     sendq: Any = None            # send queue (flow.retransmit_depth > 0)
     pending: Any = None          # in-flight block (cfg.pipeline)
+    metrics: Any = None          # obs.MetricsCarry (cfg.telemetry)
 
 
 class StepRecord(NamedTuple):
@@ -152,12 +163,44 @@ def init_params(generator: torch.Generator, cfg: NetworkConfig, *,
     return NetworkParams(crossbar=xb, neuron=nparams, table=table)
 
 
+def _metrics_cfg(cfg: NetworkConfig) -> obm.MetricsConfig | None:
+    """``cfg.telemetry`` as a MetricsConfig (None: telemetry off).  An
+    unset ``link_capacity`` is filled from the topology's
+    ``link_bandwidth``, so the link utilization EMA is a ratio wherever
+    the fabric bounds its links."""
+    t = cfg.telemetry
+    if t is None or t is False:
+        return None
+    mcfg = obm.MetricsConfig() if t is True else t
+    if mcfg.link_capacity == 0 and cfg.topology is not None \
+            and cfg.topology.link_bandwidth > 0:
+        mcfg = dataclasses.replace(mcfg,
+                                   link_capacity=cfg.topology.link_bandwidth)
+    return mcfg
+
+
+def _metrics_update(cfg: NetworkConfig, metrics: Any, stats: pc.CommStats,
+                    *, merge: Any = None, pending: Any = None) -> Any:
+    """Fold one fabric call's stats into the carry (nothing when
+    telemetry is off, or on the dense path, which has no fabric)."""
+    if metrics is None or cfg.comm_mode != "event":
+        return metrics
+    with phase_scope("obs/metrics_update"):
+        return obm.metrics_update(_metrics_cfg(cfg), metrics, stats,
+                                  merge=merge, pending=pending)
+
+
 def init_state(cfg: NetworkConfig, params: NetworkParams, *,
                device="cuda") -> NetworkState:
     device = kc.resolve_device(device)
     c = cfg.comm
     _, ninit = _neuron_fns(cfg)
     fabric = local_fabric(cfg, device=device)
+    mcfg = _metrics_cfg(cfg)
+    metrics = None
+    if mcfg is not None:
+        n_ports = cfg.topology.n_ports if cfg.topology is not None else 1
+        metrics = obm.metrics_init(mcfg, c.n_chips, n_ports, device=device)
     return NetworkState(
         neuron=ninit(params.neuron),
         ring=dl.init(c.ring_depth, c.n_inputs_per_chip,
@@ -167,7 +210,8 @@ def init_state(cfg: NetworkConfig, params: NetworkParams, *,
         t=torch.zeros((), dtype=I32, device=device),
         flow=fabric.init_flow(), merge=fabric.init_merge(),
         sendq=fabric.init_sendq(),
-        pending=fabric.init_pending() if cfg.pipeline else None)
+        pending=fabric.init_pending() if cfg.pipeline else None,
+        metrics=metrics)
 
 
 def dense_route(cfg: pc.PulseCommConfig, spikes: torch.Tensor,
@@ -244,7 +288,8 @@ def _block(cfg: NetworkConfig, fabric: fb.PulseFabric, params: NetworkParams,
     if dense:
         stats = _zero_stats(c, b, ring.ring.device)
         carries = dict(flow=state.flow, merge=state.merge,
-                       sendq=state.sendq, pending=state.pending)
+                       sendq=state.sendq, pending=state.pending,
+                       metrics=state.metrics)
     else:
         events = ev.EventBuffer(*(torch.stack(x) for x in zip(*ebs)))
         ring0 = dl.DelayRing(ring=ring.ring, now=ring.now - b)
@@ -258,7 +303,9 @@ def _block(cfg: NetworkConfig, fabric: fb.PulseFabric, params: NetworkParams,
         ring = dl.DelayRing(ring=res.ring.ring, now=res.ring.now + b)
         stats = res.stats
         carries = dict(flow=res.flow, merge=res.merge, sendq=res.sendq,
-                       pending=res.pending)
+                       pending=res.pending, metrics=_metrics_update(
+                           cfg, state.metrics, stats, merge=res.merge,
+                           pending=res.pending if cfg.pipeline else None))
     state = NetworkState(neuron=nstate, ring=ring, t=state.t + b,
                          **carries)
     return (state, torch.stack(spikes), torch.stack(volts), stats, w,
@@ -324,11 +371,15 @@ def _run(cfg, params, state, ext_inputs, device, stdp_cfg=None,
     if cfg.pipeline:
         # The epilogue: drain the carried last block; each stage reported
         # the block before it, so drop the prologue's and append this.
+        # Telemetry folds the flushed block in too, so its totals close
+        # (the carry saw the prologue's zero block first).
         res = fabric.flush_pending(state.ring, state.pending, state.flow,
                                    state.merge, state.sendq)
         stats = stats[1:] + [res.stats]
-        state = state._replace(ring=res.ring, merge=res.merge,
-                               pending=res.pending)
+        state = state._replace(
+            ring=res.ring, merge=res.merge, pending=res.pending,
+            metrics=_metrics_update(cfg, state.metrics, res.stats,
+                                    merge=res.merge, pending=res.pending))
     rec = StepRecord(spikes=torch.cat(spikes), voltage=torch.cat(volts),
                      stats=pc.CommStats(*(torch.cat(x) for x in zip(*stats))))
     return state, rec, w, stdp_state

@@ -1071,3 +1071,153 @@ def test_reduced_serve_on_the_card_matches_the_cpu(cuda, arch):
     assert counts["ssm_scan"] == (cfg.n_layers if cfg.ssm_state else 0)
     torch.testing.assert_close(gpu[0], cpu[0], rtol=0, atol=2e-4)
     torch.testing.assert_close(gpu[1:], cpu[1:], rtol=0, atol=5e-4)
+
+
+def _drill_setup(device, telemetry=True):
+    """An 8-chip network (2 x 4 torus, 32 LIF a chip, fan-out 1, full mode,
+    2 buckets a chip) with telemetry, its params from a seed."""
+    import dataclasses
+
+    from repro_torch import obs
+    from repro_torch.core import pulse_comm as pc
+    from repro_torch.core import topology as tpo
+    from repro_torch.snn import network as net
+
+    comm = pc.PulseCommConfig(n_chips=8, neurons_per_chip=32,
+                              n_inputs_per_chip=32, event_capacity=32,
+                              bucket_capacity=8, buckets_per_chip=2,
+                              ring_depth=32, mode="full", merge_rate=4)
+    cfg = net.NetworkConfig(
+        comm=comm, topology=tpo.torus2d(2, 4, link_latency=1),
+        telemetry=obs.MetricsConfig(flight_depth=4) if telemetry else None)
+    gen = torch.Generator().manual_seed(5)
+    table = rt.random_table(gen, 32, 8, min_delay=4, max_delay=10)
+    params = net.init_params(gen, cfg, table=table, device="cpu")
+    to = lambda x: type(x)(*(v.to(device) for v in x))  # noqa: E731
+    params = type(params)(*(to(x) for x in params))
+    return dataclasses, net, cfg, params
+
+
+def _run_drill(device, tmp_path, failures, t_total=14):
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core import resilience as rsl
+    from repro_torch.runtime import ResilientRunner
+
+    dataclasses, net, cfg, params = _drill_setup(device)
+    rng = np.random.default_rng(9)
+    ext = torch.from_numpy((1.5 * (rng.random((t_total, 8, 32)) < 0.3))
+                           .astype(np.float32)).to(device)
+    injector = rsl.FabricFaultInjector(n_chips=8, chip_failures=failures)
+
+    def make_step(healthy):
+        hcfg = dataclasses.replace(cfg, healthy=tuple(healthy))
+
+        def step_fn(state, t):
+            alive = injector.alive_at(t, device=device)
+            new, rec = net.step(hcfg, params, state, ext[t] * alive[:, None],
+                                device=device)
+            fzn, fzr = rsl.freeze(alive, (state.neuron, state.ring),
+                                  (new.neuron, new.ring))
+            return new._replace(neuron=fzn, ring=fzr), rec._replace(
+                spikes=rec.spikes * alive[:, None].float())
+        return step_fn
+
+    def detect(state, t, healthy):
+        surviving = tuple(c for c in injector.healthy_after(t)
+                          if c in healthy)
+        return surviving if surviving != tuple(healthy) else None
+
+    (tmp_path / "flight").mkdir(parents=True)
+    runner = ResilientRunner(
+        make_step=make_step, detect=detect, ckpt_dir=str(tmp_path / "ckpt"),
+        n_chips=8, ckpt_every=3, flight_of=lambda s: s.metrics.flight,
+        flight_dir=str(tmp_path / "flight"))
+    final, healthy = runner.run(net.init_state(cfg, params, device=device),
+                                t_total)
+    return runner, final, healthy, ckpt
+
+
+@pytest.mark.cuda
+def test_resilient_drill_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Chips 3 and 6 of 8 die at steps 5 and 9 under ResilientRunner: the
+    card's drill launches the fabric's kernels and gives the CPU's
+    recoveries, records (spikes, every integer stat), final state
+    (integers bitwise, floats within 1e-5) and flight dumps."""
+    from repro_torch import obs
+
+    failures = ((3, 5), (6, 9))
+    kc.reset_launches()
+    card = _run_drill(cuda, tmp_path / "card", failures)
+    for k in ("fused_inject", "fused_drain", "lif_step"):
+        assert kc.launches[k] > 0, k
+    cpu = _run_drill(torch.device("cpu"), tmp_path / "cpu", failures)
+    runner, final, healthy, ckpt = card
+    assert healthy == (0, 1, 2, 4, 5, 7)
+    assert [tuple(r)[:2] for r in runner.recoveries] == [(5, 3), (9, 9)]
+    assert runner.recoveries == cpu[0].recoveries
+    assert sorted(runner.records) == list(range(14))
+    for t, rec in runner.records.items():
+        want = cpu[0].records[t]
+        assert torch.equal(rec.spikes.cpu(), want.spikes), t
+        for f in rec.stats._fields:
+            if f != "utilization":
+                assert torch.equal(getattr(rec.stats, f).cpu(),
+                                   getattr(want.stats, f)), (t, f)
+    assert sum(int(r.stats.lost_to_failure.sum())
+               for r in runner.records.values()) > 0
+    for a, b in zip(ckpt.tree_leaves(final), ckpt.tree_leaves(cpu[1])):
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-5)
+        else:
+            assert torch.equal(a.cpu(), b)
+    assert len(runner.flight_dumps) == 2
+    for p, q in zip(runner.flight_dumps, cpu[0].flight_dumps):
+        assert obs.load_flight(p) == obs.load_flight(q)
+
+
+@pytest.mark.cuda
+def test_telemetry_on_equals_off_on_the_card(cuda):
+    """Telemetry on against off on the card: spikes, ring and every stat
+    equal; the carry equals the CPU's; ``metrics_update`` makes no host
+    sync (CUDA sync debug mode set to error around it)."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import obs
+
+    dataclasses, net, cfg, params = _drill_setup(cuda)
+    cfg = dataclasses.replace(cfg, comm=dataclasses.replace(cfg.comm,
+                                                            superstep=4))
+    off = dataclasses.replace(cfg, telemetry=None)
+    rng = np.random.default_rng(3)
+    ext = torch.from_numpy((1.5 * (rng.random((16, 8, 32)) < 0.3))
+                           .astype(np.float32))
+    outs = {}
+    for name, c, dev in (("off", off, cuda), ("on", cfg, cuda),
+                         ("cpu", cfg, torch.device("cpu"))):
+        p = type(params)(*(type(x)(*(v.to(dev) for v in x)) for x in params))
+        outs[name] = net.run(c, p, net.init_state(c, p, device=dev),
+                             ext.to(dev), device=dev)
+    (foff, roff), (fon, ron), (fcpu, _) = outs["off"], outs["on"], outs["cpu"]
+    assert torch.equal(roff.spikes, ron.spikes)
+    assert torch.equal(foff.ring.ring, fon.ring.ring)
+    for f in roff.stats._fields:
+        assert torch.equal(getattr(roff.stats, f), getattr(ron.stats, f)), f
+    for a, b in zip(ckpt.tree_leaves(fon.metrics),
+                    ckpt.tree_leaves(fcpu.metrics)):
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-30)
+        else:
+            assert torch.equal(a.cpu(), b)
+    assert obs.metrics_summary(fon.metrics)["totals"]["sent"] == \
+        int(ron.stats.sent.sum()) > 0
+
+    stats = type(ron.stats)(*(x[:4] for x in ron.stats))
+    m = obs.metrics_update(obs.MetricsConfig(flight_depth=4), fon.metrics,
+                           stats, merge=fon.merge)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = obs.metrics_update(obs.MetricsConfig(flight_depth=4), m, stats,
+                               merge=fon.merge)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(m.blocks) == int(fon.metrics.blocks) + 2

@@ -19,12 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import demo, quickstart, stdp_demo
-from repro_torch.launch import serve
+from repro_torch import demo, obs, quickstart, stdp_demo
+from repro_torch.launch import monitor, serve
 from repro_torch.core import fabric as fb
 from repro_torch.core import pulse_comm as pc
+from repro_torch.core import resilience as rsl
 from repro_torch.core import topology as tpo
 from repro_torch.kernels import common as kc
+from repro_torch.runtime import ResilientRunner
 from repro_torch.snn import network as net
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -59,6 +61,31 @@ def test_import_check_covers_the_topology_module():
     assert _imported_modules(path) == {"__future__", "dataclasses",
                                        "functools", "typing", "numpy",
                                        "torch", "repro_torch.core"}
+
+
+TELEMETRY_AND_RECOVERY = (
+    sorted((ROOT / "src" / "repro_torch" / "obs").glob("*.py"))
+    + sorted((ROOT / "src" / "repro_torch" / "runtime").glob("*.py"))
+    + sorted((ROOT / "src" / "repro_torch" / "checkpoint").glob("*.py"))
+    + [ROOT / "src" / "repro_torch" / "core" / "resilience.py",
+       ROOT / "src" / "repro_torch" / "launch" / "monitor.py"])
+
+
+def test_import_check_covers_telemetry_and_recovery():
+    """``obs/``, ``runtime/``, ``checkpoint/``, ``core/resilience.py`` and
+    ``launch/monitor.py`` are among the files checked above; ``obs``
+    imports nothing from ``repro_torch.core`` (the fabric imports its
+    phase scopes)."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in TELEMETRY_AND_RECOVERY}
+    assert {"obs/metrics.py", "obs/trace.py", "obs/recorder.py",
+            "obs/export.py", "obs/conservation.py", "obs/__init__.py",
+            "runtime/fault.py", "checkpoint/store.py"} <= names
+    for path in TELEMETRY_AND_RECOVERY:
+        assert path in PORT_FILES
+        if path.parent.name == "obs":
+            assert not any(m.startswith("repro_torch.core")
+                           for m in _imported_modules(path)), path.name
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -97,7 +124,7 @@ def test_chip_smoke_reads_flash_spills_of_both_types():
     assert smoke.flash_spills(log) == {"bf16": {80: 0}, "f32": {128: 24}}
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     comm = pc.PulseCommConfig(n_chips=2, neurons_per_chip=8,
@@ -118,18 +145,39 @@ def test_entry_points_default_to_the_card():
         lambda: quickstart.main(),
         lambda: serve.main(["--arch", "zamba2-2.7b", "--reduced"]),
         lambda: serve.main([]),
+        lambda: obs.metrics_init(obs.MetricsConfig(), 2),
+        lambda: obs.flight_init(4, 2),
+        lambda: rsl.health_init(rsl.HealthConfig(n_chips=2)),
+        lambda: rsl.credit_watch_init(rsl.HealthConfig(n_chips=2)),
+        lambda: monitor.main(["--demo"]),
+        lambda: ResilientRunner(
+            make_step=lambda h: lambda s, t: net.step(
+                cfg, params, s, np.zeros((2, 8), np.float32)),
+            detect=lambda s, t, h: None, ckpt_dir=str(tmp_path),
+            n_chips=2).run(state, 1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
 
-@pytest.mark.parametrize("kw", [dict(telemetry=True),
-                                dict(telemetry=object())])
-def test_unported_network_features_raise(kw):
-    """Telemetry is ROADMAP section 1, item 6."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        net.NetworkConfig(comm=pc.PulseCommConfig(n_chips=2), **kw)
+@pytest.mark.parametrize("telemetry", [True, obs.MetricsConfig()],
+                         ids=["true", "metrics-config"])
+def test_telemetry_configs_build(telemetry):
+    """Telemetry is ported (held against JAX in tests/test_torch_obs.py):
+    ``True`` and a MetricsConfig build a network whose state carries the
+    metrics; anything else is refused."""
+    cfg = net.NetworkConfig(comm=pc.PulseCommConfig(n_chips=2),
+                            telemetry=telemetry)
+    params = net.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    state = net.init_state(cfg, params, device="cpu")
+    assert isinstance(state.metrics, obs.MetricsCarry)
+    assert state.metrics.flight.blocks.shape[0] == (
+        obs.MetricsConfig().flight_depth)
+    with pytest.raises(TypeError, match="MetricsConfig"):
+        net.NetworkConfig(comm=pc.PulseCommConfig(n_chips=2),
+                          telemetry=object())
 
 
 @pytest.mark.parametrize("kw", [
@@ -282,9 +330,33 @@ def test_unported_lm_features_raise(feature, match):
         _lm_unported(feature)
 
 
+@pytest.mark.parametrize("flag", ["--metrics-out", "--events-jsonl"])
+def test_serve_writes_metrics_and_events(flag, tmp_path, capsys):
+    """``--metrics-out`` writes the Prometheus exposition of the serve
+    latencies, ``--events-jsonl`` the prefill and decode events (the
+    reference's names, labels and kinds), on the CPU with ``--reduced``."""
+    from repro_torch.obs import read_jsonl
+
+    path = tmp_path / "out"
+    serve.main(["--device", "cpu", "--arch", "zamba2-2.7b", "--reduced",
+                "--batch", "2", "--prompt-len", "5", "--gen", "3", flag,
+                str(path)])
+    if flag == "--metrics-out":
+        text = path.read_text()
+        for name in ("prefill_ms", "prefill_tok_s", "decode_ms",
+                     "decode_tok_s", "decode_ms_per_step",
+                     "tokens_generated"):
+            assert f"# TYPE repro_serve_{name} gauge" in text
+        assert ('repro_serve_tokens_generated{arch="zamba2-2.7b",'
+                'batch="2"} 6') in text
+        assert "# metrics exposition" in capsys.readouterr().out
+    else:
+        rows = list(read_jsonl(str(path)))
+        assert [r["kind"] for r in rows] == ["prefill", "decode"]
+        assert rows[0]["prompt_len"] == 5 and rows[1]["steps"] == 3
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--device", "cpu", "--reduced", "--metrics-out", "m.prom"], "obs"),
-    (["--device", "cpu", "--reduced", "--events-jsonl", "e.jsonl"], "obs"),
     (["--device", "cpu", "--arch", "falcon-mamba-7b", "--reduced"],
      "Mamba-1"),
     (["--device", "cpu", "--arch", "granite-moe-1b-a400m", "--reduced"],
