@@ -127,6 +127,27 @@ Phases, each fatal on failure:
              bitwise, floats within 1e-6 relative); ``check_conservation``
              closes from ``metrics_summary``'s totals with the queued and
              in-flight legs;
+     shard  the shard forms (one GPU per chip) at world 1: a process
+             group on NCCL through a file store (no TCP port; no NCCL is
+             fatal) and ``launch.mesh.make_chip_mesh()``, every chip on
+             the one rank, the exchange one ``all_to_all_single``:
+             ``shard_superstep`` on the feedforward path (B 8),
+             ``shard_pipeline_block`` + ``shard_flush_pending`` on the
+             pipelined one, ``shard_superstep`` through the degraded
+             torus (one ``all_gather`` of the per-pair counts too), each
+             equal to the card's local ``net.run`` in every leaf (spikes,
+             voltages, every stat, ring, merge queue, pipeline carry),
+             fused_inject, fused_drain and lif_step launched (counters
+             zeroed before each form); the psum heartbeat against
+             ``beats_local`` (chips 7 and 30 silent); ``fused_inject``
+             and ``fused_lif_inject`` at ``n_rows`` 23 of 46 chips (the
+             degraded reach rows [23:46]) against their plain versions
+             and the 46-row calls' rows; with a second GPU, world 2 (23
+             chips a rank) against the local run and its wall ms per
+             step, else a line saying it was skipped; the profile of
+             ``shard_superstep`` against the local run (launches, device
+             busy and wall ms per step, NCCL kernels by name); the
+             process group destroyed at the end;
   8. serve-check  zamba2-2.7b at full width, one pattern repeat (6
              layers), float32, batch 1, prompt 300, 8 teacher-forced decode
              steps: the card (kernels) against the plain path on the CPU
@@ -146,8 +167,8 @@ Phases, each fatal on failure:
              ``fabric/exchange``, ``fabric/drain``,
              ``obs/metrics_update``, ...); feedforward again with
              telemetry on; 8 steps of the resilient path on its 44
-             survivors; for the serve paths per prefill and per decode
-             step;
+             survivors; the shard phase's two rows; for the serve paths
+             per prefill and per decode step;
  11. summary the ``kernels`` JSON line, the card's name and power limit,
              and last the ``{"ok": true, ...}`` line.
 
@@ -1928,6 +1949,288 @@ def telemetry_ab(paths: Paths, device, off, on, params, ext, state,
     return dict(wall_ms_per_step=walls, metrics_update_host_us=us)
 
 
+# The shard phase: the three shard forms at the feedforward cell's widths.
+SHARD_FORMS = ("feedforward", "pipelined", "degraded")
+SHARD_ROWS = slice(23, 46)        # the second rank's chips at world 2
+
+
+def shard_drive(net, cfg, params, state, ext, mesh):
+    """The shard forms over ``ext``, block by block: ``shard_superstep``,
+    or on the pipelined schedule ``shard_pipeline_block`` then
+    ``shard_flush_pending`` (stats realigned to their blocks, as
+    ``net.run`` does).  Returns ``(state, record)``."""
+    b = cfg.comm.superstep
+    spikes, volts, stats = [], [], []
+    form = net.shard_pipeline_block if cfg.pipeline else net.shard_superstep
+    for t in range(0, ext.shape[0], b):
+        state, rec = form(cfg, "chip", params, state, ext[t:t + b],
+                          mesh=mesh)
+        spikes.append(rec.spikes)
+        volts.append(rec.voltage)
+        stats.append(rec.stats)
+    if cfg.pipeline:
+        state, flushed = net.shard_flush_pending(cfg, "chip", state,
+                                                 mesh=mesh)
+        stats = stats[1:] + [flushed]
+    return state, net.StepRecord(
+        spikes=torch.cat(spikes), voltage=torch.cat(volts),
+        stats=type(stats[0])(*(torch.cat(x) for x in zip(*stats))))
+
+
+def check_same_run(label: str, got, want) -> None:
+    """Two ``(state, record)`` runs of the same kernels: every leaf equal
+    (spikes, voltages, every stat, ring, merge queue, pipeline carry)."""
+    from repro_torch import checkpoint as ckpt
+
+    g, w = ckpt.tree_flatten_with_path(got)[0], ckpt.tree_leaves(want)
+    if len(g) != len(w):
+        raise AssertionError(f"{label}: {len(g)} leaves vs {len(w)}")
+    for (path, a), b in zip(g, w):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{label}: {'/'.join(map(str, path))} "
+                                 f"differs from the local run")
+
+
+def shard_rows_check(paths: Paths, blocks: dict, device) -> None:
+    """``fused_inject`` and ``fused_lif_inject`` on the shard forms' call:
+    rows 23 to 45 of 46 chips (``n_rows`` 23, ``n_chips`` 46), with the
+    degraded path's reach rows [23:46], against their plain versions and
+    against rows 23 to 45 of the 46-row call, bitwise."""
+    from repro_torch.core import events as ev
+    from repro_torch.core import routing as rt
+    from repro_torch.kernels.fused_inject import ops as fi_ops
+    from repro_torch.kernels.fused_inject.ref import (fused_inject_ref,
+                                                     fused_lif_inject_ref)
+    from repro_torch.snn import neuron as nr
+
+    rows = SHARD_ROWS
+    cut = lambda x: x[rows].contiguous()  # noqa: E731
+    col = lambda x: x[:, rows].contiguous()  # noqa: E731
+    (events, table, t0), kw = blocks["degraded"]["fused_inject"]
+    kwp = dict(kw, reach=cut(kw["reach"]))
+    part = (ev.EventBuffer(*(col(x) for x in events)),
+            rt.RoutingTable(*(cut(x) for x in table)), cut(t0))
+    got = fi_ops.fused_inject(*part, **kwp)
+    compare("shard rows: fused_inject", got, fused_inject_ref(*part, **kwp))
+    whole = fi_ops.fused_inject(events, table, t0, **kw)
+    compare("shard rows: fused_inject against the 46-row call", got,
+            tuple(cut(h) if f == "slab" else col(h)
+                  for f, h in zip(whole._fields, whole)))
+    lost = int(got.lost.sum())
+    c = paths.ff_cfg.comm
+    (v, refrac, currents, params, ltable, now), kwl = lif_inject_call(
+        paths, device, "full", c.buckets_per_chip, c.superstep)
+    kwl = dict(kwl, reach=kw["reach"])
+    args = (cut(v), cut(refrac), col(currents),
+            nr.LIFParams(*(cut(x) for x in params)),
+            rt.RoutingTable(*(cut(x) for x in ltable)), cut(now))
+    kwlp = dict(kwl, reach=cut(kw["reach"]))
+    got = fi_ops.fused_lif_inject(*args, **kwlp)
+    compare("shard rows: fused_lif_inject", got,
+            fused_lif_inject_ref(*args, **kwlp))
+    whole = fi_ops.fused_lif_inject(v, refrac, currents, params, ltable,
+                                    now, **kwl)
+    compare("shard rows: fused_lif_inject against the 46-row call", got,
+            (cut(whole.v), cut(whole.refrac), col(whole.spikes),
+             col(whole.voltage),
+             tuple(cut(h) if f == "slab" else col(h)
+                   for f, h in zip(whole.inject._fields, whole.inject))))
+    print(f"[shard] fused_inject and fused_lif_inject at n_rows "
+          f"{rows.stop - rows.start} of {c.n_chips} chips (reach rows "
+          f"[{rows.start}:{rows.stop}]) equal their plain versions and "
+          f"the 46-row calls' rows, bitwise ({lost} words culled in the "
+          f"rows' first block)")
+    times = dict(
+        inject_rows=graph_ms(lambda: fi_ops.fused_inject(*part, **kwp)),
+        inject_all=graph_ms(lambda: fi_ops.fused_inject(events, table, t0,
+                                                        **kw)),
+        lif_rows=graph_ms(lambda: fi_ops.fused_lif_inject(*args, **kwlp)),
+        lif_all=graph_ms(lambda: fi_ops.fused_lif_inject(
+            v, refrac, currents, params, ltable, now, **kwl)))
+    print(f"[shard] ms per call (CUDA events over a CUDA graph of 20 calls):"
+          f" fused_inject "
+          f"{times['inject_rows']:.5f} at 23 rows, {times['inject_all']:.5f}"
+          f" at 46; fused_lif_inject {times['lif_rows']:.5f} at 23 rows, "
+          f"{times['lif_all']:.5f} at 46")
+
+
+def _shard_rank(rank: int, world: int, store: str, out: str, seed: int,
+                steps: int) -> None:
+    """A rank of the multi-GPU run (spawned, GPU ``rank``): the
+    feedforward path's shard form on its chips against its rows of the
+    local run on its card, and its wall time per step."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as ms
+
+    torch.cuda.set_device(rank)
+    device = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method="file://" + store,
+                            rank=rank, world_size=world)
+    try:
+        paths = Paths(device, seed, steps)
+        net, cfg, params = paths.net, paths.ff_cfg, paths.ff_params
+        n_local = cfg.comm.n_chips // world
+        want = net.run(cfg, params, net.init_state(cfg, params,
+                                                   device=device),
+                       paths.ff_ext, device=device)
+        mesh = ms.make_chip_mesh()
+        mine = net.shard_slice((params, net.init_state(cfg, params,
+                                                       device=device)),
+                               rank, n_local)
+        rows = slice(rank * n_local, (rank + 1) * n_local)
+        got = shard_drive(net, cfg, mine[0], mine[1], paths.ff_ext[:, rows],
+                          mesh)
+        equal = (torch.equal(got[1].spikes, want[1].spikes[:, rows])
+                 and torch.equal(got[0].ring.ring, want[0].ring.ring[rows]))
+        dist.barrier()
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        shard_drive(net, cfg, mine[0], mine[1], paths.ff_ext[:, rows], mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        torch.save(dict(equal=equal, wall_ms_per_step=wall * 1e3
+                        / paths.ff_ext.shape[0]), f"{out}-{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_phase(paths: Paths, blocks: dict, device, seed: int,
+                steps: int) -> tuple[dict, dict]:
+    """The shard forms on the card at world 1 over NCCL (every chip on the
+    one rank, the exchange one ``all_to_all_single``), against the local
+    run; the heartbeat; the kernels at ``n_rows`` 23 of 46; a world-2
+    run where a second GPU exists; the profile of ``shard_superstep``
+    against the local run.  Returns ``(launches, profile rows)``."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import resilience as rsl
+    from repro_torch.core import transport as tp
+    from repro_torch.kernels import common as kc
+    from repro_torch.launch import mesh as ms
+
+    net = paths.net
+    if not (dist.is_available() and dist.is_nccl_available()):
+        raise AssertionError("shard: this PyTorch has no NCCL")
+    tmp = tempfile.mkdtemp(prefix="shard-")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = ms.make_chip_mesh()
+        total = {k: 0 for k in kc.launches}
+        forms = dict(feedforward=(paths.ff_cfg, paths.ff_params),
+                     pipelined=(paths.pipe_cfg, paths.pipe_params),
+                     degraded=(paths.degraded_cfg, paths.ff_params))
+        for label in SHARD_FORMS:
+            cfg, params = forms[label]
+            c = cfg.comm
+            want = net.run(cfg, params, net.init_state(cfg, params,
+                                                       device=device),
+                           paths.ff_ext, device=device)
+            state = net.shard_slice(net.init_state(cfg, params,
+                                                   device=device),
+                                    0, c.n_chips)
+            torch.cuda.synchronize()
+            kc.reset_launches()
+            t_start = time.perf_counter()
+            got = shard_drive(net, cfg, params, state, paths.ff_ext, mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+            launches = dict(kc.launches)
+            check_same_run(f"shard {label}", got, want)
+            for k in ("fused_inject", "fused_drain", "lif_step"):
+                if launches[k] == 0:
+                    raise AssertionError(f"shard {label}: kernel {k} never "
+                                         f"launched")
+            for k, n in launches.items():
+                total[k] += n
+            s = got[1].stats
+            form = ("shard_pipeline_block + shard_flush_pending"
+                    if cfg.pipeline else "shard_superstep")
+            print(f"[shard] {label} at world 1 (NCCL, {c.n_chips} chips on "
+                  f"rank 0), {form}, B {c.superstep}, T "
+                  f"{paths.ff_ext.shape[0]}: equals "
+                  f"the local run (spikes, voltages, every stat, ring, "
+                  f"carries); sent {int(s.sent.sum())}, lost "
+                  f"{int(s.lost_to_failure.sum())}, link words "
+                  f"{int(s.link_words.sum())}; "
+                  f"{paths.ff_ext.shape[0] / wall:.2f} steps/s; launches "
+                  f"{launches}")
+        alive = torch.ones(46, dtype=torch.int32, device=device)
+        alive[list(DEAD_CHIPS)] = 0
+        beats = rsl.heartbeat(tp.DistributedTransport(
+            mesh=mesh, axis="chip", n_chips=46), alive)
+        if not torch.equal(beats, rsl.beats_local(alive)):
+            raise AssertionError("shard: the heartbeat differs from "
+                                 "beats_local")
+        print(f"[shard] heartbeat (one all_reduce) equals beats_local: "
+              f"{int(beats.sum())} of 46 chips, {list(DEAD_CHIPS)} silent")
+        shard_rows_check(paths, blocks, device)
+        profile = shard_profile(paths, mesh, device)
+        # After the profile: a spawned process may leave this process's
+        # profiler without device activity (seen in the card tests).
+        n_dev = torch.cuda.device_count()
+        if n_dev >= 2:
+            import torch.multiprocessing as mp
+
+            mp.spawn(_shard_rank, args=(2, f"{tmp}/store2", f"{tmp}/out",
+                                        seed, steps), nprocs=2, join=True)
+            ranks = [torch.load(f"{tmp}/out-{r}.pt") for r in range(2)]
+            if not all(r["equal"] for r in ranks):
+                raise AssertionError("shard: the world-2 run differs from "
+                                     "the local run")
+            print(f"[shard] world 2 (NCCL, 23 chips a rank, {n_dev} devices"
+                  f"): equals the local run; wall ms per step by rank "
+                  f"{[r['wall_ms_per_step'] for r in ranks]}")
+        else:
+            print(f"[shard] multi-rank run skipped: {n_dev} CUDA device "
+                  f"(world 2 needs a second one; the CPU tests hold "
+                  f"worlds 2 and 4 on gloo)")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total, profile
+
+
+def shard_profile(paths: Paths, mesh, device, blocks: int = 4) -> dict:
+    """torch.profiler over ``blocks`` blocks of the feedforward path (after
+    a warm-up block), ``shard_superstep`` at world 1 against the local
+    ``net.run``, per step; the NCCL kernels by name."""
+    net, cfg, params = paths.net, paths.ff_cfg, paths.ff_params
+    b = cfg.comm.superstep
+    ext = paths.ff_ext
+    out = {}
+    for label in ("feedforward (local)", "feedforward (shard, world 1)"):
+        state = net.init_state(cfg, params, device=device)
+        if "shard" in label:
+            state = net.shard_slice(state, 0, cfg.comm.n_chips)
+            step = lambda s, e: net.shard_superstep(  # noqa: E731
+                cfg, "chip", params, s, e, mesh=mesh)
+        else:
+            step = lambda s, e: net.run(  # noqa: E731
+                cfg, params, s, e, device=device)
+        state, _ = step(state, ext[:b])
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
+            t_start = time.perf_counter()
+            for i in range(1, blocks + 1):
+                state, _ = step(state, ext[i * b:(i + 1) * b])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+        row = profile_row(prof, wall, blocks * b)
+        row["nccl_kernels"] = sorted({
+            e.key[:80] for e in prof.key_averages()
+            if "nccl" in e.key.lower()
+            and str(getattr(e, "device_type", "")).endswith("CUDA")})
+        out[label] = row
+        print_profile(label, row)
+        print(f"[profile] {label}:   NCCL kernels {row['nccl_kernels']}")
+    return out
+
+
 def profile_row(prof, wall: float, units: float) -> dict:
     """Per unit (a step, a prefill, a decode step) of a profiled window:
     wall and device busy time (sum of kernel times on the one stream),
@@ -2350,12 +2653,15 @@ def main() -> int:
     counts["entry"] = entry
     counts["resilient"] = resilient_phase(paths, device)
     telemetry = telemetry_phase(paths, device)
+    counts["shard"], shard_rows = shard_phase(paths, blocks, device,
+                                              args.seed, args.steps)
     check = serve_check(device, args.seed)
     counts["serve-check"] = check["launches"]
     serve_counts, serve_metrics, serve_profiles = serve_phase(device,
                                                               args.seed)
     counts.update(serve_counts)
     profile = profile_phase(paths, device)
+    profile.update(shard_rows)
     profile.update(serve_profiles)
 
     kernels = []

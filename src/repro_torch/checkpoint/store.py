@@ -16,7 +16,14 @@ Layout (one directory per step), the reference's byte for byte:
   the caller's thread (a blocking copy, so a later in-place op on a CUDA
   tensor cannot reach the snapshot) and writes on a background thread.
 * **placement** — restore puts each leaf on the target leaf's device, or
-  on ``device`` when given.
+  on ``device`` when given; with ``shardings`` (a ``(DeviceMesh,
+  placements)`` per leaf) it returns DTensors, each rank keeping its own
+  slice of the file (no collective), so a checkpoint written on one mesh
+  loads onto another.
+* **distributed save** — a tree with DTensor leaves is saved by every
+  rank: the full tensors are gathered, rank 0 writes, and a barrier
+  holds the others until the commit marker exists.  The files are the
+  same bytes as a single process's save of the full tensors.
 
 A tree is any nesting of NamedTuples, tuples, lists and dicts; ``None``
 is an empty subtree.  Leaf keys are what ``jax.tree_util.
@@ -170,13 +177,38 @@ def step_dir(base: str, step: int) -> str:
     return os.path.join(base, f"step_{step:08d}")
 
 
+def _is_dtensor(leaf) -> bool:
+    if not isinstance(leaf, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
 def save(tree: Any, base: str, step: int) -> str:
-    """Synchronous save; returns the committed directory."""
+    """Synchronous save; returns the committed directory.  With DTensor
+    leaves every rank of the process group must call it (the full
+    tensors are gathered); rank 0 writes and the others wait for the
+    commit."""
+    final = step_dir(base, step)
+    items, _ = _flatten_with_paths(tree)
+    if any(_is_dtensor(leaf) for _, leaf in items):
+        import torch.distributed as dist
+
+        items = [(k, leaf.full_tensor() if _is_dtensor(leaf) else leaf)
+                 for k, leaf in items]
+        if dist.get_rank() == 0:
+            _write(items, base, step)
+        dist.barrier()
+        return final
+    _write(items, base, step)
+    return final
+
+
+def _write(items: list, base: str, step: int) -> None:
     os.makedirs(base, exist_ok=True)
     final = step_dir(base, step)
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    items, _ = _flatten_with_paths(tree)
     manifest = {"step": step, "leaves": {}}
     for i, (key, leaf) in enumerate(items):
         raw, dtype_name = _to_numpy(leaf)
@@ -192,7 +224,6 @@ def save(tree: Any, base: str, step: int) -> str:
     os.replace(tmp, final)                       # atomic on POSIX
     with open(final + _COMMIT_SUFFIX, "w") as f:
         f.write(str(step))
-    return final
 
 
 def _committed_steps(base: str) -> list[int]:
@@ -236,13 +267,77 @@ def _stale_merge_hint(key: str, manifest_keys) -> str | None:
     return None
 
 
+def _is_sharding(x) -> bool:
+    if not (isinstance(x, tuple) and len(x) == 2):
+        return False
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(x[0], DeviceMesh)
+
+
+def _sharding_leaves(target: Any, shardings: Any) -> list:
+    """The ``(mesh, placements)`` (or None) of each leaf of ``target``,
+    in leaf order: ``shardings`` follows the target's structure, a pair
+    standing for every leaf below it and None for none."""
+    out = []
+
+    def walk(t, sh):
+        if t is None:
+            return
+        node = _children(t)
+        if node is None or sh is None or _is_sharding(sh):
+            if node is None:
+                out.append(sh)
+            else:
+                for kid in node[1]:
+                    walk(kid, sh)
+            return
+        keys, kids, _ = node
+        subs = ([sh.get(k) for k in keys] if isinstance(sh, dict)
+                else list(sh))
+        for kid, sub in zip(kids, subs):
+            walk(kid, sub)
+
+    walk(target, shardings)
+    return out
+
+
+def _distribute(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's slice of ``full`` under ``placements`` on ``mesh``
+    (``Shard(d)`` cuts dim d into ``torch.chunk`` pieces, mesh dim by
+    mesh dim; ``Replicate`` keeps it), as a DTensor.  No collective."""
+    from torch.distributed.tensor import DTensor
+
+    placements = tuple(placements)
+    coord = mesh.get_coordinate()
+    local = full
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            pieces = torch.chunk(local, mesh.size(i), dim=p.dim)
+            local = (pieces[coord[i]] if coord[i] < len(pieces)
+                     else local.narrow(p.dim, 0, 0))
+        elif not p.is_replicate():
+            raise ValueError(f"restore places leaves by Shard or Replicate, "
+                             f"not {p}")
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device(
+                  mesh.device_type))
+    return DTensor.from_local(local.contiguous().to(device), mesh,
+                              placements, run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
 def restore(base: str, step: int, target: Any, *, device=None,
-            strict: bool = True) -> Any:
+            strict: bool = True, shardings: Any = None) -> Any:
     """Restore into the structure of ``target``, whose leaves give each
     restored tensor its shape and dtype (tensors, numpy arrays, or
     anything with ``shape`` and ``dtype``, such as tensors on the
     ``meta`` device).  Each leaf goes to its target leaf's device (the
     CPU for a leaf with none) unless ``device`` is given.
+
+    ``shardings`` (optional, the target's structure with a ``(DeviceMesh,
+    placements)`` pair or None per leaf) returns each sharded leaf as a
+    DTensor on its mesh: every rank reads the file and keeps its own
+    slice, so a checkpoint written on one mesh loads onto another.
 
     ``strict`` (default) also rejects checkpoints whose manifest carries
     leaves the target does not request (a stale state format would
@@ -264,7 +359,7 @@ def restore(base: str, step: int, target: Any, *, device=None,
                               " (stale state format? pass strict=False to "
                               "restore a sub-tree deliberately)"))
     out = []
-    for key, leaf in items:
+    for (key, leaf), shd in zip(items, _sharding_leaves(target, shardings)):
         meta = manifest["leaves"].get(key)
         if meta is None:
             hint = _stale_merge_hint(key, manifest["leaves"])
@@ -278,6 +373,9 @@ def restore(base: str, step: int, target: Any, *, device=None,
             raise ValueError(
                 f"{key}: checkpoint shape {tuple(arr.shape)} != target "
                 f"{want_shape}")
+        if shd is not None:
+            out.append(_distribute(arr.to(_target_dtype(leaf)), *shd))
+            continue
         out.append(arr.to(device=_target_device(leaf, device),
                           dtype=_target_dtype(leaf)))
     return unflatten(out)

@@ -1,5 +1,6 @@
-"""PulseFabric on one device (port of the "local" path of
-``repro.core.fabric``).
+"""PulseFabric (port of ``repro.core.fabric``): the chips on a leading
+tensor axis, all of them on one device, or a rank's own block of them
+on each rank of a ``torch.distributed`` mesh (the shard forms).
 
 One block of B substeps runs three phases, the chips on a leading axis:
 
@@ -15,7 +16,10 @@ One block of B substeps runs three phases, the chips on a leading axis:
 2. *exchange*: one swap of the source and destination chip axes, through
    a :class:`repro_torch.core.topology.RoutedTransport` when the fabric
    is given a topology (the timestamps then shifted by the path latency,
-   per-port link words and backlog counted);
+   per-port link words and backlog counted); across ranks, one
+   ``all_to_all_single`` of a
+   :class:`repro_torch.core.transport.DistributedTransport` (and, routed,
+   one ``all_gather`` of the per-pair counts);
 3. *drain*: one ``fused_drain`` launch (passthrough, sort or rate mode).
 
 With a health mask (``healthy``, ``dead_links``) the routes are
@@ -30,9 +34,18 @@ block f, then drains block f-1, carried in a :class:`repro_torch.core.
 pulse_comm.PipelineCarry`; its deposits clear the B slots popped during
 the extra block (``extra_ahead=B``).
 
+Shard forms: with a distributed transport (``"shard_map"``, an axis
+tuple, a :class:`~repro_torch.core.transport.DistributedTransport` or a
+``RoutedTransport`` bound to one) every argument and carry holds this
+rank's ``n_local`` chips on its leading chip axis, and whatever the
+fabric holds per chip (the reach rows, the dead chips) is sliced to them
+once, at construction.  Buckets, traffic and reach rows still address
+all ``n_chips`` destinations.  Without an initialised process group
+such a fabric raises ``RuntimeError``; it never falls back to the local
+exchange.
+
 Kernels run when the tensors lie on a CUDA device; on the CPU the same
-wrappers run their plain PyTorch versions.  Multi-GPU transports are a
-later slice and raise ``NotImplementedError``.
+wrappers run their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -104,43 +117,35 @@ class PulseFabric:
     advances the clock by B afterwards.
 
     ``transport`` is ``"local"`` (the dense exchange), a
-    :class:`~repro_torch.core.topology.Topology` or a
-    :class:`~repro_torch.core.topology.RoutedTransport`.  ``healthy``
-    (alive chips: indices or a bool mask) and ``dead_links`` ((chip,
-    port) pairs, which need a topology) run the fabric degraded; then
-    ``reach`` is the deliverability table, bool ``[n_chips(src),
+    :class:`~repro_torch.core.topology.Topology`, a
+    :class:`~repro_torch.core.topology.RoutedTransport`, or a shard
+    transport: ``"shard_map"`` (a 1-D ``("chip",)`` mesh over the world,
+    or ``mesh``), a tuple of ``mesh``'s axis names (the hierarchical
+    exchange), a :class:`~repro_torch.core.transport.
+    DistributedTransport` or a ``RoutedTransport`` bound to one.
+    ``healthy`` (alive chips: indices or a bool mask) and ``dead_links``
+    ((chip, port) pairs, which need a topology) run the fabric degraded;
+    then ``reach`` is the deliverability table, bool ``[n_local(src),
     n_chips(dst)]`` on the fabric's device (None at full health).
     """
 
     def __init__(self, cfg: pc.PulseCommConfig, transport="local", *,
                  flow: FlowControlConfig | None = None, healthy=None,
-                 dead_links=(), device="cuda"):
+                 dead_links=(), device="cuda", mesh=None):
         self.cfg = cfg
         self.flow = flow
         self.device = kc.resolve_device(device)
         self._spec = transport
+        self._mesh = mesh
         self.healthy = tpo.normalize_healthy(cfg.n_chips, healthy)
         self.dead_links = tpo.normalize_dead_links(dead_links)
-        if isinstance(transport, tpo.Topology):
-            transport = tpo.RoutedTransport(topology=transport)
-        if isinstance(transport, tpo.RoutedTransport):
-            if transport.n_chips != cfg.n_chips:
-                raise ValueError(f"topology has {transport.n_chips} chips, "
-                                 f"config {cfg.n_chips}")
-            if cfg.superstep > 1:
-                # A block of B steps has B steps of link capacity to drain.
-                transport = transport.with_flush_rounds(cfg.superstep)
-        elif transport == "local":
-            transport = tp.LocalTransport(cfg.n_chips)
-        else:
-            raise NotImplementedError(
-                f"transport {transport!r}: the port takes 'local', a "
-                "Topology or a RoutedTransport; multi-GPU transports are "
-                "ROADMAP section 1, item 7")
+        transport = self._resolve(transport, mesh)
         # Degraded: rebind a routed transport onto the plan recompiled
         # around the failures; ``reach`` is the deliverability table the
         # inject stage culls against, ``_dead`` the dead chips the drain
-        # culls at (None where every chip lives).
+        # culls at (None where every chip lives), both cut to this
+        # fabric's rows.
+        rows = transport.rows
         self.reach = self._dead = None
         if self.healthy is not None or self.dead_links:
             alive = tpo.alive_mask(cfg.n_chips, self.healthy)
@@ -154,10 +159,11 @@ class PulseFabric:
                         "dead_links need a routed topology transport; "
                         "dense transports model no individual links")
                 reach = np.ones((cfg.n_chips, cfg.n_chips), bool)
-            self.reach = torch.as_tensor(
-                reach & alive[:, None] & alive[None, :], device=self.device)
+            self.reach = torch.as_tensor(np.ascontiguousarray(
+                (reach & alive[:, None] & alive[None, :])[rows]),
+                device=self.device)
             if not alive.all():
-                self._dead = torch.as_tensor(~alive, device=self.device)
+                self._dead = torch.as_tensor(~alive[rows], device=self.device)
         self.transport = transport
         max_lat = self.max_path_latency
         if max_lat >= ev.TIME_MOD // 2:
@@ -177,6 +183,60 @@ class PulseFabric:
                 "could alias onto a future deadline - lower the superstep "
                 "or shorten the topology's paths")
 
+    def _resolve(self, spec, mesh):
+        """The transport a spec names (see the class docstring)."""
+        cfg = self.cfg
+        if isinstance(spec, str) and spec == "shard_map":
+            if mesh is None:
+                from repro_torch.launch import mesh as ms
+                mesh = ms.make_chip_mesh(device_type=self.device.type)
+            spec = tp.DistributedTransport(mesh=mesh, axis="chip",
+                                           n_chips=cfg.n_chips)
+        elif isinstance(spec, tuple) and spec and all(
+                isinstance(a, str) for a in spec):
+            tp.require_process_group()
+            if mesh is None:
+                raise ValueError(f"the axis tuple {spec} names axes of a "
+                                 "mesh: pass mesh=")
+            spec = tp.DistributedTransport(mesh=mesh, axis=spec,
+                                           n_chips=cfg.n_chips)
+        if isinstance(spec, tpo.Topology):
+            spec = tpo.RoutedTransport(topology=spec)
+        if isinstance(spec, str):
+            if spec != "local":
+                raise ValueError(f"unknown transport {spec!r}; the port "
+                                 "takes 'local' and 'shard_map'")
+            return tp.LocalTransport(cfg.n_chips)
+        if not isinstance(spec, (tpo.RoutedTransport,
+                                 tp.DistributedTransport)):
+            raise TypeError(
+                f"cannot resolve a transport from {spec!r}: pass 'local', "
+                "'shard_map', a tuple of mesh axis names, a Topology, a "
+                "RoutedTransport or a DistributedTransport")
+        if spec.n_chips != cfg.n_chips:
+            raise ValueError(f"transport has {spec.n_chips} chips, config "
+                             f"{cfg.n_chips}")
+        base = getattr(spec, "base", spec)
+        if base is not None and base.device.type != self.device.type:
+            raise ValueError(f"mesh on {base.mesh.device_type}, fabric on "
+                             f"{self.device}")
+        if isinstance(spec, tpo.RoutedTransport) and cfg.superstep > 1:
+            # A block of B steps has B steps of link capacity to drain.
+            spec = spec.with_flush_rounds(cfg.superstep)
+        return spec
+
+    @property
+    def n_local(self) -> int:
+        """Chips on this fabric's leading axis: all of them, or this
+        rank's block."""
+        return self.transport.n_local
+
+    @property
+    def sharded(self) -> bool:
+        """True when the chips spread over ranks (the shard forms)."""
+        return isinstance(self.transport, tp.DistributedTransport) or (
+            getattr(self.transport, "base", None) is not None)
+
     @property
     def max_path_latency(self) -> int:
         """The transport's longest path latency (0 on the dense path)."""
@@ -189,7 +249,7 @@ class PulseFabric:
         pipeline carry thread straight across."""
         return PulseFabric(self.cfg, self._spec, flow=self.flow,
                            healthy=healthy, dead_links=dead_links,
-                           device=self.device)
+                           device=self.device, mesh=self._mesh)
 
     # -- carries -------------------------------------------------------------
 
@@ -207,24 +267,24 @@ class PulseFabric:
         if not self.merge_enabled:
             return None
         return mg.merge_init(self.cfg.merge_depth,
-                             batch_shape=(self.cfg.n_chips,),
+                             batch_shape=(self.n_local,),
                              device=self.device)
 
     def init_flow(self) -> fc.RingState | None:
-        """Fresh credit state, ``[n_chips]`` counters; None without flow
+        """Fresh credit state, ``[n_local]`` counters; None without flow
         control."""
         if self.flow is None:
             return None
-        return fc.init(self.flow.capacity, batch_shape=(self.cfg.n_chips,),
+        return fc.init(self.flow.capacity, batch_shape=(self.n_local,),
                        device=self.device)
 
     def init_sendq(self) -> fc.SendQueue | None:
-        """An empty ``[n_chips, retransmit_depth]`` send queue; None unless
+        """An empty ``[n_local, retransmit_depth]`` send queue; None unless
         the retransmit queue is on."""
         if not self.sendq_enabled:
             return None
         return fc.sendq_init(self.flow.retransmit_depth,
-                             batch_shape=(self.cfg.n_chips,),
+                             batch_shape=(self.n_local,),
                              device=self.device)
 
     @property
@@ -237,7 +297,8 @@ class PulseFabric:
     def init_pending(self) -> pc.PipelineCarry:
         """An empty pipeline carry: the prologue block, whose drain
         deposits nothing and reports zeros."""
-        return pc.pipeline_init(self.cfg, self._n_ports, device=self.device)
+        return pc.pipeline_init(self.cfg, self._n_ports, device=self.device,
+                                n_rows=self.n_local)
 
     def _init_missing(self, flow, merge, sendq):
         if self.flow is not None and flow is None:
@@ -446,7 +507,7 @@ class PulseFabric:
         it was first offered."""
         cfg = self.cfg
         b = events.addr.shape[0]
-        flushbuf = pc.flush_init(cfg, device=t0.device)
+        flushbuf = pc.flush_init(cfg, device=t0.device, n_rows=self.n_local)
         per_k, lost_k = [], []
         for k in range(b):
             now_k = t0 + k

@@ -111,9 +111,13 @@ class FlushBuffer(NamedTuple):
     phase: int
 
 
-def flush_init(cfg: PulseCommConfig, device=None) -> FlushBuffer:
+def flush_init(cfg: PulseCommConfig, device=None,
+               n_rows: int | None = None) -> FlushBuffer:
+    """An empty slab for ``n_rows`` source chips (all of them by
+    default; a rank's own in the shard forms)."""
+    n = cfg.n_chips if n_rows is None else n_rows
     return FlushBuffer(
-        slab=ev.sentinel_words((cfg.n_chips, cfg.n_buckets, cfg.superstep,
+        slab=ev.sentinel_words((n, cfg.n_buckets, cfg.superstep,
                                 cfg.bucket_capacity), device=device),
         phase=0)
 
@@ -224,16 +228,20 @@ class IssuedFlush(NamedTuple):
 def exchange_flush_issue(cfg: PulseCommConfig, slab: torch.Tensor,
                          transport=None) -> IssuedFlush:
     """Exchange the filled slabs of every chip at once through
-    ``transport`` (by default the dense ``LocalTransport``).  The dense transport's ``link_words`` is
-    each source chip's off-chip word count; a routed transport judges
-    backlog against its ``flush_rounds`` (the fabric binds B: the block
-    carries B steps and has B steps to drain) and moves the block without
-    the latency shift, which :func:`exchange_flush_complete` applies.
+    ``transport`` (by default the dense ``LocalTransport``).  The slab's
+    rows are the source chips it holds (all of them, or a rank's own);
+    its buckets address all ``cfg.n_chips`` destinations.  The dense
+    transport's ``link_words`` is each source chip's off-chip word count;
+    a routed transport judges backlog against its ``flush_rounds`` (the
+    fabric binds B: the block carries B steps and has B steps to drain)
+    and moves the block without the latency shift, which
+    :func:`exchange_flush_complete` applies.
     """
-    n, bpc = cfg.n_chips, cfg.buckets_per_chip
-    transport = transport or tp.LocalTransport(n)
+    bpc = cfg.buckets_per_chip
+    transport = transport or tp.LocalTransport(cfg.n_chips)
     with phase_scope("pulse_comm/exchange_issue"):
-        block = slab.reshape(n, n, bpc, slab.shape[-2], cfg.bucket_capacity)
+        block = slab.reshape(slab.shape[0], cfg.n_chips, bpc, slab.shape[-2],
+                             cfg.bucket_capacity)
         words, link_words, link_backlog = transport.exchange_words_start(
             block)
     return IssuedFlush(words=words, link=LinkStats(words=link_words,
@@ -325,21 +333,23 @@ class PipelineCarry(NamedTuple):
 
 
 def pipeline_init(cfg: PulseCommConfig, n_ports: int = 1,
-                  device=None) -> PipelineCarry:
+                  device=None, n_rows: int | None = None) -> PipelineCarry:
     """An empty carry (``valid`` False, every stat zero, so draining it
-    deposits nothing and reports zeros)."""
+    deposits nothing and reports zeros) for ``n_rows`` chips (all of
+    them by default; a rank's own in the shard forms)."""
     n, b = cfg.n_chips, cfg.superstep
-    z = torch.zeros((b, n), dtype=I32, device=device)
-    link = torch.zeros((n, n_ports), dtype=I32, device=device)
+    m = n if n_rows is None else n_rows
+    z = torch.zeros((b, m), dtype=I32, device=device)
+    link = torch.zeros((m, n_ports), dtype=I32, device=device)
     return PipelineCarry(
-        words=ev.sentinel_words((n, n, cfg.buckets_per_chip, b,
+        words=ev.sentinel_words((m, n, cfg.buckets_per_chip, b,
                                  cfg.bucket_capacity), device=device),
         link=LinkStats(words=link, backlog=link.clone()),
         inject=InjectStats(
             sent=z, overflow=z, stalled=z, wrap_expired=z, lost=z,
             wire_bytes=z,
-            utilization=torch.zeros((b, n), dtype=torch.float32,
+            utilization=torch.zeros((b, m), dtype=torch.float32,
                                     device=device),
-            traffic=torch.zeros((b, n, n), dtype=I32, device=device)),
-        t0=torch.zeros((n,), dtype=I32, device=device),
-        valid=torch.zeros((n,), dtype=torch.bool, device=device))
+            traffic=torch.zeros((b, m, n), dtype=I32, device=device)),
+        t0=torch.zeros((m,), dtype=I32, device=device),
+        valid=torch.zeros((m,), dtype=torch.bool, device=device))

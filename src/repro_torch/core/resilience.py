@@ -18,8 +18,9 @@ Four layers (this module is layer 1):
 3. **Recovery orchestration** (:class:`repro_torch.runtime.
    ResilientRunner`): detection, checkpoint restore, a fabric rebuilt on
    the survivors, replay.
-4. The one-``psum`` heartbeat inside ``shard_map`` comes with the
-   multi-GPU transport (ROADMAP section 1, item 7).
+4. The shard forms' heartbeat (:func:`heartbeat`): one ``psum`` of the
+   local chips' alive bits across the ranks, equal to
+   :func:`beats_local` of the whole alive vector.
 
 Conservation with failures::
 
@@ -77,12 +78,25 @@ def beats_local(alive_bits: torch.Tensor) -> torch.Tensor:
     return alive_bits.to(I32)
 
 
-def heartbeat(transport, alive_bit):
-    """The one-``psum`` heartbeat of the shard forms."""
-    raise NotImplementedError(
-        "heartbeat() sums alive bits across ranks, which needs the "
-        "multi-GPU transport; it is not ported yet (ROADMAP section 1, "
-        "item 7).  With the chips on one device use beats_local()")
+def heartbeat(transport, alive_bits: torch.Tensor) -> torch.Tensor:
+    """One cheap ``psum`` heartbeat of the shard forms: each local chip
+    (``alive_bits [n_local]``) contributes a one-hot of its global index
+    gated by its alive bit; ``result[c] > 0`` iff chip c checked in.
+    Returns ``int32 [n_chips]``, equal to :func:`beats_local` of the
+    whole alive vector.  ``transport`` None is the ``("chip",)`` mesh
+    over the world (``n_local`` chips a rank), which needs an
+    initialised process group."""
+    if transport is None:
+        from repro_torch.core import transport as tp
+        from repro_torch.launch import mesh as ms
+        mesh = ms.make_chip_mesh(device_type=alive_bits.device.type)
+        transport = tp.DistributedTransport(
+            mesh=mesh, axis="chip",
+            n_chips=alive_bits.shape[0] * mesh.size(0))
+    me = transport.chip_index(alive_bits.device).long()
+    idx = torch.arange(transport.n_chips, device=alive_bits.device)
+    onehot = (idx[None, :] == me[:, None]) & (alive_bits[:, None] > 0)
+    return transport.psum(onehot.to(I32))[0]
 
 
 def _step(t, like: torch.Tensor) -> torch.Tensor:

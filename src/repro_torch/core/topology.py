@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import events as ev
+from repro_torch.core import transport as tp
 
 I32 = torch.int32
 
@@ -156,6 +157,24 @@ class Topology:
         bandwidth and credits."""
         caps = [c for c in (self.link_bandwidth, self.link_credits) if c > 0]
         return min(caps) if caps else 0
+
+    def transport(self, axis: "str | tuple[str, str]", *,
+                  mesh) -> "RoutedTransport":
+        """A :class:`RoutedTransport` across the ranks of ``mesh`` along
+        ``axis`` (the shard forms; the fabric binds the local exchange
+        itself when handed a Topology).  ``kind="pod"`` also takes a
+        2-tuple ``(pod_axis, chip_axis)``, whose exchange is then
+        hierarchical."""
+        if isinstance(axis, tuple):
+            if self.kind != "pod" or len(axis) != 2:
+                raise TypeError(
+                    "non-pod topologies take a single axis name; a 2-tuple "
+                    "(pod_axis, chip_axis) is only valid for kind='pod'")
+        elif not isinstance(axis, str):
+            raise TypeError("Topology.transport takes a single axis name; "
+                            "the topology models the hierarchy")
+        return RoutedTransport(topology=self, base=tp.DistributedTransport(
+            mesh=mesh, axis=axis, n_chips=self.n_chips))
 
 
 def direct(n_chips: int, *, link_latency: int = 1, link_bandwidth: int = 0,
@@ -793,6 +812,15 @@ class RoutedTransport:
     as the sentinel), on the tree trunk words are billed to the re-homed
     carrier.  Traffic of unreachable pairs is the caller's to cull (the
     fabric does, into ``lost_to_failure``).
+
+    ``base`` (a :class:`repro_torch.core.transport.DistributedTransport`,
+    from :meth:`Topology.transport`) spreads the chips over ranks: ``x``
+    is then this rank's ``[n_local(src), n_chips(dst), ...]``, moved by
+    the base's ``all_to_all``; each rank's per-pair counts are gathered
+    into the full ``[n_chips, n_chips]`` by one ``all_gather``, the same
+    tables give every chip's counters, and the rank keeps its own rows
+    (so they are bitwise the single-device transport's rows).  The
+    reach and the latency shift are sliced to the local destinations.
     """
 
     topology: Topology
@@ -801,6 +829,7 @@ class RoutedTransport:
     flush_rounds: int = 1
     healthy: "tuple[int, ...] | None" = None
     dead_links: tuple = ()
+    base: "tp.DistributedTransport | None" = None
 
     def __post_init__(self):
         object.__setattr__(self, "healthy", normalize_healthy(
@@ -811,6 +840,15 @@ class RoutedTransport:
     @property
     def n_chips(self) -> int:
         return self.topology.n_chips
+
+    @property
+    def n_local(self) -> int:
+        return self.n_chips if self.base is None else self.base.n_local
+
+    @property
+    def rows(self) -> slice:
+        """The global chips of the leading axis."""
+        return slice(0, self.n_chips) if self.base is None else self.base.rows
 
     @property
     def degraded(self) -> bool:
@@ -851,17 +889,23 @@ class RoutedTransport:
     def exchange_words_start(self, x: torch.Tensor):
         """Issue half: move the block (its timestamps still unshifted) and
         count the link words and backlog."""
-        n = self.n_chips
-        if x.shape[:2] != (n, n):
+        n, m, rows = self.n_chips, self.n_local, self.rows
+        if x.shape[:2] != (m, n):
             raise ValueError(f"leading dims {tuple(x.shape[:2])} != "
-                             f"(n_chips, n_chips) = ({n}, {n})")
+                             f"(n_local, n_chips) = ({m}, {n})")
         tab = self._tables(x.device)
-        y = x.transpose(0, 1)
+        if self.base is None:
+            y = x.transpose(0, 1)
+        else:
+            y = self.base.all_to_all(x)
         if tab.reach is not None:
-            y = torch.where(tab.reach.view((n, n) + (1,) * (x.dim() - 2)),
-                            y, ev.WORD_SENTINEL)
+            y = torch.where(tab.reach[rows].view(
+                (m, n) + (1,) * (x.dim() - 2)), y, ev.WORD_SENTINEL)
         p = self.topology.n_ports
-        cnt = (x >= 0).flatten(2).sum(-1, dtype=I32).flatten()
+        cnt = (x >= 0).flatten(2).sum(-1, dtype=I32)
+        if self.base is not None:
+            cnt = self.base.all_gather(cnt)
+        cnt = cnt.flatten()
         words = torch.zeros(n * p, dtype=I32, device=x.device).index_add_(
             0, tab.w_target, cnt[tab.w_pair])
         backlog = torch.zeros_like(words)
@@ -871,7 +915,7 @@ class RoutedTransport:
                 0, tab.g_member, cnt[tab.g_pair])
             backlog.index_add_(0, tab.g_target, sums.sub_(
                 tab.g_cap * self.flush_rounds).clamp_(min=0))
-        return y, words.view(n, p), backlog.view(n, p)
+        return y, words.view(n, p)[rows], backlog.view(n, p)[rows]
 
     def exchange_words_finish(self, y: torch.Tensor) -> torch.Tensor:
         """Complete half: shift each valid word's timestamp by its pair's
@@ -880,8 +924,9 @@ class RoutedTransport:
         dt = self._tables(y.device).dt
         if dt is None:
             return y
-        n = self.n_chips
-        return _shift_word_time(y, dt.view((n, n) + (1,) * (y.dim() - 2)))
+        n, m = self.n_chips, self.n_local
+        return _shift_word_time(y, dt[self.rows].view(
+            (m, n) + (1,) * (y.dim() - 2)))
 
 
 @functools.lru_cache(maxsize=None)

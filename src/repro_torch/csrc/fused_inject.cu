@@ -23,11 +23,14 @@
 //   land on one cell the later lane wins, as the reference's XLA scatter
 //   does), counts, traffic and the scalar stats.
 //
-// Both kernels run one CTA per (chip, substep).
+// Both kernels run one CTA per (row, substep).  The rows are the source
+// chips the caller holds (n_rows: every chip on one device, a rank's own
+// block in the shard forms); n_chips counts the destinations (the
+// buckets, the traffic width, the reach row's length).
 //
 // fused_inject: the CTA's events are one row of the block.
 //
-// The reach table (bool [n_chips, n_chips], each source chip's row of
+// The reach table (bool [n_rows, n_chips], each source row's
 // deliverable destinations) is optional: a null pointer means every chip
 // reaches every chip, and then no lane reads anything more.  With one,
 // each CTA copies its chip's row into shared memory once, ahead of the
@@ -237,7 +240,8 @@ __device__ __forceinline__ void clear_cells(int* owner, int n) {
 // null.
 template <class Events>
 __device__ __forceinline__ void inject_substep(const Events& events, int E, int chip,
-                                               int k, int B, int n_chips, int bpc,
+                                               int k, int B, int n_rows, int n_chips,
+                                               int bpc,
                                                int C, int full_mode, int time_window,
                                                int now, const unsigned char* reach,
                                                const InjectOut& out, int* smem) {
@@ -253,7 +257,7 @@ __device__ __forceinline__ void inject_substep(const Events& events, int E, int 
 
   const int defer = B - 1 - k;
   const int window = time_window > 1 ? time_window : 1;
-  const size_t o = static_cast<size_t>(k) * n_chips + chip;
+  const size_t o = static_cast<size_t>(k) * n_rows + chip;
   // Bucket b's row of this substep starts at slab + row0 + b * row_stride.
   const size_t row_stride = static_cast<size_t>(B) * C;
   const size_t row0 = (static_cast<size_t>(chip) * nb * B + k) * C;
@@ -380,19 +384,19 @@ __device__ __forceinline__ void inject_substep(const Events& events, int E, int 
 __global__ void __launch_bounds__(512, 3) fused_inject_kernel(
     const int* __restrict__ addr, const int* __restrict__ time,
     const unsigned char* __restrict__ valid, Lut lut, const int* __restrict__ t0,
-    const unsigned char* __restrict__ reach, int B, int n_chips, int E, int N,
-    int bpc, int C, int full_mode, int time_window, InjectOut out) {
+    const unsigned char* __restrict__ reach, int B, int n_rows, int n_chips, int E,
+    int N, int bpc, int C, int full_mode, int time_window, InjectOut out) {
   extern __shared__ int4 smem4[];
   int* smem = reinterpret_cast<int*>(smem4);
   const int chip = blockIdx.x;
   const int k = blockIdx.y;
   const int now = wrap_add(__ldg(t0 + chip), k);
-  const size_t row = (static_cast<size_t>(k) * n_chips + chip) * E;
+  const size_t row = (static_cast<size_t>(k) * n_rows + chip) * E;
   const RowEvents events{addr + row, time + row, valid + row, E,
                          lut, static_cast<size_t>(chip) * N, N};
   if (reach == nullptr) {
-    inject_substep(events, E, chip, k, B, n_chips, bpc, C, full_mode, time_window, now,
-                   nullptr, out, smem);
+    inject_substep(events, E, chip, k, B, n_rows, n_chips, bpc, C, full_mode,
+                   time_window, now, nullptr, out, smem);
     return;
   }
   unsigned char* reach_row = reinterpret_cast<unsigned char*>(
@@ -405,20 +409,20 @@ __global__ void __launch_bounds__(512, 3) fused_inject_kernel(
     events.entry(held);
     load_reach_row(reach, chip, n_chips, reach_row);
     __syncthreads();
-    inject_substep(HeldLane{held}, E, chip, k, B, n_chips, bpc, C, full_mode,
+    inject_substep(HeldLane{held}, E, chip, k, B, n_rows, n_chips, bpc, C, full_mode,
                    time_window, now, reach_row, out, smem);
     return;
   }
   load_reach_row(reach, chip, n_chips, reach_row);
   __syncthreads();
-  inject_substep(events, E, chip, k, B, n_chips, bpc, C, full_mode, time_window, now,
-                 reach_row, out, smem);
+  inject_substep(events, E, chip, k, B, n_rows, n_chips, bpc, C, full_mode,
+                 time_window, now, reach_row, out, smem);
 }
 
 struct Neurons {
   const float* v;
   const int* refrac;
-  const float* currents;  // [B, n_chips, N]
+  const float* currents;  // [B, n_rows, N]
   const float* tau_m;
   const float* v_th;
   const float* v_reset;
@@ -429,8 +433,8 @@ struct Neurons {
 struct NeuronsOut {
   float* v;
   int* refrac;
-  float* spikes;   // [B, n_chips, N]
-  float* voltage;  // [B, n_chips, N]
+  float* spikes;   // [B, n_rows, N]
+  float* voltage;  // [B, n_rows, N]
 };
 
 // Substeps 0..k of neuron i (offset `at` = chip * N + i) from the block's
@@ -495,9 +499,9 @@ __device__ __forceinline__ int spike_rank(bool spike, int* count, int& before) {
 
 __global__ void __launch_bounds__(512, 3) fused_lif_inject_kernel(
     Neurons in, Lut lut, const int* __restrict__ t0,
-    const unsigned char* __restrict__ reach, int B, int n_chips, int N, int bpc,
-    int C, int full_mode, int time_window, int event_capacity, NeuronsOut nout,
-    InjectOut out) {
+    const unsigned char* __restrict__ reach, int B, int n_rows, int n_chips, int N,
+    int bpc, int C, int full_mode, int time_window, int event_capacity,
+    NeuronsOut nout, InjectOut out) {
   extern __shared__ int4 smem4[];
   int* smem = reinterpret_cast<int*>(smem4);
   const int n_warps = blockDim.x >> 5;
@@ -516,7 +520,7 @@ __global__ void __launch_bounds__(512, 3) fused_lif_inject_kernel(
     load_reach_row(reach, chip, n_chips, reach_row);
   }
   const size_t nrow = static_cast<size_t>(chip) * N;
-  const size_t row = static_cast<size_t>(n_chips) * N;
+  const size_t row = static_cast<size_t>(n_rows) * N;
   int before = 0;
   if (N <= static_cast<int>(blockDim.x)) {
     // One tile: the neuron and its table entry stay in registers (the
@@ -529,7 +533,7 @@ __global__ void __launch_bounds__(512, 3) fused_lif_inject_kernel(
     load_entry(lut, nrow + held.index, held);
     const int rank = spike_rank(spike, counts, before);
     held.valid = spike && rank < event_capacity;
-    inject_substep(HeldLane{held}, N, chip, k, B, n_chips, bpc, C, full_mode,
+    inject_substep(HeldLane{held}, N, chip, k, B, n_rows, n_chips, bpc, C, full_mode,
                    time_window, now, reach_row, out, smem);
     return;
   }
@@ -540,60 +544,61 @@ __global__ void __launch_bounds__(512, 3) fused_lif_inject_kernel(
     if (i < N) fired[i] = spike && rank < event_capacity;
   }
   __syncthreads();
-  inject_substep(SpikeEvents{fired, N, now, lut, nrow}, N, chip, k, B, n_chips, bpc, C,
-                 full_mode, time_window, now, reach_row, out, smem);
+  inject_substep(SpikeEvents{fired, N, now, lut, nrow}, N, chip, k, B, n_rows, n_chips,
+                 bpc, C, full_mode, time_window, now, reach_row, out, smem);
 }
 
 }  // namespace
 
-// Events are [B, n_chips, E] (valid as bytes); the table's dest_chip,
-// dest_addr, delay and valid (bytes) are each [n_chips, N]; t0 is
-// [n_chips]; reach is [n_chips, n_chips] bytes or null.  Outputs: slab
-// [n_chips, NB, B, C]; counts [B, n_chips, NB]; sent, overflow,
-// wrap_expired, lost [B, n_chips]; traffic [B, n_chips, n_chips].
+// Events are [B, n_rows, E] (valid as bytes); the table's dest_chip,
+// dest_addr, delay and valid (bytes) are each [n_rows, N]; t0 is
+// [n_rows]; reach is [n_rows, n_chips] bytes or null.  NB = n_chips *
+// bpc.  Outputs: slab [n_rows, NB, B, C]; counts [B, n_rows, NB]; sent,
+// overflow, wrap_expired, lost [B, n_rows]; traffic [B, n_rows,
+// n_chips].
 extern "C" int fused_inject_launch(
     const int* addr, const int* time, const unsigned char* valid,
     const int* lut_chip, const int* lut_addr, const int* lut_delay,
     const unsigned char* lut_valid, const int* t0, const unsigned char* reach,
-    int B, int n_chips, int E, int N, int bpc, int C, int full_mode,
+    int B, int n_rows, int n_chips, int E, int N, int bpc, int C, int full_mode,
     int time_window, int threads, long long smem_bytes, int* slab, int* counts,
     int* sent, int* overflow, int* wrap_expired, int* lost, int* traffic,
     void* stream) {
   static size_t allowed = 48 * 1024;
   cudaError_t err = repro::allow_smem(fused_inject_kernel, smem_bytes, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(n_chips, B);
+  dim3 grid(n_rows, B);
   fused_inject_kernel<<<grid, threads, smem_bytes,
                         static_cast<cudaStream_t>(stream)>>>(
       addr, time, valid, Lut{lut_chip, lut_addr, lut_delay, lut_valid}, t0, reach,
-      B, n_chips, E, N, bpc, C, full_mode, time_window,
+      B, n_rows, n_chips, E, N, bpc, C, full_mode, time_window,
       InjectOut{slab, counts, sent, overflow, wrap_expired, lost, traffic});
   return static_cast<int>(cudaGetLastError());
 }
 
 // v, refrac, the five neuron parameters and the table's four arrays are
-// [n_chips, N]; currents [B, n_chips, N]; t0 [n_chips]; reach as
-// fused_inject_launch's.  Outputs: v and refrac [n_chips, N]; spikes and
-// voltage [B, n_chips, N]; the inject outputs as fused_inject_launch's.
+// [n_rows, N]; currents [B, n_rows, N]; t0 [n_rows]; reach as
+// fused_inject_launch's.  Outputs: v and refrac [n_rows, N]; spikes and
+// voltage [B, n_rows, N]; the inject outputs as fused_inject_launch's.
 extern "C" int fused_lif_inject_launch(
     const float* v, const int* refrac, const float* currents, const float* tau_m,
     const float* v_th, const float* v_reset, const float* v_rest,
     const int* refrac_period, const int* lut_chip, const int* lut_addr,
     const int* lut_delay, const unsigned char* lut_valid, const int* t0,
-    const unsigned char* reach, int B, int n_chips, int N, int bpc, int C,
-    int full_mode, int time_window, int event_capacity, int threads,
+    const unsigned char* reach, int B, int n_rows, int n_chips, int N, int bpc,
+    int C, int full_mode, int time_window, int event_capacity, int threads,
     long long smem_bytes, float* v_out, int* refrac_out, float* spikes,
     float* voltage, int* slab, int* counts, int* sent, int* overflow,
     int* wrap_expired, int* lost, int* traffic, void* stream) {
   static size_t allowed = 48 * 1024;
   cudaError_t err = repro::allow_smem(fused_lif_inject_kernel, smem_bytes, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(n_chips, B);
+  dim3 grid(n_rows, B);
   fused_lif_inject_kernel<<<grid, threads, smem_bytes,
                             static_cast<cudaStream_t>(stream)>>>(
       Neurons{v, refrac, currents, tau_m, v_th, v_reset, v_rest, refrac_period},
-      Lut{lut_chip, lut_addr, lut_delay, lut_valid}, t0, reach, B, n_chips, N, bpc,
-      C, full_mode, time_window, event_capacity,
+      Lut{lut_chip, lut_addr, lut_delay, lut_valid}, t0, reach, B, n_rows, n_chips, N,
+      bpc, C, full_mode, time_window, event_capacity,
       NeuronsOut{v_out, refrac_out, spikes, voltage},
       InjectOut{slab, counts, sent, overflow, wrap_expired, lost, traffic});
   return static_cast<int>(cudaGetLastError());

@@ -1,8 +1,12 @@
 """Wrappers of the fused inject kernels (``csrc/fused_inject.cu``).
 
 On CUDA tensors ``fused_inject`` and ``fused_lif_inject`` each launch
-their kernel, one CTA per (chip, substep); on CPU tensors they run the
-plain versions in ``ref.py``.  The fused path needs fan-out 1; the fabric
+their kernel, one CTA per (row, substep); on CPU tensors they run the
+plain versions in ``ref.py``.  The rows are the source chips the caller
+holds (``n_rows``, from the inputs' chip axis: every chip on one device,
+a rank's own block in the shard forms); ``n_chips`` counts the
+destinations (``n_chips * buckets_per_chip`` buckets, the traffic
+width, the reach row's length).  The fused path needs fan-out 1; the fabric
 packs fan-out > 1 through ``bucket_pack``.
 
 Arguments that already are contiguous tensors of the kernel's type and
@@ -14,8 +18,8 @@ others are converted first.  The outputs of one call are views of one
 call it (nor does the reference's), since under STDP the weights, and so
 a block's currents, change every substep.
 
-Both take ``reach``, bool ``[n_chips(src), n_chips(dst)]`` (each chip's
-row of deliverable destinations, the fabric's health mask) or None: a
+Both take ``reach``, bool ``[n_rows(src), n_chips(dst)]`` (each row's
+deliverable destinations, the fabric's health mask) or None: a
 routed lane whose in-range destination its chip cannot reach is dropped
 into ``lost`` before admission.  With None the kernels get a null
 pointer and read nothing more.
@@ -38,8 +42,8 @@ from repro_torch.kernels.fused_inject.ref import (FusedInjectOut,
 
 NAME = "fused_inject"
 I32, F32 = torch.int32, torch.float32
-_ARGTYPES = [kc.P] * 9 + [kc.I] * 9 + [kc.LL] + [kc.P] * 8
-_LIF_ARGTYPES = [kc.P] * 14 + [kc.I] * 9 + [kc.LL] + [kc.P] * 12
+_ARGTYPES = [kc.P] * 9 + [kc.I] * 10 + [kc.LL] + [kc.P] * 8
+_LIF_ARGTYPES = [kc.P] * 14 + [kc.I] * 10 + [kc.LL] + [kc.P] * 12
 _LUT_DTYPES = (I32, I32, I32, torch.bool)
 _LIF_NAMES = ("v", "refrac", "currents", "tau_m", "v_th", "v_reset",
               "v_rest", "refrac_period")
@@ -51,8 +55,8 @@ def fused_inject(events: ev.EventBuffer, table: rt.RoutingTable,
                  n_chips: int, buckets_per_chip: int, capacity: int,
                  mode: str = "simplified",
                  time_window: int = 1) -> FusedInjectOut:
-    """Inject one block: ``events [B, n_chips, E]``, ``table [n_chips, N,
-    1]``, ``t0 [n_chips]``, ``reach [n_chips, n_chips]`` or None."""
+    """Inject one block: ``events [B, n_rows, E]``, ``table [n_rows, N,
+    1]``, ``t0 [n_rows]``, ``reach [n_rows, n_chips]`` or None."""
     _check_mode_and_fanout(mode, table)
     kw = dict(reach=reach, n_chips=n_chips,
               buckets_per_chip=buckets_per_chip, capacity=capacity,
@@ -86,8 +90,8 @@ def launch_plan(e: int, n_chips: int, nb: int, capacity: int,
                 reach: bool = False) -> tuple[int, int]:
     """Threads per CTA (one lane per thread, up to 512, so three CTAs fit
     on an SM; longer rows loop over tiles) and dynamic shared-memory
-    bytes, plus the chip's reach row (``n_chips`` bytes) with a reach
-    table; the grid is (n_chips, B).  At the feedforward cell (512
+    bytes, plus the row's reach row (``n_chips`` bytes) with a reach
+    table; the grid is (n_rows, B).  At the feedforward cell (512
     lanes, 46 chips, 92 buckets, C 32) that is 512 threads and 21168 B
     (21214 with a reach row)."""
     threads = _threads(e)
@@ -126,9 +130,9 @@ def fused_lif_inject(v: torch.Tensor, refrac: torch.Tensor,
                      mode: str = "simplified",
                      time_window: int = 1) -> FusedLifInjectOut:
     """B substeps of LIF, spike compaction and inject: ``v, refrac
-    [n_chips, N]``, ``currents [B, n_chips, N]``, ``params`` LIF
-    parameters broadcasting to ``[n_chips, N]``, ``table [n_chips, N,
-    1]``, ``t0 [n_chips]``, ``reach [n_chips, n_chips]`` or None."""
+    [n_rows, N]``, ``currents [B, n_rows, N]``, ``params`` LIF
+    parameters broadcasting to ``[n_rows, N]``, ``table [n_rows, N,
+    1]``, ``t0 [n_rows]``, ``reach [n_rows, n_chips]`` or None."""
     _check_mode_and_fanout(mode, table)
     kw = dict(reach=reach, event_capacity=event_capacity, n_chips=n_chips,
               buckets_per_chip=buckets_per_chip, capacity=capacity,
@@ -184,13 +188,15 @@ def _outputs(device, shapes, n_float: int = 0):
             for i, view in enumerate(views)]
 
 
-def _inject_shapes(b: int, n: int, nb: int, capacity: int):
-    """slab, counts, sent, overflow, wrap_expired, lost, traffic."""
+def _inject_shapes(b: int, n: int, nb: int, capacity: int,
+                   n_chips: int | None = None):
+    """slab, counts, sent, overflow, wrap_expired, lost, traffic, for
+    ``n`` rows and ``n_chips`` destinations (``n`` by default)."""
     return ((n, nb, b, capacity), (b, n, nb), (b, n), (b, n), (b, n),
-            (b, n), (b, n, n))
+            (b, n), (b, n, n if n_chips is None else n_chips))
 
 
-def _reach_arg(reach, n: int, device):
+def _reach_arg(reach, n: int, n_chips: int, device):
     """The reach table as contiguous bytes on ``device`` and its pointer
     (None and 0 without one).  The caller holds the tensor until the
     launch."""
@@ -199,14 +205,12 @@ def _reach_arg(reach, n: int, device):
     if not (isinstance(reach, torch.Tensor) and reach.dtype == torch.bool
             and reach.device == device and reach.is_contiguous()):
         reach = torch.as_tensor(reach, device=device).bool().contiguous()
-    return reach, kc.check(reach, "reach", torch.bool, (n, n))
+    return reach, kc.check(reach, "reach", torch.bool, (n, n_chips))
 
 
 def _launch(events, table, t0, *, reach, n_chips, buckets_per_chip,
             capacity, mode, time_window) -> FusedInjectOut:
     b, n, e = events.addr.shape
-    if n != n_chips:
-        raise ValueError(f"events carry {n} chips, expected {n_chips}")
     dev = events.addr.device
     n_lut = table.n_neurons
     args = (*events, *table, t0)
@@ -216,13 +220,13 @@ def _launch(events, table, t0, *, reach, n_chips, buckets_per_chip,
         names = ("addr", "time", "valid") + tuple(
             f"table.{f}" for f in table._fields) + ("t0",)
         args = _prepared(args, names, dtypes, shapes, dev)
-    reach, reach_ptr = _reach_arg(reach, n, dev)
+    reach, reach_ptr = _reach_arg(reach, n, n_chips, dev)
     nb = n_chips * buckets_per_chip
-    out = _outputs(dev, _inject_shapes(b, n, nb, capacity))
-    threads, smem = launch_plan(e, n, nb, capacity, reach is not None)
+    out = _outputs(dev, _inject_shapes(b, n, nb, capacity, n_chips))
+    threads, smem = launch_plan(e, n_chips, nb, capacity, reach is not None)
     kc.launch(
         NAME, kc.kernel_fn(NAME, "fused_inject_launch", _ARGTYPES),
-        *(x.data_ptr() for x in args), reach_ptr, b, n, e, n_lut,
+        *(x.data_ptr() for x in args), reach_ptr, b, n, n_chips, e, n_lut,
         buckets_per_chip,
         capacity, int(mode == "full"), time_window, threads, smem,
         *(x.data_ptr() for x in out))
@@ -233,8 +237,6 @@ def _launch_lif(v, refrac, currents, params, table, t0, *, reach,
                 event_capacity, n_chips, buckets_per_chip, capacity, mode,
                 time_window) -> FusedLifInjectOut:
     b, n, n_neurons = currents.shape
-    if n != n_chips:
-        raise ValueError(f"currents carry {n} chips, expected {n_chips}")
     if table.n_neurons != n_neurons:
         raise ValueError(f"the table has {table.n_neurons} entries per chip, "
                          f"the chips {n_neurons} neurons")
@@ -248,18 +250,18 @@ def _launch_lif(v, refrac, currents, params, table, t0, *, reach,
         names = _LIF_NAMES + tuple(f"table.{f}" for f in table._fields) \
             + ("t0",)
         args = _prepared(args, names, dtypes, shapes, dev)
-    reach, reach_ptr = _reach_arg(reach, n, dev)
+    reach, reach_ptr = _reach_arg(reach, n, n_chips, dev)
     nb = n_chips * buckets_per_chip
     *out, refrac_out, v_out, spikes, voltage = _outputs(
-        dev, _inject_shapes(b, n, nb, capacity) + (
+        dev, _inject_shapes(b, n, nb, capacity, n_chips) + (
             shape, shape, (b, n, n_neurons), (b, n, n_neurons)), n_float=3)
-    threads, smem = lif_launch_plan(n_neurons, n, nb, capacity,
+    threads, smem = lif_launch_plan(n_neurons, n_chips, nb, capacity,
                                     reach is not None)
     kc.launch(
         "fused_lif_inject",
         kc.kernel_fn("fused_lif_inject", "fused_lif_inject_launch",
                      _LIF_ARGTYPES),
-        *(x.data_ptr() for x in args), reach_ptr, b, n, n_neurons,
+        *(x.data_ptr() for x in args), reach_ptr, b, n, n_chips, n_neurons,
         buckets_per_chip,
         capacity, int(mode == "full"), time_window, event_capacity, threads,
         smem, v_out.data_ptr(), refrac_out.data_ptr(), spikes.data_ptr(),

@@ -26,13 +26,16 @@ from repro_torch.kernels.lif_step.ref import lif_step_ref
 
 
 class FusedInjectOut(NamedTuple):
-    """slab         : int32[n_chips, n_buckets, B, capacity]
-    counts       : int32[B, n_chips, n_buckets] pre-overflow fill levels
-    sent         : int32[B, n_chips] routed events offered
-    overflow     : int32[B, n_chips] bucket-capacity drops
-    wrap_expired : int32[B, n_chips] admission-window drops
-    lost         : int32[B, n_chips] culled by the reach row
-    traffic      : int32[B, n_chips, n_chips] events by destination
+    """``n_rows`` source chips (the inputs' chip axis), ``n_chips``
+    destinations (``n_buckets = n_chips * buckets_per_chip``):
+
+    slab         : int32[n_rows, n_buckets, B, capacity]
+    counts       : int32[B, n_rows, n_buckets] pre-overflow fill levels
+    sent         : int32[B, n_rows] routed events offered
+    overflow     : int32[B, n_rows] bucket-capacity drops
+    wrap_expired : int32[B, n_rows] admission-window drops
+    lost         : int32[B, n_rows] culled by the reach row
+    traffic      : int32[B, n_rows, n_chips] events by destination
     """
 
     slab: torch.Tensor
@@ -49,8 +52,8 @@ def fused_inject_ref(events: ev.EventBuffer, table: rt.RoutingTable,
                      n_chips: int, buckets_per_chip: int, capacity: int,
                      mode: str = "simplified",
                      time_window: int = 1) -> FusedInjectOut:
-    """``events [B, n_chips, E]``, ``table [n_chips, N, 1]``,
-    ``t0 [n_chips]``, ``reach [n_chips(src), n_chips(dst)]`` bool (None:
+    """``events [B, n_rows, E]``, ``table [n_rows, N, 1]``,
+    ``t0 [n_rows]``, ``reach [n_rows(src), n_chips(dst)]`` bool (None:
     every chip reaches every chip)."""
     routed, sent, wrap_expired, lost = pc.route_block(events, table, t0,
                                                       reach)
@@ -73,8 +76,8 @@ def fused_inject_ref(events: ev.EventBuffer, table: rt.RoutingTable,
 
 
 class FusedLifInjectOut(NamedTuple):
-    """v, refrac : [n_chips, N] membrane and refractory count after the
-    block; spikes, voltage : f32[B, n_chips, N] per substep; inject : the
+    """v, refrac : [n_rows, N] membrane and refractory count after the
+    block; spikes, voltage : f32[B, n_rows, N] per substep; inject : the
     block's :class:`FusedInjectOut`."""
 
     v: torch.Tensor
@@ -92,10 +95,10 @@ def fused_lif_inject_ref(v: torch.Tensor, refrac: torch.Tensor,
                          buckets_per_chip: int, capacity: int,
                          mode: str = "simplified",
                          time_window: int = 1) -> FusedLifInjectOut:
-    """``v, refrac [n_chips, N]``, ``currents [B, n_chips, N]`` (known for
+    """``v, refrac [n_rows, N]``, ``currents [B, n_rows, N]`` (known for
     the whole block: under the superstep admission rule no event injected
     in a block is delivered inside it), ``params`` LIF parameters
-    ``[n_chips, N]``, ``table [n_chips, N, 1]``, ``t0 [n_chips]``,
+    ``[n_rows, N]``, ``table [n_rows, N, 1]``, ``t0 [n_rows]``,
     ``reach`` as :func:`fused_inject_ref`'s."""
     ebs, spikes, voltage = [], [], []
     for k in range(currents.shape[0]):

@@ -9,7 +9,8 @@ straggler detection, chip-failure recovery (port of
   uninterrupted run, bit for bit.
 * **Failure domains.**  :class:`FailureInjector` simulates a host
   failure by raising at a chosen step.  ``resume_or(..., device=)``
-  restores onto a given device.
+  restores onto a given device, ``resume_or(..., shardings=)`` onto
+  another mesh (DTensors, each rank keeping its slice).
 * **Stragglers.**  :class:`StepTimer` keeps an EWMA of the step's wall
   time and records steps over ``threshold`` times it.
 * **Chip failure.**  :class:`ResilientRunner` closes the loop with the
@@ -89,15 +90,19 @@ class TrainRunner:
     injector: FailureInjector | None = None
     timer: StepTimer = dataclasses.field(default_factory=StepTimer)
 
-    def resume_or(self, init_state: Any, *,
-                  device=None) -> tuple[Any, int]:
+    def resume_or(self, init_state: Any, *, device=None,
+                  shardings: Any = None) -> tuple[Any, int]:
         """Restore the newest committed checkpoint into the structure of
         ``init_state`` (each leaf on its device, or on ``device``), or
-        fall back to ``init_state``."""
+        fall back to ``init_state``.  ``shardings`` (a ``(DeviceMesh,
+        placements)`` per leaf, see ``checkpoint.restore``) reshards each
+        leaf on load, so a job restarted on a smaller mesh (dead chips
+        blocked off) consumes checkpoints written by the full one."""
         last = ckpt.latest_step(self.ckpt_dir)
         if last is None:
             return init_state, 0
-        state = ckpt.restore(self.ckpt_dir, last, init_state, device=device)
+        state = ckpt.restore(self.ckpt_dir, last, init_state, device=device,
+                             shardings=shardings)
         return state, last + 1
 
     def run(self, init_state: Any, n_steps: int) -> Any:

@@ -35,8 +35,16 @@ threads a :class:`repro_torch.obs.MetricsCarry` through the run in
 sync; the spike path never reads it, so a run is the same with it on or
 off.  The dense path has no fabric and folds nothing in.
 
-The shard forms are a later slice of the port (ROADMAP section 1, item
-7) and raise ``NotImplementedError``.
+The shard forms (:func:`shard_step`, :func:`shard_superstep`,
+:func:`shard_pipeline_block`, :func:`shard_flush_pending`) run the same
+block body on a rank of a ``torch.distributed`` device mesh, the
+exchange a real collective (:func:`shard_fabric`).  A rank holds a
+contiguous block of ``n_local = n_chips // world`` chips on the leading
+axis (rank r: global chips ``[r * n_local, (r + 1) * n_local)``), cut
+from full trees by :func:`shard_slice`; the reference holds one chip per
+device, the ``n_local == 1`` case, and one GPU runs ``world == 1`` with
+every chip on its rank.  Telemetry is not folded in on the shard forms,
+as in the reference: ``state.metrics`` passes through.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from repro_torch.core import fabric as fb
 from repro_torch.core import pulse_comm as pc
 from repro_torch.core import routing as rt
 from repro_torch.core import topology as tpo
+from repro_torch.core import transport as tp
 from repro_torch.kernels import common as kc
 from repro_torch.obs import metrics as obm
 from repro_torch.obs.trace import phase_scope
@@ -60,6 +69,12 @@ from repro_torch.snn import stdp as sd
 from repro_torch.snn import synapse as sy
 
 I32 = torch.int32
+
+__all__ = ["NetworkConfig", "NetworkParams", "NetworkState", "StepRecord",
+           "local_fabric", "shard_fabric", "init_params", "init_state",
+           "dense_route", "step", "run", "run_plastic", "shard_step",
+           "shard_superstep", "shard_pipeline_block", "shard_flush_pending",
+           "shard_slice"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,11 +194,13 @@ def _metrics_cfg(cfg: NetworkConfig) -> obm.MetricsConfig | None:
     return mcfg
 
 
-def _metrics_update(cfg: NetworkConfig, metrics: Any, stats: pc.CommStats,
-                    *, merge: Any = None, pending: Any = None) -> Any:
+def _metrics_update(cfg: NetworkConfig, fabric: fb.PulseFabric,
+                    metrics: Any, stats: pc.CommStats, *, merge: Any = None,
+                    pending: Any = None) -> Any:
     """Fold one fabric call's stats into the carry (nothing when
-    telemetry is off, or on the dense path, which has no fabric)."""
-    if metrics is None or cfg.comm_mode != "event":
+    telemetry is off, on the dense path, which has no fabric, or on the
+    shard forms, whose stats hold one rank's chips)."""
+    if metrics is None or cfg.comm_mode != "event" or fabric.sharded:
         return metrics
     with phase_scope("obs/metrics_update"):
         return obm.metrics_update(_metrics_cfg(cfg), metrics, stats,
@@ -304,7 +321,7 @@ def _block(cfg: NetworkConfig, fabric: fb.PulseFabric, params: NetworkParams,
         stats = res.stats
         carries = dict(flow=res.flow, merge=res.merge, sendq=res.sendq,
                        pending=res.pending, metrics=_metrics_update(
-                           cfg, state.metrics, stats, merge=res.merge,
+                           cfg, fabric, state.metrics, stats, merge=res.merge,
                            pending=res.pending if cfg.pipeline else None))
     state = NetworkState(neuron=nstate, ring=ring, t=state.t + b,
                          **carries)
@@ -378,7 +395,7 @@ def _run(cfg, params, state, ext_inputs, device, stdp_cfg=None,
         stats = stats[1:] + [res.stats]
         state = state._replace(
             ring=res.ring, merge=res.merge, pending=res.pending,
-            metrics=_metrics_update(cfg, state.metrics, res.stats,
+            metrics=_metrics_update(cfg, fabric, state.metrics, res.stats,
                                     merge=res.merge, pending=res.pending))
     rec = StepRecord(spikes=torch.cat(spikes), voltage=torch.cat(volts),
                      stats=pc.CommStats(*(torch.cat(x) for x in zip(*stats))))
@@ -413,11 +430,136 @@ def run_plastic(cfg: NetworkConfig, params: NetworkParams,
     return (params._replace(crossbar=sy.Crossbar(w=w)), state, rec, sstate)
 
 
-def shard_step(*args, **kwargs):
-    """The shard forms (one GPU per chip) come with the multi-GPU
-    transport."""
-    raise NotImplementedError("the shard forms are not ported yet (ROADMAP "
-                              "section 1, item 7)")
+def shard_fabric(cfg: NetworkConfig, axis: str | tuple[str, ...], *,
+                 mesh) -> fb.PulseFabric:
+    """The fabric of the shard forms over ``axis`` of ``mesh`` (None: a
+    ``("chip",)`` mesh over the world, on the card): routed through
+    ``cfg.topology`` when one is set, otherwise the dense
+    :class:`repro_torch.core.transport.DistributedTransport`; flow
+    control and the health mask passed through.  Its device is the
+    mesh's.  Raises ``RuntimeError`` without a process group."""
+    if mesh is None:
+        from repro_torch.launch import mesh as ms
+        mesh = ms.make_chip_mesh()
+    if cfg.topology is not None:
+        transport = cfg.topology.transport(axis, mesh=mesh)
+        device = transport.base.device
+    else:
+        transport = tp.DistributedTransport(mesh=mesh, axis=axis,
+                                            n_chips=cfg.comm.n_chips)
+        device = transport.device
+    return fb.PulseFabric(cfg.comm, transport=transport, flow=cfg.flow,
+                          healthy=cfg.healthy, dead_links=cfg.dead_links,
+                          device=device)
 
 
-shard_superstep = shard_pipeline_block = shard_flush_pending = shard_step
+def shard_slice(tree: Any, rank: int, n_local: int) -> Any:
+    """Cut a full params or state tree (every chip on the leading axis) to
+    rank ``rank``'s ``n_local`` chips: every tensor's leading axis, the
+    pipeline carry's block stats ``[B, n_chips, ...]`` on their chip
+    axis; the clock and other scalars, and the telemetry carry, stay
+    whole."""
+    rows = slice(rank * n_local, (rank + 1) * n_local)
+
+    def cut(x):
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            return x if x.dim() == 0 else x[rows]
+        if isinstance(x, pc.PipelineCarry):
+            return pc.PipelineCarry(
+                words=x.words[rows], link=cut(x.link),
+                inject=pc.InjectStats(*(v[:, rows].contiguous()
+                                        for v in x.inject)),
+                t0=x.t0[rows], valid=x.valid[rows])
+        if isinstance(x, NetworkState):
+            return x._replace(**{f: cut(getattr(x, f)) for f in x._fields
+                                 if f != "metrics"})
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(cut(v) for v in x))
+        if isinstance(x, tuple):
+            return tuple(cut(v) for v in x)
+        return x
+
+    return cut(tree)
+
+
+def _shard_block(cfg: NetworkConfig, axis, params: NetworkParams,
+                 state: NetworkState, ext_block, mesh):
+    """One block of the shard forms through :func:`_block`."""
+    if cfg.comm_mode != "event":
+        raise ValueError("the dense comm_mode needs every chip on one "
+                         "device (the local forms)")
+    fabric = shard_fabric(cfg, axis, mesh=mesh)
+    if params.crossbar.w.shape[0] != fabric.n_local:
+        raise ValueError(f"params hold {params.crossbar.w.shape[0]} chips, "
+                         f"this rank {fabric.n_local} (see shard_slice)")
+    _check_device(params, fabric.device)
+    ext = torch.as_tensor(ext_block, dtype=torch.float32,
+                          device=fabric.device)
+    state, spikes, volts, stats, _, _ = _block(cfg, fabric, params, state,
+                                               ext, params.crossbar.w)
+    return state, StepRecord(spikes=spikes, voltage=volts, stats=stats)
+
+
+def shard_step(cfg: NetworkConfig, axis: str | tuple[str, ...],
+               params: NetworkParams, state: NetworkState,
+               ext_input: torch.Tensor, *, mesh
+               ) -> tuple[NetworkState, StepRecord]:
+    """One step on this rank (``comm.superstep == 1``, serial schedule):
+    shard-local params and state (``n_local`` chips, see
+    :func:`shard_slice`), ``ext_input [n_local, n_inputs]``.  The same
+    block body as :func:`step`, the exchange a collective over ``axis``
+    of ``mesh``.  The record has no time axis."""
+    if _block_length(cfg) != 1:
+        raise ValueError(
+            f"comm.superstep={cfg.comm.superstep} batches the exchange "
+            "over B-step blocks: call shard_superstep(cfg, axis, params, "
+            "state, ext_block[B, n_local, n_inputs], mesh=) instead")
+    if cfg.pipeline:
+        raise ValueError("pipeline=True: drive the pipelined schedule "
+                         "with shard_pipeline_block and shard_flush_pending")
+    state, rec = _shard_block(cfg, axis, params, state,
+                              torch.as_tensor(ext_input)[None], mesh)
+    return state, StepRecord(spikes=rec.spikes[0], voltage=rec.voltage[0],
+                             stats=pc.CommStats(*(x[0] for x in rec.stats)))
+
+
+def shard_superstep(cfg: NetworkConfig, axis: str | tuple[str, ...],
+                    params: NetworkParams, state: NetworkState,
+                    ext_block: torch.Tensor, *, mesh
+                    ) -> tuple[NetworkState, StepRecord]:
+    """One B-step block on this rank: B substeps of neuron dynamics, then
+    one exchange for the block (one collective per B steps);
+    ``ext_block [B, n_local, n_inputs]``.  Records carry a leading [B]
+    axis.  With ``cfg.pipeline`` this is a pipelined stage, as
+    :func:`shard_pipeline_block`."""
+    return _shard_block(cfg, axis, params, state, ext_block, mesh)
+
+
+def shard_pipeline_block(cfg: NetworkConfig, axis: str | tuple[str, ...],
+                         params: NetworkParams, state: NetworkState,
+                         ext_block: torch.Tensor, *, mesh
+                         ) -> tuple[NetworkState, StepRecord]:
+    """One pipelined stage on this rank (needs ``cfg.pipeline``): issues
+    this block's exchange and drains the previous block from
+    ``state.pending`` (an empty carry when None).  The record's
+    ``stats`` describe the previous block; finish the stream with
+    :func:`shard_flush_pending` and realign as :func:`run` does."""
+    if not (cfg.pipeline and cfg.comm_mode == "event"):
+        raise ValueError("shard_pipeline_block needs cfg.pipeline=True "
+                         "(event comm_mode)")
+    return _shard_block(cfg, axis, params, state, ext_block, mesh)
+
+
+def shard_flush_pending(cfg: NetworkConfig, axis: str | tuple[str, ...],
+                        state: NetworkState, *, mesh
+                        ) -> tuple[NetworkState, pc.CommStats]:
+    """The pipelined epilogue on this rank: drain the in-flight carry.
+    Returns the state (empty carry) and the flushed block's stats
+    (leading [B] axis)."""
+    fabric = shard_fabric(cfg, axis, mesh=mesh)
+    res = fabric.flush_pending(state.ring, state.pending, state.flow,
+                               state.merge, state.sendq)
+    return state._replace(ring=res.ring, merge=res.merge,
+                          pending=res.pending), res.stats

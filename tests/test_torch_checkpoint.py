@@ -1,7 +1,8 @@
 """Port parity, checkpoints (``repro_torch.checkpoint``): the cases of
-tests/test_checkpoint.py on the port's store (but the reshard onto
-another mesh, which comes with the multi-GPU transport), and the two
-stores against each other on the CPU.
+tests/test_checkpoint.py on the port's store, and the two stores against
+each other on the CPU.  The reshard onto another mesh
+(``restore(..., shardings=)``, DTensors) and the save of DTensor leaves
+run in 3 gloo processes (tests/torch_dist.py).
 
 A checkpoint written by either store restores through the other: the
 same leaf keys (field names, sorted dict keys, sequence indices), the
@@ -34,6 +35,7 @@ from repro_torch.core import merge as mg  # noqa: E402
 from repro_torch.core import pulse_comm as pc  # noqa: E402
 from repro_torch.core import routing as rt  # noqa: E402
 from repro_torch.snn import network as net  # noqa: E402
+import torch_dist  # noqa: E402
 
 CPU = torch.device("cpu")
 
@@ -367,3 +369,56 @@ def test_pipeline_carry_layouts_differ_on_purpose(tmp_path):
     port = convert.state_from_jax(jstate, device="cpu")
     with pytest.raises(ValueError, match="pending/inject"):
         ckpt.restore(str(tmp_path), 0, port)
+
+
+# ---------------------------------------------------------------------------
+# Reshard on load and the save of DTensors, in 3 gloo processes
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def resharded(tmp_path_factory):
+    """A checkpoint written by the JAX store (``w [24, 4]``, ``b [8]``),
+    restored by 3 ranks onto a chip mesh with ``w`` sharded and ``b``
+    replicated, saved from the DTensors and restored again; beside it a
+    single process's save of the same tree."""
+    tmp = tmp_path_factory.mktemp("reshard")
+    w = np.arange(96, dtype=np.float32).reshape(24, 4)
+    b = np.arange(8, dtype=np.float32)
+    jckpt.save({"w": jnp.asarray(w), "b": jnp.asarray(b)},
+               str(tmp / "jax"), 4)
+    ckpt.save({"w": torch.as_tensor(w), "b": torch.as_tensor(b)},
+              str(tmp / "single"), 4)
+    out = torch_dist.spawn(torch_dist.checkpoint_worker, 3, tmp,
+                           str(tmp / "jax"), str(tmp / "dist"))
+    return tmp, w, b, out
+
+
+def test_elastic_reshard_on_load(resharded):
+    """A JAX-written checkpoint loads onto a 3-rank chip mesh through
+    ``restore(..., shardings=)``: DTensors with the values and the
+    placements asked for, each rank holding its own rows."""
+    _, w, b, out = resharded
+    for r, o in enumerate(out):
+        assert o["step"] == 4
+        gw, gb = o["got"]["w"], o["got"]["b"]
+        assert tuple(gw["local"].shape) == (8, 4)
+        np.testing.assert_array_equal(gw["local"].numpy(), w[8 * r:8 * r + 8])
+        np.testing.assert_array_equal(gw["full"].numpy(), w)
+        assert gw["placements"] == ["Shard(dim=0)"] and gw["mesh"] == (3,)
+        np.testing.assert_array_equal(gb["local"].numpy(), b)
+        assert gb["placements"] == ["Replicate()"]
+
+
+def test_dtensor_save_is_byte_equal_to_a_single_process_save(resharded):
+    """Every rank saves the DTensors; rank 0 writes the full tensors, and
+    the files equal a single process's save byte for byte; restoring
+    them gives the same shards."""
+    tmp, _, _, out = resharded
+    _same_files(ckpt.step_dir(str(tmp / "dist"), 4),
+                ckpt.step_dir(str(tmp / "single"), 4))
+    assert ckpt.latest_step(str(tmp / "dist")) == 4
+    for o in out:
+        for k in ("w", "b"):
+            for f in ("local", "full"):
+                assert torch.equal(o["again"][k][f], o["got"][k][f])
+            assert o["again"][k]["placements"] == o["got"][k]["placements"]

@@ -211,6 +211,75 @@ def test_fused_lif_inject_with_reach_matches_plain(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["simplified", "full"])
+@pytest.mark.parametrize("reach", ["reach", "none"])
+def test_fused_inject_on_a_rank_s_rows_matches_plain(cuda, mode, reach):
+    """The shard forms' call: 3 of 5 chips (rows 2 to 4, the reach rows
+    [2:5]), ``n_rows`` 3 against ``n_chips`` 5 destinations, bitwise
+    against the plain version and against rows 2 to 4 of the 5-row
+    call."""
+    events, table, t0 = _inject_block(np.random.default_rng(11), 8, 512,
+                                      "in_range", cuda)
+    full_reach = _reach(cuda) if reach == "reach" else None
+    kw = dict(n_chips=N_CHIPS, buckets_per_chip=2, capacity=8, mode=mode,
+              time_window=4)
+    rows = slice(2, N_CHIPS)
+    part = (ev.EventBuffer(*(x[:, rows].contiguous() for x in events)),
+            rt.RoutingTable(*(x[rows].contiguous() for x in table)),
+            t0[rows].contiguous())
+    part_reach = None if full_reach is None else full_reach[rows].contiguous()
+    got = fi.fused_inject(*part, reach=part_reach, **kw)
+    want = fused_inject_ref(*part, reach=part_reach, **kw)
+    whole = fi.fused_inject(events, table, t0, reach=full_reach, **kw)
+    assert got.traffic.shape == (8, 3, N_CHIPS)
+    for name, g, w, h in zip(got._fields, got, want, whole):
+        assert torch.equal(g, w), name
+        h = h[rows] if name == "slab" else h[:, rows]
+        assert torch.equal(g, h), name
+
+
+@pytest.mark.cuda
+def test_fused_lif_inject_on_a_rank_s_rows_matches_plain(cuda):
+    """``fused_lif_inject`` at ``n_rows`` 3 of 5 chips with the reach
+    rows, bitwise against the plain version and the 5-row call's rows."""
+    rng = np.random.default_rng(5)
+    n = 300
+    v, refrac, _, *params = _lif_args(rng, (N_CHIPS, n), cuda)
+    currents = _on(rng.normal(0.5, 0.8, (8, N_CHIPS, n)).astype(np.float32),
+                   cuda)
+    table = rt.RoutingTable(
+        _on(rng.integers(-1, N_CHIPS, (N_CHIPS, n, 1)).astype(np.int32),
+            cuda),
+        _on(rng.integers(0, n, (N_CHIPS, n, 1)).astype(np.int32), cuda),
+        _on(rng.integers(8, 20, (N_CHIPS, n, 1)).astype(np.int32), cuda),
+        _on(rng.random((N_CHIPS, n, 1)) < 0.9, cuda))
+    t0 = _on(np.array([0, 100, 250, 254, 7], np.int32), cuda)
+    kw = dict(event_capacity=200, n_chips=N_CHIPS, buckets_per_chip=2,
+              capacity=16, mode="full", time_window=4)
+    rows = slice(2, N_CHIPS)
+    cut = lambda x: x[rows].contiguous()  # noqa: E731
+    args = (cut(v), cut(refrac), currents[:, rows].contiguous(),
+            nr.LIFParams(*(cut(x) for x in params)),
+            rt.RoutingTable(*(cut(x) for x in table)), cut(t0))
+    reach = _reach(cuda)
+    got = fi.fused_lif_inject(*args, reach=cut(reach), **kw)
+    want = fused_lif_inject_ref(*args, reach=cut(reach), **kw)
+    whole = fi.fused_lif_inject(v, refrac, currents, nr.LIFParams(*params),
+                                table, t0, reach=reach, **kw)
+    for name in ("v", "refrac"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(getattr(got, name), getattr(whole, name)[rows])
+    for name in ("spikes", "voltage"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(getattr(got, name),
+                           getattr(whole, name)[:, rows]), name
+    for name, g, w, h in zip(got.inject._fields, got.inject, want.inject,
+                             whole.inject):
+        assert torch.equal(g, w), name
+        assert torch.equal(g, h[rows] if name == "slab" else h[:, rows]), name
+
+
+@pytest.mark.cuda
 def test_degraded_routed_network_on_the_card_matches_the_cpu(cuda):
     """A network on a degraded torus (a dead chip, a cut link) with the
     fused inject and its reach row: spikes, ring and every integer stat
@@ -1221,3 +1290,24 @@ def test_telemetry_on_equals_off_on_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(m.blocks) == int(fon.metrics.blocks) + 2
+
+
+@pytest.mark.cuda
+def test_shard_superstep_at_world_1_on_nccl_matches_the_local_run(
+        cuda, tmp_path):
+    """The shard form at world 1 on NCCL (every chip on the one rank, the
+    exchange one ``all_to_all_single``), in a spawned process: spikes,
+    voltages, every integer stat, ring and merge queue equal the local
+    run on the card, and the path's kernels launch.  Last in the file:
+    after the spawn, torch.profiler in this process recorded no device
+    activity on the card's machine, and the tests above read it."""
+    import torch_dist
+
+    if not torch.distributed.is_nccl_available():
+        pytest.fail("this PyTorch has no NCCL")
+    (out,) = torch_dist.spawn(torch_dist.card_shard_worker, 1, tmp_path,
+                              backend="nccl")
+    assert all(out["equal"].values()), out["equal"]
+    assert out["sent"] > 0
+    for k in ("fused_inject", "fused_drain", "lif_step"):
+        assert out["launches"][k] > 0, out["launches"]

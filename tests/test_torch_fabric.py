@@ -142,10 +142,14 @@ def test_fabric_guards():
 @pytest.mark.parametrize("kw", [dict(transport="shard_map"),
                                 dict(transport=("pod", "chip")),
                                 dict(transport="shard_map", healthy=[0, 1])])
-def test_unported_fabric_features_raise(kw):
-    """The multi-GPU transports (ROADMAP section 1, item 7); topologies
-    and health masks are held in tests/test_torch_topology.py and
-    tests/test_torch_degraded.py."""
+def test_shard_transports_need_a_process_group(kw):
+    """The shard transports (held in tests/test_torch_transport.py and
+    tests/test_torch_shard.py, in gloo processes) raise without a
+    process group rather than run the local exchange; an unknown spec is
+    refused."""
+    assert not torch.distributed.is_initialized()
     cfg = pc.PulseCommConfig(n_chips=4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         fb.PulseFabric(cfg, device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown transport"):
+        fb.PulseFabric(cfg, "shard", device="cpu")

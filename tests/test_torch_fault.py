@@ -6,8 +6,10 @@ The reference trains a reduced language model, whose training is a later
 slice of the port (ROADMAP section 1, item 9); here the step is one
 ``run_plastic`` step of a 2-chip network, whose crossbar learns under
 STDP, with inputs a pure function of the step.  The reshard onto a
-smaller mesh comes with the multi-GPU transport (item 7); the data
-stream and the prefetcher come with training (item 9).
+smaller mesh (``resume_or(..., shardings=)``) restores a JAX-written
+checkpoint onto a 3-rank chip mesh in gloo processes
+(tests/torch_dist.py).  The data stream and the prefetcher come with
+training (item 9).
 """
 
 import time
@@ -112,3 +114,31 @@ def test_straggler_detection():
     time.sleep(0.2)
     timer.stop(99)
     assert any(s[0] == 99 for s in timer.stragglers)
+
+
+def test_resume_or_reshards_onto_smaller_mesh(tmp_path):
+    """Elastic restart: a checkpoint written by the JAX store (from an
+    8-chip mesh in the reference's drill) restores onto a 3-rank chip
+    mesh through ``resume_or(..., shardings=)``: same values, ``w``
+    sharded 8 rows a rank, ``b`` replicated, and the run resumes after
+    the checkpoint's step."""
+    jax = pytest.importorskip("jax")
+    from repro import checkpoint as jckpt
+
+    import torch_dist
+
+    w = np.arange(96, dtype=np.float32).reshape(24, 4)
+    b = np.arange(8, dtype=np.float32)
+    jckpt.save({"w": jax.numpy.asarray(w), "b": jax.numpy.asarray(b)},
+               str(tmp_path / "ckpt"), 4)
+    out = torch_dist.spawn(torch_dist.resume_worker, 3, tmp_path,
+                           str(tmp_path / "ckpt"))
+    for r, o in enumerate(out):
+        assert o["start"] == 5
+        gw, gb = o["got"]["w"], o["got"]["b"]
+        np.testing.assert_array_equal(gw["full"].numpy(), w)
+        np.testing.assert_array_equal(gb["full"].numpy(), b)
+        assert tuple(gw["local"].shape) == (8, 4)
+        np.testing.assert_array_equal(gw["local"].numpy(), w[8 * r:8 * r + 8])
+        assert gw["mesh"] == gb["mesh"] == (3,)
+        assert gb["placements"] == ["Replicate()"]

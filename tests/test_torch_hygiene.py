@@ -5,7 +5,8 @@ silence.
   ``jax`` or the JAX package ``repro`` (the card's machine has no JAX).
 * ``chip_smoke.py`` without a card exits non-zero and prints no result.
 * Entry points default to ``device="cuda"`` and raise without a card.
-* Features of later slices raise ``NotImplementedError``.
+* Features of later slices raise ``NotImplementedError``; the shard
+  forms raise without a process group.
 * Each ctypes signature matches its C launcher.
 """
 
@@ -61,6 +62,41 @@ def test_import_check_covers_the_topology_module():
     assert _imported_modules(path) == {"__future__", "dataclasses",
                                        "functools", "typing", "numpy",
                                        "torch", "repro_torch.core"}
+
+
+SHARD_MODULES = [ROOT / "src" / "repro_torch" / "launch" / "mesh.py",
+                 ROOT / "src" / "repro_torch" / "core" / "transport.py"]
+
+
+def test_import_check_covers_the_shard_modules():
+    """``launch/mesh.py`` and ``core/transport.py`` (the multi-GPU
+    transport) are among the files checked above and import only torch
+    and the standard library; ``network.py`` exports the shard forms."""
+    for path in SHARD_MODULES:
+        assert path in PORT_FILES
+        assert {m.split(".")[0] for m in _imported_modules(path)} <= {
+            "__future__", "dataclasses", "math", "typing", "torch"}, path
+    assert {"shard_fabric", "shard_step", "shard_superstep",
+            "shard_pipeline_block", "shard_flush_pending",
+            "shard_slice"} <= set(net.__all__)
+
+
+def test_mesh_module_touches_no_device_state_at_import():
+    """``launch/mesh.py`` holds functions only: importing it builds no
+    mesh and touches no device or process group (the reference's rule
+    for its dry-run)."""
+    tree = ast.parse((SHARD_MODULES[0]).read_text())
+    for node in tree.body:
+        assert isinstance(node, (ast.Import, ast.ImportFrom,
+                                 ast.FunctionDef)) or (
+            isinstance(node, ast.Expr)
+            and isinstance(node.value, ast.Constant)), ast.dump(node)[:80]
+    from repro_torch.launch import mesh as ms
+    assert not torch.distributed.is_initialized()
+    for build in (ms.make_chip_mesh, ms.make_host_mesh,
+                  ms.make_production_mesh):
+        with pytest.raises(RuntimeError, match="init_process_group"):
+            build()
 
 
 TELEMETRY_AND_RECOVERY = (
@@ -211,9 +247,25 @@ def test_pipeline_and_flow_configs_build(kw):
 @pytest.mark.parametrize("name", ["shard_step",
                                   "shard_superstep", "shard_pipeline_block",
                                   "shard_flush_pending"])
-def test_unported_entry_points_raise(name):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        getattr(net, name)()
+def test_shard_forms_need_a_process_group(name):
+    """The shard forms (held against JAX in tests/test_torch_shard.py, in
+    gloo processes) exchange through torch.distributed: with no process
+    group they raise, and never fall back to the local exchange."""
+    assert not torch.distributed.is_initialized()
+    b = 1 if name == "shard_step" else 2
+    cfg = net.NetworkConfig(
+        comm=pc.PulseCommConfig(n_chips=2, neurons_per_chip=8,
+                                n_inputs_per_chip=8, superstep=b),
+        pipeline=name in ("shard_pipeline_block", "shard_flush_pending"))
+    params = net.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    state = net.init_state(cfg, params, device="cpu")
+    ext = torch.zeros((b, 2, 8)) if b > 1 else torch.zeros((2, 8))
+    args = ((cfg, "chip", state) if name == "shard_flush_pending"
+            else (cfg, "chip", params, state, ext))
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        getattr(net, name)(*args, mesh=None)
+    assert name in net.__all__
 
 
 def test_kernel_build_is_keyed_by_the_sources():

@@ -35,6 +35,7 @@ from repro_torch.core import flowcontrol as fc  # noqa: E402
 from repro_torch.core import events as ev  # noqa: E402
 from repro_torch.core import pulse_comm as pc  # noqa: E402
 from repro_torch.core import resilience as rsl  # noqa: E402
+from repro_torch.core import transport as tp  # noqa: E402
 from repro_torch.runtime import (ChipFailure, RecoveryEvent,  # noqa: E402
                                  ResilientRunner)
 from repro_torch.snn import network as net  # noqa: E402
@@ -70,9 +71,16 @@ def test_heartbeat_observe_declares_silent_chip_dead():
     assert not bool(st2.alive[1])          # sticky-false
 
 
-def test_heartbeat_psum_needs_the_multi_gpu_transport():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        rsl.heartbeat(None, torch.ones(()))
+def test_heartbeat_needs_a_process_group():
+    """The psum heartbeat of the shard forms (held in tests/
+    test_torch_shard.py, in gloo processes) raises without a process
+    group; the local transport's equals ``beats_local``."""
+    assert not torch.distributed.is_initialized()
+    bits = torch.tensor([1, 0, 1, 1])
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        rsl.heartbeat(None, bits)
+    assert torch.equal(rsl.heartbeat(tp.LocalTransport(4), bits),
+                       rsl.beats_local(bits))
 
 
 def test_credit_watch_suspects_stalled_outstanding_chip():
