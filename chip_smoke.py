@@ -23,7 +23,13 @@ Phases, each fatal on failure:
              events), bytes, the bound at 3.35 TB/s or 67 T op/s (bf16
              flash at 989 T op/s, float32 flash in 3xTF32 at 165) and, for
              the sorts, stable ``torch.sort`` plus the gather, for flash
-             attention ``scaled_dot_product_attention``.  ``bucket_pack``
+             attention ``scaled_dot_product_attention``; the training
+             path's attention kernels (``flash_train_cases``): the forward
+             with lse and ``flash_attention_bwd`` (its two kernels, dQ and
+             dK/dV, timed together and apart) at internlm2's and zamba2's
+             training heads, in f32 and after cached keys, elementwise
+             within ``attention_bwd_bounds``, beside SDPA's backward.
+             ``bucket_pack``
              (the wafer's flush), ``lif_step`` and every case of
              ``fused_inject`` and ``fused_lif_inject`` print their launch
              plan (grid, threads, shared bytes, ptxas's registers), must
@@ -160,6 +166,22 @@ Phases, each fatal on failure:
              (internlm2); then, from the same weights, prefill + one decode
              step against a full forward at the next position, in float32
              and in bf16 (``consistency``); tok/s and peak memory;
+     bf16-check  internlm2-1.8b at full width, 2 layers, bf16: a forward's
+             logits on the card against the plain path on the CPU, within
+             2^-4 of the largest |logit|;
+     train-check  internlm2-1.8b at full width, 2 layers, float32: loss
+             and every gradient of ``lm.loss_fn`` on the card (remat off
+             and full) against the CPU, the loss within 1e-5 relative and
+             each gradient within 1e-3 of its leaf's largest |g|; a
+             backward through ``ssm_apply`` on the card must raise;
+     train   the training path: internlm2-1.8b at full width and depth,
+             bf16, batch 4 x 512, 4 AdamW steps through
+             ``launch.train.make_step``, the ``Prefetcher`` and one
+             ``AsyncCheckpointer`` save of the whole state into a
+             temporary directory: loss, grad norm, ms and tok/s per step,
+             24 flash_attention and 24 flash_attention_bwd launches per
+             step, peak memory, the checkpoint's bytes and seconds, and a
+             profile of one more step;
  10. profile where a block's time goes on each path (torch.profiler):
              wall and device-busy time per step, the idle share, kernel
              launches per step, the costliest kernels and the device time
@@ -168,7 +190,7 @@ Phases, each fatal on failure:
              ``obs/metrics_update``, ...); feedforward again with
              telemetry on; 8 steps of the resilient path on its 44
              survivors; the shard phase's two rows; for the serve paths
-             per prefill and per decode step;
+             per prefill and per decode step, for training per step;
  11. summary the ``kernels`` JSON line, the card's name and power limit,
              and last the ``{"ok": true, ...}`` line.
 
@@ -211,7 +233,13 @@ REPLACES = {
     "merge_sort": "src/repro/kernels/merge_sort/kernel.py:132",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:104",
     "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:61",
+    # No TPU kernel: the reference's flash backward is XLA code
+    # (_chunked_attention_bwd, under the custom_vjp _flash_vjp).
+    "flash_attention_bwd": "src/repro/models/attention.py:180",
 }
+# The two kernels one flash_attention_bwd call launches.
+FLASH_BWD_KERNELS = ("flash_attention_bwd_dq_kernel",
+                     "flash_attention_bwd_dkdv_kernel")
 PLAIN_CHECK_STEPS = 16
 # Paths driven by one run call (deposits counted from the ring's pops),
 # each also held against its first steps on the CPU.
@@ -319,18 +347,20 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+def graph_ms(fn, iters: int = 20, reps: int = 5, stream=None) -> float:
     """Per-call time with CUDA events over replays of one CUDA graph that
     holds ``iters`` back-to-back calls: the calls run without the host's
-    launch gaps, so a short kernel is timed, not its Python wrapper."""
-    side = torch.cuda.Stream()
+    launch gaps, so a short kernel is timed, not its Python wrapper.
+    ``stream``: the stream to warm up and capture on (default a new
+    one)."""
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -355,6 +385,21 @@ def library_ms(fn) -> float:
         print(f"[kernel] library call not capturable ({err}); timed eagerly")
         torch.cuda.synchronize()
         return event_ms(fn, 20)
+
+
+def backward_graph_ms(forward, inputs, grad_out) -> float:
+    """The time of the backward of ``forward(*inputs)`` alone, as
+    :func:`graph_ms` takes a call: ``torch.autograd.grad`` on one
+    retained graph.  The forward runs on the capture stream, so that
+    autograd puts its backward there."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ins = [x.detach().clone().requires_grad_(True) for x in inputs]
+        out = forward(*ins)
+    return graph_ms(lambda: torch.autograd.grad(out, ins, grad_out,
+                                                retain_graph=True),
+                    stream=side)
 
 
 def device_ms(fn, names, iters: int) -> float | None:
@@ -998,17 +1043,27 @@ def kernel_phase(cases: list[dict]) -> dict:
             else:
                 compare_close(f"{label} library", got, library(), *lib_tol)
         del got
+        dms = device_ms(case["run"], case.get(
+            "device_names", (f"{case['kernel']}_kernel",)), 20)
+        if dms is not None:   # the mean per kernel, times kernels per call
+            dms *= len(case.get("split_names", (None,)))
         row = dict(name=case["kernel"], mode=case["mode"], max_abs_err=err,
-                   ms=graph_ms(case["run"]),
-                   device_ms=device_ms(case["run"], case.get(
-                       "device_names", (f"{case['kernel']}_kernel",)), 20),
+                   ms=graph_ms(case["run"]), device_ms=dms,
                    plain_ms=event_ms(case["plain"], case.get("plain_iters",
                                                              5)),
                    bytes=moved, ops=case["ops"],
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    library_ms=(None if library is None
+                               else case["library_time"]()
+                               if case.get("library_time")
                                else library_ms(library)))
+        for name in case.get("split_names", ()):
+            split = device_ms(case["run"], (name,), 20)
+            row.setdefault("split_ms", {})[name] = split
+            print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
+                  f"{name}: device_ms="
+                  f"{'not measured' if split is None else f'{split:.5f}'}")
         dms, lms = row["device_ms"], row["library_ms"]
         check = ("bitwise ok" if tol is None else
                  f"within rtol {tol[0]:g} atol {tol[1]:g} (max abs "
@@ -1147,6 +1202,8 @@ def lm_kernel_cases(device, seed: int) -> list[dict]:
             ops=4 * d * b * hq * causal_pairs(sq, skv, q_offset),
             ops_per_s=BF16_TC_OPS_PER_S if bf16 else TF32X3_OPS_PER_S))
 
+    cases += flash_train_cases(device, gen)
+
     b, t, di, n, head = 4, 2048, 5120, 64, 80
     softplus = torch.nn.functional.softplus
     x = randn(b, t, di)
@@ -1173,6 +1230,121 @@ def lm_kernel_cases(device, seed: int) -> list[dict]:
             plain=lambda a=args: ssm_scan_ref(*a), tol=(1e-4, 1e-4),
             inputs=args, plain_iters=2, ops=ops,
             design="exp_per_channel_step" if main else "exp_per_state"))
+    return cases
+
+
+def flash_train_cases(device, gen) -> list[dict]:
+    """The training path's attention kernels at its shapes: the forward
+    with lse at internlm2's training heads (bf16 [4, 16, 512, 128]), and
+    ``flash_attention_bwd`` there (the main case), at zamba2's head size
+    (bf16 [4, 32, 512, 80]), in float32 (the train-check's [2, 16, 64,
+    128] and [1, 16, 512, 128]) and after 71 cached keys (GQA 4).
+
+    The forward's (out, lse) is held to the bf16 output bound of
+    :func:`lm_kernel_cases` and its lse within 1e-4 + 1e-5 |lse| of the
+    plain version in f32 (scores summed in another order; MUFU exp2 and
+    the rescale from the log2 domain).  The backward is fed the plain
+    forward's out and lse and held elementwise within
+    ``attention_bwd_bounds`` (bf16: a flip of the output's rounding,
+    2^-7 |y|, plus 2^-6 of the root of each element's sum of squared
+    terms for flips of p's and ds's roundings, plus 2^-15 of a sum that
+    bounds dp - delta; f32: 2^-16 of that sum); each case prints its
+    largest err / bound.  Bound: 5 products of 2 D flops per unmasked
+    pair and query head, at 989 TFLOP/s (bf16) or 67 (f32); the library
+    time is SDPA's backward alone (``torch.autograd.grad`` on a retained
+    graph, in a CUDA graph as the kernel's), held within 5% of the
+    largest |gradient| of the kernel's."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_bounds, attention_bwd_ref, attention_with_lse_ref)
+
+    randn = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                       device=device)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = []
+    q, k, v = (randn(4, h, 512, 128).to(torch.bfloat16) for h in (16, 8, 8))
+    want_lse = attention_with_lse_ref(q.float(), k.float(), v.float())[1]
+
+    def lse_check(got, want=want_lse):
+        compare_close("flash_attention lse", got[1], want, 1e-5, 1e-4)
+
+    cases.append(dict(
+        kernel="flash_attention", mode=f"internlm2 train bf16 with lse "
+        f"{tuple(q.shape)}", main=False,
+        run=lambda a=(q, k, v): fa_ops.flash_attention_fwd(*a, with_lse=True),
+        plain=lambda a=(q, k, v): attention_with_lse_ref(*a),
+        want=lambda a=(q, k, v): attention_with_lse_ref(
+            *(x.float() for x in a)),
+        tol=(2**-8, 2**-8 * float(v.float().abs().max())), check=lse_check,
+        design=fa_ops.design(q.dtype),
+        device_names=tuple(FLASH_INSTANCES.values()), inputs=(q, k, v),
+        ops=4 * 128 * 4 * 16 * causal_pairs(512, 512, 0),
+        ops_per_s=BF16_TC_OPS_PER_S))
+
+    for label, b, hq, hkv, sq, skv, d, dtype, q_offset, main in (
+            ("internlm2 train bf16", 4, 16, 8, 512, 512, 128,
+             torch.bfloat16, 0, True),
+            ("zamba2 heads bf16", 4, 32, 32, 512, 512, 80, torch.bfloat16,
+             0, False),
+            ("train-check f32", 2, 16, 8, 64, 64, 128, torch.float32, 0,
+             False),
+            ("internlm2 f32, batch 1", 1, 16, 8, 512, 512, 128,
+             torch.float32, 0, False),
+            ("q_offset 71, GQA 4 bf16", 1, 32, 8, 129, 200, 80,
+             torch.bfloat16, 71, False)):
+        q = randn(b, hq, sq, d).to(dtype)
+        k, v = randn(b, hkv, skv, d).to(dtype), randn(b, hkv, skv, d).to(dtype)
+        dout = randn(b, hq, sq, d).to(dtype)
+        kw = dict(causal=True, q_offset=q_offset)
+        out, lse = attention_with_lse_ref(q, k, v, **kw)
+        args = (q, k, v, out, lse, dout)
+        bounds = attention_bwd_bounds(*args, **kw)
+        bf16 = dtype == torch.bfloat16
+
+        def check(got, a=args, k_=kw, bd=bounds, lbl=label):
+            ratios = []
+            for name, g, w, bound in zip(("dq", "dk", "dv"), got,
+                                         attention_bwd_ref(*a, **k_), bd):
+                err = (g.float() - w.float()).abs()
+                bad = err > bound
+                if bool(bad.any()):
+                    raise AssertionError(
+                        f"flash_attention_bwd [{lbl}] {name}: "
+                        f"{int(bad.sum())} elements beyond "
+                        f"attention_bwd_bounds")
+                ratios.append(
+                    f"{name} {float((err / bound).max()):.3g} (max err "
+                    f"{float(err.max() / w.float().abs().max()):.3g}, "
+                    f"bound {float(bound.max() / w.float().abs().max()):.3g}"
+                    f" of max |{name}|)")
+            print(f"[kernel] flash_attention_bwd [{lbl}] max err / bound: "
+                  + "; ".join(ratios))
+
+        library = library_time = None
+        if q_offset == 0:
+            lq, lk, lv = (x.detach().clone().requires_grad_(True)
+                          for x in (q, k, v))
+            lo = sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
+            library = (lambda o=lo, ins=(lq, lk, lv), g=dout:
+                       torch.autograd.grad(o, ins, g, retain_graph=True))
+            library_time = (lambda ins=(q, k, v), g=dout: backward_graph_ms(
+                lambda a, b, c: sdpa(a, b, c, is_causal=True,
+                                     enable_gqa=True), ins, g))
+        cases.append(dict(
+            kernel="flash_attention_bwd", mode=f"{label} {tuple(q.shape)}",
+            main=main,
+            run=lambda a=args, k_=kw: fa_ops.flash_attention_bwd(*a, **k_),
+            plain=lambda a=args, k_=kw: attention_bwd_ref(*a, **k_),
+            tol=(0.0, max(float(x.max()) for x in bounds)), check=check,
+            library=library, library_time=library_time,
+            library_tol=(0.0, 0.05 * max(
+                float(x.float().abs().max())
+                for x in attention_bwd_ref(*args, **kw))),
+            design="f32 FMA, tiles in shared memory",
+            device_names=FLASH_BWD_KERNELS, split_names=FLASH_BWD_KERNELS,
+            inputs=args, ops=10 * d * b * hq * causal_pairs(sq, skv,
+                                                            q_offset),
+            ops_per_s=BF16_TC_OPS_PER_S if bf16 else SIMT_OPS_PER_S))
     return cases
 
 
@@ -2589,6 +2761,239 @@ def serve_profile(label: str, cfg, params, tokens, steps: int = 4) -> dict:
     return out
 
 
+TRAIN_ARGS = dict(arch="internlm2-1.8b", batch=4, seq=512, steps=4)
+
+
+def train_phase(device, seed: int) -> tuple[dict, dict, dict]:
+    """The training path: internlm2-1.8b at full width and depth (24
+    layers, d_model 2048, bf16), batch 4 x 512, ``TRAIN_ARGS['steps']``
+    AdamW steps through ``launch.train.make_step`` (remat off, as the
+    CLI), the data stream through the ``Prefetcher`` and one checkpoint
+    of the whole state through ``AsyncCheckpointer`` into a temporary
+    directory; then one more step under the profiler.  Every step's loss
+    must be finite and its grad norm finite and nonzero; the counts are
+    zeroed just before the steps and read just after.  Returns (launches,
+    metrics, profile)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import configs as C
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline as dp
+    from repro_torch.kernels import common as kc
+    from repro_torch.launch import train
+
+    a = TRAIN_ARGS
+    cfg = C.get(a["arch"])
+    shape = ShapeConfig("train", a["seq"], a["batch"], "train")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    state = train.build_train_state(
+        torch.Generator(device=device).manual_seed(seed), cfg, device=device)
+    step_fn = train.make_step(cfg, peak_lr=3e-4, total_steps=a["steps"],
+                              remat=False)
+    tokens = a["batch"] * a["seq"]
+    tmp = tempfile.mkdtemp(prefix="repro_train_")
+    rows = []
+    try:
+        writer = ckpt.AsyncCheckpointer(tmp)
+        it = dp.Prefetcher(dp.stream(cfg, shape, seed), device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kc.reset_launches()
+        for step, batch in it:
+            if step >= a["steps"]:
+                break
+            before = dict(kc.launches)
+            t_start = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+            per = {k: kc.launches[k] - before[k] for k in kc.launches}
+            rows.append(dict(step=step, loss=loss, grad_norm=gnorm,
+                             wall_s=wall, tok_s=tokens / wall))
+            print(f"[train] step {step}: loss {loss:.4f}, grad_norm "
+                  f"{gnorm:.4f}, {wall * 1e3:.1f} ms, {tokens / wall:.1f} "
+                  f"tok/s; launches flash_attention "
+                  f"{per['flash_attention']}, flash_attention_bwd "
+                  f"{per['flash_attention_bwd']}")
+            if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0):
+                raise AssertionError(f"train step {step}: loss {loss}, "
+                                     f"grad_norm {gnorm}")
+        counts = dict(kc.launches)
+        peak = torch.cuda.max_memory_allocated()
+        t_start = time.perf_counter()
+        writer.save(state, a["steps"] - 1)
+        snap = time.perf_counter() - t_start
+        writer.close()
+        save = time.perf_counter() - t_start
+        if ckpt.latest_step(tmp) != a["steps"] - 1:
+            raise AssertionError("train: the checkpoint was not committed")
+        ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                         if f.is_file())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steady = rows[1:] or rows
+    metrics = dict(
+        steps=rows, peak_bytes=peak, ckpt_bytes=ckpt_bytes,
+        ckpt_snapshot_s=snap, ckpt_save_s=save,
+        tok_s=tokens * len(steady) / sum(r["wall_s"] for r in steady),
+        launches_per_step={k: v / a["steps"] for k, v in counts.items()
+                           if v})
+    print(f"[train] {a['arch']}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, bf16, batch {a['batch']} x {a['seq']}, "
+          f"{a['steps']} AdamW steps: {metrics['tok_s']:.1f} tok/s after "
+          f"the first step, peak memory {peak} B ({peak / 2**30:.2f} GiB); "
+          f"launches per step {metrics['launches_per_step']}; checkpoint "
+          f"{ckpt_bytes} B, snapshot {snap:.2f} s, written {save:.2f} s")
+    if not (counts["flash_attention"] == counts["flash_attention_bwd"]
+            == cfg.n_layers * a["steps"]):
+        raise AssertionError(f"train: launches {counts}, expected "
+                             f"{cfg.n_layers} forward and backward flash "
+                             f"launches per step")
+    batch = dp.to_device(dp.batch_at(cfg, shape, seed, a["steps"]), device)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
+        t_start = time.perf_counter()
+        state, metrics_p = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+    profile = {"train internlm2-1.8b": profile_row(prof, wall, 1)}
+    print_profile("train internlm2-1.8b", profile["train internlm2-1.8b"],
+                  "step")
+    del state, batch
+    torch.cuda.empty_cache()
+    return counts, metrics, profile
+
+
+def train_check(device, seed: int, layers: int = 2, batch: int = 2,
+                seq: int = 64) -> dict:
+    """internlm2-1.8b at full width, ``layers`` layers, float32 (TF32
+    off): loss and every gradient of ``lm.loss_fn`` on the card (the flash
+    forward and backward kernels, remat off and full) against the plain
+    path on the CPU from the same weights and batch.  Bound: the loss
+    within 1e-5 relative and each gradient within 1e-3 of its leaf's
+    largest |g| (f32 sums of up to 8192 terms in another order, 3xTF32
+    in the forward, within 2e-5 of its output, through two layers and the
+    head; the CPU tests hold the plain path to JAX within 1e-5 on the
+    reduced config).  Gradients, not parameters after a step: AdamW's
+    first step is about lr sign(g), which amplifies noise where g ~ 0.
+    Then a backward through ``ssm_apply`` on the card must raise."""
+    from repro_torch import configs as C
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline as dp
+    from repro_torch.kernels import common as kc
+    from repro_torch.models import lm, ssm
+    from repro_torch.models import spec as sp
+
+    cfg = dataclasses.replace(C.get("internlm2-1.8b"), n_layers=layers,
+                              dtype="float32", remat_policy="full")
+    params = lm.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    host = dp.batch_at(cfg, ShapeConfig("t", seq, batch, "train"), seed, 0)
+    out = {}
+    for label, dev, remat in (("card", device, False),
+                              ("card, remat full", device, True),
+                              ("cpu", torch.device("cpu"), False)):
+        p = sp.tree_map(lambda x: x.to(dev).requires_grad_(True), params)
+        kc.reset_launches()
+        t_start = time.perf_counter()
+        loss, _ = lm.loss_fn(cfg, p, dp.to_device(host, dev), remat=remat)
+        grads = torch.autograd.grad(loss, sp.tree_leaves(p))
+        grads = [g.cpu() for g in grads]
+        out[label] = (float(loss.detach()), grads, dict(kc.launches),
+                      time.perf_counter() - t_start)
+        del p
+    names = ["/".join(k) for k in _tree_paths(params)]
+    l_cpu, g_cpu, _, t_cpu = out["cpu"]
+    rows = {}
+    for label in ("card", "card, remat full"):
+        l_gpu, g_gpu, counts, t_gpu = out[label]
+        rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(g_gpu, g_cpu)]
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        dl = abs(l_gpu - l_cpu) / abs(l_cpu)
+        print(f"[train-check] internlm2-1.8b full width, {layers} layers, "
+              f"f32, batch {batch} x {seq}, {label}: loss {l_gpu:.6f} vs CPU "
+              f"{l_cpu:.6f} (rel {dl:.3g}); max |dg| / max |g| per leaf: "
+              f"worst {rel[worst]:.3g} ({names[worst]}), median "
+              f"{float(np.median(rel)):.3g}; card {t_gpu:.2f} s, CPU "
+              f"{t_cpu:.2f} s; launches flash_attention "
+              f"{counts['flash_attention']}, flash_attention_bwd "
+              f"{counts['flash_attention_bwd']}")
+        fwd = layers * (2 if "full" in label else 1)
+        if (counts["flash_attention"], counts["flash_attention_bwd"]) != (
+                fwd, layers):
+            raise AssertionError(f"train-check [{label}]: launches {counts}")
+        if dl > 1e-5 or rel[worst] > 1e-3:
+            raise AssertionError(f"train-check [{label}]: beyond the bound")
+        rows[label] = dict(loss_rel_err=dl, worst_grad_rel_err=rel[worst],
+                           worst_leaf=names[worst])
+    counts = out["card"][2]
+    zcfg = C.get("zamba2-2.7b").reduced()
+    zp = sp.tree_map(lambda w: w.to(device).requires_grad_(True),
+                     sp.init_tree(torch.Generator().manual_seed(seed),
+                                  ssm.ssm_spec(zcfg), torch.float32, "cpu"))
+    try:
+        ssm.ssm_apply(zcfg, zp, torch.randn((1, 8, zcfg.d_model),
+                                            device=device))
+    except NotImplementedError as err:
+        print(f"[train-check] ssm_apply with grad on the card raises: {err}")
+    else:
+        raise AssertionError("ssm_apply ran a backward-recording pass on "
+                             "the card")
+    return dict(rows=rows, launches=counts)
+
+
+def _tree_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _tree_paths(tree[k],
+                                                             prefix + (k,))]
+    return [prefix]
+
+
+def bf16_check(device, seed: int, layers: int = 2, prompt: int = 128) -> dict:
+    """internlm2-1.8b at full width, ``layers`` layers, bf16, batch 1:
+    the logits of a full forward over ``prompt`` tokens on the card (the
+    wgmma flash kernel, cuBLAS bf16) against the plain path on the CPU
+    from the same bf16 weights, within 2^-4 of the largest |logit|.  Each
+    bf16 rounding (some 14 per layer and 2 at the head) may land one ulp
+    apart on the two, at most 2^-7 of the element; such flips add up like
+    a random walk, sqrt(30) 2^-7 = 0.043 for two layers, and the kernel's
+    rounding of P adds 2^-8 of |v| per attention layer (its tolerance)."""
+    from repro_torch import configs as C
+    from repro_torch.models import lm
+    from repro_torch.models import spec as sp
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(C.get("internlm2-1.8b"), n_layers=layers)
+    params = lm.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, prompt)).astype(np.int32))
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        p = sp.tree_map(lambda x: x.to(dev), params)
+        t_start = time.perf_counter()
+        with torch.no_grad():
+            lg = tfm.forward(cfg, p, tokens.to(dev)).logits
+        out[dev.type] = (lg.float().cpu(), time.perf_counter() - t_start)
+        del p
+    (gpu, t_gpu), (cpu, t_cpu) = out["cuda"], out["cpu"]
+    scale = float(cpu.abs().max())
+    err = float((gpu - cpu).abs().max())
+    agree = float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())
+    print(f"[bf16-check] internlm2-1.8b full width, {layers} layers, bf16, "
+          f"prompt {prompt}: max |dlogit| {err:.4g} vs max |logit| "
+          f"{scale:.4g} (rel {err / scale:.3g}, bound 2^-4); argmax equal "
+          f"at {agree:.3f} of positions; card {t_gpu:.2f} s, CPU "
+          f"{t_cpu:.2f} s")
+    if not bool(torch.isfinite(gpu).all()) or err > 2**-4 * scale:
+        raise AssertionError("bf16-check: the card's bf16 logits differ "
+                             "from the CPU's beyond 2^-4 of max |logit|")
+    return dict(rel_err=err / scale, argmax_equal=agree)
+
+
 def _demo_on_cpu(demo):
     """The demo's spike times from the plain versions on the CPU."""
     import io
@@ -2660,9 +3065,15 @@ def main() -> int:
     serve_counts, serve_metrics, serve_profiles = serve_phase(device,
                                                               args.seed)
     counts.update(serve_counts)
+    bf16 = bf16_check(device, args.seed)
+    tcheck = train_check(device, args.seed)
+    counts["train-check"] = tcheck["launches"]
+    counts["train"], train_metrics, train_profile = train_phase(device,
+                                                                args.seed)
     profile = profile_phase(paths, device)
     profile.update(shard_rows)
     profile.update(serve_profiles)
+    profile.update(train_profile)
 
     kernels = []
     for name, src in kc.KERNELS.items():
@@ -2692,9 +3103,12 @@ def main() -> int:
                      if "steps_per_s" in c},
         serve=serve_metrics,
         serve_check={k: v for k, v in check.items() if k != "launches"},
+        bf16_check=bf16, train_check=tcheck["rows"], train=train_metrics,
         checkpoint=counts["resilient"]["checkpoint"], telemetry=telemetry,
         profile=profile)
     print(f"[summary] {json.dumps(summary)}")
+    print(f"[time] {time.perf_counter() - t_start:.1f} s from the build to "
+          f"the summary")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Architecture configuration schema (copy of ``repro.configs.base.
 ArchConfig``, every field kept so that configs read the same in both
 packages).  ``reduced()`` yields the tiny same-family config of the CPU
-tests.
+tests.  ``ShapeConfig`` and ``SHAPES`` are the reference's (arch x shape)
+cells; the data stream and the trainer take a ``ShapeConfig``.
 """
 
 from __future__ import annotations
@@ -130,3 +131,24 @@ class ArchConfig:
             window=64,
             dtype="float32",
         )
+
+
+# ---------------------------------------------------------------------------
+# Shapes: every LM arch is paired with these four cells (copy of
+# ``repro.configs.base.ShapeConfig`` and ``SHAPES``).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode | long_decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "long_decode"),
+}

@@ -12,8 +12,9 @@ in dense mode.  ``topology_from_jax`` rebuilds a JAX ``Topology`` as the
 port's, its pod graph included.  ``metrics_from_jax`` takes a telemetry
 carry (``MetricsCarry`` with its flight ring), field for field in the
 same layout.  ``lm_params_from_jax`` maps a language model's parameter
-tree (nested dicts) leaf by leaf, each keeping its dtype.  Nothing here
-imports JAX: every leaf goes through ``numpy.asarray``.
+tree (nested dicts) leaf by leaf, each keeping its dtype;
+``train_state_from_jax`` a trainer's ``{"params", "opt": AdamWState}``.
+Nothing here imports JAX: every leaf goes through ``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from repro_torch.core import routing as rt
 from repro_torch.core import topology as tpo
 from repro_torch.kernels import common as kc
 from repro_torch.obs import metrics as obm
+from repro_torch.optim import adamw
 from repro_torch.snn import network as net
 from repro_torch.snn import neuron as nr
 from repro_torch.snn import stdp as sd
@@ -139,3 +141,17 @@ def lm_params_from_jax(params, *, device="cuda") -> dict:
         return tensor(arr, device)
 
     return one(params)
+
+
+def train_state_from_jax(state, *, device="cuda") -> dict:
+    """A trainer's state ``{"params": tree, "opt": AdamWState(count, m,
+    v)}`` (``repro.launch.train.build_train_state``) as the port's: the
+    parameters in their dtype, the float32 moments, ``count`` an int32
+    scalar tensor."""
+    device = kc.resolve_device(device)
+    opt = state["opt"]
+    return {"params": lm_params_from_jax(state["params"], device=device),
+            "opt": adamw.AdamWState(
+                count=tensor(opt.count, device, torch.int32),
+                m=lm_params_from_jax(opt.m, device=device),
+                v=lm_params_from_jax(opt.v, device=device))}

@@ -19,7 +19,11 @@
 // minimum); l = alpha * l + sum(p); acc = alpha * acc + p . v; out = acc
 // / l, with l = 0 (a row with no valid key) giving 0.  k tiles wholly
 // after the causal diagonal of the q tile are skipped.  The output has
-// the input's type.
+// the input's type.  Handed an lse pointer (training), each design also
+// writes every row's log-sum-exp in natural-log units, the backward's
+// residual (flash_attention_bwd.cu): m + log l, or (m + log2 l) ln 2 from
+// the bf16 design, whose scores are in the log2 domain; the minimum for a
+// row with no valid key.  Serving passes a null pointer.
 //
 // Bound: operations, 4 * D per unmasked (query, key) pair and head
 // against 2 (Sq + 2 Skv) D bytes per head: at the prefill shapes (Sq =
@@ -101,6 +105,25 @@ namespace {
 
 constexpr float kNegInf = -3.4028234663852886e38f;  // finfo(float32).min
 
+__global__ void fill_kernel(float* __restrict__ x, long long n, float value) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = value;
+}
+
+// Skv = 0: every row has l = 0, so every output is 0 and every lse the
+// minimum.
+int no_key(void* out, size_t elem, float* lse, int batch, int hq, int sq,
+           int d, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(
+      out, 0, elem * batch * hq * sq * static_cast<size_t>(d), stream);
+  if (err != cudaSuccess || lse == nullptr) return static_cast<int>(err);
+  const long long n = static_cast<long long>(batch) * hq * sq;
+  fill_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+      lse, n, kNegInf);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- bfloat16: wgmma on TMA-fed tiles ------------------------------------
 
 namespace sm = repro::sm90;
@@ -112,6 +135,7 @@ constexpr int kWgThreads = kConsumers + 128;  // and one producer warpgroup
 constexpr int kBox = 64;                      // columns per TMA box
 constexpr int kBoxRowBytes = kBox * 2;        // 128: the swizzle span
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DN>
 struct WgTile {
@@ -154,8 +178,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map,
-    __nv_bfloat16* __restrict__ out, int hq, int hkv, int sq, int skv, int d,
-    int q_offset, int causal, float scale) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int hq,
+    int hkv, int sq, int skv, int d, int q_offset, int causal, float scale) {
   using T = WgTile<DN>;
   constexpr int BK = T::kBK;
   constexpr int kStages = T::kStages;
@@ -375,6 +399,14 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
     __nv_bfloat16* op = out + static_cast<long long>(bh) * sq * d;
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);
+    // The scores were in the log2 domain: lse = (m + log2 l) ln 2.
+    if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (row + 8 * h < sq)
+          lse[static_cast<long long>(bh) * sq + row + 8 * h] =
+              l[h] == 0.0f ? kNegInf : (m[h] + log2f(l[h])) * kLn2;
+    }
 #pragma unroll
     for (int i = 0; i < DN / 2; i += 2) {
       const int h = i / 2 % 2;
@@ -392,8 +424,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
 
 template <int DN>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int batch, int hq, int hkv, int sq, int skv, int d,
-                 int q_offset, int causal, float scale, cudaStream_t stream) {
+                 float* lse, int batch, int hq, int hkv, int sq, int skv,
+                 int d, int q_offset, int causal, float scale,
+                 cudaStream_t stream) {
   using T = WgTile<DN>;
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err = sm::tma_map_bf16_3d(&q_map, q, d, sq, batch * hq, kWgBQ);
@@ -407,22 +440,21 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kWgBQ - 1) / kWgBQ, batch * hq);
   flash_attention_wgmma_kernel<DN><<<grid, kWgThreads, T::kSmem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), hq, hkv, sq, skv,
-      d, q_offset, causal, scale);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, hq, hkv, sq,
+      skv, d, q_offset, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
-                   int batch, int hq, int hkv, int sq, int skv, int d,
-                   int q_offset, int causal, float scale,
+                   float* lse, int batch, int hq, int hkv, int sq, int skv,
+                   int d, int q_offset, int causal, float scale,
                    cudaStream_t stream) {
   if (skv == 0)  // no key: every row has l = 0, so every output is 0
-    return static_cast<int>(cudaMemsetAsync(
-        out, 0, sizeof(__nv_bfloat16) * batch * hq * sq * d, stream));
+    return no_key(out, sizeof(__nv_bfloat16), lse, batch, hq, sq, d, stream);
   const int dn = (d + 15) / 16 * 16;
 #define REPRO_FLASH_WG_CASE(N)                                               \
   if (dn == N)                                                               \
-    return launch_wgmma<N>(q, k, v, out, batch, hq, hkv, sq, skv, d,          \
+    return launch_wgmma<N>(q, k, v, out, lse, batch, hq, hkv, sq, skv, d,     \
                            q_offset, causal, scale, stream);
   REPRO_FLASH_WG_CASE(16)
   REPRO_FLASH_WG_CASE(32)
@@ -477,8 +509,9 @@ struct TfTile {
 template <int DN>
 __global__ void __launch_bounds__(kTfThreads) flash_attention_tf32x3_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int hq, int hkv,
-    int sq, int skv, int d, int q_offset, int causal, float scale) {
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int hq, int hkv, int sq, int skv, int d,
+    int q_offset, int causal, float scale) {
   using T = TfTile<DN>;
   constexpr int NT = T::kNT;
   constexpr int BK = T::kBK;
@@ -655,6 +688,9 @@ __global__ void __launch_bounds__(kTfThreads) flash_attention_tf32x3_kernel(
     const int r = row + 8 * h;
     if (r >= sq) continue;
     const bool none = l[h] == 0.0f;
+    if (lse != nullptr && t == 0)
+      lse[static_cast<long long>(bh) * sq + r] =
+          none ? kNegInf : m[h] + logf(l[h]);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       if (n < nt)
@@ -667,8 +703,9 @@ __global__ void __launch_bounds__(kTfThreads) flash_attention_tf32x3_kernel(
 
 template <int DN>
 int launch_tf32x3(const void* q, const void* k, const void* v, void* out,
-                  int batch, int hq, int hkv, int sq, int skv, int d,
-                  int q_offset, int causal, float scale, cudaStream_t stream) {
+                  float* lse, int batch, int hq, int hkv, int sq, int skv,
+                  int d, int q_offset, int causal, float scale,
+                  cudaStream_t stream) {
   using T = TfTile<DN>;
   static size_t allowed = 48 * 1024;
   cudaError_t err =
@@ -677,21 +714,20 @@ int launch_tf32x3(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((sq + kTfBQ - 1) / kTfBQ, batch * hq);
   flash_attention_tf32x3_kernel<DN><<<grid, kTfThreads, T::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, sq,
-      skv, d, q_offset, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, hq, hkv,
+      sq, skv, d, q_offset, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_tf32x3(const void* q, const void* k, const void* v, void* out,
-                    int batch, int hq, int hkv, int sq, int skv, int d,
-                    int q_offset, int causal, float scale,
+                    float* lse, int batch, int hq, int hkv, int sq, int skv,
+                    int d, int q_offset, int causal, float scale,
                     cudaStream_t stream) {
   if (skv == 0)  // no key: every row has l = 0, so every output is 0
-    return static_cast<int>(cudaMemsetAsync(
-        out, 0, sizeof(float) * batch * hq * sq * d, stream));
+    return no_key(out, sizeof(float), lse, batch, hq, sq, d, stream);
 #define REPRO_FLASH_TF_CASE(N)                                               \
   if (d <= N)                                                                \
-    return launch_tf32x3<N>(q, k, v, out, batch, hq, hkv, sq, skv, d,         \
+    return launch_tf32x3<N>(q, k, v, out, lse, batch, hq, hkv, sq, skv, d,    \
                             q_offset, causal, scale, stream);
   REPRO_FLASH_TF_CASE(16)
   REPRO_FLASH_TF_CASE(32)
@@ -710,20 +746,24 @@ int dispatch_tf32x3(const void* q, const void* k, const void* v, void* out,
 // contiguous, of one type: dtype 0 = float32 (3xTF32 on mma.sync; q, k
 // and v 16-byte aligned for cp.async), 1 = bfloat16 (wgmma; q, k and v
 // 16-byte aligned for TMA).
-// hq a multiple of hkv; d a multiple of 8, at most 256.
+// hq a multiple of hkv; d a multiple of 8, at most 256.  lse, when not
+// null, receives each row's log-sum-exp of the scaled scores in natural
+// log units, float32 [batch, hq, sq] (finfo(float32).min for a row with
+// no valid key): the residual of the backward (flash_attention_bwd.cu).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int batch, int hq,
-    int hkv, int sq, int skv, int d, int q_offset, int causal, float scale,
-    int dtype, void* stream) {
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int batch, int hq, int hkv, int sq, int skv, int d, int q_offset,
+    int causal, float scale, int dtype, void* stream) {
   if (batch == 0 || hq == 0 || sq == 0 || d == 0) return 0;
   if (d > 256 || d % 8 != 0 || hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_tf32x3(q, k, v, out, batch, hq, hkv, sq, skv, d,
+    return dispatch_tf32x3(q, k, v, out, lse_f, batch, hq, hkv, sq, skv, d,
                            q_offset, causal, scale, s);
   if (dtype == 1)
-    return dispatch_wgmma(q, k, v, out, batch, hq, hkv, sq, skv, d, q_offset,
-                          causal, scale, s);
+    return dispatch_wgmma(q, k, v, out, lse_f, batch, hq, hkv, sq, skv, d,
+                          q_offset, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,12 +1,21 @@
-"""Wrapper of the flash-attention kernels (``csrc/flash_attention.cu``).
+"""Wrappers of the flash-attention kernels (``csrc/flash_attention.cu``,
+forward; ``csrc/flash_attention_bwd.cu``, backward) and the autograd
+Function that joins them.
 
-On CUDA tensors it launches a kernel, whatever the sizes (there is no
-small-shape shortcut on the card), both on tensor cores: bfloat16 inputs
-``wgmma`` on TMA-fed tiles, float32 inputs 3xTF32 on ``mma.sync`` (each
-operand split into two TF32 values and each product summed from three,
-which keeps float32's accuracy); the type alone decides (:func:`design`).
-On CPU tensors it runs
-:func:`repro_torch.kernels.flash_attention.ref.attention_ref`.
+On CUDA tensors the forward launches a kernel, whatever the sizes (there
+is no small-shape shortcut on the card), both on tensor cores: bfloat16
+inputs ``wgmma`` on TMA-fed tiles, float32 inputs 3xTF32 on ``mma.sync``
+(each operand split into two TF32 values and each product summed from
+three, which keeps float32's accuracy); the type alone decides
+(:func:`design`).  The backward launches its two kernels (dQ, then dK
+and dV) through one C call.  On CPU tensors both run the plain versions
+of :mod:`repro_torch.kernels.flash_attention.ref`.
+
+:func:`flash_attention` goes through :class:`FlashAttention` where an
+input requires grad under grad mode: the forward then also writes each
+row's log-sum-exp, which the Function saves with q, k, v and the output
+for the backward.  Any other call is the single forward launch, with no
+lse.
 """
 
 from __future__ import annotations
@@ -15,15 +24,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import common as kc
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref, attention_ref, attention_with_lse_ref)
 
 NAME = "flash_attention"
+BWD_NAME = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DESIGNS = {torch.float32: "mma_tf32x3", torch.bfloat16: "wgmma"}
-_ARGTYPES = [kc.P] * 4 + [kc.I] * 8 + [kc.F, kc.I, kc.P]
+_ARGTYPES = [kc.P] * 5 + [kc.I] * 8 + [kc.F, kc.I, kc.P]
+_BWD_ARGTYPES = [kc.P] * 10 + [kc.I] * 8 + [kc.F, kc.I, kc.P]
 # TMA (bf16) and the 16-byte cp.async copies (float32) read a tensor from
-# a 16-byte aligned base address.
+# a 16-byte aligned base address; so do the backward's 16-byte loads.
 TMA_ALIGN = 16
+F32 = torch.float32
 
 
 def design(dtype: torch.dtype) -> str:
@@ -43,33 +56,118 @@ def tma_ready(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % TMA_ALIGN == 0 else x.clone()
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale: float | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] (Hq a multiple of Hkv) ->
-    [B, Hq, Sq, D] in q's type.  ``scale`` defaults to 1/sqrt(D); query
-    row i sits at position ``q_offset + i`` for the causal mask.  Inputs
-    that are not contiguous, or not 16-byte aligned, are copied first."""
+def _shapes(q, k, scale):
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     if hq % hkv:
         raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
     if scale is None:
         scale = float(1.0 / (d ** 0.5))
-    if not q.is_cuda:
-        return attention_ref(q, k, v, causal=causal, scale=scale,
-                             q_offset=q_offset)
+    return (b, hq, hkv, sq, skv, d), scale
+
+
+def _card_check(q, d):
     design(q.dtype)
     if d % 8 or d > 256:
         raise ValueError(f"head size {d} must be a multiple of 8, at most "
                          f"256")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        scale: float | None = None, q_offset: int = 0,
+                        with_lse: bool = False):
+    """The forward: out [B, Hq, Sq, D] in q's type, and with ``with_lse``
+    also lse [B, Hq, Sq] float32 (natural log; ``finfo(float32).min`` on
+    a row with no valid key) as ``(out, lse)``.  Inputs that are not
+    contiguous, or not 16-byte aligned, are copied first."""
+    (b, hq, hkv, sq, skv, d), scale = _shapes(q, k, scale)
+    if not q.is_cuda:
+        if with_lse:
+            return attention_with_lse_ref(q, k, v, causal=causal, scale=scale,
+                                          q_offset=q_offset)
+        return attention_ref(q, k, v, causal=causal, scale=scale,
+                             q_offset=q_offset)
+    _card_check(q, d)
     q, k, v = tma_ready(q), tma_ready(k), tma_ready(v)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=F32, device=q.device) if with_lse
+           else None)
     fn = kc.kernel_fn(NAME, "flash_attention_launch", _ARGTYPES)
     kc.launch(NAME, fn,
               kc.check(q, "q", q.dtype, (b, hq, sq, d)),
               kc.check(k, "k", q.dtype, (b, hkv, skv, d)),
               kc.check(v, "v", q.dtype, (b, hkv, skv, d)),
-              out.data_ptr(), b, hq, hkv, sq, skv, d, q_offset, int(causal),
-              scale, _DTYPES[q.dtype])
-    return out
+              out.data_ptr(), None if lse is None else lse.data_ptr(), b, hq,
+              hkv, sq, skv, d, q_offset, int(causal), scale,
+              _DTYPES[q.dtype])
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        scale: float | None = None, q_offset: int = 0):
+    """The backward: (dq, dk, dv) in q's, k's and v's types from the
+    forward's inputs, its output ``out`` and ``lse`` and the output's
+    gradient ``dout``.  On the card one C call launches the dQ kernel
+    (which also computes delta = rowsum(dout * out) into a scratch
+    buffer) and then the dK/dV kernel."""
+    (b, hq, hkv, sq, skv, d), scale = _shapes(q, k, scale)
+    if not q.is_cuda:
+        return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                 scale=scale, q_offset=q_offset)
+    _card_check(q, d)
+    q, k, v, out, dout = (tma_ready(x) for x in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, hq, sq), dtype=F32, device=q.device)
+    qs, ks = (b, hq, sq, d), (b, hkv, skv, d)
+    fn = kc.kernel_fn(BWD_NAME, "flash_attention_bwd_launch", _BWD_ARGTYPES)
+    kc.launch(BWD_NAME, fn,
+              kc.check(q, "q", q.dtype, qs), kc.check(k, "k", q.dtype, ks),
+              kc.check(v, "v", q.dtype, ks),
+              kc.check(out, "out", q.dtype, qs),
+              kc.check(dout, "dout", q.dtype, qs),
+              kc.check(lse, "lse", F32, (b, hq, sq)), delta.data_ptr(),
+              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq,
+              skv, d, q_offset, int(causal), scale, _DTYPES[q.dtype])
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient from the backward kernels: the forward
+    saves q, k, v, the output and lse; the backward launches
+    :func:`flash_attention_bwd` (its plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset):
+        if q.is_cuda:   # saved as the kernel reads them: no copy again
+            q, k, v = tma_ready(q), tma_ready(k), tma_ready(v)
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                       q_offset=q_offset, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attrs = (causal, scale, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, q_offset = ctx.attrs
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal, scale=scale,
+                                         q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] (Hq a multiple of Hkv) ->
+    [B, Hq, Sq, D] in q's type.  ``scale`` defaults to 1/sqrt(D); query
+    row i sits at position ``q_offset + i`` for the causal mask.
+    Differentiable: where an input requires grad under grad mode the call
+    goes through :class:`FlashAttention`."""
+    _, scale = _shapes(q, k, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale, q_offset)
+    return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                               q_offset=q_offset)

@@ -1,0 +1,149 @@
+"""Training entry point: checkpointed, fault-tolerant, resumable
+(``repro.launch.train`` on one device).
+
+Runs the trainer's step against the synthetic deterministic data stream,
+on the card by default (``--device cpu`` runs the plain versions).  On
+the CPU use ``--reduced`` (the tiny same-family config).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
+      --reduced --steps 50 --device cpu --ckpt-dir ckpt
+  # kill it mid-run, rerun the same command: it resumes from the last
+  # committed checkpoint and reproduces the uninterrupted run exactly.
+
+Weights come from a ``torch.Generator`` seeded with ``--seed``, so they
+differ from the reference's for the same seed; the batches are the
+reference's, bitwise.  The attention's gradient comes from the
+flash-attention backward kernels; zamba2's scan has no backward kernel
+yet, so zamba2 trains only on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import torch
+
+from repro_torch import checkpoint as ckpt
+from repro_torch import configs as C
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.data import pipeline as dp
+from repro_torch.kernels import common as kc
+from repro_torch.models import lm
+from repro_torch.models.spec import tree_leaves, tree_map
+from repro_torch.optim import adamw, schedules
+
+
+def build_train_state(gen: torch.Generator, cfg: ArchConfig, *,
+                      device="cuda") -> dict:
+    """``{"params": random weights from gen, "opt": adamw.init(...)}`` on
+    ``device``."""
+    params = lm.init(gen, cfg, device=device)
+    return {"params": params, "opt": adamw.init(params)}
+
+
+def make_step(cfg: ArchConfig, *, peak_lr: float, total_steps: int,
+              remat: bool = True, warmup_steps: int | None = None):
+    """``step(state, batch) -> (state, metrics)``: the loss and its
+    gradients with respect to fresh leaves of the parameters (so no
+    gradient carries over from an earlier step), then ``adamw.update``
+    without autograd at the warm-up/cosine rate of the step count
+    (``warmup_steps`` defaults to a twentieth of ``total_steps``).  The
+    state passed in is not changed."""
+    if warmup_steps is None:
+        warmup_steps = max(total_steps // 20, 1)
+
+    def step(state, batch):
+        params = tree_map(lambda x: x.detach().requires_grad_(True),
+                          state["params"])
+        loss, metrics = lm.loss_fn(cfg, params, batch, remat=remat)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(params)))
+        grads = tree_map(lambda _: next(grads), params)
+        lr = schedules.warmup_cosine(
+            state["opt"].count, peak_lr=peak_lr,
+            warmup_steps=warmup_steps, total_steps=total_steps)
+        new_params, new_opt, om = adamw.update(grads, state["opt"],
+                                               state["params"], lr=lr)
+        # Detached, so the metrics hold no graph past the step.
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(om)
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return step
+
+
+def make_compressed_step(*args, **kwargs):
+    raise NotImplementedError(
+        "compressed-gradient data-parallel training (error-feedback int8 / "
+        "top-k all-reduce over the data axis) is not ported yet: it comes "
+        "with models/sharding.py and optim/compression.py (ROADMAP section "
+        "1, item 9)")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Train; returns the final state."""
+    args = parse_args(argv)
+    device = kc.resolve_device(args.device)
+    cfg = C.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state = build_train_state(gen, cfg, device=device)
+    start = 0
+    last = ckpt.latest_step(args.ckpt_dir)
+    if last is not None:
+        state = ckpt.restore(args.ckpt_dir, last, state)
+        start = last + 1
+        print(f"resumed from step {last}")
+
+    step_fn = make_step(cfg, peak_lr=args.lr, total_steps=args.steps,
+                        remat=False)
+    writer = ckpt.AsyncCheckpointer(args.ckpt_dir)
+    it = dp.Prefetcher(dp.stream(cfg, shape, args.seed, start_step=start),
+                       device=device)
+    t0 = time.time()
+    try:
+        for step, batch in it:
+            if step >= args.steps:
+                break
+            state, metrics = step_fn(state, batch)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                loss = float(metrics["loss"])
+                toks = (step - start + 1) * args.batch * args.seq
+                rate = toks / max(time.time() - t0, 1e-9)
+                print(f"step {step:5d}  loss {loss:.4f}  "
+                      f"gnorm {float(metrics['grad_norm']):.3f}  "
+                      f"{rate:,.0f} tok/s", flush=True)
+            if (step + 1) % args.ckpt_every == 0 or step == args.steps - 1:
+                writer.save(state, step)
+    finally:
+        writer.close()
+        ckpt.gc_old(args.ckpt_dir, keep=3)
+    print("done")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -3,14 +3,18 @@ flash-attention kernel, and single-token decode against a KV cache
 (``repro.models.attention``).
 
 The JAX package states one semantics across three paths: its pure-XLA
-``chunked_attention``, the Pallas kernel (selected on a TPU) and
-``decode_attention``.  The port's prefill runs the flash-attention kernel
-(``kernels.flash_attention``: the CUDA kernel on the card, its plain
-version on the CPU) where the JAX model runs ``chunked_attention``; the
-two differ only by rounding (the kernel multiplies f32 probabilities by
-v in f32, where ``chunked_attention`` first casts them to v's type).
+``chunked_attention`` (with a ``custom_vjp`` backward that recomputes p
+from q, k and lse), the Pallas kernel (selected on a TPU) and
+``decode_attention``.  The port's training and prefill run the
+flash-attention kernels (``kernels.flash_attention``: the CUDA kernels
+on the card, their plain versions on the CPU) where the JAX model runs
+``chunked_attention``; the gradient comes from the backward kernels
+through the ``FlashAttention`` autograd Function, with
+``chunked_attention``'s roundings.  The forwards differ only by rounding
+(the plain version multiplies f32 probabilities by v in f32, where
+``chunked_attention`` and the bf16 kernel first cast them to v's type).
 Decode stays plain torch, as in JAX.  Sliding windows are not ported:
-the kernel has none, and serving never asks for one.
+the kernels have none, and neither serving nor training asks for one.
 """
 
 from __future__ import annotations
@@ -75,7 +79,8 @@ def output_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
 
 
 def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """Full-sequence attention of prefill: the flash-attention kernel."""
+    """Full-sequence attention of training and prefill: the flash-attention
+    kernel, differentiable through its backward kernels."""
     if window:
         raise NotImplementedError(
             "sliding-window attention is not ported: the flash-attention "

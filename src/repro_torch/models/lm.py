@@ -1,7 +1,7 @@
-"""Model API of the serving path (``repro.models.lm``): ``init``,
-``prefill``, ``decode``, ``make_cache`` and ``pad_cache`` for the
-decoder-only architectures.  The encoder-decoder (whisper) and the
-training loss come with later slices.
+"""Model API (``repro.models.lm``) for the decoder-only architectures:
+``init``, the training loss (``cross_entropy``, ``loss_fn``), and the
+serving entry points ``prefill``, ``decode``, ``make_cache`` and
+``pad_cache``.  The encoder-decoder (whisper) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -37,10 +37,34 @@ def init(gen: torch.Generator, cfg: ArchConfig, *, device="cuda") -> dict:
     return sp.tree_map(lambda x: x.to(device), params)
 
 
-def loss_fn(*args, **kwargs):
-    raise NotImplementedError("training (the loss, the flash backward and "
-                              "the optimizer) is not ported yet (ROADMAP "
-                              "section 1, item 9)")
+MOE_AUX_WEIGHT = 0.01
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy, in float32: logits [..., V],
+    targets [...] (int)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
+            remat: bool = True):
+    """batch {"tokens": [B, S], "targets": [B, S]} -> (loss, metrics):
+    the cross-entropy, plus the MoE auxiliary loss where the model reports
+    one; metrics hold ``ce_loss`` and ``loss`` (and the model's own).
+    With ``remat``, ``cfg.remat_policy`` chooses what the backward
+    recomputes (:func:`repro_torch.models.transformer.forward`)."""
+    _decoder_only(cfg)
+    out = tfm.forward(cfg, params, batch["tokens"], remat=remat)
+    loss = cross_entropy(out.logits, batch["targets"])
+    metrics = dict(out.metrics)
+    metrics["ce_loss"] = loss
+    if "aux_loss" in metrics:
+        loss = loss + MOE_AUX_WEIGHT * metrics["aux_loss"]
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, *, window: int = 0):

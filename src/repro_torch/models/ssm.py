@@ -13,6 +13,11 @@ Mamba-2 is the same recurrence with a per-head scalar decay (A[d, :] =
 a_head), broadcast to a [di, N] A.  Mamba-1 (``ssm_version=1``,
 falcon-mamba) and the chunk-parallel ``ssm_impl="ssd"`` path are not
 ported yet.
+
+Training: on the CPU, autograd runs through the plain scan; on the card
+the scan kernel has no backward yet, so ``ssm_apply`` refuses to run
+where a gradient would be asked of it (:func:`refuse_card_backward`)
+rather than return outputs that carry none.
 """
 
 from __future__ import annotations
@@ -43,6 +48,17 @@ def _check(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"ssm_impl={cfg.ssm_impl!r} is not ported yet; the port runs "
             f"the 'scan' path through the ssm_scan kernel")
+
+
+def refuse_card_backward(on_card: bool, needs_grad: bool) -> None:
+    """Raise where the scan would run on the card inside a graph that
+    autograd records: the kernel writes its outputs through ``ctypes`` and
+    has no backward, so the gradients would be lost in silence."""
+    if on_card and needs_grad:
+        raise NotImplementedError(
+            "the ssm_scan kernel has no backward yet: training zamba2 on "
+            "the card needs it (ROADMAP section 1, item 9); run under "
+            "torch.no_grad() or on the CPU")
 
 
 def ssm_spec(cfg: ArchConfig) -> dict:
@@ -113,6 +129,8 @@ def ssm_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     """Full-sequence Mamba-2 block from a zero state. x: [B, T, d] ->
     [B, T, d] (and the :class:`SSMState` after the last token)."""
     _check(cfg)
+    refuse_card_backward(x.is_cuda, torch.is_grad_enabled() and (
+        x.requires_grad or any(w.requires_grad for w in p.values())))
     t = x.shape[1]
     dt_ = x.dtype
     xh = torch.matmul(x, p["w_in_x"].to(dt_))

@@ -6,9 +6,11 @@ Layers are grouped into a repeating pattern of length
 shared attention+MLP then ssm]); each pattern position's parameters are
 stacked over the repeats, and a Python loop over the stacked axis takes
 the place of the JAX package's ``lax.scan``.  The same block functions
-serve prefill (``forward`` with ``emit_cache``, returning stacked per-
-repeat KV and SSM caches) and decode (one token against those caches,
-updated in place).  The MoE block kind is not ported yet.
+serve training and prefill (``forward``; with ``emit_cache`` it returns
+stacked per-repeat KV and SSM caches) and decode (one token against
+those caches, updated in place).  ``forward(..., remat=)`` recomputes
+each repeat's activations in the backward as ``jax.checkpoint`` does
+around the scan body.  The MoE block kind is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils import checkpoint as tcp
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -122,15 +125,12 @@ def _apply_block(cfg, kind, bp, shared, x, positions, *, window,
 
 class DecoderOutput(NamedTuple):
     logits: torch.Tensor
+    metrics: dict       # per-block aux metrics, averaged (empty when dense)
     cache: Any          # stacked per-repeat cache tree (prefill) or None
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def _repeat(tree, r: int):
-    return tree_map(lambda x: x[r], tree)
 
 
 def _stack(entries: list):
@@ -144,29 +144,74 @@ def _stack(entries: list):
     return type(first)(*(torch.stack(xs) for xs in zip(*entries)))
 
 
+# The products that the "dots" policy keeps, as JAX's
+# dots_with_no_batch_dims_saveable keeps dot_generals without batch
+# dimensions: the projections (a [B, S, d] x [d, n] matmul is one aten.mm).
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (tcp.CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else tcp.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return tcp.create_selective_checkpoint_contexts(_dots_policy)
+
+
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
-            window: int = 0, emit_cache: bool = False) -> DecoderOutput:
-    """tokens [B, S] -> logits [B, S, V] (and the stacked caches)."""
+            window: int = 0, emit_cache: bool = False,
+            remat: bool = False) -> DecoderOutput:
+    """tokens [B, S] -> logits [B, S, V] (and the stacked caches).
+    With ``remat``, ``cfg.remat_policy`` chooses what the backward
+    recomputes, as in the reference: ``"dots"`` keeps only the outputs
+    of each repeat's matrix products, ``"none"`` keeps everything, and
+    any other policy recomputes each repeat of the layer pattern whole
+    (``torch.utils.checkpoint``, non-reentrant)."""
     kinds = block_kinds(cfg)
     shared = params.get("shared")
     b, s = tokens.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     x = ly.embed(params["embed"], tokens).to(dtype_of(cfg))
-    caches = {f"pos{i}": [] for i in range(len(kinds))}
-    for r in range(n_repeats(cfg)):
-        blk = _repeat(params["blocks"], r)
+    policy = cfg.remat_policy if remat else "none"
+
+    def body(x, blk):
+        entries = []
         for i, kind in enumerate(kinds):
             x, entry = _apply_block(cfg, kind, blk[f"pos{i}"], shared, x,
                                     positions, window=window,
                                     emit_cache=emit_cache)
-            if emit_cache:
+            entries.append(entry)
+        return x, entries
+
+    caches = {f"pos{i}": [] for i in range(len(kinds))}
+    # One unbind per stacked leaf: its backward stacks the repeats'
+    # gradients once, where a select per repeat would fill a zero tensor
+    # of the whole stack for each.
+    repeats = _unstack(params["blocks"], n_repeats(cfg))
+    for blk in repeats:
+        if policy == "none" or emit_cache:
+            x, entries = body(x, blk)
+        else:
+            x, entries = tcp.checkpoint(
+                body, x, blk, use_reentrant=False,
+                **({"context_fn": _dots_contexts} if policy == "dots"
+                   else {}))
+        if emit_cache:
+            for i, entry in enumerate(entries):
                 caches[f"pos{i}"].append(entry)
     x = _norm(cfg, params["final_norm"], x)
     lg = ly.logits(params.get("unembed"), params["embed"], x,
                    tied=cfg.tie_embeddings)
     cache = {k: _stack(v) for k, v in caches.items()} if emit_cache else None
-    return DecoderOutput(logits=lg, cache=cache)
+    return DecoderOutput(logits=lg, metrics={}, cache=cache)
+
+
+def _unstack(tree, n: int) -> list:
+    """The per-repeat slices of a stacked parameter tree, as views."""
+    leaves = tree_map(lambda x: x.unbind(0), tree)
+    return [tree_map(lambda xs, r=r: xs[r], leaves) for r in range(n)]
 
 
 def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
@@ -192,8 +237,7 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
         o = attn.decode_attention(q, kv, min(pos + 1, s_max))
         return x + attn.output_proj(bp["attn"], o)
 
-    for r in range(n_repeats(cfg)):
-        blk = _repeat(params["blocks"], r)
+    for r, blk in enumerate(_unstack(params["blocks"], n_repeats(cfg))):
         for i, kind in enumerate(kinds):
             bp = blk[f"pos{i}"]
             entry = cache[f"pos{i}"]

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card (the SNN kernels bitwise, flash attention and the SSM scan within a
-stated tolerance), the feedforward demo and a reduced LM serve on the
-card against the CPU.
+card (the SNN kernels bitwise, flash attention, its backward and the SSM
+scan within a stated tolerance), the feedforward demo, a reduced LM
+serve (float32 and bf16) and a reduced training step on the card against
+the CPU.
 
 These tests need an NVIDIA GPU and skip without one (a CUDA kernel has no
 CPU mode).  They import no JAX, so they run on a machine with the card:
@@ -25,7 +26,9 @@ from repro_torch.kernels.fused_inject import ops as fi
 from repro_torch.kernels.fused_inject.ref import (fused_inject_ref,
                                                  fused_lif_inject_ref)
 from repro_torch.kernels.flash_attention import ops as fa
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_bounds, attention_bwd_ref, attention_ref,
+    attention_with_lse_ref)
 from repro_torch.kernels.lif_step import ops as lif
 from repro_torch.kernels.lif_step.ref import lif_step_ref
 from repro_torch.kernels.merge_sort import ops as ms
@@ -1024,6 +1027,127 @@ def test_flash_attention_bf16_copies_a_misaligned_view(cuda):
     _check_flash_bf16(got, q, k, v)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,q_offset",
+                         FLASH_BF16_EDGES[:5] + [FLASH_BF16_EDGES[6],
+                                                 FLASH_BF16_EDGES[8]])
+def test_flash_attention_lse_matches_plain(cuda, b, hq, hkv, sq, skv, d,
+                                           causal, q_offset, dtype):
+    """The forward with lse: its output equals the call without lse
+    bitwise, and lse lies within 1e-4 + 1e-5 |lse| of the plain version's
+    on the same inputs in float32 (the scores are exact products summed
+    in another order; the bf16 kernel's exp2 is the MUFU approximation,
+    2 ulp, and it rescales from the log2 domain; 3xTF32's scores lie
+    within 2^-20 max|s|)."""
+    q, k, v = _flash_inputs(cuda, b, hq, hkv, sq, skv, d,
+                            getattr(torch, dtype))
+    kw = dict(causal=causal, q_offset=q_offset)
+    before = kc.launches["flash_attention"]
+    out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    assert kc.launches["flash_attention"] == before + 1
+    assert torch.equal(out, fa.flash_attention(q, k, v, **kw))
+    _, want = attention_with_lse_ref(q.float(), k.float(), v.float(), **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, sq)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+
+
+FLASH_BWD_SHAPES = [
+    (1, 2, 2, 150, 150, 16, True, 0),
+    (1, 2, 1, 33, 50, 8, True, 17),       # D 8: columns past D are zero
+    (1, 4, 4, 200, 200, 80, True, 0),     # zamba2's head size
+    (2, 16, 8, 512, 512, 128, True, 0),   # internlm2's training heads
+    (1, 8, 2, 129, 200, 80, True, 71),    # GQA 4, a chunk after 71 keys
+    (1, 2, 2, 100, 120, 96, False, 0),
+    (1, 4, 2, 5, 1, 64, False, 0),        # Skv = 1
+    (1, 4, 4, 64, 64, 192, True, 0),
+    (1, 2, 2, 150, 170, 256, True, 0)]
+
+
+def _bwd_inputs(device, b, hq, hkv, sq, skv, d, dtype, causal, q_offset):
+    """q, k, v, dout, and the plain forward's out and lse on them."""
+    q, k, v = _flash_inputs(device, b, hq, hkv, sq, skv, d, dtype)
+    dout = _on(np.random.default_rng(d).standard_normal((b, hq, sq, d))
+               .astype(np.float32), device).to(dtype)
+    out, lse = attention_with_lse_ref(q, k, v, causal=causal,
+                                      q_offset=q_offset)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,q_offset",
+                         FLASH_BWD_SHAPES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, b, hq, hkv, sq, skv,
+                                                  d, causal, q_offset, dtype):
+    """dq, dk and dv of the two backward kernels against
+    ``attention_bwd_ref`` on the same (q, k, v, out, lse, dout), elementwise
+    within ``attention_bwd_bounds`` (bf16: a flip of the output's
+    rounding, 2^-7 |y|, plus 2^-6 of the root of the sum of squared terms
+    for flips of p's and ds's roundings, plus 2^-15 of a sum that bounds
+    dp - delta; float32: 2^-16 of that sum, f32 sums in another order);
+    one count per call."""
+    args = _bwd_inputs(cuda, b, hq, hkv, sq, skv, d, getattr(torch, dtype),
+                       causal, q_offset)
+    kw = dict(causal=causal, q_offset=q_offset)
+    before = kc.launches["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert kc.launches["flash_attention_bwd"] == before + 1
+    want = attention_bwd_ref(*args, **kw)
+    bounds = attention_bwd_bounds(*args, **kw)
+    for name, g, w, bound in zip(("dq", "dk", "dv"), got, want, bounds):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= bound).all()), (
+            f"{name}: max err {float(err.max())}, bound there "
+            f"{float(bound.flatten()[err.argmax()])}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_trains_through_the_kernels(cuda, dtype):
+    """Inputs that require grad go through the autograd Function: one
+    forward launch that writes lse, one backward call whose gradients are
+    the backward kernels' on the saved (q, k, v, out, lse); without grad
+    the same output comes from the single launch without lse."""
+    q, k, v = (x.requires_grad_(True) for x in _flash_inputs(
+        cuda, 2, 8, 2, 300, 300, 128, getattr(torch, dtype)))
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(
+        1), device=cuda).to(q.dtype)
+    kc.reset_launches()
+    out = fa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert (kc.launches["flash_attention"],
+            kc.launches["flash_attention_bwd"]) == (1, 1)
+    with torch.no_grad():
+        plain_out = fa.flash_attention(q, k, v, causal=True)
+        _, lse = fa.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+        want = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    assert torch.equal(out.detach(), plain_out)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_ssm_apply_refuses_a_backward_on_the_card(cuda):
+    """The scan kernel has no backward: on the card ``ssm_apply`` raises
+    where autograd would record it, and runs under no_grad."""
+    from repro_torch import configs as C
+    from repro_torch.models import spec as sp
+    from repro_torch.models import ssm
+
+    cfg = C.get("zamba2-2.7b").reduced()
+    p = sp.init_tree(torch.Generator().manual_seed(0), ssm.ssm_spec(cfg),
+                     torch.float32, "cpu")
+    p = sp.tree_map(lambda w: w.to(cuda).requires_grad_(True), p)
+    x = torch.randn((1, 8, cfg.d_model), device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP section 1, item 9"):
+        ssm.ssm_apply(cfg, p, x)
+    with torch.no_grad():
+        assert ssm.ssm_apply(cfg, p, x).shape == x.shape
+
+
 def _scan_a(rng, din, n, kind, head=80):
     """A [din, n]: "general" (random per element), "per_head" (Mamba-2: one
     value per head of `head` channels, broadcast over the states, as the
@@ -1140,6 +1264,78 @@ def test_reduced_serve_on_the_card_matches_the_cpu(cuda, arch):
     assert counts["ssm_scan"] == (cfg.n_layers if cfg.ssm_state else 0)
     torch.testing.assert_close(gpu[0], cpu[0], rtol=0, atol=2e-4)
     torch.testing.assert_close(gpu[1:], cpu[1:], rtol=0, atol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "internlm2-1.8b"])
+def test_reduced_bf16_prefill_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced config in bfloat16: prefill logits on the card (the
+    wgmma flash kernel, the bf16 scan input) against the plain path on the
+    CPU from the same bf16 weights, within 2^-4 of the largest |logit|.
+    Each bf16 rounding (some 14 per layer and 2 at the head) may land one
+    ulp apart on the two, at most 2^-7 of the element; such flips add up
+    like a random walk, sqrt(30) 2^-7 = 0.043 for two layers, and the
+    kernel's rounding of P adds 2^-8 of |v| per attention layer."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.models import lm
+    from repro_torch.models import spec as sp
+
+    cfg = dataclasses.replace(C.get(arch).reduced(), dtype="bfloat16")
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 70)).astype(np.int32))
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        p = sp.tree_map(lambda x: x.to(device), params)
+        with torch.no_grad():
+            last, _ = lm.prefill(cfg, p, {"tokens": tokens.to(device)})
+        out[device.type] = last.float().cpu()
+    scale = float(out["cpu"].abs().max())
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0,
+                               atol=2**-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_reduced_train_gradients_on_the_card_match_the_cpu(cuda, remat):
+    """Reduced internlm2 (float32, TF32 off): the loss within 1e-5
+    relative and every gradient within 1e-4 of its leaf's largest |g| of
+    the plain path on the CPU (f32 sums in another order; the f32 flash
+    forward in 3xTF32, within 2e-5 of its output; the backward kernels in
+    f32 FMA), through the flash forward and backward kernels, one launch
+    each per layer."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.data import pipeline as dp
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.models import spec as sp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(C.get("internlm2-1.8b").reduced(),
+                              remat_policy=remat)
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = dp.batch_at(cfg, ShapeConfig("t", 64, 2, "train"), 0, 0)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        p = sp.tree_map(lambda x: x.to(device).requires_grad_(True), params)
+        kc.reset_launches()
+        loss, _ = lm.loss_fn(cfg, p, dp.to_device(batch, device),
+                             remat=True)
+        grads = torch.autograd.grad(loss, sp.tree_leaves(p))
+        out[device.type] = (float(loss.detach()), [g.cpu() for g in grads],
+                            dict(kc.launches))
+    (l_gpu, g_gpu, counts), (l_cpu, g_cpu, _) = out["cuda"], out["cpu"]
+    fwd = cfg.n_layers * (2 if remat == "full" else 1)
+    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (
+        fwd, cfg.n_layers)
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for a, b in zip(g_gpu, g_cpu):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
 
 
 def _drill_setup(device, telemetry=True):

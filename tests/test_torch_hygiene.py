@@ -20,8 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import demo, obs, quickstart, stdp_demo
-from repro_torch.launch import monitor, serve
+from repro_torch import demo, obs, quickstart, stdp_demo, train_lm
+from repro_torch.data import pipeline as dp
+from repro_torch.launch import monitor, serve, train
 from repro_torch.core import fabric as fb
 from repro_torch.core import pulse_comm as pc
 from repro_torch.core import resilience as rsl
@@ -181,6 +182,9 @@ def test_entry_points_default_to_the_card(tmp_path):
         lambda: quickstart.main(),
         lambda: serve.main(["--arch", "zamba2-2.7b", "--reduced"]),
         lambda: serve.main([]),
+        lambda: train.main(["--reduced", "--ckpt-dir", str(tmp_path)]),
+        lambda: train_lm.main(["--ckpt-dir", str(tmp_path)]),
+        lambda: dp.Prefetcher(iter([(0, {"x": np.zeros(2)})])).__next__(),
         lambda: obs.metrics_init(obs.MetricsConfig(), 2),
         lambda: obs.flight_init(4, 2),
         lambda: rsl.health_init(rsl.HealthConfig(n_chips=2)),
@@ -327,6 +331,8 @@ def _c_params(source: str, symbol: str) -> list[str]:
     ("merge_sort", "_SOA_ARGTYPES", "merge_sort.cu", "merge_sort_launch"),
     ("flash_attention", "_ARGTYPES", "flash_attention.cu",
      "flash_attention_launch"),
+    ("flash_attention", "_BWD_ARGTYPES", "flash_attention_bwd.cu",
+     "flash_attention_bwd_launch"),
     ("ssm_scan", "_ARGTYPES", "ssm_scan.cu", "ssm_scan_launch")])
 def test_ctypes_signatures_match_the_c_entry_points(module, attr, source,
                                                     symbol):
@@ -370,7 +376,10 @@ def _lm_unported(feature: str):
                                                        encoder_layers=2),
                 device="cpu")
     else:
-        lm.loss_fn()
+        # Training runs on one device; its data-parallel form with
+        # compressed gradients waits for models/sharding.py.
+        from repro_torch.launch import train
+        train.make_compressed_step(dense)
 
 
 @pytest.mark.parametrize("feature,match", [

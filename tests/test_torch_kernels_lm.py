@@ -1,7 +1,10 @@
-"""Port parity, the kernels of the LM serving slice: the plain PyTorch
-versions of ``flash_attention`` and ``ssm_scan`` against the JAX
-package's Pallas kernels in interpret mode, and the scan's final state
-against ``repro.models.ssm.scan_chunked``, on the CPU.
+"""Port parity, the kernels of the LM slices: the plain PyTorch versions
+of ``flash_attention`` and ``ssm_scan`` against the JAX package's Pallas
+kernels in interpret mode, the scan's final state against
+``repro.models.ssm.scan_chunked``, and the flash backward
+(``attention_bwd_ref``, the plain version of the backward kernels, and
+``attention_with_lse_ref``'s lse) against ``chunked_attention``'s
+``custom_vjp``, on the CPU.
 
 On the CPU each port wrapper runs its plain version; the CUDA kernels run
 only on a card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -9,7 +12,12 @@ Tolerances: float32 attention within 2e-5 (the softmax sums run in
 another order), bfloat16 inputs within 3e-2 of the float32 oracle (the
 output is rounded to bfloat16, 2^-8 relative at |out| up to ~4); the scan
 within 2e-5 (``exp`` and the sums over the state differ in the last bits
-between PyTorch and XLA).
+between PyTorch and XLA); the backward elementwise within
+``attention_bwd_bounds`` (in bfloat16 2^-7 |y| for a flip of the
+output's rounding, 2^-6 of the root of the sum of squared terms for
+flips of p's and ds's roundings, which add as a random walk, and 2^-15
+of a sum that bounds the cancelling dp - delta; in float32 2^-16 of that
+sum: f32 sums in another order), the forward's lse within 1e-5.
 """
 
 import numpy as np
@@ -22,9 +30,12 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention import ops as jfa  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as jattn_ref  # noqa: E402
 from repro.kernels.ssm_scan import ops as jscan  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
 from repro.models.ssm import scan_chunked  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_bounds, attention_bwd_ref, attention_ref,
+    attention_with_lse_ref)
 from repro_torch.kernels.ssm_scan import ops as scan  # noqa: E402
 
 
@@ -108,6 +119,110 @@ def test_flash_attention_design_is_chosen_by_type_alone():
     with pytest.raises(ValueError, match="float32 or bfloat16, not "
                                          "torch.float16"):
         fa.design(torch.float16)
+
+
+# The flash backward's grid: both types, GQA groups 1, 2 and 4, q_offset
+# 0 and 24, head sizes 16, 64, 80 and 128; Sq = 37 is not a multiple of
+# the 16-row chunks, so both sides pad.
+BWD_CASES = [(dtype, g, q_offset, d)
+             for dtype in ("float32", "bfloat16")
+             for g, q_offset, d in ((1, 0, 16), (2, 24, 64), (4, 0, 80),
+                                    (1, 24, 128), (2, 0, 128), (4, 24, 16))]
+
+
+def _bwd_inputs(dtype, g, q_offset, d, sq=37):
+    """q, k, v, dout from numpy (seeded) as JAX arrays of ``dtype``, JAX's
+    forward (out, lse [B, Hkv, g, Sq]) and its vjp's (dq, dk, dv)."""
+    rng = np.random.default_rng(g * 1000 + q_offset + d)
+    hkv, skv = 2, sq + q_offset
+    shapes = ((1, hkv * g, sq, d), (1, hkv, skv, d), (1, hkv, skv, d),
+              (1, hkv * g, sq, d))
+    q, k, v, do = (jnp.asarray(rng.standard_normal(sh).astype(np.float32),
+                               dtype) for sh in shapes)
+    kw = dict(causal=True, q_chunk=16, kv_chunk=16, q_offset=q_offset)
+    out, lse = jattn._chunked_attention_fwd(q, k, v, window=0, **kw)
+    _, vjp = jax.vjp(lambda a, b, c: jattn.chunked_attention(
+        a, b, c, recompute_bwd=True, **kw), q, k, v)
+    return (q, k, v, do), (out, lse), vjp(do)
+
+
+def _torch_of(x, dtype):
+    return T(np.asarray(x, np.float32)).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype,g,q_offset,d", BWD_CASES)
+def test_attention_bwd_plain_matches_chunked_attention_vjp(dtype, g,
+                                                           q_offset, d):
+    """JAX's own O and lse go into the plain backward, so the backward
+    alone is compared."""
+    (q, k, v, do), (out, lse), want = _bwd_inputs(dtype, g, q_offset, d)
+    args = [_torch_of(x, dtype) for x in (q, k, v, out)]
+    b, hq, sq, _ = q.shape
+    tlse = T(np.asarray(lse)).reshape(b, hq, sq)
+    tdo = _torch_of(do, dtype)
+    got = attention_bwd_ref(*args, tlse, tdo, causal=True, q_offset=q_offset)
+    bounds = attention_bwd_bounds(*args, tlse, tdo, causal=True,
+                                  q_offset=q_offset)
+    for name, x, w, bound, like in zip(("dq", "dk", "dv"), got, want, bounds,
+                                       args):
+        assert x.dtype == like.dtype and x.shape == like.shape, name
+        err = (x.float() - _torch_of(w, "float32")).abs()
+        assert bool((err <= bound).all()), (
+            f"{name}: {float(err.max())}, bound there "
+            f"{float(bound.flatten()[err.argmax()])}")
+        # The bound is not vacuous: under 4% (bf16) or 0.1% (f32) of the
+        # largest |output|.
+        scale = float(x.float().abs().max())
+        assert float(bound.max()) < (0.04 if dtype == "bfloat16"
+                                     else 1e-3) * scale, name
+
+
+@pytest.mark.parametrize("dtype,g,q_offset,d", BWD_CASES[::3])
+def test_attention_lse_matches_chunked_attention(dtype, g, q_offset, d):
+    (q, k, v, _), (out, lse), _ = _bwd_inputs(dtype, g, q_offset, d)
+    got, got_lse = attention_with_lse_ref(
+        *(_torch_of(x, dtype) for x in (q, k, v)), causal=True,
+        q_offset=q_offset)
+    assert got_lse.dtype == torch.float32 and got_lse.shape == got.shape[:3]
+    np.testing.assert_allclose(got_lse.numpy(),
+                               np.asarray(lse).reshape(got_lse.shape),
+                               atol=1e-5, rtol=0)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(out), atol=2e-5)
+
+
+def test_attention_lse_of_a_row_without_keys_is_the_minimum():
+    q, k, v = (T(x) for x in _qkv(3, 1, 4, 2, 16, 16, 16))
+    out, lse = attention_with_lse_ref(q, k, v, causal=True, q_offset=-1)
+    assert not out[:, :, 0].any()
+    assert bool((lse[:, :, 0] == torch.finfo(torch.float32).min).all())
+    assert bool((lse[:, :, 1:] > -1e30).all())
+    dq, dk, dv = attention_bwd_ref(q, k, v, out, lse, torch.ones_like(out),
+                                   causal=True, q_offset=-1)
+    assert not dq[:, :, 0].any() and bool(torch.isfinite(dk).all())
+
+
+def test_flash_function_on_the_cpu_is_the_two_plain_versions():
+    """Through autograd, ``flash_attention`` on CPU tensors gives the plain
+    forward and ``attention_bwd_ref`` of its (out, lse) as gradients; a
+    call without grad is the plain forward alone."""
+    q, k, v = (T(x).requires_grad_(True)
+               for x in _qkv(5, 1, 4, 2, 20, 28, 16))
+    dout = T(np.random.default_rng(6).standard_normal((1, 4, 20, 16))
+             .astype(np.float32))
+    out = fa.flash_attention(q, k, v, causal=True, q_offset=8)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    with torch.no_grad():
+        want_out, lse = attention_with_lse_ref(q, k, v, causal=True,
+                                               q_offset=8)
+        want = attention_bwd_ref(q, k, v, want_out, lse, dout, causal=True,
+                                 q_offset=8)
+        plain = fa.flash_attention(q, k, v, causal=True, q_offset=8)
+    assert plain.grad_fn is None and torch.equal(plain, want_out)
+    assert torch.equal(out.detach(), want_out)
+    for got, w in zip(grads, want):
+        assert torch.equal(got, w)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
