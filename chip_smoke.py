@@ -26,7 +26,9 @@ Phases, each fatal on failure:
              attention ``scaled_dot_product_attention``; the training
              path's attention kernels (``flash_train_cases``): the forward
              with lse and ``flash_attention_bwd`` (its two kernels, dQ and
-             dK/dV, timed together and apart) at internlm2's and zamba2's
+             dK/dV, timed together and apart; bf16 on ``mma.sync``,
+             float32 in FMA, each case with its route and its kernels'
+             registers and spill bytes) at internlm2's and zamba2's
              training heads, in f32 and after cached keys, elementwise
              within ``attention_bwd_bounds``, beside SDPA's backward.
              ``bucket_pack``
@@ -237,9 +239,17 @@ REPLACES = {
     # (_chunked_attention_bwd, under the custom_vjp _flash_vjp).
     "flash_attention_bwd": "src/repro/models/attention.py:180",
 }
-# The two kernels one flash_attention_bwd call launches.
-FLASH_BWD_KERNELS = ("flash_attention_bwd_dq_kernel",
-                     "flash_attention_bwd_dkdv_kernel")
+# The two kernels one flash_attention_bwd call launches (name prefixes,
+# of either route), and the instances of each route
+# (``design(dtype, backward=True)``).
+FLASH_BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+FLASH_BWD_ROUTES = {
+    "mma_bf16": ("flash_attention_bwd_dq_mma_kernel",
+                 "flash_attention_bwd_dkdv_mma_kernel"),
+    "fma_f32": ("flash_attention_bwd_dq_fma_kernel",
+                "flash_attention_bwd_dkdv_fma_kernel")}
+# Head sizes the flash kernels are instantiated for (D rounds up to one).
+FLASH_DNS = (16, 32, 64, 80, 96, 128, 192, 256)
 PLAIN_CHECK_STEPS = 16
 # Paths driven by one run call (deposits counted from the ring's pops),
 # each also held against its first steps on the CPU.
@@ -1114,24 +1124,41 @@ FLASH_INSTANCES = {"bf16": "flash_attention_wgmma_kernel",
                    "f32": "flash_attention_tf32x3_kernel"}
 
 
-def flash_spills(log: str) -> dict[str, dict[int, int]]:
-    """Spill bytes (stores + loads) of each flash-attention instance in
-    ptxas's report, by type ("bf16", "f32") and DN (the largest head size
-    the instance serves)."""
-    spills = {kind: {} for kind in FLASH_INSTANCES}
+def instance_key(line: str, kernels) -> tuple[str, str] | None:
+    """(kernel name, DN as a string) of the instance ``kernel<DN>`` of one
+    of ``kernels`` that a mangled name in ``line`` names (matched with the
+    length prefix of the mangled name), else None."""
+    for name in kernels:
+        m = re.search(f"{len(name)}{name}ILi(\\d+)EE", line)
+        if m:
+            return name, m.group(1)
+    return None
+
+
+def ptxas_by_dn(log: str, kernels) -> dict[str, dict[str, tuple]]:
+    """(registers, spill bytes as stores + loads) of each instance of
+    ``kernels`` in ptxas's report, by kernel name and DN as
+    :func:`instance_key` gives them (None where ptxas printed no such
+    line)."""
+    out = {name: {} for name in kernels}
     key = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            key = None
-            for kind, name in FLASH_INSTANCES.items():
-                m = re.search(name + r"ILi(\d+)E", line)
-                if m:
-                    key = (kind, int(m.group(1)))
+            key = instance_key(line, kernels)
+            if key is not None:
+                out[key[0]][key[1]] = (None, None)
+        if key is None:
+            continue
+        regs, spill = out[key[0]][key[1]]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and key is not None:
-            spills[key[0]][key[1]] = int(m.group(1)) + int(m.group(2))
-    return spills
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        out[key[0]][key[1]] = (regs, spill)
+    return out
 
 
 def causal_pairs(sq: int, skv: int, q_offset: int) -> int:
@@ -1233,6 +1260,37 @@ def lm_kernel_cases(device, seed: int) -> list[dict]:
     return cases
 
 
+def sass_counts(sass: str, kernels) -> dict[str, tuple[int, int]]:
+    """(HMMA instructions, atomic or reduction instructions) of each
+    instance of ``kernels`` in ``cuobjdump -sass`` output, by kernel name
+    and DN as :func:`instance_key` gives them."""
+    out, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            key = instance_key(line, kernels)
+            if key is not None:
+                key = f"{key[0]}<{key[1]}>"
+                out[key] = (0, 0)
+        elif key is not None:
+            hmma, atom = out[key]
+            out[key] = (hmma + ("HMMA" in line),
+                        atom + bool(re.search(r"\b(ATOM\w*|RED)\b",
+                                              line)))
+    return out
+
+
+def bwd_design(route: str, d: int, ptxas: dict) -> str:
+    """The backward's route for head size ``d`` with the registers and
+    spill bytes of each instance of its two kernels at that DN, from
+    ptxas's report."""
+    dn = str(next(n for n in FLASH_DNS if d <= n))
+    parts = [f"{name.split('_')[3]}<{key}> {regs} registers {spill} spill "
+             f"bytes"
+             for name in FLASH_BWD_ROUTES[route]
+             for key, (regs, spill) in ptxas[name].items() if key == dn]
+    return f"{route} ({', '.join(parts)})"
+
+
 def flash_train_cases(device, gen) -> list[dict]:
     """The training path's attention kernels at its shapes: the forward
     with lse at internlm2's training heads (bf16 [4, 16, 512, 128]), and
@@ -1254,12 +1312,15 @@ def flash_train_cases(device, gen) -> list[dict]:
     time is SDPA's backward alone (``torch.autograd.grad`` on a retained
     graph, in a CUDA graph as the kernel's), held within 5% of the
     largest |gradient| of the kernel's."""
+    from repro_torch.kernels import common as kc
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (
         attention_bwd_bounds, attention_bwd_ref, attention_with_lse_ref)
 
     randn = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
                                        device=device)
+    ptxas = ptxas_by_dn((kc.build_dir() / "flash_attention_bwd.log")
+                        .read_text(), sum(FLASH_BWD_ROUTES.values(), ()))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
     q, k, v = (randn(4, h, 512, 128).to(torch.bfloat16) for h in (16, 8, 8))
@@ -1340,7 +1401,8 @@ def flash_train_cases(device, gen) -> list[dict]:
             library_tol=(0.0, 0.05 * max(
                 float(x.float().abs().max())
                 for x in attention_bwd_ref(*args, **kw))),
-            design="f32 FMA, tiles in shared memory",
+            design=bwd_design(fa_ops.design(dtype, backward=True), d,
+                              ptxas),
             device_names=FLASH_BWD_KERNELS, split_names=FLASH_BWD_KERNELS,
             inputs=args, ops=10 * d * b * hq * causal_pairs(sq, skv,
                                                             q_offset),
@@ -3038,14 +3100,41 @@ def main() -> int:
                 if any(w in line for w in ("registers", "spill", "smem",
                                           "entry function")):
                     print(f"[build] {name}: {line.strip()}")
-    spills = flash_spills((build / "flash_attention.log").read_text())
-    for kind, by_dn in spills.items():
+    fwd = ptxas_by_dn((build / "flash_attention.log").read_text(),
+                      FLASH_INSTANCES.values())
+    for kind, name in FLASH_INSTANCES.items():
+        by_dn = {dn: spill for dn, (_, spill) in fwd[name].items()}
         print(f"[build] flash_attention {kind} spill bytes by DN: {by_dn}")
-        for dn in (80, 128):
-            if by_dn.get(dn, 1):
+        for dn in ("80", "128"):
+            if by_dn.get(dn) != 0:
                 raise AssertionError(f"flash_attention {kind} DN {dn}: "
                                      f"ptxas spills {by_dn.get(dn)} bytes "
                                      f"(or no report)")
+    bwd = ptxas_by_dn((build / "flash_attention_bwd.log").read_text(),
+                      sum(FLASH_BWD_ROUTES.values(), ()))
+    for name, by_args in bwd.items():
+        print(f"[build] {name} (registers, spill bytes) by DN: "
+              f"{by_args}")
+    for name in FLASH_BWD_ROUTES["mma_bf16"]:
+        dns = {int(key) for key in bwd[name]}
+        bad = {key: rs for key, rs in bwd[name].items() if rs[1] != 0}
+        if dns != set(FLASH_DNS) or bad:
+            raise AssertionError(f"{name}: ptxas reports DNs {sorted(dns)}, "
+                                 f"spills (or no report) at {bad}")
+    # The bf16 backward runs on tensor cores (HMMA in every instance) and
+    # neither route uses atomics.
+    cuobjdump = Path(kc._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build / "libflash_attention_bwd.so")],
+                          capture_output=True, text=True, check=True).stdout
+    counts = sass_counts(sass, sum(FLASH_BWD_ROUTES.values(), ()))
+    print(f"[build] flash_attention_bwd SASS (HMMA, atomic) per instance: "
+          f"{counts}")
+    mma = [k for k in counts if "_mma_" in k]
+    if (len(mma) != 2 * len(FLASH_DNS)
+            or any(counts[k][0] == 0 for k in mma)
+            or any(atom for _, atom in counts.values())):
+        raise AssertionError(f"flash_attention_bwd SASS: {counts}")
 
     paths = Paths(device, args.seed, args.steps)
     blocks = paths.first_blocks()

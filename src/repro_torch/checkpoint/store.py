@@ -29,7 +29,11 @@ A tree is any nesting of NamedTuples, tuples, lists and dicts; ``None``
 is an empty subtree.  Leaf keys are what ``jax.tree_util.
 tree_flatten_with_path`` gives (field names, sorted dict keys, sequence
 indices, joined by ``/``), so a checkpoint written by either package's
-store restores through the other's.
+store restores through the other's.  A NamedTuple may name fields in a
+``CHIP_FIRST`` class attribute: the port holds their leaves ``[B,
+n_chips, ...]`` where the reference holds them chip-first (the pipelined
+carry's block stats), so the store writes them with their first two
+axes swapped and swaps them back on restore.
 """
 
 from __future__ import annotations
@@ -75,25 +79,38 @@ def _children(x):
     return None
 
 
-def tree_flatten_with_path(tree: Any) -> tuple[list, Callable]:
-    """``([(path, leaf), ...], unflatten)``: leaves in JAX's order, each
-    path a tuple of field names, dict keys and indices; ``unflatten``
-    rebuilds the tree from a list of new leaves."""
+def _flatten(tree: Any) -> tuple[list, Callable]:
+    """``([(path, leaf, chip_first), ...], unflatten)``: leaves in JAX's
+    order, each path a tuple of field names, dict keys and indices, and
+    ``chip_first`` whether the leaf lies below a field that its NamedTuple
+    lists in ``CHIP_FIRST``; ``unflatten`` rebuilds the tree from a list
+    of new leaves."""
     items = []
 
-    def walk(x, path):
+    def walk(x, path, swap):
         if x is None:
             return lambda it: None
         node = _children(x)
         if node is None:
-            items.append((path, x))
+            items.append((path, x, swap))
             return lambda it: next(it)
         keys, kids, rebuild = node
-        subs = [walk(c, path + (k,)) for k, c in zip(keys, kids)]
+        names = getattr(type(x), "CHIP_FIRST", ()) if _is_namedtuple(x) \
+            else ()
+        subs = [walk(c, path + (k,), swap or k in names)
+                for k, c in zip(keys, kids)]
         return lambda it: rebuild([s(it) for s in subs])
 
-    build = walk(tree, ())
+    build = walk(tree, (), False)
     return items, lambda leaves: build(iter(leaves))
+
+
+def tree_flatten_with_path(tree: Any) -> tuple[list, Callable]:
+    """``([(path, leaf), ...], unflatten)``: leaves in JAX's order, each
+    path a tuple of field names, dict keys and indices; ``unflatten``
+    rebuilds the tree from a list of new leaves."""
+    items, unflatten = _flatten(tree)
+    return [(path, leaf) for path, leaf, _ in items], unflatten
 
 
 def tree_leaves(tree: Any) -> list:
@@ -114,9 +131,16 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 
 
 def _flatten_with_paths(tree: Any):
-    items, unflatten = tree_flatten_with_path(tree)
-    return [("/".join(str(p) for p in path), leaf)
-            for path, leaf in items], unflatten
+    """``([(key, leaf, chip_first), ...], unflatten)`` as :func:`_flatten`
+    gives them, each path joined by ``/``."""
+    items, unflatten = _flatten(tree)
+    return [("/".join(str(p) for p in path), leaf, swap)
+            for path, leaf, swap in items], unflatten
+
+
+def _swap01(x, swap: bool):
+    """``x`` with its first two axes swapped where ``swap``."""
+    return x.swapaxes(0, 1) if swap else x
 
 
 # -- arrays -------------------------------------------------------------------
@@ -191,11 +215,13 @@ def save(tree: Any, base: str, step: int) -> str:
     commit."""
     final = step_dir(base, step)
     items, _ = _flatten_with_paths(tree)
-    if any(_is_dtensor(leaf) for _, leaf in items):
+    gathered = any(_is_dtensor(leaf) for _, leaf, _ in items)
+    items = [(k, _swap01(leaf.full_tensor() if _is_dtensor(leaf) else leaf,
+                         swap))
+             for k, leaf, swap in items]
+    if gathered:
         import torch.distributed as dist
 
-        items = [(k, leaf.full_tensor() if _is_dtensor(leaf) else leaf)
-                 for k, leaf in items]
         if dist.get_rank() == 0:
             _write(items, base, step)
         dist.barrier()
@@ -349,17 +375,18 @@ def restore(base: str, step: int, target: Any, *, device=None,
         manifest = json.load(f)
     items, unflatten = _flatten_with_paths(target)
     if strict:
-        extra = sorted(set(manifest["leaves"]) - {k for k, _ in items})
+        extra = sorted(set(manifest["leaves"]) - {k for k, *_ in items})
         if extra:
             hints = [h for h in (_stale_merge_hint(k, manifest["leaves"])
-                                 for k, _ in items) if h]
+                                 for k, *_ in items) if h]
             raise ValueError(
                 f"checkpoint at {d} carries leaves the target does not: "
                 f"{extra}" + ("; " + hints[0] if hints else
                               " (stale state format? pass strict=False to "
                               "restore a sub-tree deliberately)"))
     out = []
-    for (key, leaf), shd in zip(items, _sharding_leaves(target, shardings)):
+    for (key, leaf, swap), shd in zip(items,
+                                      _sharding_leaves(target, shardings)):
         meta = manifest["leaves"].get(key)
         if meta is None:
             hint = _stale_merge_hint(key, manifest["leaves"])
@@ -369,10 +396,13 @@ def restore(base: str, step: int, target: Any, *, device=None,
         arr = _from_numpy(np.load(os.path.join(d, meta["file"])),
                           meta["dtype"])
         want_shape = tuple(leaf.shape)
+        if swap:
+            want_shape = want_shape[1::-1] + want_shape[2:]
         if tuple(arr.shape) != want_shape:
             raise ValueError(
                 f"{key}: checkpoint shape {tuple(arr.shape)} != target "
-                f"{want_shape}")
+                f"{want_shape}" + (" (stored chip-first)" if swap else ""))
+        arr = _swap01(arr, swap).contiguous()
         if shd is not None:
             out.append(_distribute(arr.to(_target_dtype(leaf)), *shd))
             continue

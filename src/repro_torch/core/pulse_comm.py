@@ -325,6 +325,10 @@ class PipelineCarry(NamedTuple):
     t0: torch.Tensor
     valid: torch.Tensor
 
+    # The checkpoint store writes these fields chip-first, as the
+    # reference's carry holds them (``checkpoint.store``).
+    CHIP_FIRST = ("inject",)
+
     def occupancy(self) -> torch.Tensor:
         """Valid in-flight words per chip (0 where the pipeline is
         empty)."""

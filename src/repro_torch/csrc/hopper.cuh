@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks: shared-memory barriers (mbarrier),
 // TMA tile loads and stores, per-thread asynchronous copies (cp.async),
 // register reallocation between warpgroups, the warpgroup matrix
-// multiply (wgmma) on bf16 operands with f32 sums, and the warp-level
-// mma.sync on TF32 operands with the hi/lo split of 3xTF32.
+// multiply (wgmma) on bf16 operands with f32 sums, the warp-level
+// mma.sync on TF32 operands with the hi/lo split of 3xTF32 and on bf16
+// operands, and ldmatrix.
 //
 // Layout contract between TMA and wgmma.  A tile is loaded as column
 // boxes of 64 bf16 (128 bytes) by rows, with the 128-byte swizzle: row r
@@ -147,6 +148,13 @@ __device__ __forceinline__ void cp_async_commit() {
 // Waits until this thread's committed copies have all landed.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed copy groups are still
+// in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // ---- named barriers -----------------------------------------------------
@@ -356,6 +364,51 @@ __device__ __forceinline__ void mma_tf32x3(float (&d)[4],
   mma_tf32(d, a_lo, b_hi);
   mma_tf32(d, a_hi, b_lo);
   mma_tf32(d, a_hi, b_hi);
+}
+
+// ---- mma.sync on bf16, ldmatrix ----------------------------------------
+
+// Two floats rounded to bf16 (to nearest even) as one b32 register: lo in
+// the low half, the operand element of the lower row or column.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += a b, m16n8k16, bf16 operands, f32 sums: a [16 x 16] row-major, b
+// [16 x 8] column-major, each register a pair of bf16 (pack_bf16).  Lane
+// (g, t) = (lane / 4, lane % 4) holds a0 (row g, k 2t and 2t + 1), a1 (g
+// + 8, the same), a2 (g, k 2t + 8 and 2t + 9), a3 (g + 8, the same); b0
+// (k 2t and 2t + 1, col g), b1 (k 2t + 8 and 2t + 9, col g); d as
+// mma_tf32's.  The accumulator fragment of two n8 tiles side by side,
+// packed pair by pair, is the a fragment of their 16 columns.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 tiles of 16-bit elements from shared memory: lane l gives
+// the address of row l % 8 of tile l / 8 (16 bytes, 16-byte aligned).
+// Register i receives, of tile i, row l / 4 at columns 2 (l % 4) and
+// 2 (l % 4) + 1; with .trans, column l / 4 at rows 2 (l % 4) and
+// 2 (l % 4) + 1 (the lower row or column in the low half).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
 }
 
 // ---- host: TMA descriptors ----------------------------------------------

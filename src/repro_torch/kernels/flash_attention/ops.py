@@ -8,8 +8,11 @@ inputs ``wgmma`` on TMA-fed tiles, float32 inputs 3xTF32 on ``mma.sync``
 (each operand split into two TF32 values and each product summed from
 three, which keeps float32's accuracy); the type alone decides
 (:func:`design`).  The backward launches its two kernels (dQ, then dK
-and dV) through one C call.  On CPU tensors both run the plain versions
-of :mod:`repro_torch.kernels.flash_attention.ref`.
+and dV) through one C call: bfloat16 on tensor cores (``mma.sync``
+m16n8k16, P and dS in registers), float32 in f32 FMA on CUDA cores;
+neither uses atomics, so two calls on the same inputs give the same
+bits.  On CPU tensors both run the plain versions of
+:mod:`repro_torch.kernels.flash_attention.ref`.
 
 :func:`flash_attention` goes through :class:`FlashAttention` where an
 input requires grad under grad mode: the forward then also writes each
@@ -31,6 +34,7 @@ NAME = "flash_attention"
 BWD_NAME = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DESIGNS = {torch.float32: "mma_tf32x3", torch.bfloat16: "wgmma"}
+_BWD_DESIGNS = {torch.float32: "fma_f32", torch.bfloat16: "mma_bf16"}
 _ARGTYPES = [kc.P] * 5 + [kc.I] * 8 + [kc.F, kc.I, kc.P]
 _BWD_ARGTYPES = [kc.P] * 10 + [kc.I] * 8 + [kc.F, kc.I, kc.P]
 # TMA (bf16) and the 16-byte cp.async copies (float32) read a tensor from
@@ -39,13 +43,15 @@ TMA_ALIGN = 16
 F32 = torch.float32
 
 
-def design(dtype: torch.dtype) -> str:
-    """The kernel that serves ``dtype`` on the card: ``"wgmma"`` (bf16,
-    ``wgmma``) or ``"mma_tf32x3"`` (float32, 3xTF32 on ``mma.sync``)."""
+def design(dtype: torch.dtype, *, backward: bool = False) -> str:
+    """The kernel that serves ``dtype`` on the card.  Forward: ``"wgmma"``
+    (bf16, ``wgmma``) or ``"mma_tf32x3"`` (float32, 3xTF32 on
+    ``mma.sync``); backward: ``"mma_bf16"`` (bf16 ``mma.sync``) or
+    ``"fma_f32"`` (float32 FMA on CUDA cores)."""
     if dtype not in _DESIGNS:
         raise ValueError(f"flash_attention takes float32 or bfloat16, not "
                          f"{dtype}")
-    return _DESIGNS[dtype]
+    return (_BWD_DESIGNS if backward else _DESIGNS)[dtype]
 
 
 def tma_ready(x: torch.Tensor) -> torch.Tensor:
@@ -109,7 +115,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     forward's inputs, its output ``out`` and ``lse`` and the output's
     gradient ``dout``.  On the card one C call launches the dQ kernel
     (which also computes delta = rowsum(dout * out) into a scratch
-    buffer) and then the dK/dV kernel."""
+    buffer) and then the dK/dV kernel, of the route ``design(q.dtype,
+    backward=True)`` names."""
     (b, hq, hkv, sq, skv, d), scale = _shapes(q, k, scale)
     if not q.is_cuda:
         return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,

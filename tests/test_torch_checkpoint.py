@@ -267,7 +267,7 @@ def test_leaf_keys_equal_jax_paths():
              "a": {"k2": jnp.zeros(1), "k1": jnp.zeros(1)}}
     want, _ = jckpt.store._flatten_with_paths(jtree)
     got, _ = ckpt.store._flatten_with_paths(port)
-    assert [k for k, _ in got] == [k for k, _ in want] == [
+    assert [k for k, *_ in got] == [k for k, _ in want] == [
         "a/k1", "a/k2", "z/0/a", "z/0/c/0", "z/0/c/1"]
 
 
@@ -352,10 +352,9 @@ def test_network_state_checkpoints_cross_the_two_stores(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_pipeline_carry_layouts_differ_on_purpose(tmp_path):
-    """The pipelined carry's block stats are ``[B, n_chips]`` in the port
-    and chip-first in JAX, so a pipelined state does not cross the stores
-    unconverted: the port's restore names the leaf whose shape differs."""
+def _jax_pipelined_state():
+    """A JAX NetworkState between two pipelined blocks (4 chips x 16, B
+    2): a carry with words in flight."""
     comm = jpc.PulseCommConfig(n_chips=4, neurons_per_chip=16,
                                n_inputs_per_chip=16, event_capacity=16,
                                bucket_capacity=16, ring_depth=32,
@@ -364,11 +363,60 @@ def test_pipeline_carry_layouts_differ_on_purpose(tmp_path):
     key = jax.random.PRNGKey(1)
     params = jnet.init_params(key, jcfg, table=jrt.random_table(
         key, 16, 4, max_delay=12, min_delay=6))
-    jstate = jnet.init_state(jcfg, params)
-    jckpt.save(jstate, str(tmp_path), 0)
-    port = convert.state_from_jax(jstate, device="cpu")
-    with pytest.raises(ValueError, match="pending/inject"):
-        ckpt.restore(str(tmp_path), 0, port)
+    jfab = jnet.local_fabric(jcfg)
+    jstate = jnet._ensure_carries(jfab, jnet.init_state(jcfg, params),
+                                  pipeline=True)
+    block = jax.jit(lambda p, s, e: jnet._block_impl(
+        jcfg, jfab, p.table, p.neuron, p.crossbar.w, s, e)[0])
+    ext = 1.5 * (np.random.default_rng(1).random((4, 4, 16)) < 0.5)
+    for f in range(2):
+        jstate = block(params, jstate,
+                       jnp.asarray(ext[2 * f:2 * f + 2], jnp.float32))
+    assert int(np.asarray(jstate.pending.occupancy()).sum()) > 0
+    return jstate
+
+
+def test_pipelined_state_checkpoints_cross_the_two_stores(tmp_path):
+    """A pipelined JAX state with words in flight, saved by the JAX store,
+    restores into the port equal to ``convert.state_from_jax``; the
+    port's save of it is byte for byte the JAX save (the carry's block
+    stats, ``[B, n_chips]`` in the port, are written chip-first), and JAX
+    restores it."""
+    jstate = _jax_pipelined_state()
+    want = convert.state_from_jax(jstate, device="cpu")
+    assert tuple(want.pending.inject.sent.shape) == (2, 4)
+    jckpt.save(jstate, str(tmp_path / "jax"), 2)
+    got = ckpt.restore(str(tmp_path / "jax"), 2,
+                       ckpt.tree_map(torch.zeros_like, want))
+    _assert_tree_equal(want, got)
+    assert int(got.pending.occupancy().sum()) > 0
+    ckpt.save(got, str(tmp_path / "port"), 2)
+    _same_files(jckpt.step_dir(str(tmp_path / "jax"), 2),
+                ckpt.step_dir(str(tmp_path / "port"), 2))
+    back = jckpt.restore(str(tmp_path / "port"), 2,
+                         jax.tree.map(jnp.zeros_like, jstate))
+    for a, b in zip(jax.tree.leaves(jstate), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_pipelined_state_save_restore_roundtrip(tmp_path):
+    """The port's store alone: a pipelined state goes out and comes back
+    bitwise with its carry's stats ``[B, n_chips]`` (the files hold them
+    chip-first), and a target with the stats in the stored layout is
+    refused with the leaf's name."""
+    state = convert.state_from_jax(_jax_pipelined_state(), device="cpu")
+    ckpt.save(state, str(tmp_path), 4)
+    got = ckpt.restore(str(tmp_path), 4,
+                       ckpt.tree_map(torch.zeros_like, state))
+    _assert_tree_equal(state, got)
+    manifest = json.load(open(os.path.join(ckpt.step_dir(str(tmp_path), 4),
+                                           "manifest.json")))
+    assert manifest["leaves"]["pending/inject/sent"]["shape"] == [4, 2]
+    wrong = state._replace(pending=state.pending._replace(
+        inject=pc.InjectStats(*(x.swapaxes(0, 1).contiguous()
+                                for x in state.pending.inject))))
+    with pytest.raises(ValueError, match="pending/inject/sent"):
+        ckpt.restore(str(tmp_path), 4, wrong)
 
 
 # ---------------------------------------------------------------------------

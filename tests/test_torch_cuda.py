@@ -1130,6 +1130,21 @@ def test_flash_attention_trains_through_the_kernels(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (4, 16, 8, 512, 128),   # internlm2's training heads
+    (2, 16, 4, 300, 80)])   # D 80, GQA 4
+def test_flash_attention_bwd_bf16_is_deterministic(cuda, b, hq, hkv, s, d):
+    """The bf16 backward uses no atomics: two calls on the same inputs
+    give bitwise equal dq, dk and dv."""
+    args = _bwd_inputs(cuda, b, hq, hkv, s, s, d, torch.bfloat16, True, 0)
+    assert fa.design(torch.bfloat16, backward=True) == "mma_bf16"
+    first = fa.flash_attention_bwd(*args)
+    second = fa.flash_attention_bwd(*args)
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
 def test_ssm_apply_refuses_a_backward_on_the_card(cuda):
     """The scan kernel has no backward: on the card ``ssm_apply`` raises
     where autograd would record it, and runs under no_grad."""

@@ -137,7 +137,7 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def test_chip_smoke_reads_flash_spills_of_both_types():
-    """``chip_smoke.flash_spills`` reads ptxas's report per instance: the
+    """``chip_smoke.ptxas_by_dn`` reads ptxas's report per instance: the
     bf16 (wgmma) and float32 (3xTF32) kernels by DN, so a spill at DN 80
     or 128 in either fails the build phase."""
     import importlib.util
@@ -158,7 +158,68 @@ def test_chip_smoke_reads_flash_spills_of_both_types():
         "ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_1"
         "12other_kernelEv' for 'sm_90a'",
         "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads"])
-    assert smoke.flash_spills(log) == {"bf16": {80: 0}, "f32": {128: 24}}
+    assert smoke.ptxas_by_dn(log, smoke.FLASH_INSTANCES.values()) == {
+        "flash_attention_wgmma_kernel": {"80": (None, 0)},
+        "flash_attention_tf32x3_kernel": {"128": (None, 24)}}
+
+
+def test_chip_smoke_reads_the_backward_kernels_registers_and_spills():
+    """``chip_smoke.ptxas_by_dn`` reads (registers, spill bytes) of each
+    backward instance by kernel and DN, whichever order
+    ptxas prints the two lines in, and ``bwd_design`` lists every
+    instance of a route at the DN a head size rounds up to."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_133"
+        "flash_attention_bwd_dq_mma_kernelILi128EEEvPK13__nv_bfloat16' for "
+        "'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 164 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_135"
+        "flash_attention_bwd_dkdv_mma_kernelILi128EEEvPK13__nv_bfloat16'"
+        " for 'sm_90a'",
+        "ptxas info    : Used 245 registers, used 1 barriers",
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_135"
+        "flash_attention_bwd_dkdv_mma_kernelILi80EEEvPK13__nv_bfloat16'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 165 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_133"
+        "flash_attention_bwd_dq_fma_kernelILi80EEEvPKf' for 'sm_90a'",
+        "ptxas info    : Used 148 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"])
+    names = sum(smoke.FLASH_BWD_ROUTES.values(), ())
+    got = smoke.ptxas_by_dn(log, names)
+    assert got == {"flash_attention_bwd_dq_mma_kernel": {"128": (164, 0)},
+                   "flash_attention_bwd_dkdv_mma_kernel": {
+                       "128": (245, 12), "80": (165, 0)},
+                   "flash_attention_bwd_dq_fma_kernel": {"80": (148, 0)},
+                   "flash_attention_bwd_dkdv_fma_kernel": {}}
+    assert smoke.bwd_design("mma_bf16", 120, got) == (
+        "mma_bf16 (dq<128> 164 registers 0 spill bytes, dkdv<128> 245 "
+        "registers 12 spill bytes)")
+    assert all(any(k.startswith(p) for p in smoke.FLASH_BWD_KERNELS)
+               for k in names)
+    sass = "\n".join([
+        "\t\tFunction : _ZN3_GLOBAL__N_135flash_attention_bwd_dkdv_mma_"
+        "kernelILi80EEEvPK13__nv_bfloat16",
+        "        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, RZ ;",
+        "        /*0110*/  HMMA.16816.F32.BF16 R4, R8, R14, R4 ;",
+        "\t\tFunction : _ZN3_GLOBAL__N_133flash_attention_bwd_dq_fma_"
+        "kernelILi64EEEvPKf",
+        "        /*0200*/  FFMA R1, R2, R3, R1 ;",
+        "        /*0210*/  RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R5 ;",
+        "\t\tFunction : _ZN3_GLOBAL__N_112other_kernelEv",
+        "        /*0300*/  HMMA.16816.F32.BF16 R4, R8, R12, RZ ;"])
+    assert smoke.sass_counts(sass, names) == {
+        "flash_attention_bwd_dkdv_mma_kernel<80>": (2, 0),
+        "flash_attention_bwd_dq_fma_kernel<64>": (0, 1)}
 
 
 def test_entry_points_default_to_the_card(tmp_path):
