@@ -8,7 +8,9 @@ Phases, each fatal on failure:
              one process per source, all started together); ptxas's
              registers and spills per kernel, and no spill in the
              flash-attention instances of head size 80 and 128 (bf16 and
-             float32);
+             float32) nor in any backward instance; the backward's SASS
+             holds HMMA in every instance (TF32 in each float32 one)
+             and no atomic;
   2. kernels each kernel against its plain PyTorch version on the card,
              bitwise on every output of the SNN kernels, on inputs taken
              from the first block of each path below, in every mode the
@@ -27,10 +29,12 @@ Phases, each fatal on failure:
              path's attention kernels (``flash_train_cases``): the forward
              with lse and ``flash_attention_bwd`` (its two kernels, dQ and
              dK/dV, timed together and apart; bf16 on ``mma.sync``,
-             float32 in FMA, each case with its route and its kernels'
-             registers and spill bytes) at internlm2's and zamba2's
-             training heads, in f32 and after cached keys, elementwise
-             within ``attention_bwd_bounds``, beside SDPA's backward.
+             float32 in 3xTF32 on ``mma.sync``, each case with its route
+             and its kernels' registers and spill bytes) at internlm2's
+             and zamba2's training heads, in f32 and after cached keys,
+             elementwise within ``attention_bwd_bounds`` (a peaked f32
+             softmax within ``tf32x3_bwd_bounds``), beside SDPA's
+             backward.
              ``bucket_pack``
              (the wafer's flush), ``lif_step`` and every case of
              ``fused_inject`` and ``fused_lif_inject`` print their launch
@@ -246,8 +250,8 @@ FLASH_BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 FLASH_BWD_ROUTES = {
     "mma_bf16": ("flash_attention_bwd_dq_mma_kernel",
                  "flash_attention_bwd_dkdv_mma_kernel"),
-    "fma_f32": ("flash_attention_bwd_dq_fma_kernel",
-                "flash_attention_bwd_dkdv_fma_kernel")}
+    "mma_tf32x3": ("flash_attention_bwd_dq_tf32x3_kernel",
+                   "flash_attention_bwd_dkdv_tf32x3_kernel")}
 # Head sizes the flash kernels are instantiated for (D rounds up to one).
 FLASH_DNS = (16, 32, 64, 80, 96, 128, 192, 256)
 PLAIN_CHECK_STEPS = 16
@@ -1260,10 +1264,11 @@ def lm_kernel_cases(device, seed: int) -> list[dict]:
     return cases
 
 
-def sass_counts(sass: str, kernels) -> dict[str, tuple[int, int]]:
-    """(HMMA instructions, atomic or reduction instructions) of each
-    instance of ``kernels`` in ``cuobjdump -sass`` output, by kernel name
-    and DN as :func:`instance_key` gives them."""
+def sass_counts(sass: str, kernels,
+                hmma: str = "HMMA") -> dict[str, tuple[int, int]]:
+    """(instructions that match the pattern ``hmma``, atomic or reduction
+    instructions) of each instance of ``kernels`` in ``cuobjdump -sass``
+    output, by kernel name and DN as :func:`instance_key` gives them."""
     out, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -1272,8 +1277,8 @@ def sass_counts(sass: str, kernels) -> dict[str, tuple[int, int]]:
                 key = f"{key[0]}<{key[1]}>"
                 out[key] = (0, 0)
         elif key is not None:
-            hmma, atom = out[key]
-            out[key] = (hmma + ("HMMA" in line),
+            n, atom = out[key]
+            out[key] = (n + bool(re.search(hmma, line)),
                         atom + bool(re.search(r"\b(ATOM\w*|RED)\b",
                                               line)))
     return out
@@ -1296,7 +1301,9 @@ def flash_train_cases(device, gen) -> list[dict]:
     with lse at internlm2's training heads (bf16 [4, 16, 512, 128]), and
     ``flash_attention_bwd`` there (the main case), at zamba2's head size
     (bf16 [4, 32, 512, 80]), in float32 (the train-check's [2, 16, 64,
-    128] and [1, 16, 512, 128]) and after 71 cached keys (GQA 4).
+    128], [1, 16, 512, 128], zamba2's heads [1, 32, 512, 80], and a
+    peaked softmax: [1, 16, 512, 128] with q eight times larger) and
+    after 71 cached keys (GQA 4, both types).
 
     The forward's (out, lse) is held to the bf16 output bound of
     :func:`lm_kernel_cases` and its lse within 1e-4 + 1e-5 |lse| of the
@@ -1306,16 +1313,20 @@ def flash_train_cases(device, gen) -> list[dict]:
     ``attention_bwd_bounds`` (bf16: a flip of the output's rounding,
     2^-7 |y|, plus 2^-6 of the root of each element's sum of squared
     terms for flips of p's and ds's roundings, plus 2^-15 of a sum that
-    bounds dp - delta; f32: 2^-16 of that sum); each case prints its
-    largest err / bound.  Bound: 5 products of 2 D flops per unmasked
-    pair and query head, at 989 TFLOP/s (bf16) or 67 (f32); the library
-    time is SDPA's backward alone (``torch.autograd.grad`` on a retained
-    graph, in a CUDA graph as the kernel's), held within 5% of the
-    largest |gradient| of the kernel's."""
+    bounds dp - delta; f32: 2^-16 of that sum; the peaked case within
+    ``tf32x3_bwd_bounds``, which adds 3xTF32's error of s passed on by
+    p); each case prints its largest err / bound.  Bound: 5 products of 2
+    D flops per unmasked pair and query head, at 989 TFLOP/s (bf16) or
+    165 (f32, 3xTF32; the time at 67 T op/s on CUDA cores printed
+    beside); the library time is SDPA's backward alone
+    (``torch.autograd.grad`` on a retained graph, in a CUDA graph as the
+    kernel's), held within 5% of the largest |gradient| of the
+    kernel's."""
     from repro_torch.kernels import common as kc
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (
-        attention_bwd_bounds, attention_bwd_ref, attention_with_lse_ref)
+        attention_bwd_bounds, attention_bwd_ref, attention_with_lse_ref,
+        tf32x3_bwd_bounds)
 
     randn = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
                                        device=device)
@@ -1342,27 +1353,35 @@ def flash_train_cases(device, gen) -> list[dict]:
         ops=4 * 128 * 4 * 16 * causal_pairs(512, 512, 0),
         ops_per_s=BF16_TC_OPS_PER_S))
 
-    for label, b, hq, hkv, sq, skv, d, dtype, q_offset, main in (
+    f32 = torch.float32
+    for label, b, hq, hkv, sq, skv, d, dtype, q_offset, main, q_factor in (
             ("internlm2 train bf16", 4, 16, 8, 512, 512, 128,
-             torch.bfloat16, 0, True),
+             torch.bfloat16, 0, True, 1),
             ("zamba2 heads bf16", 4, 32, 32, 512, 512, 80, torch.bfloat16,
-             0, False),
-            ("train-check f32", 2, 16, 8, 64, 64, 128, torch.float32, 0,
-             False),
-            ("internlm2 f32, batch 1", 1, 16, 8, 512, 512, 128,
-             torch.float32, 0, False),
+             0, False, 1),
+            ("train-check f32", 2, 16, 8, 64, 64, 128, f32, 0, False, 1),
+            ("internlm2 f32, batch 1", 1, 16, 8, 512, 512, 128, f32, 0,
+             False, 1),
+            ("zamba2 heads f32", 1, 32, 32, 512, 512, 80, f32, 0, False, 1),
+            ("q_offset 71, GQA 4 f32", 1, 32, 8, 129, 200, 80, f32, 71,
+             False, 1),
+            ("peaked f32, q x 8", 1, 16, 8, 512, 512, 128, f32, 0, False,
+             8),
             ("q_offset 71, GQA 4 bf16", 1, 32, 8, 129, 200, 80,
-             torch.bfloat16, 71, False)):
-        q = randn(b, hq, sq, d).to(dtype)
+             torch.bfloat16, 71, False, 1)):
+        q = (randn(b, hq, sq, d) * q_factor).to(dtype)
         k, v = randn(b, hkv, skv, d).to(dtype), randn(b, hkv, skv, d).to(dtype)
         dout = randn(b, hq, sq, d).to(dtype)
         kw = dict(causal=True, q_offset=q_offset)
         out, lse = attention_with_lse_ref(q, k, v, **kw)
         args = (q, k, v, out, lse, dout)
-        bounds = attention_bwd_bounds(*args, **kw)
+        bounds = (tf32x3_bwd_bounds if q_factor != 1
+                  else attention_bwd_bounds)(*args, **kw)
         bf16 = dtype == torch.bfloat16
+        ops = 10 * d * b * hq * causal_pairs(sq, skv, q_offset)
 
-        def check(got, a=args, k_=kw, bd=bounds, lbl=label):
+        def check(got, a=args, k_=kw, bd=bounds, lbl=label, bf16=bf16,
+                  ops=ops):
             ratios = []
             for name, g, w, bound in zip(("dq", "dk", "dv"), got,
                                          attention_bwd_ref(*a, **k_), bd):
@@ -1380,6 +1399,11 @@ def flash_train_cases(device, gen) -> list[dict]:
                     f" of max |{name}|)")
             print(f"[kernel] flash_attention_bwd [{lbl}] max err / bound: "
                   + "; ".join(ratios))
+            if not bf16:
+                print(f"[kernel] flash_attention_bwd [{lbl}] bound at 67 T "
+                      f"op/s on CUDA cores {ops / SIMT_OPS_PER_S * 1e3:.5f} "
+                      f"ms (at 3xTF32's 165: "
+                      f"{ops / TF32X3_OPS_PER_S * 1e3:.5f})")
 
         library = library_time = None
         if q_offset == 0:
@@ -1404,9 +1428,8 @@ def flash_train_cases(device, gen) -> list[dict]:
             design=bwd_design(fa_ops.design(dtype, backward=True), d,
                               ptxas),
             device_names=FLASH_BWD_KERNELS, split_names=FLASH_BWD_KERNELS,
-            inputs=args, ops=10 * d * b * hq * causal_pairs(sq, skv,
-                                                            q_offset),
-            ops_per_s=BF16_TC_OPS_PER_S if bf16 else SIMT_OPS_PER_S))
+            inputs=args, ops=ops,
+            ops_per_s=BF16_TC_OPS_PER_S if bf16 else TF32X3_OPS_PER_S))
     return cases
 
 
@@ -3115,14 +3138,14 @@ def main() -> int:
     for name, by_args in bwd.items():
         print(f"[build] {name} (registers, spill bytes) by DN: "
               f"{by_args}")
-    for name in FLASH_BWD_ROUTES["mma_bf16"]:
+    for name in sum(FLASH_BWD_ROUTES.values(), ()):
         dns = {int(key) for key in bwd[name]}
         bad = {key: rs for key, rs in bwd[name].items() if rs[1] != 0}
         if dns != set(FLASH_DNS) or bad:
             raise AssertionError(f"{name}: ptxas reports DNs {sorted(dns)}, "
                                  f"spills (or no report) at {bad}")
-    # The bf16 backward runs on tensor cores (HMMA in every instance) and
-    # neither route uses atomics.
+    # Both routes run on tensor cores (HMMA in every instance: bf16
+    # HMMA.16816, float32 HMMA.1688 on TF32) and neither uses atomics.
     cuobjdump = Path(kc._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(build / "libflash_attention_bwd.so")],
@@ -3130,10 +3153,14 @@ def main() -> int:
     counts = sass_counts(sass, sum(FLASH_BWD_ROUTES.values(), ()))
     print(f"[build] flash_attention_bwd SASS (HMMA, atomic) per instance: "
           f"{counts}")
-    mma = [k for k in counts if "_mma_" in k]
-    if (len(mma) != 2 * len(FLASH_DNS)
-            or any(counts[k][0] == 0 for k in mma)
-            or any(atom for _, atom in counts.values())):
+    tf32 = sass_counts(sass, FLASH_BWD_ROUTES["mma_tf32x3"],
+                       r"HMMA\S*\.TF32")
+    print(f"[build] flash_attention_bwd SASS TF32 HMMA per float32 "
+          f"instance: { {k: n for k, (n, _) in tf32.items()} }")
+    if (len(counts) != 2 * len(FLASH_BWD_ROUTES) * len(FLASH_DNS)
+            or any(hmma == 0 or atom for hmma, atom in counts.values())
+            or len(tf32) != 2 * len(FLASH_DNS)
+            or any(n == 0 for n, _ in tf32.values())):
         raise AssertionError(f"flash_attention_bwd SASS: {counts}")
 
     paths = Paths(device, args.seed, args.steps)

@@ -22,8 +22,9 @@
 // moved per query head: at internlm2's training shape (Sq = Skv = 512,
 // D 128, g 2) about 210 flops per byte in bf16, near the H100's ridge of
 // ~295 bf16 tensor-core flops per byte, so the tensor cores' rate bounds
-// it.  The two-kernel split below spends seven products (S and dP are
-// computed in both kernels), 14 D flops per pair.
+// it; in float32, 3xTF32's rate (a third of 495 T op/s).  The two-kernel
+// split below spends seven products (S and dP are computed in both
+// kernels), 14 D flops per pair.
 //
 // Both types run two kernels, launched in order on one stream by one C
 // call: a dQ kernel (query-major; it also computes delta and stores it)
@@ -64,22 +65,47 @@
 // A warp whose 16 rows see no key (or query) of a tile skips its
 // products; the barriers stay uniform.
 //
-// float32 (the train-check's, exact f32 like the 3xTF32 forward): the
-// first kernel pair, f32 FMA on CUDA cores from float32 tiles in shared
-// memory (zero past D, Sq and Skv).
-// * flash_attention_bwd_dq_fma_kernel: one CTA per (b, query head, tile
-//   of BX queries; the long causal rows first): delta, then for each k/v
-//   tile of BY keys S and dP, dS into shared memory, dQ += dS K.
-// * flash_attention_bwd_dkdv_fma_kernel: one CTA per (b, kv head, tile of
-//   BX keys): for each query head of the group and each q tile of BY
-//   queries, S and dP, p and dS into shared memory, dV += p^T dO and dK
-//   += dS^T Q in registers.
-// For S and dP a thread owns one x (a key, or a query) and BY / (256 /
-// BX) of the tile's y rows: its x row is read as float4 from a tile whose
-// row stride DN + 4 spreads a quarter-warp over all 32 banks, and the y
-// rows are the same for the whole warp (broadcast).  For the
-// accumulation a thread owns BX / 16 consecutive rows x and DN / 16
-// columns c strided by 16.  BX = 64 up to DN 128, else 32; BY = 32.
+// float32 (the train-check's, and every reduced config's): the same two
+// kernels' shape on mma.sync m16n8k8 in 3xTF32, as the f32 forward
+// (flash_attention.cu): each operand x is split into hi = tf32(x) and lo =
+// tf32(x - hi) (split_tf32, hopper.cuh) and each product is three mma.sync
+// with f32 sums, small terms first (lo hi, hi lo, hi hi: mma_tf32x3), which
+// keeps a product to about 2^-20.4 of |a b|; one TF32 product alone misses
+// float32's checks.  All five products run so.  In f32 the roundings of p
+// to v's type and of dS to q's are identities; p = exp(s scale - lse) by
+// expf of one FMA.  ldmatrix.trans moves 16-bit elements and cannot
+// transpose float32, so the tiles land raw by cp.async (rows DN + 4 floats
+// apart, 4 mod 8: every fragment read, a row-major or a transposed one,
+// falls on 32 distinct banks) and each operand is split as it is read:
+// one raw tile per operand serves both of its layouts, where
+// fragment-ordered hi/lo tiles would take 2x the raw tile for each layout
+// (at DN 128 dQ holds 101 KB a CTA and dK/dV 202 KB; with every B tile
+// pre-split, 194 KB and over 320 KB, past the 227 KB a CTA may hold).
+// Only dK/dV's K and V, the same A operands for every q tile, are split
+// once per CTA, into fragments laid out as a lane reads them (hi and lo,
+// 16 bytes a lane each).  The accumulator
+// fragments of S and dP (S^T and dP^T) become p and dS in registers and
+// are the A operands of the next products as they stand: lane (g, t) holds
+// columns 2t and 2t + 1 of each 8, taken as k-indices t and t + 4, and the
+// B operand of that product reads its rows in the same order (tf_b_cols),
+// so nothing is shuffled or written back.
+// * flash_attention_bwd_dq_tf32x3_kernel: one CTA of 4 warps per (b,
+//   query head, 32 queries, 64 from DN 192; the long causal rows first),
+//   16 rows a warp: delta (a warp a row, a lane per 8 columns, FMA in
+//   order, an xor butterfly), then for each k/v tile of 32 keys (16 from
+//   DN 192) S and dP, dS in registers, dQ += dS K.  Up to DN 128 two warps
+//   share 16 rows, each taking 16 keys of every tile, and add their dQ in
+//   shared memory at the end: twice the CTAs of one warp a row group, two
+//   or more on an SM (one warp alone on a scheduler stalls on its own mma
+//   and load chains), and the longest causal tile half as long.
+// * flash_attention_bwd_dkdv_tf32x3_kernel: one CTA per (b, kv head, tile
+//   of keys), as the bf16 kernel, a warp holding 16 key rows by 16
+//   queries of each q tile: up to DN 128, 8 warps, two key row groups
+//   each split four ways by the queries of a 64-query tile; at DN 192 and
+//   256, 4 warps, one key row group split two ways by queries and two by
+//   the columns of dK and dV (their dK and dV do not fit one warp's
+//   registers).  The query parts' sums meet in shared memory at the end,
+//   added in order.
 //
 // DN is D rounded up to 16, 32, 64, 80, 96, 128, 192 or 256.
 #include <cuda_bf16.h>
@@ -140,17 +166,18 @@ struct DkdvTile : MmaTile<DN> {
   static_assert(kKRows >= 16, "at least one 16-row key group");
 };
 
-// Rows [row0, row0 + R) of a row-major bf16 [n_rows, d] matrix into dst
-// [R][DN + 8] by cp.async, 16 bytes a copy: zeros past n_rows and past d
-// (a multiple of 8).
-template <int R, int DN, int Threads>
-__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
-                                          int row0, int n_rows, int d) {
-  constexpr int kChunks = DN / 8;
+// Rows [row0, row0 + R) of a row-major [n_rows, d] matrix of E (bf16 or
+// float) into dst [R][DN + W] by cp.async, W = 16 / sizeof(E) elements (16
+// bytes) a copy: zeros past n_rows and past d (a multiple of 8).
+template <int R, int DN, int Threads, typename E>
+__device__ __forceinline__ void copy_tile(E* dst, const E* src, int row0,
+                                          int n_rows, int d) {
+  constexpr int kW = 16 / sizeof(E);
+  constexpr int kChunks = DN / kW;
   for (int i = threadIdx.x; i < R * kChunks; i += Threads) {
-    const int r = i / kChunks, c = i % kChunks * 8;
+    const int r = i / kChunks, c = i % kChunks * kW;
     const bool in = row0 + r < n_rows && c < d;
-    sm::cp_async<16>(dst + r * (DN + 8) + c,
+    sm::cp_async<16>(dst + r * (DN + kW) + c,
                      in ? src + static_cast<long long>(row0 + r) * d + c : src,
                      in ? 16 : 0);
   }
@@ -605,317 +632,529 @@ int launch_mma(const void* q, const void* k, const void* v, const void* out,
   return static_cast<int>(err);
 }
 
-// ---- float32: FMA on CUDA cores -------------------------------------------
+// ---- float32: 3xTF32 on mma.sync ------------------------------------------
 
-constexpr int kFmaThreads = 256;
-
+// The float32 tiles: raw rows DN + 4 floats apart (4 mod 8), so that every
+// fragment read below (a lane's element at row g, 8 + g or 2t + i, column
+// t, t + 4 or g of an 8 x 8 block) falls on 32 distinct banks; each operand
+// is split into TF32 hi and lo as it is read.
+// dQ kernel: 16 query rows a warp, k/v tiles of kBK keys, 4 warps.  Up to
+// DN 128 two warps share 16 rows, each taking half of every tile's keys
+// (kWK), and add their sums of dQ through shared memory at the end, so a
+// CTA holds 32 rows: twice the CTAs of 64 rows, two or more resident on
+// an SM, and the longest causal row tile half as long.  From DN 192 a
+// warp takes all the keys of its 16 rows, and a CTA holds 64.
 template <int DN>
-struct FmaTile {
-  static constexpr int kBX = DN <= 128 ? 64 : 32;  // rows a CTA owns
-  static constexpr int kBY = 32;                   // rows of a loop tile
-  static constexpr int kLd = DN + 4;               // row stride in floats
-  static constexpr int kRY = kBY / (kFmaThreads / kBX);  // y rows a thread
-  static constexpr int kRX = kBX / 16;             // x rows a thread
-  static constexpr int kCols = DN / 16;            // columns a thread
+struct Tf3Dq {
+  static constexpr int kKSplit = DN <= 128 ? 2 : 1;
+  static constexpr int kRowGroups = 4 / kKSplit;
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kLd = DN + 4;
+  static constexpr int kQRows = 16 * kRowGroups;
+  static constexpr int kBK = DN <= 128 ? 32 : 16;
+  static constexpr int kWK = kBK / kKSplit;
+  static constexpr size_t kSmem =
+      sizeof(float) * ((2 * kQRows + 4 * kBK) * kLd + kQRows);
+  static_assert(4 * kBK * kLd >= (kKSplit - 1) * kRowGroups * DN / 8 * 128,
+                "the partial sums fit the k/v tiles' buffers");
 };
 
-// Rows [row0, row0 + R) of a row-major float32 [n_rows, d] matrix into
-// dst [R][DN + 4]: zeros past n_rows and past d (a multiple of 8).
-template <int R, int DN>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int n_rows, int d) {
-  constexpr int kChunks = DN / 8;
-  for (int i = threadIdx.x; i < R * kChunks; i += kFmaThreads) {
-    const int r = i / kChunks, c = i % kChunks * 8;
-    float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a;
-    if (row0 + r < n_rows && c < d) {
-      const float* p = src + static_cast<long long>(row0 + r) * d + c;
-      a = *reinterpret_cast<const float4*>(p);
-      b = *reinterpret_cast<const float4*>(p + 4);
-    }
-    float* o = dst + r * (DN + 4) + c;
-    *reinterpret_cast<float4*>(o) = a;
-    *reinterpret_cast<float4*>(o + 4) = b;
-  }
-}
-
-__device__ __forceinline__ float dot4(float acc, const float4 a,
-                                      const float4 b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// s[r] = xa . yb[r] and dp[r] = xc . yd[r] over DN columns: xa and xc are
-// this thread's x rows, yb and yd the first of its RY y rows (stride DN +
-// 4, the same for the whole warp).
-template <int DN, int RY>
-__device__ __forceinline__ void dots(const float* xa, const float* xc,
-                                     const float* yb, const float* yd,
-                                     float (&s)[RY], float (&dp)[RY]) {
-#pragma unroll
-  for (int r = 0; r < RY; ++r) s[r] = dp[r] = 0.0f;
-#pragma unroll 2
-  for (int c = 0; c < DN; c += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(xa + c);
-    const float4 e = *reinterpret_cast<const float4*>(xc + c);
-#pragma unroll
-    for (int r = 0; r < RY; ++r) {
-      s[r] = dot4(s[r], a,
-                  *reinterpret_cast<const float4*>(yb + r * (DN + 4) + c));
-      dp[r] = dot4(dp[r], e,
-                   *reinterpret_cast<const float4*>(yd + r * (DN + 4) + c));
-    }
-  }
-}
-
-// RX consecutive floats of a shared row (RX 4: 16-byte aligned; RX 2: 8).
-template <int RX>
-__device__ __forceinline__ void load_rx(const float* p, float (&w)[RX]) {
-  if constexpr (RX == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
-  } else {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    w[0] = x.x, w[1] = x.y;
-  }
-}
-
+// dK/dV kernel: as DkdvTile, a warp holding 16 key rows by kWQ queries of
+// each q tile: up to DN 128, 8 warps, two key row groups each split four
+// ways by the queries of a q tile; from DN 192, 4 warps, one key row group
+// split two ways by queries and two by the columns of dK and dV.  The
+// query splits' partial sums of dK and dV meet in shared memory at the
+// end, added in order.
 template <int DN>
-__global__ void __launch_bounds__(kFmaThreads, 1)
-    flash_attention_bwd_dq_fma_kernel(
+struct Tf3Dkdv {
+  static constexpr int kCSplit = DN <= 128 ? 1 : 2;
+  static constexpr int kQSplit = DN <= 128 ? 4 : 2;
+  static constexpr int kWarps = DN <= 128 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kLd = DN + 4;
+  static constexpr int kKRows = 16 * kWarps / (kCSplit * kQSplit);
+  static constexpr int kCols = DN / kCSplit;
+  static constexpr int kWQ = 16;
+  static constexpr int kBQ = kQSplit * kWQ;
+  // K's and V's A fragments (hi and lo, 8 bytes an element each), then
+  // the q tiles raw.
+  static constexpr size_t kSmem =
+      16 * kKRows * DN + sizeof(float) * (4 * kBQ * kLd + 4 * kBQ);
+  static_assert(kCols % 8 == 0, "tiles of 8 columns");
+};
+
+// The TF32 hi and lo parts (sm::split_tf32) of a fragment's N registers.
+template <int N>
+struct Split {
+  uint32_t hi[N], lo[N];
+};
+
+// The A fragment of rows r0 + g and r0 + g + 8 of a raw tile, k-indices t
+// and t + 4 at columns c0 + t and c0 + t + 4.
+template <int LD>
+__device__ __forceinline__ Split<4> tf_a(const float* tile, int r0, int c0,
+                                         int g, int t) {
+  const float* p = tile + (r0 + g) * LD + c0 + t;
+  Split<4> a;
+  sm::split_tf32(p[0], a.hi[0], a.lo[0]);
+  sm::split_tf32(p[8 * LD], a.hi[1], a.lo[1]);
+  sm::split_tf32(p[4], a.hi[2], a.lo[2]);
+  sm::split_tf32(p[8 * LD + 4], a.hi[3], a.lo[3]);
+  return a;
+}
+
+// The A fragment of rows r0 + g and r0 + g + 8 of a row-major [n_rows, d]
+// matrix in device memory, k-indices t and t + 4 at columns 8 kk + t and
+// 8 kk + t + 4 (zeros past n_rows and d), split once into frag[kk]: hi
+// and lo, 16 bytes a lane each, in the order a lane reads them.
+__device__ __forceinline__ void split_a_rows(uint4* frag, const float* src,
+                                             int r0, int n_rows, int d,
+                                             int kk, int lane) {
+  const int g = lane / 4, t = lane % 4;
+  Split<4> a;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + g + 8 * (i % 2), c = 8 * kk + t + 4 * (i / 2);
+    const float x =
+        r < n_rows && c < d ? src[static_cast<long long>(r) * d + c] : 0.0f;
+    sm::split_tf32(x, a.hi[i], a.lo[i]);
+  }
+  frag[(kk * 2) * 32 + lane] = make_uint4(a.hi[0], a.hi[1], a.hi[2], a.hi[3]);
+  frag[(kk * 2 + 1) * 32 + lane] =
+      make_uint4(a.lo[0], a.lo[1], a.lo[2], a.lo[3]);
+}
+
+// The A fragment split_a_rows stored for k-step kk.
+__device__ __forceinline__ Split<4> tf_a_frag(const uint4* frag, int kk,
+                                              int lane) {
+  const uint4 h = frag[(kk * 2) * 32 + lane];
+  const uint4 l = frag[(kk * 2 + 1) * 32 + lane];
+  return {{h.x, h.y, h.z, h.w}, {l.x, l.y, l.z, l.w}};
+}
+
+// The B fragment of the tile transposed: n-index g is row n0 + g, k-indices
+// t and t + 4 are columns c0 + t and c0 + t + 4.
+template <int LD>
+__device__ __forceinline__ Split<2> tf_b_rows(const float* tile, int n0,
+                                              int c0, int g, int t) {
+  const float* p = tile + (n0 + g) * LD + c0 + t;
+  Split<2> b;
+  sm::split_tf32(p[0], b.hi[0], b.lo[0]);
+  sm::split_tf32(p[4], b.hi[1], b.lo[1]);
+  return b;
+}
+
+// The B fragment of the tile as it stands, rows in the accumulator's
+// order: k-indices t and t + 4 are rows k0 + 2t and k0 + 2t + 1, n-index g
+// is column c0 + g.
+template <int LD>
+__device__ __forceinline__ Split<2> tf_b_cols(const float* tile, int k0,
+                                              int c0, int g, int t) {
+  const float* p = tile + (k0 + 2 * t) * LD + c0 + g;
+  Split<2> b;
+  sm::split_tf32(p[0], b.hi[0], b.lo[0]);
+  sm::split_tf32(p[LD], b.hi[1], b.lo[1]);
+  return b;
+}
+
+// The accumulator tile x (rows g and g + 8, columns 2t and 2t + 1) as the A
+// fragment of the next product, columns 2t and 2t + 1 as k-indices t and
+// t + 4: no shuffle.
+__device__ __forceinline__ Split<4> tf_acc_a(const float (&x)[4]) {
+  Split<4> a;
+  sm::split_tf32(x[0], a.hi[0], a.lo[0]);
+  sm::split_tf32(x[2], a.hi[1], a.lo[1]);
+  sm::split_tf32(x[1], a.hi[2], a.lo[2]);
+  sm::split_tf32(x[3], a.hi[3], a.lo[3]);
+  return a;
+}
+
+__device__ __forceinline__ void mma3(float (&d)[4], const Split<4>& a,
+                                     const Split<2>& b) {
+  sm::mma_tf32x3(d, a.hi, a.lo, b.hi, b.lo);
+}
+
+// store_rows of float32 accumulators, as float2 pairs.
+template <int N>
+__device__ __forceinline__ void store_rows(float* dst, const float (&x)[N][4],
+                                           int r0, int c0, int n_rows, int d,
+                                           int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= n_rows) continue;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int c = c0 + 8 * n + 2 * t;
+      if (c < d)
+        *reinterpret_cast<float2*>(dst + static_cast<long long>(r) * d + c) =
+            make_float2(x[n][2 * h], x[n][2 * h + 1]);
+    }
+  }
+}
+
+// One CTA an SM as the bound ptxas plans registers for: left to its
+// default it held dq<192> to 168 registers and spilled.
+template <int DN>
+__global__ void __launch_bounds__(Tf3Dq<DN>::kThreads, 1)
+    flash_attention_bwd_dq_tf32x3_kernel(
         const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ v, const float* __restrict__ out,
         const float* __restrict__ dout, const float* __restrict__ lse,
         float* __restrict__ delta, float* __restrict__ dq, int hq, int hkv,
         int sq, int skv, int d, int q_offset, int causal, float scale) {
-  using B = FmaTile<DN>;
-  constexpr int BX = B::kBX, BY = B::kBY, LD = B::kLd, RY = B::kRY;
-  constexpr int RX = B::kRX, NC = B::kCols;
-  extern __shared__ float4 bwd_smem[];
-  float* qs = reinterpret_cast<float*>(bwd_smem);  // [BX][LD]
-  float* dos = qs + BX * LD;                        // [BX][LD]
-  float* ks = dos + BX * LD;                        // [BY][LD]
-  float* vs = ks + BY * LD;                         // [BY][LD]
-  float* dss = vs + BY * LD;                        // [BY][BX], dS transposed
-  float* lses = dss + BY * BX;                      // [BX]
-  float* deltas = lses + BX;                        // [BX]
+  using P = Tf3Dq<DN>;
+  constexpr int LD = P::kLd, QR = P::kQRows, BK = P::kBK, T = P::kThreads;
+  constexpr int WK = P::kWK, NT = WK / 8, NK = DN / 8;
+  extern __shared__ float4 tf3_smem[];
+  float* qs = reinterpret_cast<float*>(tf3_smem);  // [QR][LD]
+  float* dos = qs + QR * LD;                        // [QR][LD]
+  float* ks = dos + QR * LD;                        // [2][BK][LD]
+  float* vs = ks + 2 * BK * LD;                     // [2][BK][LD]
+  float* deltas = vs + 2 * BK * LD;                 // [QR]
 
-  const int bh = blockIdx.y;
+  // The long causal rows start first: blockIdx.y runs slowest.
+  const int bh = blockIdx.x;
   const long long kvh = bh / hq * hkv + bh % hq / (hq / hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BX;
-  const int tid = threadIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // The warp's first row and its first key in a k/v tile.
+  const int w0 = (P::kKSplit > 1 ? warp % P::kRowGroups : warp) * 16;
+  const int wk = P::kKSplit > 1 ? warp / P::kRowGroups * WK : 0;
   const long long row_base = static_cast<long long>(bh) * sq;
-  load_tile<BX, DN>(qs, q + row_base * d, q0, sq, d);
-  load_tile<BX, DN>(dos, dout + row_base * d, q0, sq, d);
+  const float* kh = k + kvh * skv * d;
+  const float* vh = v + kvh * skv * d;
+  const int k_end = causal ? min(skv, q0 + QR + q_offset) : skv;
+  const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+
+  copy_tile<QR, DN, T>(qs, q + row_base * d, q0, sq, d);
+  copy_tile<QR, DN, T>(dos, dout + row_base * d, q0, sq, d);
+  sm::cp_async_commit();
+  if (n_tiles > 0) {
+    copy_tile<BK, DN, T>(ks, kh, 0, skv, d);
+    copy_tile<BK, DN, T>(vs, vh, 0, skv, d);
+  }
+  sm::cp_async_commit();
+  sm::cp_async_wait<1>();  // q and dO have landed
   __syncthreads();
 
-  // delta = rowsum(dO * O) and lse of the tile's rows: a warp per row, a
-  // lane per 8 columns.
-  for (int r = tid / 32; r < BX; r += kFmaThreads / 32) {
-    const int qi = q0 + r, c = tid % 32 * 8;
+  // delta = rowsum(dO * O), a warp per row: a lane per 8 columns, one FMA
+  // each in column order, then the lanes by an xor butterfly.
+  for (int r = warp; r < QR; r += P::kWarps) {
+    const int qi = q0 + r, c = lane * 8;
     float acc = 0.0f;
     if (qi < sq && c < d) {
-      const float* o = out + (row_base + qi) * d + c;
-      const float* g = dos + r * LD + c;
-      acc = dot4(dot4(0.0f, *reinterpret_cast<const float4*>(o),
-                      *reinterpret_cast<const float4*>(g)),
-                 *reinterpret_cast<const float4*>(o + 4),
-                 *reinterpret_cast<const float4*>(g + 4));
+      const float4* o =
+          reinterpret_cast<const float4*>(out + (row_base + qi) * d + c);
+      const float4* e = reinterpret_cast<const float4*>(dos + r * LD + c);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float4 x = o[j], y = e[j];
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+        acc = fmaf(x.z, y.z, acc);
+        acc = fmaf(x.w, y.w, acc);
+      }
     }
 #pragma unroll
     for (int o = 16; o > 0; o /= 2)
       acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (tid % 32 == 0) {
+    if (lane == 0) {
       deltas[r] = acc;
-      lses[r] = qi < sq ? lse[row_base + qi] : kNegInf;
       if (qi < sq) delta[row_base + qi] = acc;
     }
   }
+  __syncthreads();
 
-  const int k_end = causal ? min(skv, q0 + BX + q_offset) : skv;
-  const int n_tiles = k_end > 0 ? (k_end + BY - 1) / BY : 0;
-  const int x = tid % BX, y_first = tid / BX * RY;  // S and dP roles
-  const int ax = tid / 16 * RX, ac = tid % 16;      // accumulation roles
-  float acc[RX][NC];
+  // This lane's rows q0 + w0 + g and + 8: -lse, delta, and whether the
+  // row has a key.
+  const int qr = q0 + w0 + g;
+  float nl[2], dl[2];
+  bool row_ok[2];
 #pragma unroll
-  for (int r = 0; r < RX; ++r)
-#pragma unroll
-    for (int m = 0; m < NC; ++m) acc[r][m] = 0.0f;
+  for (int h = 0; h < 2; ++h) {
+    const int qi = qr + 8 * h;
+    const float l = qi < sq ? lse[row_base + qi] : kNegInf;
+    row_ok[h] = qi < sq && l > 0.5f * kNegInf;
+    nl[h] = -l;
+    dl[h] = deltas[w0 + g + 8 * h];
+  }
 
-  const float* kh = k + kvh * skv * d;
-  const float* vh = v + kvh * skv * d;
+  float acc[NK][4];
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
   for (int j = 0; j < n_tiles; ++j) {
-    __syncthreads();  // the last tile's readers are done; delta is in
-    load_tile<BY, DN>(ks, kh, j * BY, skv, d);
-    load_tile<BY, DN>(vs, vh, j * BY, skv, d);
-    __syncthreads();
-    float s[RY], dp[RY];
-    dots<DN, RY>(qs + x * LD, dos + x * LD, ks + y_first * LD,
-                 vs + y_first * LD, s, dp);
-    const float l = lses[x], dl = deltas[x];
-#pragma unroll
-    for (int r = 0; r < RY; ++r) {
-      const int kj = j * BY + y_first + r;
-      const float p = valid(q0 + x, kj, sq, skv, l, q_offset, causal)
-                          ? expf(s[r] * scale - l)
-                          : 0.0f;
-      dss[(y_first + r) * BX + x] = p * (dp[r] - dl) * scale;
+    sm::cp_async_wait<0>();
+    __syncthreads();  // tile j has landed; tile j - 1's readers are done
+    if (j + 1 < n_tiles) {
+      copy_tile<BK, DN, T>(ks + (j + 1) % 2 * BK * LD, kh, (j + 1) * BK, skv,
+                           d);
+      copy_tile<BK, DN, T>(vs + (j + 1) % 2 * BK * LD, vh, (j + 1) * BK, skv,
+                           d);
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int y = 0; y < BY; ++y) {
-      float w[RX];
-      load_rx<RX>(dss + y * BX + ax, w);
+    sm::cp_async_commit();
+    const int kt0 = j * BK + wk;  // the warp's first key
+    // The warp's rows lie past Sq, or see none of its keys.
+    if (q0 + w0 >= sq || (causal && kt0 > q0 + w0 + 15 + q_offset)) continue;
+    const float* kt = ks + j % 2 * BK * LD;
+    const float* vt = vs + j % 2 * BK * LD;
+
+    // S = Q K^T and dP = dO V^T, D in k8 steps.
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-      for (int m = 0; m < NC; ++m) {
-        const float kv = ks[y * LD + ac + 16 * m];
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int r = 0; r < RX; ++r) acc[r][m] = fmaf(w[r], kv, acc[r][m]);
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const Split<4> aq = tf_a<LD>(qs, w0, kk * 8, g, t);
+      const Split<4> ad = tf_a<LD>(dos, w0, kk * 8, g, t);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mma3(s[n], aq, tf_b_rows<LD>(kt, wk + n * 8, kk * 8, g, t));
+        mma3(dp[n], ad, tf_b_rows<LD>(vt, wk + n * 8, kk * 8, g, t));
       }
     }
-  }
 
+    // dS = p (dP - delta) scale in place of dP, p = exp(s scale - lse).
 #pragma unroll
-  for (int r = 0; r < RX; ++r) {
-    const int qi = q0 + ax + r;
-    if (qi >= sq) continue;
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int m = 0; m < NC; ++m) {
-      const int c = ac + 16 * m;
-      if (c < d) dq[(row_base + qi) * d + c] = acc[r][m];
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2, qi = qr + 8 * h;
+        const int kj = kt0 + n * 8 + 2 * t + e % 2;
+        const bool ok =
+            row_ok[h] && kj < skv && (!causal || kj <= qi + q_offset);
+        const float p = ok ? expf(fmaf(s[n][e], scale, nl[h])) : 0.0f;
+        dp[n][e] = p * (dp[n][e] - dl[h]) * scale;
+      }
+
+    // dQ += dS K, the keys in k8 steps: dS's fragment as it stands.
+#pragma unroll
+    for (int kc = 0; kc < NT; ++kc) {
+      const Split<4> a = tf_acc_a(dp[kc]);
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+        mma3(acc[n], a, tf_b_cols<LD>(kt, wk + kc * 8, n * 8, g, t));
     }
   }
+
+  if constexpr (P::kKSplit > 1) {
+    // The warps of the later keys hand their sums to those of the first,
+    // through the k/v tiles' buffers, register by register (each lane its
+    // own word).
+    float* part = ks + warp % P::kRowGroups * (NK * 4 * 32);
+    sm::cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the k/v tiles
+    if (wk != 0) {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[(n * 4 + e) * 32 + lane] = acc[n][e];
+    }
+    __syncthreads();
+    if (wk != 0) return;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[(n * 4 + e) * 32 + lane];
+  }
+  store_rows<NK>(dq + row_base * d, acc, q0 + w0, 0, sq, d, lane);
 }
 
 template <int DN>
-__global__ void __launch_bounds__(kFmaThreads, 1)
-    flash_attention_bwd_dkdv_fma_kernel(
+__global__ void __launch_bounds__(Tf3Dkdv<DN>::kThreads)
+    flash_attention_bwd_dkdv_tf32x3_kernel(
         const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ v, const float* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
         float* __restrict__ dk, float* __restrict__ dv, int hq, int hkv,
         int sq, int skv, int d, int q_offset, int causal, float scale) {
-  using B = FmaTile<DN>;
-  constexpr int BX = B::kBX, BY = B::kBY, LD = B::kLd, RY = B::kRY;
-  constexpr int RX = B::kRX, NC = B::kCols;
-  extern __shared__ float4 bwd_smem[];
-  float* ks = reinterpret_cast<float*>(bwd_smem);  // [BX][LD]
-  float* vs = ks + BX * LD;                         // [BX][LD]
-  float* qs = vs + BX * LD;                         // [BY][LD]
-  float* dos = qs + BY * LD;                        // [BY][LD]
-  float* ps = dos + BY * LD;                        // [BY][BX]
-  float* dss = ps + BY * BX;                        // [BY][BX]
-  float* lses = dss + BY * BX;                      // [BY]
-  float* deltas = lses + BY;                        // [BY]
+  using P = Tf3Dkdv<DN>;
+  constexpr int LD = P::kLd, KR = P::kKRows, BQ = P::kBQ, WQ = P::kWQ;
+  constexpr int T = P::kThreads, CS = P::kCSplit, QS = P::kQSplit;
+  constexpr int NT = WQ / 8, NK = DN / 8, NC = P::kCols / 8;
+  constexpr int kFrags = KR / 16 * NK * 2 * 32;  // a matrix's A fragments
+  extern __shared__ float4 tf3_smem[];
+  uint4* kf = reinterpret_cast<uint4*>(tf3_smem);  // [KR / 16][NK][2][32]
+  uint4* vf = kf + kFrags;                          // [KR / 16][NK][2][32]
+  float* qs = reinterpret_cast<float*>(vf + kFrags);  // [2][BQ][LD]
+  float* dos = qs + 2 * BQ * LD;                      // [2][BQ][LD]
+  float* lses = dos + 2 * BQ * LD;                  // [2][BQ]
+  float* deltas = lses + 2 * BQ;                    // [2][BQ]
 
-  const int bkv = blockIdx.y;
-  const int b = bkv / hkv, g = hq / hkv;
-  const int k0 = blockIdx.x * BX;
-  const int tid = threadIdx.x;
+  // The key tiles of the most queries (the first, when causal) start
+  // first: blockIdx.y runs slowest.
+  const int bkv = blockIdx.x;
+  const int b = bkv / hkv, grp = hq / hkv;
+  const int k0 = blockIdx.y * KR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kw = warp / (CS * QS) * 16;       // the warp's key rows in the tile
+  const int c0 = warp % CS * P::kCols;        // its columns of dK and dV
+  const int qj = warp / CS % QS;              // its part of a q tile,
+  const int wq = qj * WQ;                     // whose first query
   const long long kv_base = static_cast<long long>(bkv) * skv;
-  load_tile<BX, DN>(ks, k + kv_base * d, k0, skv, d);
-  load_tile<BX, DN>(vs, v + kv_base * d, k0, skv, d);
-
   // Query rows before k0 - q_offset see none of this tile's keys.
-  const int y_start = causal ? max(0, k0 - q_offset) / BY * BY : 0;
-  const int x = tid % BX, y_first = tid / BX * RY;  // S and dP roles
-  const int ax = tid / 16 * RX, ac = tid % 16;      // accumulation roles
-  float acc_k[RX][NC], acc_v[RX][NC];
-#pragma unroll
-  for (int r = 0; r < RX; ++r)
-#pragma unroll
-    for (int m = 0; m < NC; ++m) acc_k[r][m] = acc_v[r][m] = 0.0f;
+  const int y_start = causal ? max(0, k0 - q_offset) / BQ * BQ : 0;
+  const int n_q = y_start < sq ? (sq - y_start + BQ - 1) / BQ : 0;
+  const int n_total = grp * n_q;
 
-  for (int gi = 0; gi < g; ++gi) {
+  const auto load = [&](int it) {
+    const int stage = it % 2, y0 = y_start + it % n_q * BQ;
     const long long row_base =
-        (static_cast<long long>(b) * hq + bkv % hkv * g + gi) * sq;
-    for (int y0 = y_start; y0 < sq; y0 += BY) {
-      __syncthreads();  // the last tile's readers are done
-      load_tile<BY, DN>(qs, q + row_base * d, y0, sq, d);
-      load_tile<BY, DN>(dos, dout + row_base * d, y0, sq, d);
-      if (tid < BY) {
-        const int qi = y0 + tid;
-        lses[tid] = qi < sq ? lse[row_base + qi] : kNegInf;
-        deltas[tid] = qi < sq ? delta[row_base + qi] : 0.0f;
+        (static_cast<long long>(b) * hq + bkv % hkv * grp + it / n_q) * sq;
+    copy_tile<BQ, DN, T>(qs + stage * BQ * LD, q + row_base * d, y0, sq, d);
+    copy_tile<BQ, DN, T>(dos + stage * BQ * LD, dout + row_base * d, y0, sq,
+                         d);
+    copy_vec<BQ, T>(lses + stage * BQ, lse + row_base, y0, sq);
+    copy_vec<BQ, T>(deltas + stage * BQ, delta + row_base, y0, sq);
+  };
+  if (n_total > 0) load(0);
+  sm::cp_async_commit();
+  // K's and V's rows, the A operands of every q tile, split once into
+  // fragments: the warps of a key row group take its k-steps in turn.
+  uint4* kfw = kf + kw / 16 * NK * 2 * 32;
+  uint4* vfw = vf + kw / 16 * NK * 2 * 32;
+  for (int kk = warp % (CS * QS); kk < NK; kk += CS * QS) {
+    split_a_rows(kfw, k + kv_base * d, k0 + kw, skv, d, kk, lane);
+    split_a_rows(vfw, v + kv_base * d, k0 + kw, skv, d, kk, lane);
+  }
+
+  float acc_k[NC][4], acc_v[NC][4];
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.0f;
+
+  for (int it = 0; it < n_total; ++it) {
+    sm::cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; tile it - 1's readers are done
+    if (it + 1 < n_total) load(it + 1);
+    sm::cp_async_commit();
+    const int y0 = y_start + it % n_q * BQ + wq;  // the warp's first query
+    // The warp's keys lie past Skv, its queries past Sq, or none of its
+    // queries sees its keys.
+    if (k0 + kw >= skv || y0 >= sq ||
+        (causal && k0 + kw > y0 + WQ - 1 + q_offset))
+      continue;
+    const float* qt = qs + it % 2 * BQ * LD + wq * LD;
+    const float* dt = dos + it % 2 * BQ * LD + wq * LD;
+    const float* lt = lses + it % 2 * BQ + wq;
+    const float* dlt = deltas + it % 2 * BQ + wq;
+
+    // S^T = K Q^T and dP^T = V dO^T, D in k8 steps.
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const Split<4> ak = tf_a_frag(kfw, kk, lane);
+      const Split<4> av = tf_a_frag(vfw, kk, lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mma3(s[n], ak, tf_b_rows<LD>(qt, n * 8, kk * 8, g, t));
+        mma3(dp[n], av, tf_b_rows<LD>(dt, n * 8, kk * 8, g, t));
       }
-      __syncthreads();
-      float s[RY], dp[RY];
-      dots<DN, RY>(ks + x * LD, vs + x * LD, qs + y_first * LD,
-                   dos + y_first * LD, s, dp);
+    }
+
+    // P^T in place of S^T, dS^T in place of dP^T: lse and delta per
+    // column (query).
 #pragma unroll
-      for (int r = 0; r < RY; ++r) {
-        const int yl = y_first + r;
-        const float l = lses[yl];
-        const float p = valid(y0 + yl, k0 + x, sq, skv, l, q_offset, causal)
-                            ? expf(s[r] * scale - l)
-                            : 0.0f;
-        ps[yl * BX + x] = p;
-        dss[yl * BX + x] = p * (dp[r] - deltas[yl]) * scale;
+    for (int n = 0; n < NT; ++n) {
+      const int yl = n * 8 + 2 * t;
+      const float2 l = *reinterpret_cast<const float2*>(lt + yl);
+      const float2 dd = *reinterpret_cast<const float2*>(dlt + yl);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float le = e % 2 ? l.y : l.x, de = e % 2 ? dd.y : dd.x;
+        const int kj = k0 + kw + g + 8 * (e / 2);
+        const float p =
+            valid(y0 + yl + e % 2, kj, sq, skv, le, q_offset, causal)
+                ? expf(fmaf(s[n][e], scale, -le))
+                : 0.0f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - de) * scale;
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int y = 0; y < BY; ++y) {
-        float pw[RX], dw[RX];
-        load_rx<RX>(ps + y * BX + ax, pw);
-        load_rx<RX>(dss + y * BX + ax, dw);
+    }
+
+    // dV += P^T dO and dK += dS^T Q, the queries in k8 steps: the two
+    // fragments as they stand.
 #pragma unroll
-        for (int m = 0; m < NC; ++m) {
-          const float o = dos[y * LD + ac + 16 * m];
-          const float qv = qs[y * LD + ac + 16 * m];
+    for (int kc = 0; kc < NT; ++kc) {
+      const Split<4> ap = tf_acc_a(s[kc]);
+      const Split<4> ads = tf_acc_a(dp[kc]);
 #pragma unroll
-          for (int r = 0; r < RX; ++r) {
-            acc_v[r][m] = fmaf(pw[r], o, acc_v[r][m]);
-            acc_k[r][m] = fmaf(dw[r], qv, acc_k[r][m]);
-          }
-        }
+      for (int n = 0; n < NC; ++n) {
+        mma3(acc_v[n], ap, tf_b_cols<LD>(dt, kc * 8, c0 + n * 8, g, t));
+        mma3(acc_k[n], ads, tf_b_cols<LD>(qt, kc * 8, c0 + n * 8, g, t));
       }
     }
   }
 
+  // The warps of the later queries hand their sums to those of the
+  // first, through the q tiles' buffers, register by register (each
+  // lane its own word): acc (part 0) + acc (part 1) + ..., in order.
+  constexpr int kPart = 2 * NC * 4 * 32;
+  static_assert(T / 32 / QS * (QS - 1) * kPart <= 2 * 2 * BQ * LD,
+                "the partial sums fit the q tiles' buffers");
+  float* part = qs + (warp / (CS * QS) * CS + warp % CS) * (QS - 1) * kPart;
+  sm::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the q tiles
+  if (qj != 0) {
+    float* mine = part + (qj - 1) * kPart;
 #pragma unroll
-  for (int r = 0; r < RX; ++r) {
-    const int kj = k0 + ax + r;
-    if (kj >= skv) continue;
+    for (int n = 0; n < NC; ++n)
 #pragma unroll
-    for (int m = 0; m < NC; ++m) {
-      const int c = ac + 16 * m;
-      if (c < d) {
-        dk[(kv_base + kj) * d + c] = acc_k[r][m];
-        dv[(kv_base + kj) * d + c] = acc_v[r][m];
+      for (int e = 0; e < 4; ++e) {
+        mine[((0 * NC + n) * 4 + e) * 32 + lane] = acc_k[n][e];
+        mine[((1 * NC + n) * 4 + e) * 32 + lane] = acc_v[n][e];
       }
-    }
   }
+  __syncthreads();
+  if (qj != 0) return;
+  for (int j = 0; j < QS - 1; ++j)
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc_k[n][e] += part[j * kPart + ((0 * NC + n) * 4 + e) * 32 + lane];
+        acc_v[n][e] += part[j * kPart + ((1 * NC + n) * 4 + e) * 32 + lane];
+      }
+  store_rows<NC>(dk + kv_base * d, acc_k, k0 + kw, c0, skv, d, lane);
+  store_rows<NC>(dv + kv_base * d, acc_v, k0 + kw, c0, skv, d, lane);
 }
 
 template <int DN>
-int launch_fma(const void* q, const void* k, const void* v, const void* out,
-               const void* dout, const float* lse, float* delta, void* dq,
-               void* dk, void* dv, int batch, int hq, int hkv, int sq,
-               int skv, int d, int q_offset, int causal, float scale,
-               cudaStream_t stream) {
-  using B = FmaTile<DN>;
-  constexpr int BX = B::kBX, BY = B::kBY, LD = B::kLd;
-  constexpr size_t kDqSmem = sizeof(float) * (2 * (BX + BY) * LD + BY * BX +
-                                              2 * BX);
-  constexpr size_t kDkvSmem = sizeof(float) * (2 * (BX + BY) * LD +
-                                               2 * BY * BX + 2 * BY);
+int launch_tf32x3(const void* q, const void* k, const void* v,
+                  const void* out, const void* dout, const float* lse,
+                  float* delta, void* dq, void* dk, void* dv, int batch,
+                  int hq, int hkv, int sq, int skv, int d, int q_offset,
+                  int causal, float scale, cudaStream_t stream) {
+  using Q = Tf3Dq<DN>;
+  using P = Tf3Dkdv<DN>;
   static size_t dq_allowed = 48 * 1024, dkv_allowed = 48 * 1024;
-  cudaError_t err = repro::allow_smem(flash_attention_bwd_dq_fma_kernel<DN>,
-                                      kDqSmem, dq_allowed);
+  cudaError_t err = repro::allow_smem(
+      flash_attention_bwd_dq_tf32x3_kernel<DN>, Q::kSmem, dq_allowed);
   if (err == cudaSuccess)
-    err = repro::allow_smem(flash_attention_bwd_dkdv_fma_kernel<DN>,
-                            kDkvSmem, dkv_allowed);
+    err = repro::allow_smem(flash_attention_bwd_dkdv_tf32x3_kernel<DN>,
+                            P::kSmem, dkv_allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   const float* dot = static_cast<const float*>(dout);
   if (sq > 0) {
-    const dim3 grid((sq + BX - 1) / BX, batch * hq);
-    flash_attention_bwd_dq_fma_kernel<DN>
-        <<<grid, kFmaThreads, kDqSmem, stream>>>(
+    const dim3 grid(batch * hq, (sq + Q::kQRows - 1) / Q::kQRows);
+    flash_attention_bwd_dq_tf32x3_kernel<DN>
+        <<<grid, Q::kThreads, Q::kSmem, stream>>>(
             qt, kt, vt, static_cast<const float*>(out), dot, lse, delta,
             static_cast<float*>(dq), hq, hkv, sq, skv, d, q_offset, causal,
             scale);
@@ -923,9 +1162,9 @@ int launch_fma(const void* q, const void* k, const void* v, const void* out,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (skv > 0) {
-    const dim3 grid((skv + BX - 1) / BX, batch * hkv);
-    flash_attention_bwd_dkdv_fma_kernel<DN>
-        <<<grid, kFmaThreads, kDkvSmem, stream>>>(
+    const dim3 grid(batch * hkv, (skv + P::kKRows - 1) / P::kKRows);
+    flash_attention_bwd_dkdv_tf32x3_kernel<DN>
+        <<<grid, P::kThreads, P::kSmem, stream>>>(
             qt, kt, vt, dot, lse, delta, static_cast<float*>(dk),
             static_cast<float*>(dv), hq, hkv, sq, skv, d, q_offset, causal,
             scale);
@@ -937,10 +1176,10 @@ int launch_fma(const void* q, const void* k, const void* v, const void* out,
 
 // q, out, dout and dq [batch, hq, sq, d]; k, v, dk and dv [batch, hkv, skv,
 // d]; all contiguous and 16-byte aligned, of one type: dtype 0 = float32
-// (f32 FMA), 1 = bfloat16 (mma.sync).  lse [batch, hq, sq] float32 from
-// flash_attention_launch; delta [batch, hq, sq] float32 scratch (written
-// by the first kernel, read by the second).  hq a multiple of hkv; d a
-// multiple of 8, at most 256.
+// (3xTF32 on mma.sync), 1 = bfloat16 (mma.sync).  lse [batch, hq, sq]
+// float32 from flash_attention_launch; delta [batch, hq, sq] float32
+// scratch (written by the first kernel, read by the second).  hq a
+// multiple of hkv; d a multiple of 8, at most 256.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -959,7 +1198,7 @@ extern "C" int flash_attention_bwd_launch(
 #define REPRO_FLASH_BWD_CASE(N)                                               \
   if (d <= N)                                                                 \
     return dtype == 1 ? launch_mma<N>(REPRO_FLASH_BWD_ARGS)                   \
-                      : launch_fma<N>(REPRO_FLASH_BWD_ARGS);
+                      : launch_tf32x3<N>(REPRO_FLASH_BWD_ARGS);
   REPRO_FLASH_BWD_CASE(16)
   REPRO_FLASH_BWD_CASE(32)
   REPRO_FLASH_BWD_CASE(64)

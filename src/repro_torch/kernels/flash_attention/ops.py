@@ -8,10 +8,11 @@ inputs ``wgmma`` on TMA-fed tiles, float32 inputs 3xTF32 on ``mma.sync``
 (each operand split into two TF32 values and each product summed from
 three, which keeps float32's accuracy); the type alone decides
 (:func:`design`).  The backward launches its two kernels (dQ, then dK
-and dV) through one C call: bfloat16 on tensor cores (``mma.sync``
-m16n8k16, P and dS in registers), float32 in f32 FMA on CUDA cores;
-neither uses atomics, so two calls on the same inputs give the same
-bits.  On CPU tensors both run the plain versions of
+and dV) through one C call, both types on tensor cores with P and dS in
+registers: bfloat16 on ``mma.sync`` m16n8k16, float32 in 3xTF32 on
+``mma.sync`` m16n8k8 (the forward's split, all five products); neither
+uses atomics, so two calls on the same inputs give the same bits.  On
+CPU tensors both run the plain versions of
 :mod:`repro_torch.kernels.flash_attention.ref`.
 
 :func:`flash_attention` goes through :class:`FlashAttention` where an
@@ -34,7 +35,7 @@ NAME = "flash_attention"
 BWD_NAME = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DESIGNS = {torch.float32: "mma_tf32x3", torch.bfloat16: "wgmma"}
-_BWD_DESIGNS = {torch.float32: "fma_f32", torch.bfloat16: "mma_bf16"}
+_BWD_DESIGNS = {torch.float32: "mma_tf32x3", torch.bfloat16: "mma_bf16"}
 _ARGTYPES = [kc.P] * 5 + [kc.I] * 8 + [kc.F, kc.I, kc.P]
 _BWD_ARGTYPES = [kc.P] * 10 + [kc.I] * 8 + [kc.F, kc.I, kc.P]
 # TMA (bf16) and the 16-byte cp.async copies (float32) read a tensor from
@@ -47,7 +48,7 @@ def design(dtype: torch.dtype, *, backward: bool = False) -> str:
     """The kernel that serves ``dtype`` on the card.  Forward: ``"wgmma"``
     (bf16, ``wgmma``) or ``"mma_tf32x3"`` (float32, 3xTF32 on
     ``mma.sync``); backward: ``"mma_bf16"`` (bf16 ``mma.sync``) or
-    ``"fma_f32"`` (float32 FMA on CUDA cores)."""
+    ``"mma_tf32x3"`` (float32, 3xTF32 on ``mma.sync``)."""
     if dtype not in _DESIGNS:
         raise ValueError(f"flash_attention takes float32 or bfloat16, not "
                          f"{dtype}")

@@ -106,6 +106,27 @@ def attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
             _group_sum(dv, hkv).to(v.dtype))
 
 
+def _magnitudes(q, k, v, out, lse, dout, causal, scale, q_offset):
+    """The pieces of the backward's bounds, all f32: p, mag = p (|dout|
+    |v| + |dout . out|) scale (which bounds p |dp - delta| scale), q, k
+    and v repeated over the group, dout, out, and the scale."""
+    if scale is None:
+        scale = float(1.0 / (q.shape[-1] ** 0.5))
+    p, kr = _probabilities(q, k, lse, causal, scale, q_offset)
+    vr = v.to(F32).repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    do, of = dout.to(F32), out.to(F32)
+    mag = p * (torch.matmul(do.abs(), vr.abs().transpose(-1, -2))
+               + (do * of).abs().sum(dim=-1, keepdim=True)) * scale
+    return p, mag, q.to(F32), kr, vr, do, of, scale
+
+
+def _sums(w, qq, kk, hkv):
+    """(w kk, the group's sum of w^T qq): a weight of every (query, key)
+    pair carried into dq's and dk's shapes."""
+    return (torch.matmul(w, kk),
+            _group_sum(torch.matmul(w.transpose(-1, -2), qq), hkv))
+
+
 def attention_bwd_bounds(q, k, v, out, lse, dout, *, causal: bool = True,
                          scale: float | None = None, q_offset: int = 0):
     """Elementwise bounds (float32 tensors shaped like dq, dk and dv) on
@@ -133,21 +154,10 @@ def attention_bwd_bounds(q, k, v, out, lse, dout, *, causal: bool = True,
       rows or keys (each rounding 2^-24 of a partial sum; JAX's and the
       plain version's gradients differ by at most 2^-19.7 M on the CPU
       tests' grid), then p's share of s's error, which exp passes on."""
-    hkv, d = k.shape[1], q.shape[-1]
-    if scale is None:
-        scale = float(1.0 / (d ** 0.5))
-    p, kr = _probabilities(q, k, lse, causal, scale, q_offset)
-    g = q.shape[1] // hkv
-    vr = v.to(F32).repeat_interleave(g, dim=1)
-    do, of = dout.to(F32), out.to(F32)
-    mag = p * (torch.matmul(do.abs(), vr.abs().transpose(-1, -2))
-               + (do * of).abs().sum(dim=-1, keepdim=True)) * scale
-    qf = q.to(F32)
-
-    def sums(w, qq, kk):
-        return (torch.matmul(w, kk),
-                _group_sum(torch.matmul(w.transpose(-1, -2), qq), hkv))
-
+    hkv = k.shape[1]
+    p, mag, qf, kr, vr, do, of, scale = _magnitudes(
+        q, k, v, out, lse, dout, causal, scale, q_offset)
+    sums = lambda w, qq, kk: _sums(w, qq, kk, hkv)  # noqa: E731
     m_dq, m_dk = sums(mag, qf.abs(), kr.abs())
     if q.dtype != torch.bfloat16:
         a_dv = _group_sum(torch.matmul(p.transpose(-1, -2), do.abs()), hkv)
@@ -165,3 +175,43 @@ def attention_bwd_bounds(q, k, v, out, lse, dout, *, causal: bool = True,
     return tuple(2.0 ** -7 * y.abs() + 2.0 ** -6 * w.sqrt() + 2.0 ** -15 * m
                  for y, w, m in ((y_dq, w_dq, m_dq), (y_dk, w_dk, m_dk),
                                  (y_dv, w_dv, a_dv)))
+
+
+def tf32x3_bwd_bounds(q, k, v, out, lse, dout, *, causal: bool = True,
+                      scale: float | None = None, q_offset: int = 0):
+    """Elementwise bounds for a float32 backward whose scores come from
+    3xTF32 products on ``mma.sync`` (the card's ``mma_tf32x3`` route), for
+    a peaked softmax: :func:`attention_bwd_bounds` plus the share of the
+    error of s that p passes on, which grows with the scores' size.
+
+    With A = (|q| . |k|) scale, the size of s's terms:
+    * the split: ``split_tf32`` gives x = hi + lo + r with |x - hi| <=
+      2^-11 |x| (hi keeps 11 significant bits, rounded half away from
+      zero) and |r| <= 2^-11 |x - hi| <= 2^-22 |x|; the three products lo_a
+      hi_b + hi_a lo_b + hi_a hi_b leave out lo_a lo_b and the two r
+      terms, each at most 2^-22 |a b|, so s is kept to 3 2^-22 A;
+    * the sums: each of the 3 ceil(D / 8) ``mma.sync`` steps of s rounds
+      its result toward zero (the tensor cores truncate), half an ulp of
+      a partial sum (at most A) on average and of one sign where the
+      partial sums keep theirs, as on the largest scores: 3 ceil(D / 8)
+      2^-24 A.  Round to nearest (the FMA sums of the plain version and
+      JAX) leaves a random walk, which the 2^-16 M of
+      :func:`attention_bwd_bounds` holds where |s| is up to about 16.
+    p = exp(s - lse) turns an error e A of s into e A p; through ds = p (dp
+    - delta) scale, whose |p (dp - delta) scale| is at most mag (the weight
+    behind M in :func:`attention_bwd_bounds`), ds moves by at most e A
+    mag, so dq and dk by e sum A mag |k| and e sum A mag |q|, and dv by e
+    sum A p |dout|.  The other errors of the route (dp's, and those of the
+    products with ds and p) are shares of sums that M already bounds.  On
+    a peaked softmax (q eight times larger, scores of tens) this share
+    passes attention_bwd_bounds' 2^-16 M."""
+    hkv, d = k.shape[1], q.shape[-1]
+    base = attention_bwd_bounds(q, k, v, out, lse, dout, causal=causal,
+                                scale=scale, q_offset=q_offset)
+    p, mag, qf, kr, _, do, _, scale = _magnitudes(
+        q, k, v, out, lse, dout, causal, scale, q_offset)
+    a = torch.matmul(qf.abs(), kr.abs().transpose(-1, -2)) * scale
+    e = 3 * 2.0 ** -22 + 3 * -(-d // 8) * 2.0 ** -24
+    e_dq, e_dk = _sums(mag * a, qf.abs(), kr.abs(), hkv)
+    e_dv = _group_sum(torch.matmul((p * a).transpose(-1, -2), do.abs()), hkv)
+    return tuple(b + e * x for b, x in zip(base, (e_dq, e_dk, e_dv)))

@@ -28,7 +28,7 @@ from repro_torch.kernels.fused_inject.ref import (fused_inject_ref,
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_bounds, attention_bwd_ref, attention_ref,
-    attention_with_lse_ref)
+    attention_with_lse_ref, tf32x3_bwd_bounds)
 from repro_torch.kernels.lif_step import ops as lif
 from repro_torch.kernels.lif_step.ref import lif_step_ref
 from repro_torch.kernels.merge_sort import ops as ms
@@ -1061,7 +1061,9 @@ FLASH_BWD_SHAPES = [
     (1, 2, 2, 100, 120, 96, False, 0),
     (1, 4, 2, 5, 1, 64, False, 0),        # Skv = 1
     (1, 4, 4, 64, 64, 192, True, 0),
-    (1, 2, 2, 150, 170, 256, True, 0)]
+    (1, 2, 2, 150, 170, 256, True, 0),
+    (1, 32, 32, 512, 512, 80, True, 0),   # zamba2's training heads
+    (1, 32, 8, 129, 200, 80, True, 71)]   # the same, GQA 4, 71 keys on
 
 
 def _bwd_inputs(device, b, hq, hkv, sq, skv, d, dtype, causal, q_offset):
@@ -1085,8 +1087,8 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, b, hq, hkv, sq, skv,
     within ``attention_bwd_bounds`` (bf16: a flip of the output's
     rounding, 2^-7 |y|, plus 2^-6 of the root of the sum of squared terms
     for flips of p's and ds's roundings, plus 2^-15 of a sum that bounds
-    dp - delta; float32: 2^-16 of that sum, f32 sums in another order);
-    one count per call."""
+    dp - delta; float32: 2^-16 of that sum, f32 sums in another order
+    and products in 3xTF32); one count per call."""
     args = _bwd_inputs(cuda, b, hq, hkv, sq, skv, d, getattr(torch, dtype),
                        causal, q_offset)
     kw = dict(causal=causal, q_offset=q_offset)
@@ -1138,6 +1140,41 @@ def test_flash_attention_bwd_bf16_is_deterministic(cuda, b, hq, hkv, s, d):
     give bitwise equal dq, dk and dv."""
     args = _bwd_inputs(cuda, b, hq, hkv, s, s, d, torch.bfloat16, True, 0)
     assert fa.design(torch.bfloat16, backward=True) == "mma_bf16"
+    first = fa.flash_attention_bwd(*args)
+    second = fa.flash_attention_bwd(*args)
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_f32_on_a_peaked_softmax(cuda):
+    """q eight times larger in float32 (scores of tens): 3xTF32's error of
+    s, which p passes on, grows with the scores, so the bound is
+    ``tf32x3_bwd_bounds`` (``attention_bwd_bounds`` plus that share)."""
+    q, k, v, out, lse, dout = _bwd_inputs(cuda, 1, 16, 8, 512, 512, 128,
+                                          torch.float32, True, 0)
+    q = q * 8
+    out, lse = attention_with_lse_ref(q, k, v, causal=True)
+    args = (q, k, v, out, lse, dout)
+    got = fa.flash_attention_bwd(*args, causal=True)
+    want = attention_bwd_ref(*args, causal=True)
+    for name, g, w, bound in zip(("dq", "dk", "dv"), got, want,
+                                 tf32x3_bwd_bounds(*args, causal=True)):
+        err = (g - w).abs()
+        assert bool((err <= bound).all()), (
+            f"{name}: max err {float(err.max())}, bound there "
+            f"{float(bound.flatten()[err.argmax()])}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (1, 16, 8, 512, 128),   # internlm2's training heads, batch 1
+    (2, 16, 4, 300, 80)])   # D 80, GQA 4
+def test_flash_attention_bwd_f32_is_deterministic(cuda, b, hq, hkv, s, d):
+    """The float32 backward uses no atomics either: two calls on the same
+    inputs give bitwise equal dq, dk and dv."""
+    assert fa.design(torch.float32, backward=True) == "mma_tf32x3"
+    args = _bwd_inputs(cuda, b, hq, hkv, s, s, d, torch.float32, True, 0)
     first = fa.flash_attention_bwd(*args)
     second = fa.flash_attention_bwd(*args)
     for name, x, y in zip(("dq", "dk", "dv"), first, second):
@@ -1319,7 +1356,7 @@ def test_reduced_train_gradients_on_the_card_match_the_cpu(cuda, remat):
     relative and every gradient within 1e-4 of its leaf's largest |g| of
     the plain path on the CPU (f32 sums in another order; the f32 flash
     forward in 3xTF32, within 2e-5 of its output; the backward kernels in
-    f32 FMA), through the flash forward and backward kernels, one launch
+    3xTF32), through the flash forward and backward kernels, one launch
     each per layer."""
     import dataclasses
 

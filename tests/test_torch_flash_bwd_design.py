@@ -1,11 +1,13 @@
-"""The arithmetic of the card's bf16 flash-attention backward, on the CPU.
+"""The arithmetic of the card's flash-attention backward, on the CPU.
 
 ``csrc/flash_attention_bwd.cu`` runs bfloat16 on ``mma.sync`` m16n8k16
-in two kernels.  These tests emulate both in torch, in the kernels'
-summation order, and hold the emulation against the plain version
+and float32 in 3xTF32 on ``mma.sync`` m16n8k8, each in two kernels.
+These tests emulate both routes in torch, in the kernels' summation
+order, and hold the emulation against the plain version
 (``attention_bwd_ref``) and against JAX's ``chunked_attention`` VJP on
 the same numpy-seeded inputs, elementwise within
-``attention_bwd_bounds``:
+``attention_bwd_bounds`` (``tf32x3_bwd_bounds`` on a peaked softmax in
+float32).  The bf16 route:
 
 * the dQ kernel: delta = rowsum(dO * O), a lane's 8 columns summed in
   order and the 32 lanes by an xor butterfly; S = Q K^T and dP = dO V^T,
@@ -19,10 +21,21 @@ the same numpy-seeded inputs, elementwise within
   Two warps split each q tile: each sums its half of every tile (32
   queries; 64 up to D 64) and the two sums are added at the end.
 
+The float32 route (``emulate_bwd_tf32x3``) has the same two kernels'
+order with k8 steps: every operand split into hi = tf32(x) and lo =
+tf32(x - hi) (``cvt.rna``: half away from zero at bit 13), and each k8
+step three products added to the f32 accumulator in turn, lo hi, hi lo,
+hi hi (each product of eight terms exact, one rounding as it is added);
+delta by FMA in column order; p = expf(fma(s, scale, -lse)); dS = p (dP
+- delta) scale, unrounded; up to D 128 the dQ kernel's two warps of 16
+rows take 16 keys each of every 32-key tile, and the dK/dV kernel's four
+warps of 16 keys 16 queries each of every 64-query tile (from D 192, one
+warp all 16 keys of a tile, and two warps 16 queries each of 32), the
+warps' sums added in order at the end.
+
 Tiles the kernels skip (keys no query of a warp sees, query rows before
 a key tile's first visible row) add exact zeros, so the emulation sums
-over every step.  The inputs are bf16; D is padded with zeros to the
-kernel's DN.
+over every step.  D is padded with zeros to the kernel's DN.
 """
 
 import numpy as np
@@ -34,7 +47,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    NEG_INF, attention_bwd_bounds, attention_bwd_ref)
+    NEG_INF, attention_bwd_bounds, attention_bwd_ref, tf32x3_bwd_bounds)
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -49,8 +62,10 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """fmaf(a, b, c) in float32 (one rounding of the exact a b + c)."""
-    return (a.double() * float(b) + c.double()).to(F32)
+    """fmaf(a, b, c) in float32 (one rounding of the exact a b + c); b and
+    c tensors or scalars."""
+    f64 = lambda x: torch.as_tensor(x).double()  # noqa: E731
+    return (f64(a) * f64(b) + f64(c)).to(F32)
 
 
 def _steps(x: torch.Tensor, y: torch.Tensor, dim: int) -> torch.Tensor:
@@ -65,14 +80,14 @@ def _steps(x: torch.Tensor, y: torch.Tensor, dim: int) -> torch.Tensor:
 
 def _butterfly_delta(out: torch.Tensor, dout: torch.Tensor, dn: int):
     """rowsum(dO * O) as the dQ kernel takes it: lane l sums columns 8 l
-    .. 8 l + 7 in order, then ``acc += shfl_xor(acc, o)`` for o = 16, 8,
-    4, 2, 1; lane 0's sum."""
-    prod = out.to(F32) * dout.to(F32)
-    prod = torch.nn.functional.pad(prod, (0, 256 - prod.shape[-1]))
-    lanes = prod.reshape(prod.shape[:-1] + (32, 8))
-    acc = torch.zeros(lanes.shape[:-1], dtype=F32)
+    .. 8 l + 7 in order by FMA (exact products for bf16 inputs), then
+    ``acc += shfl_xor(acc, o)`` for o = 16, 8, 4, 2, 1; lane 0's sum."""
+    pad = lambda x: torch.nn.functional.pad(  # noqa: E731
+        x.to(F32), (0, 256 - x.shape[-1]))
+    lanes = [pad(x).reshape(x.shape[:-1] + (32, 8)) for x in (out, dout)]
+    acc = torch.zeros(lanes[0].shape[:-1], dtype=F32)
     for j in range(8):
-        acc = acc + lanes[..., j]
+        acc = _fma(lanes[0][..., j], lanes[1][..., j], acc)
     idx = torch.arange(32)
     for o in (16, 8, 4, 2, 1):
         acc = acc + acc[..., idx ^ o]
@@ -129,6 +144,94 @@ def emulate_bwd(q, k, v, out, lse, dout, *, causal, q_offset):
     return dq.to(BF16), dk[..., :d].to(BF16), dv[..., :d].to(BF16)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``tf32_rna`` rounds (``cvt.rna``): half
+    away from zero at bit 13, on the int32 view of the bits."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(F32)
+
+
+def _split(x: torch.Tensor):
+    """``split_tf32``: (hi, lo) = (tf32(x), tf32(x - hi))."""
+    hi = _tf32(x.contiguous())
+    return hi, _tf32((x - hi).contiguous())
+
+
+def _steps_tf32x3(x: torch.Tensor, y: torch.Tensor, acc=None):
+    """acc + x @ y as ``mma_tf32x3`` sums it, one k8 step of the contracted
+    axis at a time: lo hi, hi lo, then hi hi, each product of eight terms
+    exact (TF32 factors) and added to the f32 accumulator with one
+    rounding."""
+    (x_hi, x_lo), (y_hi, y_lo) = _split(x), _split(y)
+    if acc is None:
+        acc = torch.zeros(x.shape[:-1] + y.shape[-1:], dtype=F32)
+    for c in range(0, x.shape[-1], 8):
+        for a, b in ((x_lo, y_hi), (x_hi, y_lo), (x_hi, y_hi)):
+            acc = (acc.double() + a[..., c:c + 8].double()
+                   @ b[..., c:c + 8, :].double()).to(F32)
+    return acc
+
+
+def _parts(n: int, width: int, ways: int) -> list:
+    """Index tensors of [0, n) dealt to ``ways`` warps ``width`` at a
+    time: warp w takes every i with i // width % ways == w."""
+    return [torch.tensor([i for i in range(n) if i // width % ways == w],
+                         dtype=torch.long) for w in range(ways)]
+
+
+def emulate_bwd_tf32x3(q, k, v, out, lse, dout, *, causal, q_offset):
+    """(dq, dk, dv) of the two 3xTF32 kernels, emulated; float32 inputs."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dn = next(n for n in DNS if d <= n)
+    scale = np.float32(1.0 / (d ** 0.5))
+    pad = lambda x: torch.nn.functional.pad(  # noqa: E731
+        x.to(F32), (0, dn - d))
+    qf, kf, vf, dof = pad(q), pad(k), pad(v), pad(dout)
+    kr = kf.repeat_interleave(g, dim=1)
+    vr = vf.repeat_interleave(g, dim=1)
+    row = torch.arange(sq)[:, None] + q_offset
+    col = torch.arange(skv)[None, :]
+    mask = (col <= row) if causal else torch.ones((sq, skv), dtype=bool)
+    keep = mask & (lse > 0.5 * NEG_INF)[..., None]
+    delta = _butterfly_delta(out, dout, dn)
+
+    # dQ kernel: S = Q K^T, dP = dO V^T over D; dS; dQ += dS K over keys,
+    # up to D 128 by two warps, each the keys of its half of every 32-key
+    # tile, their sums added at the end.
+    s = _steps_tf32x3(qf, kr.transpose(-1, -2))
+    dp = _steps_tf32x3(dof, vr.transpose(-1, -2))
+    p = torch.where(keep, torch.exp(_fma(s, scale, -lse[..., None])), 0.0)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = None
+    for keys in _parts(skv, 16, 2 if dn <= 128 else 1):
+        x = _steps_tf32x3(ds[..., keys], kr[..., keys, :])
+        dq = x if dq is None else dq + x
+    dq = dq[..., :d]
+
+    # dK/dV kernel: S^T = K Q^T, dP^T = V dO^T (K, V as A); then the
+    # group's heads in turn, each warp of a key row group its 16 queries
+    # of every q tile (4 warps to D 128, then 2), the sums added in order.
+    st = _steps_tf32x3(kr, qf.transpose(-1, -2))
+    dpt = _steps_tf32x3(vr, dof.transpose(-1, -2))
+    pt = torch.where(keep.transpose(-1, -2),
+                     torch.exp(_fma(st, scale, -lse[..., None, :])), 0.0)
+    dst = pt * (dpt - delta[..., None, :]) * scale
+    parts = _parts(sq, 16, 4 if dn <= 128 else 2)
+    dk = torch.zeros((len(parts), b, hkv, skv, dn), dtype=F32)
+    dv = torch.zeros_like(dk)
+    for gi in range(g):
+        heads = slice(gi, hq, g)
+        for w, c in enumerate(parts):
+            dv[w] = _steps_tf32x3(pt[:, heads][..., c],
+                                  dof[:, heads][..., c, :], dv[w])
+            dk[w] = _steps_tf32x3(dst[:, heads][..., c],
+                                  qf[:, heads][..., c, :], dk[w])
+    for w in range(1, len(parts)):
+        dk[0], dv[0] = dk[0] + dk[w], dv[0] + dv[w]
+    return dq, dk[0][..., :d], dv[0][..., :d]
+
+
 # D 64, 80 and 128 (every model config's) and GQA 1, 2 and 4 after 71
 # cached keys (Sq 40, Skv 111); a row without keys (q_offset -1); a
 # full (non-causal) mask with Skv > Sq.
@@ -137,21 +240,25 @@ CASES = [(64, 1, 40, 111, True, 71), (80, 2, 40, 111, True, 71),
          (80, 2, 33, 33, True, -1), (64, 4, 24, 70, False, 0)]
 
 
-def _inputs(d, g, sq, skv, causal, q_offset):
-    """bf16 q, k, v, dout from numpy (seeded), JAX's forward (out, lse)
-    and its VJP (dq, dk, dv) on them."""
+def _inputs(d, g, sq, skv, causal, q_offset, dtype=jnp.bfloat16,
+            q_factor=1.0):
+    """q (times ``q_factor``), k, v, dout of ``dtype`` from numpy
+    (seeded), JAX's forward (out, lse) and its VJP (dq, dk, dv) on them;
+    torch tensors of the same type."""
     rng = np.random.default_rng(1000 * d + 10 * g + sq)
     hkv = 2
     shapes = ((1, hkv * g, sq, d), (1, hkv, skv, d), (1, hkv, skv, d),
               (1, hkv * g, sq, d))
-    q, k, v, do = (jnp.asarray(rng.standard_normal(sh).astype(np.float32),
-                               jnp.bfloat16) for sh in shapes)
+    q, k, v, do = (jnp.asarray(rng.standard_normal(sh).astype(np.float32)
+                               * (q_factor if i == 0 else 1.0), dtype)
+                   for i, sh in enumerate(shapes))
     kw = dict(causal=causal, q_chunk=16, kv_chunk=16, q_offset=q_offset)
     out, lse = jattn._chunked_attention_fwd(q, k, v, window=0, **kw)
     _, vjp = jax.vjp(lambda a, b, c: jattn.chunked_attention(
         a, b, c, recompute_bwd=True, **kw), q, k, v)
+    to = getattr(torch, jnp.dtype(dtype).name)
     tt = lambda x: torch.as_tensor(  # noqa: E731
-        np.asarray(x, np.float32)).to(BF16)
+        np.asarray(x, np.float32)).to(to)
     args = (tt(q), tt(k), tt(v), tt(out),
             torch.as_tensor(np.array(lse)).reshape(1, hkv * g, sq), tt(do))
     want_jax = tuple(torch.as_tensor(np.asarray(x, np.float32))
@@ -159,13 +266,11 @@ def _inputs(d, g, sq, skv, causal, q_offset):
     return args, want_jax
 
 
-@pytest.mark.parametrize("d,g,sq,skv,causal,q_offset", CASES)
-def test_mma_design_matches_plain_and_jax(d, g, sq, skv, causal, q_offset):
-    args, want_jax = _inputs(d, g, sq, skv, causal, q_offset)
-    kw = dict(causal=causal, q_offset=q_offset)
+def _hold(got, args, want_jax, bounds, kw):
+    """got against the plain version and JAX's VJP, elementwise within
+    ``bounds``; the largest err / bound of each output."""
     plain = attention_bwd_ref(*args, **kw)
-    bounds = attention_bwd_bounds(*args, **kw)
-    got = emulate_bwd(*args, **kw)
+    ratios = []
     for name, x, w_plain, w_jax, bound in zip(
             ("dq", "dk", "dv"), got, plain, want_jax, bounds):
         assert x.dtype == w_plain.dtype and x.shape == w_plain.shape
@@ -174,8 +279,43 @@ def test_mma_design_matches_plain_and_jax(d, g, sq, skv, causal, q_offset):
             assert bool((err <= bound).all()), (
                 f"{name} against {label}: max err {float(err.max())}, "
                 f"bound there {float(bound.flatten()[err.argmax()])}")
-    if q_offset < 0:   # the row without keys gets no gradient
+            ratios.append(float((err / bound).max()))
+    if kw["q_offset"] < 0:   # the row without keys gets no gradient
         assert not got[0][:, :, 0].any()
+    return ratios
+
+
+@pytest.mark.parametrize("d,g,sq,skv,causal,q_offset", CASES)
+def test_mma_design_matches_plain_and_jax(d, g, sq, skv, causal, q_offset):
+    args, want_jax = _inputs(d, g, sq, skv, causal, q_offset)
+    kw = dict(causal=causal, q_offset=q_offset)
+    _hold(emulate_bwd(*args, **kw), args, want_jax,
+          attention_bwd_bounds(*args, **kw), kw)
+
+
+@pytest.mark.parametrize("d,g,sq,skv,causal,q_offset", CASES)
+def test_tf32x3_design_matches_plain_and_jax(d, g, sq, skv, causal,
+                                             q_offset):
+    """The float32 route within the float32 ``attention_bwd_bounds``
+    (2^-16 M) as it stands: at these scores 3xTF32's error of s stays
+    inside it."""
+    args, want_jax = _inputs(d, g, sq, skv, causal, q_offset, jnp.float32)
+    kw = dict(causal=causal, q_offset=q_offset)
+    got = emulate_bwd_tf32x3(*args, **kw)
+    assert all(x.dtype == torch.float32 for x in got)
+    _hold(got, args, want_jax, attention_bwd_bounds(*args, **kw), kw)
+
+
+def test_tf32x3_design_on_a_peaked_softmax():
+    """q eight times larger (scores of tens, GQA 2 after 71 keys, D 128):
+    the float32 route within ``tf32x3_bwd_bounds``, which adds to
+    ``attention_bwd_bounds`` 2^-20 of each output's sum weighted by the
+    scores' size (3xTF32's error of s, which p passes on)."""
+    case = (128, 2, 40, 111, True, 71)
+    args, want_jax = _inputs(*case, jnp.float32, q_factor=8.0)
+    kw = dict(causal=True, q_offset=71)
+    _hold(emulate_bwd_tf32x3(*args, **kw), args, want_jax,
+          tf32x3_bwd_bounds(*args, **kw), kw)
 
 
 def test_emulated_p_is_the_plain_p_to_a_few_ulp():

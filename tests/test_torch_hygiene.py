@@ -190,8 +190,8 @@ def test_chip_smoke_reads_the_backward_kernels_registers_and_spills():
         " for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 165 registers, used 1 barriers",
-        "ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_133"
-        "flash_attention_bwd_dq_fma_kernelILi80EEEvPKf' for 'sm_90a'",
+        "ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_136"
+        "flash_attention_bwd_dq_tf32x3_kernelILi80EEEvPKf' for 'sm_90a'",
         "ptxas info    : Used 148 registers, used 1 barriers",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"])
     names = sum(smoke.FLASH_BWD_ROUTES.values(), ())
@@ -199,8 +199,8 @@ def test_chip_smoke_reads_the_backward_kernels_registers_and_spills():
     assert got == {"flash_attention_bwd_dq_mma_kernel": {"128": (164, 0)},
                    "flash_attention_bwd_dkdv_mma_kernel": {
                        "128": (245, 12), "80": (165, 0)},
-                   "flash_attention_bwd_dq_fma_kernel": {"80": (148, 0)},
-                   "flash_attention_bwd_dkdv_fma_kernel": {}}
+                   "flash_attention_bwd_dq_tf32x3_kernel": {"80": (148, 0)},
+                   "flash_attention_bwd_dkdv_tf32x3_kernel": {}}
     assert smoke.bwd_design("mma_bf16", 120, got) == (
         "mma_bf16 (dq<128> 164 registers 0 spill bytes, dkdv<128> 245 "
         "registers 12 spill bytes)")
@@ -211,7 +211,7 @@ def test_chip_smoke_reads_the_backward_kernels_registers_and_spills():
         "kernelILi80EEEvPK13__nv_bfloat16",
         "        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, RZ ;",
         "        /*0110*/  HMMA.16816.F32.BF16 R4, R8, R14, R4 ;",
-        "\t\tFunction : _ZN3_GLOBAL__N_133flash_attention_bwd_dq_fma_"
+        "\t\tFunction : _ZN3_GLOBAL__N_136flash_attention_bwd_dq_tf32x3_"
         "kernelILi64EEEvPKf",
         "        /*0200*/  FFMA R1, R2, R3, R1 ;",
         "        /*0210*/  RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R5 ;",
@@ -219,7 +219,15 @@ def test_chip_smoke_reads_the_backward_kernels_registers_and_spills():
         "        /*0300*/  HMMA.16816.F32.BF16 R4, R8, R12, RZ ;"])
     assert smoke.sass_counts(sass, names) == {
         "flash_attention_bwd_dkdv_mma_kernel<80>": (2, 0),
-        "flash_attention_bwd_dq_fma_kernel<64>": (0, 1)}
+        "flash_attention_bwd_dq_tf32x3_kernel<64>": (0, 1)}
+    # The float32 route's check counts TF32 products alone.
+    tf32 = "\n".join([
+        "\t\tFunction : _ZN3_GLOBAL__N_138flash_attention_bwd_dkdv_"
+        "tf32x3_kernelILi128EEEvPKf",
+        "        /*0100*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+        "        /*0110*/  HMMA.16816.F32.BF16 R4, R8, R14, R4 ;"])
+    assert smoke.sass_counts(tf32, names, r"HMMA\S*\.TF32") == {
+        "flash_attention_bwd_dkdv_tf32x3_kernel<128>": (1, 0)}
 
 
 def test_entry_points_default_to_the_card(tmp_path):
