@@ -72,6 +72,10 @@
 //   * x is read in its own type (float32 or bfloat16, a template instance
 //     each); bf16 to f32 is exact, so the result is the one of the same x
 //     in f32.
+//   * Checkpoints for the backward (ssm_scan_bwd.cu).  Where h_chunks is
+//     given, the instance with kStates writes the state from the registers
+//     at the start of every kChunk = 64 steps (ssm_scan.cuh); the serve
+//     path passes none and runs the instances without.
 #include <cuda_bf16.h>
 
 #include <algorithm>
@@ -80,43 +84,12 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "ssm_scan.cuh"
 
 namespace {
 
 namespace sm = repro::sm90;
-
-constexpr int kMaxThreads = 512;
-constexpr int kTile = 16;  // time steps per staged tile
-
-// The block's shape for G lanes per channel group and K channels per
-// lane: S = 16 / K states of each of its K channels per lane, N padded to
-// S G; 32 channels per block where that gives 32 to 512 threads; R steps
-// whose K R partial sums one reduction across the G lanes takes together.
-template <int G, int K>
-struct Shape {
-  static constexpr int kS = 16 / K;
-  static constexpr int kNp = kS * G;
-  static constexpr int kCh = 32 * G / K < 32 ? 32 * K / G
-                             : 32 * G / K > kMaxThreads ? kMaxThreads * K / G
-                                                        : 32;
-  static constexpr int kThreads = kCh / K * G;
-  static constexpr int kR = G / K < 1 ? 1 : G / K > 4 ? 4 : G / K;
-  static constexpr int kV = K * kR;           // partial sums per lane
-  static constexpr int kW = kV < G ? kV : G;  // lanes they scatter over
-  // Registers for 20 resident warps per SM (640 threads).
-  static constexpr int kMinBlocks = kThreads < 640 ? 640 / kThreads : 1;
-  // Shared memory layout, in floats; every tile starts 128-byte aligned.
-  static constexpr int kTileS = kTile * kNp, kTileC = kTile * kCh;
-  static constexpr int kBs = 0, kCs = kBs + 2 * kTileS;  // [2][kTile][kNp]
-  static constexpr int kDts = kCs + 2 * kTileS;          // [2][kTile][kCh]
-  static constexpr int kUs = kDts + 2 * kTileC;          // [kTile][kCh]
-  static constexpr int kEs = kUs + kTileC;               // [kTile][kCh]
-  static constexpr int kYs = kEs + kTileC;               // [2][kTile][kCh]
-  static constexpr int kChan = kYs + 2 * kTileC;  // [kCh] a0, D, flag
-  static constexpr int kBar = kChan + 3 * kCh;    // two 8-byte mbarriers
-  static constexpr int kXs = (kBar + 4 + 31) / 32 * 32;  // [2][kTile][kCh]
-  static constexpr int kXElems = 2 * kTileC;             // of x's type
-};
+using namespace repro::ssm;
 
 // The TMA maps of one launch (x, dt, B, C and y; used where `tma`) and
 // the chunk bytes of its cp.async copies otherwise.
@@ -126,46 +99,6 @@ struct Maps {
 struct Plan {
   int tma, vx, vdt, vbc;
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// One chunk of `vec` bytes, of which the first `bytes` come from src.
-template <typename T>
-__device__ __forceinline__ void copy_chunk(T* dst, const T* src, int vec,
-                                           int bytes) {
-  if (vec == 16) {
-    sm::cp_async<16>(dst, src, bytes);
-  } else if (vec == 8) {
-    sm::cp_async<8>(dst, src, bytes);
-  } else if (vec == 4) {
-    sm::cp_async<4>(dst, src, bytes);
-  } else {  // a single bf16 (2 bytes), copied synchronously
-    *reinterpret_cast<uint16_t*>(dst) =
-        bytes ? *reinterpret_cast<const uint16_t*>(src) : 0;
-  }
-}
-
-// Copies rows [0, rows) x columns [0, cols) of a [kTile][W] box from src
-// (row stride `stride` elements) into dst (row stride W) with cp.async,
-// in chunks of `vec` bytes (a power of two); the rest of the box is
-// zero-filled.
-template <int W, int kThreads, typename T>
-__device__ __forceinline__ void stage_box(T* dst, const T* src,
-                                          long long stride, int rows,
-                                          int cols, int vec) {
-  const int lg = __ffs(max(vec / static_cast<int>(sizeof(T)), 1)) - 1;
-  const int per = 1 << lg, cpr = W >> lg, shift = __ffs(cpr) - 1;
-  for (int i = threadIdx.x; i < kTile * cpr; i += kThreads) {
-    const int r = i >> shift, col = (i & (cpr - 1)) << lg;
-    const int n = r < rows ? min(per, cols - col) : 0;
-    const int bytes = max(n, 0) * static_cast<int>(sizeof(T));
-    copy_chunk(dst + r * W + col, bytes ? src + r * stride + col : src, vec,
-               bytes);
-  }
-}
 
 // One step of one channel on a lane's S states: h = e h + u B, and the
 // lane's part of h . C.  e is ev on a constant row, else expf(ev * a)
@@ -268,7 +201,10 @@ __device__ __forceinline__ void scan_steps(float (&h)[K][16 / K],
   }
 }
 
-template <typename TX, int G, int K>
+// kStates: also write the state at the start of every kChunk steps to
+// h_chunks [batch, ceil(T / kChunk), di, N] (the serve path's instances
+// have it false and are the same code as without checkpoints).
+template <typename TX, int G, int K, bool kStates>
 __global__ void __launch_bounds__(Shape<G, K>::kThreads,
                                   Shape<G, K>::kMinBlocks)
     ssm_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
@@ -276,7 +212,8 @@ __global__ void __launch_bounds__(Shape<G, K>::kThreads,
                     const float* __restrict__ Cm,
                     const float* __restrict__ Dv, int T, int di, int N,
                     const __grid_constant__ Maps maps, Plan pl,
-                    float* __restrict__ y, float* __restrict__ h_out) {
+                    float* __restrict__ y, float* __restrict__ h_out,
+                    float* __restrict__ h_chunks) {
   using Sh = Shape<G, K>;
   constexpr int S = Sh::kS, CH = Sh::kCh, NP = Sh::kNp, R = Sh::kR;
   constexpr int THREADS = Sh::kThreads;
@@ -378,6 +315,16 @@ __global__ void __launch_bounds__(Shape<G, K>::kThreads,
   for (int it = 0; it < tiles; ++it) {
     const int p = it & 1, t0 = it * kTile, tn = min(kTile, T - t0);
     float* ysp = ys + p * TILE_C;
+    if constexpr (kStates) {
+      // h is the state before step t0: a checkpoint every kChunk steps.
+      if (it % kChunkTiles == 0) {
+        const int nc = (T + kChunk - 1) / kChunk;
+        store_states<G, K>(
+            h, h_chunks + (static_cast<long long>(b) * nc + it / kChunkTiles) *
+                              di * N,
+            d0 + c0, di, N, g);
+      }
+    }
     if (pl.tma) {
       // ys[p] was last stored from at tile it - 2; the store must have read
       // it, and this thread's writes to ys[p ^ 1] must reach the TMA unit.
@@ -444,34 +391,14 @@ __global__ void __launch_bounds__(Shape<G, K>::kThreads,
     }
   }
 
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int d = d0 + c0 + k;
-    if (d >= di) continue;
-    float* hp = h_out + (static_cast<long long>(b) * di + d) * N;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int n = 4 * (s / 4 * G + g) + s % 4;
-      if (n < N) hp[n] = h[k][s];
-    }
-  }
+  store_states<G, K>(h, h_out + static_cast<long long>(b) * di * N, d0 + c0,
+                     di, N, g);
 }
 
-// The widest chunk (16, 8, 4 or 2 bytes) at which every row of a tensor
-// with `row_bytes` per row, starting `step_bytes` apart, is aligned.
-int chunk_bytes(const void* base, long long row_bytes, long long step_bytes) {
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(base) |
-                         static_cast<uintptr_t>(row_bytes) |
-                         static_cast<uintptr_t>(step_bytes);
-  int v = 16;
-  while (v > 2 && bits % v != 0) v >>= 1;
-  return v;
-}
-
-template <typename TX, int G, int K>
+template <typename TX, int G, int K, bool kStates>
 int launch(const void* x, const float* dt, const float* A, const float* Bm,
            const float* Cm, const float* Dv, int batch, int T, int di, int N,
-           float* y, float* h_out, cudaStream_t stream) {
+           float* y, float* h_out, float* h_chunks, cudaStream_t stream) {
   using Sh = Shape<G, K>;
   const int ex = sizeof(TX);
   Plan pl;
@@ -506,12 +433,12 @@ int launch(const void* x, const float* dt, const float* A, const float* Bm,
   constexpr size_t smem = Sh::kXs * 4 + Sh::kXElems * sizeof(TX);
   static size_t allowed = 48 * 1024;
   cudaError_t err =
-      repro::allow_smem(ssm_scan_kernel<TX, G, K>, smem, allowed);
+      repro::allow_smem(ssm_scan_kernel<TX, G, K, kStates>, smem, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((di + Sh::kCh - 1) / Sh::kCh, batch);
-  ssm_scan_kernel<TX, G, K><<<grid, Sh::kThreads, smem, stream>>>(
+  ssm_scan_kernel<TX, G, K, kStates><<<grid, Sh::kThreads, smem, stream>>>(
       static_cast<const TX*>(x), dt, A, Bm, Cm, Dv, T, di, N, maps, pl, y,
-      h_out);
+      h_out, h_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -520,9 +447,13 @@ int launch(const void* x, const float* dt, const float* A, const float* Bm,
 template <typename TX>
 int launch_for(int N, const void* x, const float* dt, const float* A,
                const float* Bm, const float* Cm, const float* Dv, int batch,
-               int T, int di, float* y, float* h_out, cudaStream_t s) {
-#define REPRO_SCAN(G, K) \
-  launch<TX, G, K>(x, dt, A, Bm, Cm, Dv, batch, T, di, N, y, h_out, s)
+               int T, int di, float* y, float* h_out, float* h_chunks,
+               cudaStream_t s) {
+#define REPRO_SCAN(G, K)                                                     \
+  h_chunks ? launch<TX, G, K, true>(x, dt, A, Bm, Cm, Dv, batch, T, di, N,   \
+                                    y, h_out, h_chunks, s)                   \
+           : launch<TX, G, K, false>(x, dt, A, Bm, Cm, Dv, batch, T, di, N, \
+                                     y, h_out, nullptr, s)
   if (N <= 8) return REPRO_SCAN(1, 2);
   if (N <= 16) return REPRO_SCAN(2, 2);
   if (N <= 32) return REPRO_SCAN(4, 2);
@@ -538,17 +469,19 @@ int launch_for(int N, const void* x, const float* dt, const float* A,
 
 // x [batch, T, di] float32 (x_bf16 0) or bfloat16 (x_bf16 1); dt
 // [batch, T, di], A [di, N], Bm, Cm [batch, T, N] and Dv [di] float32; all
-// contiguous.  Outputs y [batch, T, di] and h_out [batch, di, N], float32.
-// N at most 16 * 32.
+// contiguous.  Outputs y [batch, T, di] and h_out [batch, di, N], float32,
+// and, unless h_chunks is null, the state at the start of every kChunk
+// steps, h_chunks [batch, ceil(T / kChunk), di, N] float32.  N at most
+// 16 * 32.
 extern "C" int ssm_scan_launch(const void* x, const float* dt, const float* A,
                                const float* Bm, const float* Cm,
                                const float* Dv, int batch, int T, int di,
                                int N, int x_bf16, float* y, float* h_out,
-                               void* stream) {
+                               float* h_chunks, void* stream) {
   if (batch == 0 || di == 0 || N == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_bf16 ? launch_for<__nv_bfloat16>(N, x, dt, A, Bm, Cm, Dv, batch, T,
-                                            di, y, h_out, s)
+                                            di, y, h_out, h_chunks, s)
                 : launch_for<float>(N, x, dt, A, Bm, Cm, Dv, batch, T, di, y,
-                                    h_out, s);
+                                    h_out, h_chunks, s);
 }

@@ -14,8 +14,10 @@ reached the card), so a run can show that it went through the kernels;
 :func:`card_kernels` lists what one call put on the card.
 ``KERNELS`` maps each kernel to the source (and library) it is built
 from; ``fused_inject.cu`` and ``merge_sort.cu`` each hold two kernels,
-and ``flash_attention_bwd`` is one count for the two kernels (dQ, then dK
-and dV) that one call of its launcher starts.
+``flash_attention_bwd`` is one count for the two kernels (dQ, then dK
+and dV) that one call of its launcher starts, and ``ssm_scan_bwd`` counts
+its one kernel (the ``torch.sum`` of its partial sums is not a launch of
+it).
 """
 
 from __future__ import annotations
@@ -31,13 +33,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("bucket_pack", "fused_inject", "fused_drain", "lif_step",
-           "merge_sort", "flash_attention", "flash_attention_bwd", "ssm_scan")
+           "merge_sort", "flash_attention", "flash_attention_bwd", "ssm_scan",
+           "ssm_scan_bwd")
 KERNELS = {"fused_inject": "fused_inject", "fused_lif_inject": "fused_inject",
            "bucket_pack": "bucket_pack", "fused_drain": "fused_drain",
            "lif_step": "lif_step", "merge_sort_words": "merge_sort",
            "merge_sort": "merge_sort", "flash_attention": "flash_attention",
            "flash_attention_bwd": "flash_attention_bwd",
-           "ssm_scan": "ssm_scan"}
+           "ssm_scan": "ssm_scan", "ssm_scan_bwd": "ssm_scan_bwd"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Shared memory one block may use on Hopper (227 KB).

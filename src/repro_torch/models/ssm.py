@@ -14,10 +14,11 @@ a_head), broadcast to a [di, N] A.  Mamba-1 (``ssm_version=1``,
 falcon-mamba) and the chunk-parallel ``ssm_impl="ssd"`` path are not
 ported yet.
 
-Training: on the CPU, autograd runs through the plain scan; on the card
-the scan kernel has no backward yet, so ``ssm_apply`` refuses to run
-where a gradient would be asked of it (:func:`refuse_card_backward`)
-rather than return outputs that carry none.
+Training: where a gradient is asked, ``ssm_apply``'s scan goes through
+the ``SSMScan`` autograd Function (``kernels.ssm_scan``): on the card
+the forward kernel also writes a state checkpoint every 64 steps and the
+backward kernel (``csrc/ssm_scan_bwd.cu``) recomputes the states from
+them; on the CPU the two plain versions do the same.
 """
 
 from __future__ import annotations
@@ -48,17 +49,6 @@ def _check(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"ssm_impl={cfg.ssm_impl!r} is not ported yet; the port runs "
             f"the 'scan' path through the ssm_scan kernel")
-
-
-def refuse_card_backward(on_card: bool, needs_grad: bool) -> None:
-    """Raise where the scan would run on the card inside a graph that
-    autograd records: the kernel writes its outputs through ``ctypes`` and
-    has no backward, so the gradients would be lost in silence."""
-    if on_card and needs_grad:
-        raise NotImplementedError(
-            "the ssm_scan kernel has no backward yet: training zamba2 on "
-            "the card needs it (ROADMAP section 1, item 9); run under "
-            "torch.no_grad() or on the CPU")
 
 
 def ssm_spec(cfg: ArchConfig) -> dict:
@@ -127,10 +117,10 @@ def _gated_norm(cfg: ArchConfig, p: dict, y, z):
 def ssm_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
               return_state: bool = False):
     """Full-sequence Mamba-2 block from a zero state. x: [B, T, d] ->
-    [B, T, d] (and the :class:`SSMState` after the last token)."""
+    [B, T, d] (and the :class:`SSMState` after the last token).
+    Differentiable on the card and on the CPU alike (the scan through
+    ``SSMScan`` where a gradient is asked)."""
     _check(cfg)
-    refuse_card_backward(x.is_cuda, torch.is_grad_enabled() and (
-        x.requires_grad or any(w.requires_grad for w in p.values())))
     t = x.shape[1]
     dt_ = x.dtype
     xh = torch.matmul(x, p["w_in_x"].to(dt_))

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card (the SNN kernels bitwise, flash attention, its backward and the SSM
-scan within a stated tolerance), the feedforward demo, a reduced LM
-serve (float32 and bf16) and a reduced training step on the card against
-the CPU.
+card (the SNN kernels bitwise, flash attention, its backward, the SSM
+scan and its backward within a stated tolerance), the feedforward demo,
+a reduced LM serve (float32 and bf16) and reduced training steps (the
+dense model's, and zamba2's Mamba block) on the card against the CPU.
 
 These tests need an NVIDIA GPU and skip without one (a CUDA kernel has no
 CPU mode).  They import no JAX, so they run on a machine with the card:
@@ -34,7 +34,8 @@ from repro_torch.kernels.lif_step.ref import lif_step_ref
 from repro_torch.kernels.merge_sort import ops as ms
 from repro_torch.kernels.merge_sort.ref import merge_sort_ref, merge_sort_words_ref
 from repro_torch.kernels.ssm_scan import ops as scan
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_ref, ssm_scan_ref,
+                                              ssm_scan_with_states_ref)
 from repro_torch.core import merge as mg
 from repro_torch.snn import neuron as nr
 
@@ -1181,25 +1182,6 @@ def test_flash_attention_bwd_f32_is_deterministic(cuda, b, hq, hkv, s, d):
         assert torch.equal(x, y), name
 
 
-@pytest.mark.cuda
-def test_ssm_apply_refuses_a_backward_on_the_card(cuda):
-    """The scan kernel has no backward: on the card ``ssm_apply`` raises
-    where autograd would record it, and runs under no_grad."""
-    from repro_torch import configs as C
-    from repro_torch.models import spec as sp
-    from repro_torch.models import ssm
-
-    cfg = C.get("zamba2-2.7b").reduced()
-    p = sp.init_tree(torch.Generator().manual_seed(0), ssm.ssm_spec(cfg),
-                     torch.float32, "cpu")
-    p = sp.tree_map(lambda w: w.to(cuda).requires_grad_(True), p)
-    x = torch.randn((1, 8, cfg.d_model), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1, item 9"):
-        ssm.ssm_apply(cfg, p, x)
-    with torch.no_grad():
-        assert ssm.ssm_apply(cfg, p, x).shape == x.shape
-
-
 def _scan_a(rng, din, n, kind, head=80):
     """A [din, n]: "general" (random per element), "per_head" (Mamba-2: one
     value per head of `head` channels, broadcast over the states, as the
@@ -1280,6 +1262,175 @@ def test_ssm_scan_constant_row_ignores_its_neighbours(cuda, din, n):
     assert torch.equal(y0[..., ::2], y1[..., ::2])
     assert torch.equal(h0[:, ::2], h1[:, ::2])
     assert not torch.equal(y0[..., 1::2], y1[..., 1::2])
+
+
+def _bwd_case(device, b, t, din, n, kind, seed, dh=True):
+    """The scan's inputs of ``_scan_args``, its checkpoints from the plain
+    forward, and dy (and dh_final) from the same seed."""
+    args = _scan_args(device, b, t, din, n, kind, seed)
+    _, _, hc = ssm_scan_with_states_ref(*args)
+    rng = np.random.default_rng(seed + 1)
+    dy = _on(rng.standard_normal((b, t, din)).astype(np.float32), device)
+    dhf = (_on(rng.standard_normal((b, din, n)).astype(np.float32), device)
+           if dh else None)
+    return args, hc, dy, dhf
+
+
+def _check_bwd(got, want, tol=1e-4):
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=tol * float(w.float().abs().max()),
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["general", "per_head", "mixed"])
+@pytest.mark.parametrize("b,t,din,n", [(2, 130, 100, 8), (1, 64, 256, 64),
+                                       (2, 300, 200, 16), (1, 40, 5120, 64),
+                                       (1, 33, 70, 100),
+                                       (1, 40, 96, scan.MAX_STATE)])
+def test_ssm_scan_bwd_kernel_matches_plain(cuda, b, t, din, n, kind):
+    """``ssm_scan_bwd`` (one launch) against ``ssm_scan_bwd_ref`` on the
+    card, each gradient within 1e-4 of its largest |.| (the forward's
+    bound: the card's expf, and sums in another order: dB and dC over up
+    to 5120 channels, du and q . A over up to 512 states, dA and dD over
+    the batch and the steps, the states recomputed from the checkpoints
+    along 64 steps), over the forward's shapes: T past and short of a
+    chunk, di not a multiple of the block, N from 8 to MAX_STATE, A
+    general, per head or both in a block."""
+    args, hc, dy, dh = _bwd_case(cuda, b, t, din, n, kind, t + din + n)
+    before = kc.launches["ssm_scan_bwd"]
+    got = scan.ssm_scan_bwd(*args, hc, dy, dh)
+    assert kc.launches["ssm_scan_bwd"] == before + 1
+    _check_bwd(got, ssm_scan_bwd_ref(*args, hc, dy, dh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,din,n", [(1, 64, 256, 64), (2, 37, 75, 16),
+                                       (1, 20, 34, 64)])
+def test_ssm_scan_bwd_reads_bf16_x_as_its_f32_upcast(cuda, b, t, din, n):
+    """A bf16 x gives bitwise the gradients of the same x upcast to f32,
+    dx rounded once to bf16 (the kernel reads bf16 in place and rounds dx
+    to nearest even, as ``Tensor.to`` does).  di 75 and 34 give rows
+    that are not 4- and 16-byte aligned."""
+    args, hc, dy, dh = _bwd_case(cuda, b, t, din, n, "per_head", 5 + din)
+    xb = args[0].to(torch.bfloat16)
+    got = scan.ssm_scan_bwd(xb, *args[1:], hc, dy, dh)
+    want = scan.ssm_scan_bwd(xb.float(), *args[1:], hc, dy, dh)
+    assert got[0].dtype == torch.bfloat16
+    assert torch.equal(got[0], want[0].to(torch.bfloat16))
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,din,n", [(2, 130, 100, 64), (1, 70, 48, 16)])
+def test_ssm_scan_bwd_takes_the_final_state_gradient(cuda, b, t, din, n):
+    """A nonzero dh_final enters the walk at the last step: the kernel
+    matches the plain version with it (1e-4, as above), and differs from
+    its own result without it (None, which is 0)."""
+    args, hc, dy, dh = _bwd_case(cuda, b, t, din, n, "mixed", din + n)
+    got = scan.ssm_scan_bwd(*args, hc, dy, dh)
+    _check_bwd(got, ssm_scan_bwd_ref(*args, hc, dy, dh))
+    zero = scan.ssm_scan_bwd(*args, hc, dy, None)
+    for g, w in zip(zero, scan.ssm_scan_bwd(*args, hc, dy,
+                                            torch.zeros_like(dh))):
+        assert torch.equal(g, w)
+    assert not torch.equal(got[2], zero[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,din,n,kind", [(4, 512, 5120, 64, "per_head"),
+                                            (2, 130, 100, 16, "mixed")])
+def test_ssm_scan_bwd_is_deterministic(cuda, b, t, din, n, kind):
+    """No atomics: two calls on the same inputs give the same bits in all
+    six gradients (zamba2's training shape, and a ragged mixed one)."""
+    args, hc, dy, dh = _bwd_case(cuda, b, t, din, n, kind, 11)
+    first = scan.ssm_scan_bwd(*args, hc, dy, dh)
+    second = scan.ssm_scan_bwd(*args, hc, dy, dh)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,din,n,kind", [(1, 130, 256, 64, "per_head"),
+                                            (2, 64, 100, 16, "general"),
+                                            (1, 33, 96, scan.MAX_STATE,
+                                             "mixed")])
+def test_ssm_scan_checkpoints_leave_the_forward_unchanged(cuda, b, t, din, n,
+                                                          kind):
+    """The forward with checkpoints gives bitwise the y and final state
+    of the forward without; the checkpoints are the plain forward's
+    states at the chunk starts within 1e-4 (relative and absolute, as y),
+    the first 0."""
+    args = _scan_args(cuda, b, t, din, n, kind, 3 + t)
+    y0, h0 = scan.ssm_scan_fwd(*args)
+    y1, h1, hc = scan.ssm_scan_fwd(*args, with_states=True)
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)
+    _, _, want = ssm_scan_with_states_ref(*args)
+    assert hc.shape == want.shape and not hc[:, 0].any()
+    torch.testing.assert_close(hc, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_trains_through_the_kernels(cuda):
+    """Inputs that require grad go through ``SSMScan``: one forward launch
+    with checkpoints and one backward launch, whose gradients are
+    ``ssm_scan_bwd``'s on the saved inputs; the final state's gradient
+    may be unused."""
+    args = [z.requires_grad_(True) for z in _scan_args(cuda, 2, 100, 96, 16,
+                                                        "mixed", 4)]
+    dy = torch.randn((2, 100, 96), device=cuda)
+    kc.reset_launches()
+    y, _ = scan.ssm_scan(*args)
+    grads = torch.autograd.grad(y, args, dy)
+    assert (kc.launches["ssm_scan"], kc.launches["ssm_scan_bwd"]) == (1, 1)
+    with torch.no_grad():
+        _, _, hc = scan.ssm_scan_fwd(*args, with_states=True)
+        want = scan.ssm_scan_bwd(*args, hc, dy)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_ssm_apply_gradients_on_the_card_match_the_cpu(cuda):
+    """Reduced zamba2's ``ssm_apply`` (float32, TF32 off) with a random
+    linear loss: every gradient (the block's twelve weights and x) on the
+    card, through the scan's forward and backward kernels (one launch
+    each), within 1e-4 of its leaf's largest |g| of the plain path on the
+    CPU.  On the CPU a 1e-7 relative change of the weights moves these
+    gradients by at most 3.1e-6 of a leaf's largest (a gain of about
+    30), and float32 rounding on the two devices differs by a few ulps
+    of each operation's output, so 1e-4 leaves a margin of three or
+    more."""
+    from repro_torch import configs as C
+    from repro_torch.models import spec as sp
+    from repro_torch.models import ssm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = C.get("zamba2-2.7b").reduced()
+    params = sp.init_tree(torch.Generator().manual_seed(0),
+                          ssm.ssm_spec(cfg), torch.float32, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 70, cfg.d_model), generator=gen)
+    w = torch.randn((2, 70, cfg.d_model), generator=gen)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        p = sp.tree_map(lambda z: z.to(device).requires_grad_(True), params)
+        xx = x.to(device).requires_grad_(True)
+        kc.reset_launches()
+        y = ssm.ssm_apply(cfg, p, xx)
+        names = sorted(p)
+        grads = torch.autograd.grad((y * w.to(device)).sum(),
+                                    [p[k] for k in names] + [xx])
+        out[device.type] = ([g.cpu() for g in grads], dict(kc.launches))
+    (g_gpu, counts), (g_cpu, _) = out["cuda"], out["cpu"]
+    assert (counts["ssm_scan"], counts["ssm_scan_bwd"]) == (1, 1)
+    for a, b in zip(g_gpu, g_cpu):
+        assert bool(b.abs().max() > 0)
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
 
 
 @pytest.mark.cuda

@@ -163,6 +163,38 @@ def test_chip_smoke_reads_flash_spills_of_both_types():
         "flash_attention_tf32x3_kernel": {"128": (None, 24)}}
 
 
+def test_chip_smoke_reads_the_scan_backward_instances():
+    """``chip_smoke.ptxas_instances`` reads (registers, spill bytes) of
+    every instance of the scan's backward by its template arguments, and
+    leaves the forward's ``ssm_scan_kernel`` (whose mangled name differs
+    in its length prefix) out."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119"
+        "ssm_scan_bwd_kernelIfLi8ELi2EEEvPKT_PKfS5_' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_119",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119"
+        "ssm_scan_bwd_kernelI13__nv_bfloat16Li32ELi1EEEvPKT_PKfS5_' for "
+        "'sm_90a'",
+        "ptxas info    : Used 255 registers, used 1 barriers",
+        "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115"
+        "ssm_scan_kernelIfLi8ELi2ELb1EEEvPKT_PKfS5_' for 'sm_90a'",
+        "ptxas info    : Used 96 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"])
+    assert smoke.ptxas_instances(log, "ssm_scan_bwd_kernel") == {
+        "fLi8ELi2": (168, 0), "13__nv_bfloat16Li32ELi1": (255, 12)}
+    assert smoke.ptxas_instances(log, "ssm_scan_kernel") == {
+        "fLi8ELi2ELb1": (96, 0)}
+
+
 def test_chip_smoke_reads_the_backward_kernels_registers_and_spills():
     """``chip_smoke.ptxas_by_dn`` reads (registers, spill bytes) of each
     backward instance by kernel and DN, whichever order
@@ -402,7 +434,8 @@ def _c_params(source: str, symbol: str) -> list[str]:
      "flash_attention_launch"),
     ("flash_attention", "_BWD_ARGTYPES", "flash_attention_bwd.cu",
      "flash_attention_bwd_launch"),
-    ("ssm_scan", "_ARGTYPES", "ssm_scan.cu", "ssm_scan_launch")])
+    ("ssm_scan", "_ARGTYPES", "ssm_scan.cu", "ssm_scan_launch"),
+    ("ssm_scan", "_BWD_ARGTYPES", "ssm_scan_bwd.cu", "ssm_scan_bwd_launch")])
 def test_ctypes_signatures_match_the_c_entry_points(module, attr, source,
                                                     symbol):
     """ctypes passes an argument beyond ``argtypes`` as a 32-bit int, which

@@ -481,18 +481,29 @@ def test_make_compressed_step_waits_for_sharding():
         train.make_compressed_step(C.get("internlm2-1.8b"))
 
 
-def test_ssm_backward_guard():
-    """On the card a backward through ``ssm_apply`` would lose its
-    gradients in silence, so the guard raises there; on the CPU autograd
-    runs through the plain scan."""
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1, item 9"):
-        ssm.refuse_card_backward(True, True)
-    ssm.refuse_card_backward(True, False)
-    ssm.refuse_card_backward(False, True)
+def test_ssm_apply_trains_through_the_scan_function(monkeypatch):
+    """A backward through ``ssm_apply`` goes through the ``SSMScan``
+    autograd Function (the plain forward with checkpoints, then the plain
+    backward on the CPU), once per call, and its gradients are nonzero;
+    under no_grad the scan is the single forward call."""
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+
+    calls = []
+    fwd, bwd = scan_ops.ssm_scan_fwd, scan_ops.ssm_scan_bwd
+    monkeypatch.setattr(scan_ops, "ssm_scan_fwd", lambda *a, **k: calls.append(
+        ("fwd", k.get("with_states", False))) or fwd(*a, **k))
+    monkeypatch.setattr(scan_ops, "ssm_scan_bwd", lambda *a, **k: calls.append(
+        ("bwd", None)) or bwd(*a, **k))
     cfg = C.get("zamba2-2.7b").reduced()
     p = sp.init_tree(torch.Generator().manual_seed(0), ssm.ssm_spec(cfg),
                      torch.float32, CPU)
     p = sp.tree_map(lambda w: w.requires_grad_(True), p)
-    y = ssm.ssm_apply(cfg, p, torch.randn(1, 8, cfg.d_model))
-    grads = torch.autograd.grad(y.sum(), [p["A_log"], p["w_in_x"]])
+    x = torch.randn(1, 70, cfg.d_model)
+    y = ssm.ssm_apply(cfg, p, x)
+    grads = torch.autograd.grad(y.sum(), [p["A_log"], p["w_in_x"], p["D"]])
+    assert calls == [("fwd", True), ("bwd", None)]
     assert all(bool(g.abs().sum() > 0) for g in grads)
+    calls.clear()
+    with torch.no_grad():
+        assert torch.equal(ssm.ssm_apply(cfg, p, x), y.detach())
+    assert calls == [("fwd", False)]
