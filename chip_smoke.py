@@ -11,7 +11,10 @@ Phases, each fatal on failure:
              float32) nor in any backward instance; the backward's SASS
              holds HMMA in every instance (TF32 in each float32 one)
              and no atomic; no spill in any of the 14 instances of the
-             scan's backward (``ssm_scan_bwd_kernel``);
+             scan's backward (``ssm_scan_bwd_kernel``); the per-head
+             backward's 3 instances (``ssm_scan_bwd_chunked.cu``) with no
+             spill and no stack frame, TF32 HMMA in the SASS of each and
+             no atomic;
   2. kernels each kernel against its plain PyTorch version on the card,
              bitwise on every output of the SNN kernels, on inputs taken
              from the first block of each path below, in every mode the
@@ -40,7 +43,13 @@ Phases, each fatal on failure:
              and ``ssm_scan_bwd`` at the training shape (x bf16, A per
              head; the main case), with a general A and x f32 and on a
              ragged shape, each gradient within 1e-4 of its largest
-             against ``ssm_scan_bwd_ref``, two calls the same bits.
+             against ``ssm_scan_bwd_ref``, two calls the same bits; the
+             per-head (chunked) backward ``ssm_scan_heads_bwd`` at the
+             same shape (the main case), on a ragged shape with a
+             final-state gradient and with x f32, each gradient within
+             1e-4 of its largest against ``ssm_scan_heads_bwd_ref``, two
+             calls the same bits, its bound by 3xTF32 operations and by
+             bytes, and its time beside the per-channel backward's.
              ``bucket_pack``
              (the wafer's flush), ``lif_step`` and every case of
              ``fused_inject`` and ``fused_lif_inject`` print their launch
@@ -188,7 +197,7 @@ Phases, each fatal on failure:
              zamba2-2.7b at full width, 6 layers, float32, batch 2 x 100:
              the same on the card (remat off and full) against the CPU,
              every gradient within ``ZAMBA2_GRAD_BOUND`` of its leaf's
-             largest, 6 (12 under remat) ssm_scan and 6 ssm_scan_bwd
+             largest, 6 (12 under remat) ssm_scan and 6 ssm_scan_heads_bwd
              launches, 1 (2) flash_attention and 1 flash_attention_bwd,
              and the CPU's own conditioning printed beside it;
      train   the training path: internlm2-1.8b at full width and depth,
@@ -200,8 +209,8 @@ Phases, each fatal on failure:
              step, peak memory, the checkpoint's bytes and seconds, and a
              profile of one more step; then zamba2-2.7b the same way (54
              layers, 3 steps, no checkpoint written): 54 ssm_scan, 54
-             ssm_scan_bwd, 9 flash_attention and 9 flash_attention_bwd
-             launches per step;
+             ssm_scan_heads_bwd (0 of the per-channel ssm_scan_bwd), 9
+             flash_attention and 9 flash_attention_bwd launches per step;
  10. profile where a block's time goes on each path (torch.profiler):
              wall and device-busy time per step, the idle share, kernel
              launches per step, the costliest kernels and the device time
@@ -260,7 +269,17 @@ REPLACES = {
     # lax.scan in scan_chunked.
     "ssm_scan_bwd": "none: XLA autodiff of src/repro/models/ssm.py:196 "
                     "(scan_chunked)",
+    # The same, through the reference's broadcast of the per-head dt_h
+    # and a_h (_dt_bc, src/repro/models/ssm.py:84).
+    "ssm_scan_heads_bwd": "none: XLA autodiff of src/repro/models/ssm.py:"
+                          "196 (scan_chunked) through _dt_bc's broadcasts",
 }
+# The per-head scan backward's kernels (csrc/ssm_scan_bwd_chunked.cu):
+# the backward, templated on x's type (2 instances), and the end-state
+# kernel that runs first.
+SCAN_HEADS_KERNELS = ("ssm_scan_heads_bwd_kernel",
+                      "ssm_scan_heads_dstate_kernel")
+SCAN_HEADS_INSTANCES = 3
 # The two kernels one flash_attention_bwd call launches (name prefixes,
 # of either route), and the instances of each route
 # (``design(dtype, backward=True)``).
@@ -412,40 +431,13 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def graph_ms(fn, iters: int = 20, reps: int = 5, stream=None) -> float:
-    """Per-call time with CUDA events over replays of one CUDA graph that
-    holds ``iters`` back-to-back calls: the calls run without the host's
-    launch gaps, so a short kernel is timed, not its Python wrapper.
-    ``stream``: the stream to warm up and capture on (default a new
-    one)."""
-    side = torch.cuda.Stream() if stream is None else stream
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (reps * iters)
-
-
 def library_ms(fn) -> float:
-    """A library call's time as :func:`graph_ms` takes it, or with CUDA
+    """A library call's time as :func:`kc.graph_ms` takes it, or with CUDA
     events over eager calls where the call cannot be captured in a
     graph."""
+    from repro_torch.kernels import common as kc
     try:
-        return graph_ms(fn)
+        return kc.graph_ms(fn)
     except RuntimeError as err:
         print(f"[kernel] library call not capturable ({err}); timed eagerly")
         torch.cuda.synchronize()
@@ -454,31 +446,35 @@ def library_ms(fn) -> float:
 
 def backward_graph_ms(forward, inputs, grad_out) -> float:
     """The time of the backward of ``forward(*inputs)`` alone, as
-    :func:`graph_ms` takes a call: ``torch.autograd.grad`` on one
+    :func:`kc.graph_ms` takes a call: ``torch.autograd.grad`` on one
     retained graph.  The forward runs on the capture stream, so that
     autograd puts its backward there."""
+    from repro_torch.kernels import common as kc
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         ins = [x.detach().clone().requires_grad_(True) for x in inputs]
         out = forward(*ins)
-    return graph_ms(lambda: torch.autograd.grad(out, ins, grad_out,
-                                                retain_graph=True),
-                    stream=side)
+    return kc.graph_ms(lambda: torch.autograd.grad(out, ins, grad_out,
+                                                   retain_graph=True),
+                       stream=side)
 
 
 def device_ms(fn, names, iters: int) -> float | None:
     """Device time per launch of the CUDA kernels whose names contain one
-    of ``names`` from torch.profiler; None if the profiler recorded no
-    device time."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    of ``names`` from torch.profiler; None if none of them has device
+    time.  Raises if the profiler recorded no device activity at all in
+    :func:`kc.profiled`'s sessions."""
+    from repro_torch.kernels import common as kc
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def window():
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+
+    prof, _ = kc.profiled(window, f"device time of {', '.join(names)}")
     total, count = 0.0, 0
     for evt in prof.key_averages():
         if any(name in evt.key for name in names):
@@ -506,26 +502,10 @@ def host_us(fn, calls: int = 1000) -> float:
 def ptxas_instances(log: str, kernel: str) -> dict[str, tuple]:
     """(registers, spill bytes as stores + loads) of each instance of the
     template ``kernel`` in ptxas's report, by its template arguments as
-    they stand in the mangled name (e.g. ``fLi8ELi2E``: float, 8, 2)."""
-    out, key = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(f"{len(kernel)}{kernel}I(\\w+?)EE", line)
-            key = m.group(1) if m else None
-            if key is not None:
-                out[key] = (None, None)
-        if key is None:
-            continue
-        regs, spill = out[key]
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            regs = int(m.group(1))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spill = int(m.group(1)) + int(m.group(2))
-        out[key] = (regs, spill)
-    return out
+    they stand in the mangled name (e.g. ``fLi8ELi2``: float, 8, 2)."""
+    return {key[len(kernel) + 1:-1]: (regs, spill)
+            for key, (regs, spill, _) in ptxas_frames(log, (kernel,)).items()
+            if key != kernel}
 
 
 def ptxas_registers(log: str, kernel: str) -> int | None:
@@ -540,6 +520,60 @@ def ptxas_registers(log: str, kernel: str) -> int | None:
         if m and hit:
             return int(m.group(1))
     return None
+
+
+def mangled_instance(line: str, kernels) -> str | None:
+    """``kernel<template arguments>`` (or ``kernel``, not a template) of
+    the instance of one of ``kernels`` that a mangled name in ``line``
+    names (matched with its length prefix), else None."""
+    for name in kernels:
+        m = re.search(f"{len(name)}{name}(?:I(\\w+?)EE|E)", line)
+        if m:
+            return f"{name}<{m.group(1)}>" if m.group(1) else name
+    return None
+
+
+def ptxas_frames(log: str, kernels) -> dict[str, tuple]:
+    """(registers, spill bytes as stores + loads, stack frame bytes) of
+    each instance of ``kernels`` in ptxas's report, by
+    :func:`mangled_instance` (None where ptxas printed no such line)."""
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            key = mangled_instance(line, kernels)
+            if key is not None:
+                out[key] = (None, None, None)
+        if key is None:
+            continue
+        regs, spill, stack = out[key]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            stack = int(m.group(1))
+            spill = int(m.group(2)) + int(m.group(3))
+        out[key] = (regs, spill, stack)
+    return out
+
+
+def sass_instances(sass: str, kernels,
+                   pattern: str = "HMMA") -> dict[str, tuple[int, int]]:
+    """(instructions that match ``pattern``, atomic or reduction
+    instructions) of each instance of ``kernels`` in ``cuobjdump -sass``
+    output, by :func:`mangled_instance`."""
+    out, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            key = mangled_instance(line, kernels)
+            if key is not None:
+                out[key] = (0, 0)
+        elif key is not None:
+            n, atom = out[key]
+            out[key] = (n + bool(re.search(pattern, line)),
+                        atom + bool(re.search(r"\b(ATOM\w*|RED)\b", line)))
+    return out
 
 
 def run_path(net, cfg, params, ext, device, b: int):
@@ -1139,7 +1173,7 @@ def kernel_phase(cases: list[dict]) -> dict:
         if dms is not None:   # the mean per kernel, times kernels per call
             dms *= len(case.get("split_names", (None,)))
         row = dict(name=case["kernel"], mode=case["mode"], max_abs_err=err,
-                   ms=graph_ms(case["run"]), device_ms=dms,
+                   ms=kc.graph_ms(case["run"]), device_ms=dms,
                    plain_ms=event_ms(case["plain"], case.get("plain_iters",
                                                              5)),
                    bytes=moved, ops=case["ops"],
@@ -1186,11 +1220,16 @@ def kernel_phase(cases: list[dict]) -> dict:
                   f"(1000 calls, one synchronise)")
         if "floor" in case:
             label, floor = case["floor"]
-            row["floor_ms"] = graph_ms(floor)
+            row["floor_ms"] = kc.graph_ms(floor)
             row["floor_host_us"] = host_us(floor)
             print(f"[kernel] {label} ms={row['floor_ms']:.5f} host_us="
                   f"{row['floor_host_us']:.2f} (beside {case['kernel']} "
                   f"{case['mode']} ms={row['ms']:.5f})")
+        if case.get("both_bounds"):
+            print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
+                  f"bound by operations {ops_ms:.5f} ms, by bytes "
+                  f"{bytes_ms:.5f} ms; ms / bound "
+                  f"{row['ms'] / row['bound_ms']:.2f}")
         if "design" in case:
             print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
                   f"design={case['design']} TFLOP/s="
@@ -1375,20 +1414,21 @@ def scan_train_cases(device, gen) -> list[dict]:
     (2), dD (2): 10.  A general row takes dt A, its exp and the products
     e A and e dt per element (21 N + 7)."""
     from repro_torch.kernels.ssm_scan import ops as scan_ops
-    from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_ref,
+    from repro_torch.kernels.ssm_scan.ref import (heads_to_channels,
+                                                  ssm_scan_bwd_ref,
+                                                  ssm_scan_heads_bwd_ref,
                                                   ssm_scan_with_states_ref)
 
     randn = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
                                        device=device)
     softplus = torch.nn.functional.softplus
     cases = []
-    b, t, di, n, head = 4, 512, 5120, 64, 80
+    b, t, di, n, head = 4, 512, 5120, 64, 64   # zamba2: 80 heads of 64
     x = randn(b, t, di)
+    dt_h = softplus(randn(b, t, di // head) - 1.0)
+    a_h = -torch.exp(randn(di // head) * 0.5)
     per_head = (x.to(torch.bfloat16),
-                softplus(randn(b, t, di // head) - 1.0).repeat_interleave(
-                    head, dim=-1),
-                (-torch.exp(randn(di // head) * 0.5)).repeat_interleave(
-                    head)[:, None] * torch.ones((1, n), device=device),
+                *heads_to_channels(dt_h, a_h, head, n),
                 randn(b, t, n), randn(b, t, n), randn(di))
     cases.append(dict(
         kernel="ssm_scan", mode=f"zamba2 training, A per head, x bf16, with "
@@ -1441,27 +1481,82 @@ def scan_train_cases(device, gen) -> list[dict]:
             inputs=tuple(z for z in args if z is not None), plain_iters=2,
             ops=ops, check=(lambda got, a=args: same_bits(got, a)),
             design="exp_per_channel_step" if main else "exp_per_state"))
+
+    # The per-head backward (csrc/ssm_scan_bwd_chunked.cu) at the same
+    # shape (the main case), ragged with a final-state gradient, and with
+    # x f32; its operations are :func:`heads_bwd_ops`.
+    group = scan_ops.heads_bwd_group()
+
+    def heads_case(label, xh, dth, ah, rest, dh, main):
+        bb, tt, dd = xh.shape
+        nh, nn = ah.shape[0], rest[0].shape[-1]
+        dt_, a_ = heads_to_channels(dth, ah, dd // nh, nn)
+        _, _, hc = scan_ops.ssm_scan_fwd(xh, dt_, a_, *rest, with_states=True)
+        args = (xh, dth, ah, *rest, hc, randn(bb, tt, dd),
+                randn(bb, dd, nn) if dh else None)
+        nc = -(-tt // 64)
+
+        def same(got, a=args):
+            again = scan_ops.ssm_scan_heads_bwd(*a)
+            if not all(torch.equal(g, w) for g, w in zip(got, again)):
+                raise AssertionError("ssm_scan_heads_bwd: two calls on the "
+                                     "same inputs differ")
+            print("[kernel] ssm_scan_heads_bwd two calls give the same bits")
+
+        return dict(
+            kernel="ssm_scan_heads_bwd", mode=f"{label} {(bb, tt, dd)} "
+                                              f"{nh} heads N {nn}",
+            main=main, run=lambda a=args: scan_ops.ssm_scan_heads_bwd(*a),
+            plain=lambda a=args: ssm_scan_heads_bwd_ref(*a), tol_of_max=1e-4,
+            inputs=tuple(z for z in args if z is not None), plain_iters=2,
+            ops=heads_bwd_ops(bb, tt, nh, dd // nh, nn,
+                              xh.dtype == torch.bfloat16, dh),
+            ops_per_s=TF32X3_OPS_PER_S, both_bounds=True, check=same,
+            device_names=SCAN_HEADS_KERNELS, split_names=SCAN_HEADS_KERNELS,
+            design=f"mma_tf32x3 ({group} heads a block)")
+
+    rest = per_head[3:]
+    cases.append(heads_case("zamba2 training, x bf16", per_head[0], dt_h,
+                            a_h, rest, False, True))
+    rb, rt, rh = 2, 200, 10
+    cases.append(heads_case(
+        "ragged, x bf16, dh", randn(rb, rt, rh * 64).to(torch.bfloat16),
+        softplus(randn(rb, rt, rh) - 1.0), -torch.exp(randn(rh) * 0.5),
+        (randn(rb, rt, n), randn(rb, rt, n), randn(rh * 64)), True, False))
+    cases.append(heads_case("zamba2 training, x f32", x, dt_h, a_h, rest,
+                            False, False))
     return cases
 
 
-def sass_counts(sass: str, kernels,
-                hmma: str = "HMMA") -> dict[str, tuple[int, int]]:
-    """(instructions that match the pattern ``hmma``, atomic or reduction
-    instructions) of each instance of ``kernels`` in ``cuobjdump -sass``
-    output, by kernel name and DN as :func:`instance_key` gives them."""
-    out, key = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            key = instance_key(line, kernels)
-            if key is not None:
-                key = f"{key[0]}<{key[1]}>"
-                out[key] = (0, 0)
-        elif key is not None:
-            n, atom = out[key]
-            out[key] = (n + bool(re.search(hmma, line)),
-                        atom + bool(re.search(r"\b(ATOM\w*|RED)\b",
-                                              line)))
-    return out
+def heads_bwd_ops(b: int, t: int, nh: int, p: int, n: int, x_bf16: bool,
+                  dh: bool) -> int:
+    """Operations the per-head (chunked) backward needs on this data,
+    counted as 3xTF32 operations (three TF32 products each) for its rate.
+    Per batch row and chunk of q steps, with tri = q (q + 1) / 2 the pairs
+    t >= s that the causal mask keeps:
+      per head, full, q P N multiply-adds each: dy h0 and dy^T diag(exp
+      cum) C (the end-state pass), but not in the first chunk, whose h0
+      is 0 and whose start-state gradient no input needs; B G^T and x G,
+      but not in the last chunk without a final-state gradient (``dh``),
+      whose G is then 0;
+      per head, lower triangle: M^T dy and dy x^T (tri P each), dM~ B and
+      dM~^T C (tri N each);
+      once for all heads: C B^T at its lower triangle (tri N).
+    A product that reads a bf16 x (exact in TF32: x G, dy x^T) takes two
+    TF32 products, every other three."""
+    xw = 2 if x_bf16 else 3
+    total = 0
+    for c0 in range(0, t, 64):
+        q = min(64, t - c0)
+        tri = q * (q + 1) // 2
+        full = 0
+        if c0:
+            full += 2 * 3 * q * p * n
+        if dh or c0 + q < t:
+            full += (3 + xw) * q * p * n
+        per_head = full + tri * (3 * p + xw * p + 2 * 3 * n)
+        total += nh * per_head + 3 * tri * n
+    return 2 * b * total // 3
 
 
 def bwd_design(route: str, d: int, ptxas: dict) -> str:
@@ -1638,8 +1733,13 @@ def entry_phase(blocks: dict, paths: Paths, device) -> dict:
            ev.word_valid(merged))
     sorted_soa = ms_ops.merge_sort(*soa)
     lif = fi_ops.fused_lif_inject(*lif_args, **lif_kw)
+    scan_grads, scan_want = scan_entry(device)
     torch.cuda.synchronize()
     counts = dict(kc.launches)
+    compare_scaled("ssm_scan (per-channel A) gradients vs the plain "
+                   "backward", scan_grads, scan_want, 1e-4)
+    print("[entry] ssm_scan with a general A under grad (SSMScan, the "
+          "per-channel backward) within 1e-4 of the plain backward")
     for rate, (buf, words, dropped) in drains.items():
         fused = fd_ops.fused_drain(ring, delivered, queue, t0, mode="rate",
                                    rate=rate)
@@ -1665,10 +1765,37 @@ def entry_phase(blocks: dict, paths: Paths, device) -> dict:
           f"block "
           f"({int(lif.spikes.sum())} spikes, {int(lif.inject.sent.sum())} "
           f"sent); launches {counts}")
-    for k in ("merge_sort_words", "merge_sort", "fused_lif_inject"):
+    for k in ("merge_sort_words", "merge_sort", "fused_lif_inject",
+              "ssm_scan_bwd"):
         if counts[k] == 0:
             raise AssertionError(f"entry: kernel {k} never launched")
     return counts
+
+
+def scan_entry(device, b: int = 2, t: int = 130, di: int = 256,
+               n: int = 16):
+    """``kernels.ssm_scan.ssm_scan`` under grad with a general [di, N] A
+    (Mamba-1's form; the models' Mamba-2 layers take ``ssm_scan_heads``):
+    its ``SSMScan`` Function runs the forward with checkpoints and the
+    per-channel backward.  Returns the gradients of a random linear loss
+    of y and h_final and the plain backward's from the same
+    checkpoints."""
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    randn = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                   device=device)
+    leaves = [randn(b, t, di),
+              torch.nn.functional.softplus(randn(b, t, di) - 1.0),
+              -torch.exp(randn(di, n) * 0.5), randn(b, t, n),
+              randn(b, t, n), randn(di)]
+    dy, dh = randn(b, t, di), randn(b, di, n)
+    inputs = [z.clone().requires_grad_(True) for z in leaves]
+    y, h = scan_ops.ssm_scan(*inputs)
+    grads = torch.autograd.grad((y * dy).sum() + (h * dh).sum(), inputs)
+    _, _, hc = scan_ops.ssm_scan_fwd(*leaves, with_states=True)
+    return grads, ssm_scan_bwd_ref(*leaves, hc, dy, dh)
 
 
 def path_phase(paths: Paths, device) -> dict:
@@ -2433,6 +2560,7 @@ def shard_rows_check(paths: Paths, blocks: dict, device) -> None:
     rows 23 to 45 of 46 chips (``n_rows`` 23, ``n_chips`` 46), with the
     degraded path's reach rows [23:46], against their plain versions and
     against rows 23 to 45 of the 46-row call, bitwise."""
+    from repro_torch.kernels import common as kc
     from repro_torch.core import events as ev
     from repro_torch.core import routing as rt
     from repro_torch.kernels.fused_inject import ops as fi_ops
@@ -2478,11 +2606,13 @@ def shard_rows_check(paths: Paths, blocks: dict, device) -> None:
           f"the 46-row calls' rows, bitwise ({lost} words culled in the "
           f"rows' first block)")
     times = dict(
-        inject_rows=graph_ms(lambda: fi_ops.fused_inject(*part, **kwp)),
-        inject_all=graph_ms(lambda: fi_ops.fused_inject(events, table, t0,
-                                                        **kw)),
-        lif_rows=graph_ms(lambda: fi_ops.fused_lif_inject(*args, **kwlp)),
-        lif_all=graph_ms(lambda: fi_ops.fused_lif_inject(
+        inject_rows=kc.graph_ms(
+            lambda: fi_ops.fused_inject(*part, **kwp)),
+        inject_all=kc.graph_ms(
+            lambda: fi_ops.fused_inject(events, table, t0, **kw)),
+        lif_rows=kc.graph_ms(
+            lambda: fi_ops.fused_lif_inject(*args, **kwlp)),
+        lif_all=kc.graph_ms(lambda: fi_ops.fused_lif_inject(
             v, refrac, currents, params, ltable, now, **kwl)))
     print(f"[shard] ms per call (CUDA events over a CUDA graph of 20 calls):"
           f" fused_inject "
@@ -2636,6 +2766,7 @@ def shard_profile(paths: Paths, mesh, device, blocks: int = 4) -> dict:
     """torch.profiler over ``blocks`` blocks of the feedforward path (after
     a warm-up block), ``shard_superstep`` at world 1 against the local
     ``net.run``, per step; the NCCL kernels by name."""
+    from repro_torch.kernels import common as kc
     net, cfg, params = paths.net, paths.ff_cfg, paths.ff_params
     b = cfg.comm.superstep
     ext = paths.ff_ext
@@ -2651,17 +2782,20 @@ def shard_profile(paths: Paths, mesh, device, blocks: int = 4) -> dict:
                 cfg, params, s, e, device=device)
         state, _ = step(state, ext[:b])
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
+
+        def window(step=step, state=state):
             t_start = time.perf_counter()
             for i in range(1, blocks + 1):
                 state, _ = step(state, ext[i * b:(i + 1) * b])
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t_start
+            return time.perf_counter() - t_start
+
+        prof, wall = kc.profiled(window, f"profile of {label}")
         row = profile_row(prof, wall, blocks * b)
         row["nccl_kernels"] = sorted({
             e.key[:80] for e in prof.key_averages()
             if "nccl" in e.key.lower()
-            and str(getattr(e, "device_type", "")).endswith("CUDA")})
+            and kc.on_device(e)})
         out[label] = row
         print_profile(label, row)
         print(f"[profile] {label}:   NCCL kernels {row['nccl_kernels']}")
@@ -2672,8 +2806,8 @@ def profile_row(prof, wall: float, units: float) -> dict:
     """Per unit (a step, a prefill, a decode step) of a profiled window:
     wall and device busy time (sum of kernel times on the one stream),
     the idle share, kernel launches and the costliest kernels."""
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
+    from repro_torch.kernels import common as kc
+    kernels = [e for e in prof.key_averages() if kc.on_device(e)
                and e.key not in SCOPES and not e.key.startswith("serve/")]
     dev_us = lambda e: (getattr(e, "self_device_time_total", None)  # noqa: E731
                         or getattr(e, "device_time_total", 0.0))
@@ -2740,15 +2874,12 @@ def print_profile(label: str, row: dict, unit: str = "step") -> None:
               f"device, {sc['launches']:.1f} launches/{unit}")
 
 
-PROFILER_ACTS = [torch.profiler.ProfilerActivity.CPU,
-                 torch.profiler.ProfilerActivity.CUDA]
-
-
 def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
     """Where a block's time goes: torch.profiler over ``blocks`` blocks of
     each path (after one warm-up block), per step; the feedforward path
     again with telemetry on; and 8 steps of the resilient path on the
     survivors of both failures."""
+    from repro_torch.kernels import common as kc
     from repro_torch.core import resilience as rsl
 
     net = paths.net
@@ -2763,7 +2894,9 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
         state = net.init_state(cfg, params, device=device)
         state, _, params = paths.drive(cfg, params, state, ext[:b], plastic)
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
+
+        def window(cfg=cfg, params=params, state=state, ext=ext, b=b,
+                   n_blocks=n_blocks, plastic=plastic):
             t_start = time.perf_counter()
             # A pipelined run is one call (its stages, then one flush);
             # the others take a call per block.
@@ -2772,7 +2905,9 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
                 state, _, params = paths.drive(cfg, params, state,
                                                ext[i * b:j * b], plastic)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t_start
+            return time.perf_counter() - t_start
+
+        prof, wall = kc.profiled(window, f"profile of {label}")
         out[label] = profile_row(prof, wall, n_blocks * b)
         print_profile(label, out[label])
 
@@ -2786,12 +2921,15 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
     state = net.init_state(cfg, paths.ff_params, device=device)
     state, _ = step_fn(state, 23)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
+
+    def window(state=state):
         t_start = time.perf_counter()
         for t in range(24, 32):
             state, _ = step_fn(state, t)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t_start
+        return time.perf_counter() - t_start
+
+    prof, wall = kc.profiled(window, "profile of resilient")
     out["resilient"] = profile_row(prof, wall, 8)
     print_profile("resilient (44 survivors)", out["resilient"])
     return out
@@ -2997,29 +3135,36 @@ def consistency(label: str, cfg, params, tokens) -> None:
 def serve_profile(label: str, cfg, params, tokens, steps: int = 4) -> dict:
     """torch.profiler over one prefill, then over ``steps`` decode steps
     (after one warm-up step)."""
+    from repro_torch.kernels import common as kc
     from repro_torch.models import lm
 
     s = tokens.shape[1]
     out = {}
+    def prefill():
+        t_start = time.perf_counter()
+        logits, cache = lm.prefill(cfg, params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return time.perf_counter() - t_start, logits, cache
+
     with torch.no_grad():
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
-            t_start = time.perf_counter()
-            logits, cache = lm.prefill(cfg, params, {"tokens": tokens})
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t_start
+        prof, (wall, logits, cache) = kc.profiled(prefill,
+                                               f"profile of {label} prefill")
         out[f"{label} prefill"] = profile_row(prof, wall, 1)
         cache = lm.pad_cache(cfg, cache, s + steps + 1)
         tok = logits.argmax(-1).to(torch.int32)
         logits, cache = lm.decode(cfg, params, tok, cache, s)
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
+
+        def decode(logits=logits, cache=cache):
             t_start = time.perf_counter()
             for i in range(steps):
                 tok = logits.argmax(-1).to(torch.int32)
                 logits, cache = lm.decode(cfg, params, tok, cache, s + 1 + i)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t_start
+            return time.perf_counter() - t_start
+
+        prof, wall = kc.profiled(decode, f"profile of {label} decode")
         out[f"{label} decode"] = profile_row(prof, wall, steps)
     print_profile(f"{label} prefill", out[f"{label} prefill"], "prefill")
     print_profile(f"{label} decode", out[f"{label} decode"], "decode step")
@@ -3045,7 +3190,8 @@ def train_phase(device, seed: int) -> tuple[dict, dict, dict]:
     directory; then one more step under the profiler.  Every step's loss
     must be finite and its grad norm finite and nonzero, and each step
     must launch flash_attention and flash_attention_bwd once per
-    attention layer and ssm_scan and ssm_scan_bwd once per Mamba layer;
+    attention layer and ssm_scan and ssm_scan_heads_bwd once per Mamba
+    layer, the per-channel ssm_scan_bwd never;
     the counts are zeroed just before each run's steps and read just
     after.  Returns (launches summed over the runs, metrics by arch,
     profile rows)."""
@@ -3075,7 +3221,8 @@ def train_run(device, seed: int, arch: str, batch: int, seq: int,
     want = {"flash_attention": cfg.attn_layers,
             "flash_attention_bwd": cfg.attn_layers,
             "ssm_scan": cfg.n_layers if cfg.ssm_state else 0,
-            "ssm_scan_bwd": cfg.n_layers if cfg.ssm_state else 0}
+            "ssm_scan_bwd": 0,
+            "ssm_scan_heads_bwd": cfg.n_layers if cfg.ssm_state else 0}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     state = train.build_train_state(
@@ -3143,11 +3290,14 @@ def train_run(device, seed: int, arch: str, batch: int, seq: int,
              f"{save:.2f} s" if ckpt else "; no checkpoint written"))
     data = dp.to_device(dp.batch_at(cfg, shape, seed, steps), device)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=PROFILER_ACTS) as prof:
+
+    def window():
         t_start = time.perf_counter()
-        state, _ = step_fn(state, data)
+        out = step_fn(state, data)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t_start
+        return time.perf_counter() - t_start, out
+
+    prof, (wall, (state, _)) = kc.profiled(window, f"profile of train {arch}")
     label = f"train {arch}"
     profile = {label: profile_row(prof, wall, 1)}
     print_profile(label, profile[label], "step")
@@ -3241,7 +3391,8 @@ def zamba2_train_check(device, seed: int, layers: int = 6, batch: int = 2,
     against the plain path on the CPU from the same weights and batch:
     the loss within 1e-5 relative and every gradient within
     ``ZAMBA2_GRAD_BOUND`` of its leaf's largest |g|.  Launches: ssm_scan
-    once per layer (twice under remat), ssm_scan_bwd once per layer, and
+    once per layer (twice under remat), ssm_scan_heads_bwd once per layer
+    and the per-channel ssm_scan_bwd never, and
     the flash pair once per attention application (the forward twice
     under remat).
 
@@ -3305,16 +3456,17 @@ def zamba2_train_check(device, seed: int, layers: int = 6, batch: int = 2,
               f"worst {r[worst]:.3g} ({names[worst]}), median "
               f"{float(np.median(r)):.3g}; card {t_gpu:.2f} s, CPU "
               f"{t_cpu:.2f} s; launches ssm_scan {c['ssm_scan']}, "
-              f"ssm_scan_bwd {c['ssm_scan_bwd']}, flash_attention "
+              f"ssm_scan_heads_bwd {c['ssm_scan_heads_bwd']}, ssm_scan_bwd "
+              f"{c['ssm_scan_bwd']}, flash_attention "
               f"{c['flash_attention']}, flash_attention_bwd "
               f"{c['flash_attention_bwd']}")
         k = 2 if remat else 1
-        want = (layers * k, layers, cfg.attn_layers * k, cfg.attn_layers)
-        if (c["ssm_scan"], c["ssm_scan_bwd"], c["flash_attention"],
-                c["flash_attention_bwd"]) != want:
+        want = (layers * k, layers, 0, cfg.attn_layers * k, cfg.attn_layers)
+        if (c["ssm_scan"], c["ssm_scan_heads_bwd"], c["ssm_scan_bwd"],
+                c["flash_attention"], c["flash_attention_bwd"]) != want:
             raise AssertionError(f"train-check zamba2 [{label}]: launches "
-                                 f"{c}, expected (scan, scan_bwd, flash, "
-                                 f"flash_bwd) {want}")
+                                 f"{c}, expected (scan, scan_heads_bwd, "
+                                 f"scan_bwd, flash, flash_bwd) {want}")
         if dl > 1e-5 or r[worst] > ZAMBA2_GRAD_BOUND:
             raise AssertionError(f"train-check zamba2 [{label}]: beyond "
                                  f"the bound")
@@ -3444,11 +3596,11 @@ def main() -> int:
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(build / "libflash_attention_bwd.so")],
                           capture_output=True, text=True, check=True).stdout
-    counts = sass_counts(sass, sum(FLASH_BWD_ROUTES.values(), ()))
+    counts = sass_instances(sass, sum(FLASH_BWD_ROUTES.values(), ()))
     print(f"[build] flash_attention_bwd SASS (HMMA, atomic) per instance: "
           f"{counts}")
-    tf32 = sass_counts(sass, FLASH_BWD_ROUTES["mma_tf32x3"],
-                       r"HMMA\S*\.TF32")
+    tf32 = sass_instances(sass, FLASH_BWD_ROUTES["mma_tf32x3"],
+                          r"HMMA\S*\.TF32")
     print(f"[build] flash_attention_bwd SASS TF32 HMMA per float32 "
           f"instance: { {k: n for k, (n, _) in tf32.items()} }")
     if (len(counts) != 2 * len(FLASH_BWD_ROUTES) * len(FLASH_DNS)
@@ -3465,6 +3617,24 @@ def main() -> int:
     if len(scan_bwd) != 14 or any(sp != 0 for _, sp in scan_bwd.values()):
         raise AssertionError(f"ssm_scan_bwd_kernel: ptxas reports "
                              f"{scan_bwd} (14 instances, no spill)")
+    # The per-head (chunked) backward: no spill, no stack frame, 3xTF32
+    # on mma.sync (TF32 HMMA) in every instance and no atomic.
+    heads = ptxas_frames((build / "ssm_scan_bwd_chunked.log").read_text(),
+                         SCAN_HEADS_KERNELS)
+    print(f"[build] ssm_scan_bwd_chunked (registers, spill bytes, stack "
+          f"frame bytes) by instance: {heads}")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build / "libssm_scan_bwd_chunked.so")],
+                          capture_output=True, text=True, check=True).stdout
+    hmma = sass_instances(sass, SCAN_HEADS_KERNELS, r"HMMA\S*\.TF32")
+    print(f"[build] ssm_scan_bwd_chunked SASS (TF32 HMMA, atomic) by "
+          f"instance: {hmma}")
+    if (len(heads) != SCAN_HEADS_INSTANCES or set(hmma) != set(heads)
+            or any(r[1] != 0 or r[2] != 0 for r in heads.values())
+            or any(n == 0 or atom for n, atom in hmma.values())):
+        raise AssertionError(f"ssm_scan_bwd_chunked: ptxas {heads}, SASS "
+                             f"{hmma} ({SCAN_HEADS_INSTANCES} instances, no "
+                             f"spill, no stack frame, TF32 HMMA, no atomic)")
 
     paths = Paths(device, args.seed, args.steps)
     blocks = paths.first_blocks()
@@ -3472,6 +3642,12 @@ def main() -> int:
         device, args.seed)
     main_rows = kernel_phase(cases)
     del cases
+    new, old = main_rows["ssm_scan_heads_bwd"], main_rows["ssm_scan_bwd"]
+    print(f"[kernel] the scan's backward at [4, 512, 5120] N 64, x bf16, A "
+          f"per head: per-head (chunked) ms={new['ms']:.5f} beside "
+          f"per-channel ms={old['ms']:.5f} ({old['ms'] / new['ms']:.2f}x); "
+          f"the chunked kernel's bound {new['bound_ms']:.5f} ms, "
+          f"{new['bound_ms'] / new['ms']:.3f} of it")
     entry = entry_phase(blocks, paths, device)
     counts = path_phase(paths, device)
     counts["entry"] = entry

@@ -11,17 +11,23 @@ fails; for CPU tensors it runs the plain PyTorch version.
 
 ``launches`` counts kernel launches per kernel (one per wrapper call that
 reached the card), so a run can show that it went through the kernels;
-:func:`card_kernels` lists what one call put on the card.
+:func:`card_kernels` lists what one call put on the card, through
+:func:`profiled`, which every reading of torch.profiler goes through;
+:func:`graph_ms` times a call over a CUDA graph; :func:`variant` lets the
+wrappers of a kernel launch another build of its source (for A/B runs).
 ``KERNELS`` maps each kernel to the source (and library) it is built
 from; ``fused_inject.cu`` and ``merge_sort.cu`` each hold two kernels,
 ``flash_attention_bwd`` is one count for the two kernels (dQ, then dK
-and dV) that one call of its launcher starts, and ``ssm_scan_bwd`` counts
+and dV) that one call of its launcher starts, ``ssm_scan_bwd`` counts
 its one kernel (the ``torch.sum`` of its partial sums is not a launch of
-it).
+it), and ``ssm_scan_heads_bwd`` (``ssm_scan_bwd_chunked.cu``, the scan's
+backward for a per-head decay) counts one per call, whether the call
+starts one kernel or two.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,13 +40,14 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("bucket_pack", "fused_inject", "fused_drain", "lif_step",
            "merge_sort", "flash_attention", "flash_attention_bwd", "ssm_scan",
-           "ssm_scan_bwd")
+           "ssm_scan_bwd", "ssm_scan_bwd_chunked")
 KERNELS = {"fused_inject": "fused_inject", "fused_lif_inject": "fused_inject",
            "bucket_pack": "bucket_pack", "fused_drain": "fused_drain",
            "lif_step": "lif_step", "merge_sort_words": "merge_sort",
            "merge_sort": "merge_sort", "flash_attention": "flash_attention",
            "flash_attention_bwd": "flash_attention_bwd",
-           "ssm_scan": "ssm_scan", "ssm_scan_bwd": "ssm_scan_bwd"}
+           "ssm_scan": "ssm_scan", "ssm_scan_bwd": "ssm_scan_bwd",
+           "ssm_scan_heads_bwd": "ssm_scan_bwd_chunked"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Shared memory one block may use on Hopper (227 KB).
@@ -159,25 +166,119 @@ def launch(name: str, fn, *args) -> None:
     launches[name] += 1
 
 
+PROFILER_ACTS = (torch.profiler.ProfilerActivity.CPU,
+                 torch.profiler.ProfilerActivity.CUDA)
+
+
+def on_device(event) -> bool:
+    """Whether a torch.profiler event ran on the card (a kernel, copy or
+    fill)."""
+    return str(getattr(event, "device_type", "")).endswith("CUDA")
+
+
+def profiled(window, where: str, tries: int = 5):
+    """``(prof, window())`` from the first of up to ``tries`` torch.profiler
+    sessions (CPU and CUDA activities) around ``window`` that recorded
+    device activity; raises, naming ``where``, if none did.  Now and then
+    a session records no device activity at all, and after a spawned
+    child process that used the card nearly every one does
+    (``tools/profiler_probe.py``), so ``window`` may run more than
+    once."""
+    for _ in range(tries):
+        with torch.profiler.profile(activities=list(PROFILER_ACTS)) as prof:
+            out = window()
+        if any(on_device(e) for e in prof.events()):
+            return prof, out
+    raise AssertionError(f"{where}: torch.profiler recorded no device "
+                         f"activity in {tries} sessions")
+
+
 def card_kernels(fn, tries: int = 5):
     """``fn()``'s result and the names of the CUDA kernels (and copies or
-    fills) that one call of it put on the card, from torch.profiler, after
-    one warm-up call.  A profiler session now and then records no device
-    activity at all; such a session is run again."""
+    fills) that one call of it put on the card, from torch.profiler
+    (:func:`profiled`), after one warm-up call."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(tries):
-        with torch.profiler.profile(activities=acts) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        if names:
-            return out, names
-    raise AssertionError(f"torch.profiler recorded no device activity in "
-                         f"{tries} sessions")
+
+    def window():
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+
+    prof, out = profiled(window, "card_kernels", tries)
+    return out, [e.name for e in prof.events() if on_device(e)]
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5, stream=None) -> float:
+    """Per-call time with CUDA events over replays of one CUDA graph that
+    holds ``iters`` back-to-back calls: the calls run without the host's
+    launch gaps, so a short kernel is timed, not its Python wrapper.
+    ``stream``: the stream to warm up and capture on (default a new
+    one)."""
+    side = torch.cuda.Stream() if stream is None else stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * iters)
+
+
+def build_variant(source: Path) -> tuple[ctypes.CDLL, str]:
+    """Another version of a kernel source (an earlier commit's, or a
+    variant with the same C entry points) compiled with the port's flags
+    and ``csrc`` on its include path, beside the tree's build: the loaded
+    library and ptxas's report."""
+    source = Path(source).resolve()
+    out = build_dir() / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    lib = out / f"lib{source.stem}.{tag}.so"
+    done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
+                           str(lib), str(source)],
+                          capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{done.stdout}"
+                           f"{done.stderr}")
+    dll = ctypes.CDLL(str(lib))
+    dll.repro_error_string.argtypes = [ctypes.c_int]
+    dll.repro_error_string.restype = ctypes.c_char_p
+    return dll, done.stdout + done.stderr
+
+
+@contextlib.contextmanager
+def variant(name: str, dll: ctypes.CDLL):
+    """Within the block the wrappers of kernel ``name`` (and of the other
+    kernels of its source) launch ``dll``, a :func:`build_variant` of the
+    source, instead of the tree's build; their launches count as
+    usual."""
+    src = KERNELS[name]
+    saved_lib = _libs.get(src)
+    saved = {key: _fns.pop(key) for key in list(_fns) if key[0] == src}
+    _libs[src] = dll
+    try:
+        yield
+    finally:
+        for key in [key for key in _fns if key[0] == src]:
+            del _fns[key]
+        _fns.update(saved)
+        if saved_lib is None:
+            del _libs[src]
+        else:
+            _libs[src] = saved_lib
 
 
 def check(x: torch.Tensor, name: str, dtype, shape) -> int:

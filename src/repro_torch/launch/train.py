@@ -13,9 +13,9 @@ the CPU use ``--reduced`` (the tiny same-family config).
 Weights come from a ``torch.Generator`` seeded with ``--seed``, so they
 differ from the reference's for the same seed; the batches are the
 reference's, bitwise.  The attention's gradient comes from the
-flash-attention backward kernels and zamba2's scan's from the scan's
-backward kernel (``csrc/ssm_scan_bwd.cu``), so both model families train
-on the card:
+flash-attention backward kernels and zamba2's scan's from the chunked
+scan backward kernel (``csrc/ssm_scan_bwd_chunked.cu``), so both model
+families train on the card:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
       --batch 4 --seq 512 --steps 20

@@ -2,8 +2,10 @@
 (``repro.models.ssm``, ``ssm_version=2``, ``ssm_impl="scan"``).
 
 * prefill — ``ssm_apply``: the whole sequence through the ``ssm_scan``
-  kernel (``kernels.ssm_scan``: the CUDA kernel on the card, its plain
-  version on the CPU), where the JAX model runs ``scan_chunked``; the
+  kernel (``kernels.ssm_scan.ssm_scan_heads``: the CUDA kernel on the
+  card, its plain version on the CPU, with the per-head dt_h and a_h
+  broadcast over each head's channels), where the JAX model runs
+  ``scan_chunked``; the
   kernel returns y in float32 and the final state for the decode cache,
   as ``scan_chunked`` does.
 * decode — ``ssm_decode``: one recurrence step on an explicit
@@ -15,10 +17,12 @@ falcon-mamba) and the chunk-parallel ``ssm_impl="ssd"`` path are not
 ported yet.
 
 Training: where a gradient is asked, ``ssm_apply``'s scan goes through
-the ``SSMScan`` autograd Function (``kernels.ssm_scan``): on the card
-the forward kernel also writes a state checkpoint every 64 steps and the
-backward kernel (``csrc/ssm_scan_bwd.cu``) recomputes the states from
-them; on the CPU the two plain versions do the same.
+the ``SSMScanHeads`` autograd Function (``kernels.ssm_scan``): on the
+card the forward kernel also writes a state checkpoint every 64 steps and
+the chunked backward kernel (``csrc/ssm_scan_bwd_chunked.cu``) works from
+them per (chunk, head) on tensor cores, returning the gradients of dt_h
+and a_h directly; on the CPU the plain forward and the chunked plain
+backward (``ssm_scan_heads_bwd_ref``) do the same.
 """
 
 from __future__ import annotations
@@ -90,19 +94,17 @@ def _conv1d(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dt_bc(cfg: ArchConfig, p: dict, x_res: torch.Tensor):
-    """(dt [B,T,di], B [B,T,N], C [B,T,N], A [di,N]) of Mamba-2, float32:
-    the per-head dt and decay repeated over each head's channels."""
-    pdim = cfg.d_inner // cfg.n_ssm_heads
+    """(dt_h [B,T,H], B [B,T,N], C [B,T,N], a_h [H]) of Mamba-2, float32:
+    the per-head dt and (negative) decay, as the reference's ``_dt_bc``
+    returns them; ``scan_ops.heads_to_channels`` repeats them over each
+    head's channels."""
     xf = x_res.to(F32)
     dt_h = softplus(torch.matmul(xf, p["w_dt"].to(F32))
                     + p["dt_bias"].to(F32))
-    dt = dt_h.repeat_interleave(pdim, dim=-1)
     bm = torch.matmul(xf, p["w_B"].to(F32))
     cm = torch.matmul(xf, p["w_C"].to(F32))
     a_h = -torch.exp(p["A_log"].to(F32))
-    a = a_h.repeat_interleave(pdim)[:, None] * torch.ones(
-        (1, cfg.ssm_state), dtype=F32, device=x_res.device)
-    return dt, bm, cm, a
+    return dt_h, bm, cm, a_h
 
 
 def _gated_norm(cfg: ArchConfig, p: dict, y, z):
@@ -119,15 +121,16 @@ def ssm_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     """Full-sequence Mamba-2 block from a zero state. x: [B, T, d] ->
     [B, T, d] (and the :class:`SSMState` after the last token).
     Differentiable on the card and on the CPU alike (the scan through
-    ``SSMScan`` where a gradient is asked)."""
+    ``SSMScanHeads`` where a gradient is asked)."""
     _check(cfg)
     t = x.shape[1]
     dt_ = x.dtype
     xh = torch.matmul(x, p["w_in_x"].to(dt_))
     z = torch.matmul(x, p["w_in_z"].to(dt_))
     xc = F.silu(_conv1d(p, xh))
-    dt, bm, cm, a = _dt_bc(cfg, p, x)
-    y, h_final = scan_ops.ssm_scan(xc, dt, a, bm, cm, p["D"].to(F32))
+    dt_h, bm, cm, a_h = _dt_bc(cfg, p, x)
+    y, h_final = scan_ops.ssm_scan_heads(xc, dt_h, a_h, bm, cm,
+                                         p["D"].to(F32))
     y = _gated_norm(cfg, p, y.to(dt_), z)
     out = torch.matmul(y, p["out_proj"].to(dt_))
     if return_state:
@@ -157,7 +160,9 @@ def ssm_decode(cfg: ArchConfig, p: dict, x: torch.Tensor,
     w = p["conv_w"].to(dt_)                                      # [K, di]
     xc = torch.einsum("bkd,kd->bd", conv_in, w) + p["conv_b"].to(dt_)
     xc = F.silu(xc)[:, None, :]                                  # [B,1,di]
-    dt, bm, cm, a = _dt_bc(cfg, p, x)
+    dt_h, bm, cm, a_h = _dt_bc(cfg, p, x)
+    dt, a = scan_ops.heads_to_channels(dt_h, a_h, cfg.d_inner // a_h.shape[0],
+                                       cfg.ssm_state)
     xcf = xc[:, 0].to(F32)
     decay = torch.exp(dt[:, 0, :, None] * a)                     # [B,di,N]
     h = decay * state.h + (dt[:, 0] * xcf)[:, :, None] * bm[:, 0, None, :]

@@ -34,7 +34,10 @@ from repro_torch.kernels.lif_step.ref import lif_step_ref
 from repro_torch.kernels.merge_sort import ops as ms
 from repro_torch.kernels.merge_sort.ref import merge_sort_ref, merge_sort_words_ref
 from repro_torch.kernels.ssm_scan import ops as scan
-from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_ref, ssm_scan_ref,
+from repro_torch.kernels.ssm_scan.ref import (heads_to_channels,
+                                              ssm_scan_bwd_ref,
+                                              ssm_scan_heads_bwd_ref,
+                                              ssm_scan_ref,
                                               ssm_scan_with_states_ref)
 from repro_torch.core import merge as mg
 from repro_torch.snn import neuron as nr
@@ -1393,17 +1396,123 @@ def test_ssm_scan_trains_through_the_kernels(cuda):
         assert torch.equal(g, w)
 
 
+def _heads_case(device, b, t, nh, n, x_type, with_dh, seed):
+    """The per-head backward's inputs on the card: (x, dt_h, a_h, Bm, Cm,
+    D, h_chunks from the forward kernel, dy, dh or None)."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s: _on(rng.standard_normal(s).astype(np.float32),  # noqa
+                       device)
+    x = r(b, t, nh * 64).to(x_type)
+    dt_h = torch.nn.functional.softplus(r(b, t, nh) - 1.0)
+    a_h = -torch.exp(r(nh) * 0.5)
+    bm, cm, d, dy = r(b, t, n), r(b, t, n), r(nh * 64), r(b, t, nh * 64)
+    dt, a = heads_to_channels(dt_h, a_h, 64, n)
+    _, _, hc = scan.ssm_scan_fwd(x, dt, a, bm, cm, d, with_states=True)
+    return x, dt_h, a_h, bm, cm, d, hc, dy, r(b, nh * 64, n) if with_dh \
+        else None
+
+
+def _check_heads_bwd(got, want, tol=1e-4):
+    """Each gradient within ``tol`` of its largest |.|; a bf16 dx also
+    within one bf16 ulp (2^-7 |dx|): both sides round a float32 dx."""
+    for name, g, w in zip(("dx", "ddt_h", "da_h", "dB", "dC", "dD"), got,
+                          want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        torch.testing.assert_close(
+            g.float(), w.float(),
+            rtol=2**-7 if w.dtype == torch.bfloat16 else 0,
+            atol=tol * float(w.float().abs().max()), msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,nh,n,x_type,with_dh", [
+    (2, 130, 7, 64, torch.float32, True),    # ragged, a group and a part
+    (1, 512, 80, 64, torch.bfloat16, False),  # zamba2's heads, one row
+    (2, 37, 2, 16, torch.float32, True),     # reduced zamba2's states
+    (1, 200, 10, 36, torch.bfloat16, True),  # N not a power of two
+    (1, 1, 1, 8, torch.float32, True)])      # one step
+def test_ssm_scan_heads_bwd_kernel_matches_plain(cuda, b, t, nh, n, x_type,
+                                                 with_dh):
+    """``ssm_scan_heads_bwd`` (one wrapper call: the end-state kernel,
+    then the chunked one) against ``ssm_scan_heads_bwd_ref`` on the card,
+    each gradient within 1e-4 of its largest |.| (3xTF32 products within
+    about 2^-22 of float32, sums in another order: dB and dC over the
+    heads, dA and dD over the chunks), a bf16 dx also within a bf16
+    ulp."""
+    args = _heads_case(cuda, b, t, nh, n, x_type, with_dh, t + nh + n)
+    before = dict(kc.launches)
+    got = scan.ssm_scan_heads_bwd(*args)
+    assert kc.launches["ssm_scan_heads_bwd"] == before[
+        "ssm_scan_heads_bwd"] + 1
+    assert kc.launches["ssm_scan_bwd"] == before["ssm_scan_bwd"]
+    _check_heads_bwd(got, ssm_scan_heads_bwd_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,nh,x_type", [(4, 512, 80, torch.bfloat16),
+                                           (2, 130, 10, torch.float32)])
+def test_ssm_scan_heads_bwd_is_deterministic(cuda, b, t, nh, x_type):
+    """No atomics: two calls on the same inputs give the same bits in all
+    six gradients (zamba2's training shape, and a ragged one with a
+    final-state gradient)."""
+    args = _heads_case(cuda, b, t, nh, 64, x_type, t < 512, 12)
+    first = scan.ssm_scan_heads_bwd(*args)
+    second = scan.ssm_scan_heads_bwd(*args)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("di,nh,n", [(256, 8, 64), (256, 2, 128),
+                                     (128, 2, 18)])
+def test_ssm_scan_heads_bwd_refuses_other_shapes(cuda, di, nh, n):
+    """Heads of 32 or 128 channels, more than 64 states or a count not a
+    multiple of 4 raise, naming the shapes it takes (the general route is
+    ``ssm_scan``); nothing is launched."""
+    x = torch.zeros((1, 10, di), device=cuda)
+    dt_h = torch.ones((1, 10, nh), device=cuda)
+    bm = torch.zeros((1, 10, n), device=cuda)
+    hc = torch.zeros((1, 1, di, n), device=cuda)
+    before = kc.launches["ssm_scan_heads_bwd"]
+    with pytest.raises(ValueError, match="heads of 64 channels"):
+        scan.ssm_scan_heads_bwd(x, dt_h, -dt_h[0, 0], bm, bm,
+                                torch.zeros(di, device=cuda), hc, x)
+    assert kc.launches["ssm_scan_heads_bwd"] == before
+
+
+@pytest.mark.cuda
+def test_ssm_scan_heads_trains_through_the_kernels(cuda):
+    """Inputs that require grad go through ``SSMScanHeads``: one forward
+    launch with checkpoints and one launch of the per-head backward (none
+    of the per-channel one), whose gradients are ``ssm_scan_heads_bwd``'s
+    on the saved inputs, dt_h's and a_h's included."""
+    x, dt_h, a_h, bm, cm, d, _, dy, _ = _heads_case(cuda, 2, 100, 3, 16,
+                                                     torch.float32, False, 4)
+    leaves = [z.requires_grad_(True) for z in (x, dt_h, a_h, bm, cm, d)]
+    kc.reset_launches()
+    y, _ = scan.ssm_scan_heads(*leaves)
+    grads = torch.autograd.grad(y, leaves, dy)
+    assert (kc.launches["ssm_scan"], kc.launches["ssm_scan_heads_bwd"],
+            kc.launches["ssm_scan_bwd"]) == (1, 1, 0)
+    with torch.no_grad():
+        dt, a = heads_to_channels(dt_h, a_h, 64, 16)
+        _, _, hc = scan.ssm_scan_fwd(x, dt, a, bm, cm, d, with_states=True)
+        want = scan.ssm_scan_heads_bwd(x, dt_h, a_h, bm, cm, d, hc, dy)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.cuda
 def test_ssm_apply_gradients_on_the_card_match_the_cpu(cuda):
     """Reduced zamba2's ``ssm_apply`` (float32, TF32 off) with a random
     linear loss: every gradient (the block's twelve weights and x) on the
-    card, through the scan's forward and backward kernels (one launch
-    each), within 1e-4 of its leaf's largest |g| of the plain path on the
-    CPU.  On the CPU a 1e-7 relative change of the weights moves these
-    gradients by at most 3.1e-6 of a leaf's largest (a gain of about
-    30), and float32 rounding on the two devices differs by a few ulps
-    of each operation's output, so 1e-4 leaves a margin of three or
-    more."""
+    card, through the scan's forward and per-head backward kernels (one
+    launch each; the per-channel backward none), within 1e-4 of its
+    leaf's largest |g| of the plain path on the CPU.  On the CPU a 1e-7
+    relative change of the weights moves these gradients by at most
+    3.1e-6 of a leaf's largest (a gain of about 30), and float32 rounding
+    on the two devices differs by a few ulps of each operation's output,
+    so 1e-4 leaves a margin of three or more."""
     from repro_torch import configs as C
     from repro_torch.models import spec as sp
     from repro_torch.models import ssm
@@ -1426,7 +1535,8 @@ def test_ssm_apply_gradients_on_the_card_match_the_cpu(cuda):
                                     [p[k] for k in names] + [xx])
         out[device.type] = ([g.cpu() for g in grads], dict(kc.launches))
     (g_gpu, counts), (g_cpu, _) = out["cuda"], out["cpu"]
-    assert (counts["ssm_scan"], counts["ssm_scan_bwd"]) == (1, 1)
+    assert (counts["ssm_scan"], counts["ssm_scan_heads_bwd"],
+            counts["ssm_scan_bwd"]) == (1, 1, 0)
     for a, b in zip(g_gpu, g_cpu):
         assert bool(b.abs().max() > 0)
         torch.testing.assert_close(a, b, rtol=0,

@@ -1,8 +1,9 @@
 """Port hygiene: the port stands alone and never runs on the CPU in
 silence.
 
-* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
-  ``jax`` or the JAX package ``repro`` (the card's machine has no JAX).
+* No module of ``src/repro_torch``, not ``chip_smoke.py`` and no card
+  tool under ``tools/`` imports ``jax`` or the JAX package ``repro``
+  (the card's machine has no JAX).
 * ``chip_smoke.py`` without a card exits non-zero and prints no result.
 * Entry points default to ``device="cuda"`` and raise without a card.
 * Features of later slices raise ``NotImplementedError``; the shard
@@ -33,7 +34,7 @@ from repro_torch.snn import network as net
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imported_modules(path: Path) -> set[str]:
@@ -167,7 +168,9 @@ def test_chip_smoke_reads_the_scan_backward_instances():
     """``chip_smoke.ptxas_instances`` reads (registers, spill bytes) of
     every instance of the scan's backward by its template arguments, and
     leaves the forward's ``ssm_scan_kernel`` (whose mangled name differs
-    in its length prefix) out."""
+    in its length prefix) out; ``ptxas_frames`` and ``sass_instances``
+    read the per-head backward's instances (registers, spills, stack
+    frame; TF32 HMMA and atomics), the non-template kernel among them."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -193,6 +196,88 @@ def test_chip_smoke_reads_the_scan_backward_instances():
         "fLi8ELi2": (168, 0), "13__nv_bfloat16Li32ELi1": (255, 12)}
     assert smoke.ptxas_instances(log, "ssm_scan_kernel") == {
         "fLi8ELi2ELb1": (96, 0)}
+    # The per-head backward (ssm_scan_bwd_chunked.cu): its template
+    # instances and the non-template end-state kernel, with the stack
+    # frame; its SASS by instance (TF32 HMMA, atomics).
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125"
+        "ssm_scan_heads_bwd_kernelIfLb0EEEvPKT_PKfS5_' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125"
+        "ssm_scan_heads_bwd_kernelI13__nv_bfloat16Lb1EEEvPKT_PKfS5_' for "
+        "'sm_90a'",
+        "    16 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_128"
+        "ssm_scan_heads_dstate_kernelEPKfS1_S1_S1_S1_iiPf' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 90 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119"
+        "ssm_scan_bwd_kernelIfLi8ELi2EEEvPKT_PKfS5_' for 'sm_90a'",
+        "ptxas info    : Used 168 registers, used 1 barriers"])
+    assert smoke.ptxas_frames(log, smoke.SCAN_HEADS_KERNELS) == {
+        "ssm_scan_heads_bwd_kernel<fLb0>": (168, 0, 0),
+        "ssm_scan_heads_bwd_kernel<13__nv_bfloat16Lb1>": (255, 8, 16),
+        "ssm_scan_heads_dstate_kernel": (90, 0, 0)}
+    sass = "\n".join([
+        "        Function : _ZN12_GLOBAL__N_125ssm_scan_heads_bwd_kernelIfLb1"
+        "EEEvPKT_PKfS5_",
+        "        /*0100*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+        "        /*0110*/  HMMA.1688.F32.TF32 R4, R8, R14, R4 ;",
+        "        Function : _ZN12_GLOBAL__N_128ssm_scan_heads_dstate_kernel"
+        "EPKfS1_S1_S1_S1_iiPf",
+        "        /*0100*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+        "        /*0200*/  RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R5 ;",
+        "        Function : _ZN12_GLOBAL__N_119ssm_scan_bwd_kernelIfLi8ELi2EE"
+        "EvPKT_PKfS5_",
+        "        /*0100*/  FFMA R4, R8, R12, R4 ;"])
+    assert smoke.sass_instances(sass, smoke.SCAN_HEADS_KERNELS,
+                                r"HMMA\S*\.TF32") == {
+        "ssm_scan_heads_bwd_kernel<fLb1>": (2, 0),
+        "ssm_scan_heads_dstate_kernel": (1, 1)}
+
+
+@pytest.mark.parametrize("t,x_bf16,dh", [(64, True, False),
+                                          (200, True, True),
+                                          (512, False, False)])
+def test_chip_smoke_counts_what_the_scan_heads_backward_needs(t, x_bf16, dh):
+    """``chip_smoke.heads_bwd_ops`` (the per-head backward's bound) counts
+    each product at what the gradient needs, held against a count of the
+    index pairs each product keeps, times the size of its third index,
+    from numpy masks chunk by chunk: the causal mask's lower triangle for the
+    four masked products and C B^T (once for all heads), no product with
+    the first chunk's zero h0 or its unneeded start-state gradient, none
+    with the last chunk's zero G when no final-state gradient is given;
+    three TF32 products a product, two where it reads a bf16 x."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    b, nh, p, n = 2, 3, 64, 16
+    xw = 2 if x_bf16 else 3
+    want = 0
+    for c0 in range(0, t, 64):
+        q = min(64, t - c0)
+        causal = np.tril(np.ones((q, q), bool))   # [t, s], t >= s
+        ones = lambda *shape: np.ones(shape, bool)  # noqa: E731
+        first, last_zero_g = c0 == 0, c0 + q >= t and not dh
+        # (TF32 products, kept pairs of two indices, size of the third):
+        # the masked products keep (t, s) pairs, t >= s; the others keep
+        # every (row, column) pair and sum over the inner index.
+        prods = [(3, causal, p), (xw, causal, p),     # M^T dy, dy x^T
+                 (3, causal, n), (3, causal, n)]      # dM~ B, dM~^T C
+        if not first:
+            prods += [(3, ones(q, n), p),             # dy h0
+                      (3, ones(p, n), q)]             # dy^T C
+        if not last_zero_g:
+            prods += [(3, ones(q, p), n),             # B G^T
+                      (xw, ones(q, n), p)]            # x G
+        per_head = sum(w * int(m.sum()) * k for w, m, k in prods)
+        want += nh * per_head + 3 * int(causal.sum()) * n   # C B^T
+    assert smoke.heads_bwd_ops(b, t, nh, p, n, x_bf16, dh) == 2 * b * want // 3
 
 
 def test_chip_smoke_reads_the_backward_kernels_registers_and_spills():
@@ -249,17 +334,17 @@ def test_chip_smoke_reads_the_backward_kernels_registers_and_spills():
         "        /*0210*/  RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R5 ;",
         "\t\tFunction : _ZN3_GLOBAL__N_112other_kernelEv",
         "        /*0300*/  HMMA.16816.F32.BF16 R4, R8, R12, RZ ;"])
-    assert smoke.sass_counts(sass, names) == {
-        "flash_attention_bwd_dkdv_mma_kernel<80>": (2, 0),
-        "flash_attention_bwd_dq_tf32x3_kernel<64>": (0, 1)}
+    assert smoke.sass_instances(sass, names) == {
+        "flash_attention_bwd_dkdv_mma_kernel<Li80>": (2, 0),
+        "flash_attention_bwd_dq_tf32x3_kernel<Li64>": (0, 1)}
     # The float32 route's check counts TF32 products alone.
     tf32 = "\n".join([
         "\t\tFunction : _ZN3_GLOBAL__N_138flash_attention_bwd_dkdv_"
         "tf32x3_kernelILi128EEEvPKf",
         "        /*0100*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
         "        /*0110*/  HMMA.16816.F32.BF16 R4, R8, R14, R4 ;"])
-    assert smoke.sass_counts(tf32, names, r"HMMA\S*\.TF32") == {
-        "flash_attention_bwd_dkdv_tf32x3_kernel<128>": (1, 0)}
+    assert smoke.sass_instances(tf32, names, r"HMMA\S*\.TF32") == {
+        "flash_attention_bwd_dkdv_tf32x3_kernel<Li128>": (1, 0)}
 
 
 def test_entry_points_default_to_the_card(tmp_path):
@@ -420,6 +505,45 @@ def _c_params(source: str, symbol: str) -> list[str]:
     return kinds
 
 
+def test_variant_swaps_a_sources_build_and_restores_it():
+    """``kc.variant`` (the A/B tools' hook): within the block every kernel
+    of the source gets its entry points from the other build, through
+    ``kernel_fn`` as the wrappers call it; after the block the tree's
+    functions are back, whether the source was loaded before or not."""
+    from types import SimpleNamespace
+
+    def entry():
+        return 0
+
+    other = SimpleNamespace(ssm_scan_heads_bwd_group=entry)
+    mine = SimpleNamespace(ssm_scan_heads_bwd_group=lambda: 5)
+    src = kc.KERNELS["ssm_scan_heads_bwd"]
+    saved = kc._libs.get(src), dict(kc._fns)
+    try:
+        for before in (None, mine):
+            kc._libs.pop(src, None)
+            kc._fns.clear()
+            if before is not None:
+                kc._libs[src] = before
+                kc.kernel_fn("ssm_scan_heads_bwd",
+                             "ssm_scan_heads_bwd_group", [])
+            with kc.variant("ssm_scan_heads_bwd", other):
+                fn = kc.kernel_fn("ssm_scan_heads_bwd",
+                                  "ssm_scan_heads_bwd_group", [])
+                assert fn is entry and fn.argtypes == []
+            assert kc._libs.get(src) is before
+            if before is None:
+                assert not kc._fns
+            else:
+                assert kc._fns[(src, "ssm_scan_heads_bwd_group")]() == 5
+    finally:
+        kc._libs.pop(src, None)
+        if saved[0] is not None:
+            kc._libs[src] = saved[0]
+        kc._fns.clear()
+        kc._fns.update(saved[1])
+
+
 @pytest.mark.parametrize("module,attr,source,symbol", [
     ("fused_inject", "_ARGTYPES", "fused_inject.cu", "fused_inject_launch"),
     ("fused_inject", "_LIF_ARGTYPES", "fused_inject.cu",
@@ -435,7 +559,9 @@ def _c_params(source: str, symbol: str) -> list[str]:
     ("flash_attention", "_BWD_ARGTYPES", "flash_attention_bwd.cu",
      "flash_attention_bwd_launch"),
     ("ssm_scan", "_ARGTYPES", "ssm_scan.cu", "ssm_scan_launch"),
-    ("ssm_scan", "_BWD_ARGTYPES", "ssm_scan_bwd.cu", "ssm_scan_bwd_launch")])
+    ("ssm_scan", "_BWD_ARGTYPES", "ssm_scan_bwd.cu", "ssm_scan_bwd_launch"),
+    ("ssm_scan", "_HEADS_BWD_ARGTYPES", "ssm_scan_bwd_chunked.cu",
+     "ssm_scan_heads_bwd_launch")])
 def test_ctypes_signatures_match_the_c_entry_points(module, attr, source,
                                                     symbol):
     """ctypes passes an argument beyond ``argtypes`` as a 32-bit int, which

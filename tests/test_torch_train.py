@@ -482,18 +482,22 @@ def test_make_compressed_step_waits_for_sharding():
 
 
 def test_ssm_apply_trains_through_the_scan_function(monkeypatch):
-    """A backward through ``ssm_apply`` goes through the ``SSMScan``
-    autograd Function (the plain forward with checkpoints, then the plain
-    backward on the CPU), once per call, and its gradients are nonzero;
-    under no_grad the scan is the single forward call."""
+    """A backward through ``ssm_apply`` goes through the ``SSMScanHeads``
+    autograd Function (the plain forward with checkpoints, then the
+    chunked plain backward on the CPU), once per call, never through the
+    per-channel ``ssm_scan_bwd``, and its gradients are nonzero; under
+    no_grad the scan is the single forward call."""
     from repro_torch.kernels.ssm_scan import ops as scan_ops
 
     calls = []
-    fwd, bwd = scan_ops.ssm_scan_fwd, scan_ops.ssm_scan_bwd
+    fwd, bwd = scan_ops.ssm_scan_fwd, scan_ops.ssm_scan_heads_bwd
     monkeypatch.setattr(scan_ops, "ssm_scan_fwd", lambda *a, **k: calls.append(
         ("fwd", k.get("with_states", False))) or fwd(*a, **k))
+    monkeypatch.setattr(scan_ops, "ssm_scan_heads_bwd",
+                        lambda *a, **k: calls.append(("bwd", None))
+                        or bwd(*a, **k))
     monkeypatch.setattr(scan_ops, "ssm_scan_bwd", lambda *a, **k: calls.append(
-        ("bwd", None)) or bwd(*a, **k))
+        ("per-channel bwd", None)))
     cfg = C.get("zamba2-2.7b").reduced()
     p = sp.init_tree(torch.Generator().manual_seed(0), ssm.ssm_spec(cfg),
                      torch.float32, CPU)

@@ -2,22 +2,23 @@
 of ``csrc/flash_attention_bwd.cu`` (an earlier commit's, or a variant), in
 turns on one card.
 
-    PYTHONPATH=src python -m repro_torch.launch.flash_bwd_ab OTHER.cu
+    PYTHONPATH=src python tools/flash_bwd_ab.py OTHER.cu
 
 OTHER.cu is compiled with the port's nvcc flags and the port's ``csrc``
-on its include path; its C entry point ``flash_attention_bwd_launch``
-takes the arguments of this tree's.  For each shape both builds are held
-against ``attention_bwd_ref`` within ``attention_bwd_bounds``
-(``tf32x3_bwd_bounds`` where q is scaled up, a peaked softmax), two calls
-of each must give the same bits, and each is timed by CUDA events over
-20 calls in the order this, other, other, this; torch.profiler gives each
-kernel's device time per call.  Prints the card's name and power limit.
+on its include path (``kc.build_variant``); its C entry point
+``flash_attention_bwd_launch`` takes the arguments of this tree's, and
+the tree's wrapper launches it (``kc.variant``).  For each shape both
+builds are held against ``attention_bwd_ref`` within
+``attention_bwd_bounds`` (``tf32x3_bwd_bounds`` where q is scaled up, a
+peaked softmax), two calls of each must give the same bits, and each is
+timed by CUDA events over a CUDA graph of 20 calls in the order this,
+other, other, this; torch.profiler gives each kernel's device time per
+call.  Prints the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -41,59 +42,17 @@ SHAPES = [
     ("D 64, full mask", (1, 8, 8, 200, 300, 64), False, 0, 1.0)]
 
 
-def build_other(source: Path) -> ctypes.CDLL:
-    """OTHER.cu compiled beside the tree's build, loaded."""
-    out = kc.build_dir() / "ab"
-    out.mkdir(parents=True, exist_ok=True)
-    lib = out / f"lib{source.stem}.so"
-    done = subprocess.run([kc._nvcc(), *kc.NVCC_FLAGS, "-I", str(kc.CSRC),
-                           "-o", str(lib), str(source)],
-                          capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source}:\n{done.stdout}"
-                           f"{done.stderr}")
-    return ctypes.CDLL(str(lib))
-
-
-def other_bwd(fn, q, k, v, out, lse, dout, *, causal, q_offset):
-    """The other build's backward, called as the tree's wrapper calls its
-    own (float32)."""
-    b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, hq, sq), device=q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq,
-             skv, d, q_offset, int(causal), float(d ** -0.5), 0,
-             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"the other build's launch returned {err}")
-    return dq, dk, dv
-
-
-def event_ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def kernel_ms(fn, iters: int = 10) -> dict[str, float]:
     """Device ms per call of the dQ and the dK/dV kernel (torch.profiler)."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def window():
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+
+    prof, _ = kc.profiled(window, "flash_bwd_ab")
     out = {}
     for evt in prof.key_averages():
         for name in ("dq", "dkdv"):
@@ -112,9 +71,7 @@ def main(argv=None) -> int:
         print("flash_bwd_ab: no CUDA device", file=sys.stderr)
         return 2
     kc.build()
-    fn = build_other(args.other).flash_attention_bwd_launch
-    fn.argtypes = fa._BWD_ARGTYPES
-    fn.restype = ctypes.c_int
+    other, _ = kc.build_variant(args.other)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
@@ -132,8 +89,13 @@ def main(argv=None) -> int:
         want = attention_bwd_ref(*xs, **kw)
         bounds = (tf32x3_bwd_bounds if factor != 1.0
                   else attention_bwd_bounds)(*xs, **kw)
+
+        def run_other(xs=xs, kw=kw):
+            with kc.variant(fa.BWD_NAME, other):
+                return fa.flash_attention_bwd(*xs, **kw)
+
         runs = {"this": lambda: fa.flash_attention_bwd(*xs, **kw),
-                "other": lambda: other_bwd(fn, *xs, **kw)}
+                "other": run_other}
         for tag, run in runs.items():
             got, again = run(), run()
             torch.cuda.synchronize()
@@ -146,8 +108,8 @@ def main(argv=None) -> int:
             print(f"{label} {tuple(q.shape)} [{tag}]: max err / bound dq dk "
                   f"dv {', '.join(f'{r:.3g}' for r in ratios)}; kernels ms "
                   f"{kernel_ms(run)}")
-        times = [event_ms(runs[tag]) for tag in ("this", "other", "other",
-                                                  "this")]
+        times = [kc.graph_ms(runs[tag]) for tag in ("this", "other",
+                                                     "other", "this")]
         print(f"{label}: ms this {times[0]:.5f} {times[3]:.5f}, other "
               f"{times[1]:.5f} {times[2]:.5f}")
     return 0
