@@ -41,15 +41,23 @@ Phases, each fatal on failure:
              backward; the scan with its state checkpoints (at the
              prefill and at zamba2's training shape, [4, 512, 5120] N 64)
              and ``ssm_scan_bwd`` at the training shape (x bf16, A per
-             head; the main case), with a general A and x f32 and on a
-             ragged shape, each gradient within 1e-4 of its largest
-             against ``ssm_scan_bwd_ref``, two calls the same bits; the
+             head), with a general A and x f32 and on a ragged shape, each
+             gradient within 1e-4 of its largest against
+             ``ssm_scan_bwd_ref``, two calls the same bits; the
              per-head (chunked) backward ``ssm_scan_heads_bwd`` at the
              same shape (the main case), on a ragged shape with a
              final-state gradient and with x f32, each gradient within
              1e-4 of its largest against ``ssm_scan_heads_bwd_ref``, two
              calls the same bits, its bound by 3xTF32 operations and by
-             bytes, and its time beside the per-channel backward's.
+             bytes, and its time beside the per-channel backward's;
+             falcon-mamba's general routes with its published A
+             (A[d, n] = -(n + 1)), x bf16: ``ssm_scan`` at its prefill,
+             [4, 2048, 8192] N 16, within 1e-4, its bound by bytes and
+             operations beside its exp floor (one MUFU.EX2 per state
+             element and step, 16 a clock on each SM), and
+             ``ssm_scan_bwd`` at its training shape, [4, 512, 8192] N
+             16 (the backward's main case), within 1e-4 of each
+             gradient's largest, two calls the same bits.
              ``bucket_pack``
              (the wafer's flush), ``lif_step`` and every case of
              ``fused_inject`` and ``fused_lif_inject`` print their launch
@@ -176,17 +184,21 @@ Phases, each fatal on failure:
              busy and wall ms per step, NCCL kernels by name); the
              process group destroyed at the end;
   8. serve-check  zamba2-2.7b at full width, one pattern repeat (6
-             layers), float32, batch 1, prompt 300, 8 teacher-forced decode
-             steps: the card (kernels) against the plain path on the CPU
-             from the same weights and tokens, every step's logits within
-             1e-3 of the largest |logit|;
-  9. serve   ``launch.serve.main`` on zamba2-2.7b (54 layers) and then
-             internlm2-1.8b (24 layers) at full width in bfloat16, batch 4,
-             prompt 2048, 32 tokens: prefill must launch flash_attention 9
-             and ssm_scan 54 times (zamba2) or flash_attention 24 times
-             (internlm2); then, from the same weights, prefill + one decode
-             step against a full forward at the next position, in float32
-             and in bf16 (``consistency``); tok/s and peak memory;
+             layers), then falcon-mamba-7b at full width, 4 Mamba-1 layers
+             with its published A, float32, batch 1, prompt 300, 8
+             teacher-forced decode steps: the card (kernels) against the
+             plain path on the CPU from the same weights and tokens, every
+             step's logits within 1e-3 of the largest |logit|;
+  9. serve   ``launch.serve.main`` on zamba2-2.7b (54 layers),
+             internlm2-1.8b (24 layers) and falcon-mamba-7b (64 layers)
+             at full width in bfloat16, batch 4, prompt 2048, 32 tokens:
+             prefill must launch flash_attention 9 and ssm_scan 54 times
+             (zamba2), flash_attention 24 times (internlm2) or ssm_scan 64
+             times (falcon-mamba), and decode none of the port's kernels;
+             then, from the same weights (falcon-mamba's with its
+             published A, no layer's A with a constant row), prefill + one
+             decode step against a full forward at the next position, in
+             float32 and in bf16 (``consistency``); tok/s and peak memory;
      bf16-check  internlm2-1.8b at full width, 2 layers, bf16: a forward's
              logits on the card against the plain path on the CPU, within
              2^-4 of the largest |logit|;
@@ -199,7 +211,10 @@ Phases, each fatal on failure:
              every gradient within ``ZAMBA2_GRAD_BOUND`` of its leaf's
              largest, 6 (12 under remat) ssm_scan and 6 ssm_scan_heads_bwd
              launches, 1 (2) flash_attention and 1 flash_attention_bwd,
-             and the CPU's own conditioning printed beside it;
+             and the CPU's own conditioning printed beside it; then
+             falcon-mamba-7b the same way at 2 layers with its published
+             A, within ``FALCON_GRAD_BOUND``: 2 (4) ssm_scan and 2
+             ssm_scan_bwd launches, none of ssm_scan_heads_bwd;
      train   the training path: internlm2-1.8b at full width and depth,
              bf16, batch 4 x 512, 4 AdamW steps through
              ``launch.train.make_step``, the ``Prefetcher`` and one
@@ -211,6 +226,9 @@ Phases, each fatal on failure:
              layers, 3 steps, no checkpoint written): 54 ssm_scan, 54
              ssm_scan_heads_bwd (0 of the per-channel ssm_scan_bwd), 9
              flash_attention and 9 flash_attention_bwd launches per step;
+             then falcon-mamba-7b at full width, 16 of its 64 layers, its
+             published A, 3 steps, no checkpoint: 16 ssm_scan and 16
+             ssm_scan_bwd launches per step (0 of ssm_scan_heads_bwd);
  10. profile where a block's time goes on each path (torch.profiler):
              wall and device-busy time per step, the idle share, kernel
              launches per step, the costliest kernels and the device time
@@ -320,6 +338,33 @@ def leaves(x):
 
 def nbytes(*xs) -> int:
     return sum(t.numel() * t.element_size() for x in xs for t in leaves(x))
+
+
+def is_mamba1(cfg) -> bool:
+    """Whether ``cfg``'s layers hold Mamba-1 blocks (``ssm_version`` is 1
+    by default, so a config without SSM layers carries it too)."""
+    return bool(cfg.ssm_state) and cfg.ssm_version == 1
+
+
+def set_general_a(params) -> None:
+    """Every Mamba-1 block's A_log, in place, to Mamba-1's published
+    initialisation ("S4D real": A[d, n] = -(n + 1), A_log[d, n] = log(n +
+    1); state-spaces/mamba, ``mamba_simple.py``), in the leaf's type; then
+    fail if any layer's A = -exp(A_log) has a constant row.  The
+    reference's init draws A_log zeros, every row of A -1, on which the
+    scan kernels take their constant-row route; a trained checkpoint's A
+    takes the general route, so the phases that drive falcon-mamba load
+    this A (test data, not an init option of the package)."""
+    for blk in params["blocks"].values():
+        a_log = blk["ssm"]["A_log"]
+        n = a_log.shape[-1]
+        with torch.no_grad():
+            a_log.copy_(torch.log(torch.arange(
+                1, n + 1, dtype=torch.float32, device=a_log.device)))
+        a = -torch.exp(a_log.float())
+        if bool((a == a[..., :1]).all(-1).any()):
+            raise AssertionError("set_general_a: a layer's A has a "
+                                 "constant row")
 
 
 @contextlib.contextmanager
@@ -1237,8 +1282,19 @@ def kernel_phase(cases: list[dict]) -> dict:
                   f"{row['bound_ms'] / row['ms']:.3f}"
                   + ("" if lms is None else
                      f" ms/library_ms={row['ms'] / lms:.3f}"))
+        if "exps" in case:
+            row["exp_floor_ms"], how = exp_floor_ms(case["exps"])
+            binds = ("exp" if row["exp_floor_ms"] > row["bound_ms"]
+                     else row["bound_by"])
+            print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
+                  f"exp floor {row['exp_floor_ms']:.5f} ms ({how}) beside "
+                  f"the bound by bytes {bytes_ms:.5f} and by operations "
+                  f"{ops_ms:.5f}; the larger binds: {binds}; ms / exp "
+                  f"floor {row['ms'] / row['exp_floor_ms']:.2f}")
         if case["main"]:
             main[case["kernel"]] = row
+        if case.get("key"):
+            main[case["key"]] = row
     return main
 
 
@@ -1390,8 +1446,44 @@ def lm_kernel_cases(device, seed: int) -> list[dict]:
         plain=lambda a=path: ssm_scan_with_states_ref(*a), tol=(1e-4, 1e-4),
         design="exp_per_channel_step"))
     del path, general
+    # falcon-mamba-7b's prefill, [4, 2048, 8192] N 16, x bf16: the general
+    # route (an exp per state element), A Mamba-1's published -(n + 1).
+    b, t, di, n = 4, 2048, 8192, 16
+    falcon = (randn(b, t, di).to(torch.bfloat16),
+              softplus(randn(b, t, di) - 1.0), mamba1_a(di, n, device),
+              randn(b, t, n), randn(b, t, n), randn(di))
+    cases.append(dict(
+        kernel="ssm_scan", mode=f"falcon-mamba prefill, general A, x bf16 "
+                                f"{(b, t, di)} N {n}",
+        main=False, key="ssm_scan falcon", run=lambda a=falcon:
+        scan_ops.ssm_scan(*a), plain=lambda a=falcon: ssm_scan_ref(*a),
+        tol=(1e-4, 1e-4), inputs=falcon, plain_iters=2,
+        ops=b * t * di * (7 * n + 3), exps=b * t * di * n,
+        design="exp_per_state"))
+    del falcon
     cases += scan_train_cases(device, gen)
     return cases
+
+
+def mamba1_a(di: int, n: int, device) -> torch.Tensor:
+    """Mamba-1's published A [di, N]: -(n + 1) in every row (no row
+    constant, so the scan takes its general route)."""
+    return -torch.arange(1, n + 1, dtype=torch.float32,
+                         device=device).expand(di, n).contiguous()
+
+
+def exp_floor_ms(exps: int) -> tuple[float, str]:
+    """The least time of ``exps`` exp evaluations on the card's special
+    function units: one MUFU.EX2 each, 16 a clock on each SM (Hopper), at
+    the card's highest SM clock (``nvidia-smi``'s clocks.max.sm); and how
+    it was counted."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    return (exps / (16 * sms * mhz * 1e6) * 1e3,
+            f"{exps} exp at 16 a clock on {sms} SMs at {mhz:.0f} MHz")
 
 
 def scan_train_cases(device, gen) -> list[dict]:
@@ -1464,23 +1556,33 @@ def scan_train_cases(device, gen) -> list[dict]:
                                  "inputs differ")
         print("[kernel] ssm_scan_bwd     two calls give the same bits")
 
-    for label, fwd_args, dh, ops, main in (
+    # falcon-mamba-7b's training shape, [4, 512, 8192] N 16, x bf16, its
+    # published A, no final-state gradient (as ssm_apply trains).
+    fb, ft, fdi, fn = 4, 512, 8192, 16
+    falcon = (randn(fb, ft, fdi).to(torch.bfloat16),
+              softplus(randn(fb, ft, fdi) - 1.0), mamba1_a(fdi, fn, device),
+              randn(fb, ft, fn), randn(fb, ft, fn), randn(fdi))
+    for label, fwd_args, dh, ops, key in (
+            ("falcon-mamba training, general A, x bf16", falcon, False,
+             fb * ft * fdi * (21 * fn + 7), None),
             ("zamba2 training, A per head, x bf16", per_head, False,
-             b * t * di * (17 * n + 10), True),
+             b * t * di * (17 * n + 10), "ssm_scan_bwd zamba2"),
             ("zamba2 training, general A, x f32, dh", general, True,
-             b * t * di * (21 * n + 7), False),
+             b * t * di * (21 * n + 7), None),
             ("ragged, mixed A, dh", ragged, True,
-             rb * rt * rdi * (21 * rn + 7), False)):
+             rb * rt * rdi * (21 * rn + 7), None)):
         args = bwd_args(fwd_args, dh)
         shape = tuple(fwd_args[0].shape)
+        main = fwd_args is falcon
         cases.append(dict(
             kernel="ssm_scan_bwd", mode=f"{label} {shape} N "
                                         f"{fwd_args[2].shape[1]}",
-            main=main, run=lambda a=args: scan_ops.ssm_scan_bwd(*a),
+            main=main, key=key, run=lambda a=args: scan_ops.ssm_scan_bwd(*a),
             plain=lambda a=args: ssm_scan_bwd_ref(*a), tol_of_max=1e-4,
             inputs=tuple(z for z in args if z is not None), plain_iters=2,
             ops=ops, check=(lambda got, a=args: same_bits(got, a)),
-            design="exp_per_channel_step" if main else "exp_per_state"))
+            design="exp_per_channel_step" if key else "exp_per_state"))
+    del falcon
 
     # The per-head backward (csrc/ssm_scan_bwd_chunked.cu) at the same
     # shape (the main case), ragged with a final-state gradient, and with
@@ -2935,27 +3037,49 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
     return out
 
 
+# The serve-checks, (arch, layers) at full width in float32: zamba2's one
+# pattern repeat (five Mamba-2 blocks, then the shared attention+MLP block
+# and a sixth), and 4 of falcon-mamba's Mamba-1 blocks with its published
+# A (the scan's general route).
+SERVE_CHECKS = (("zamba2-2.7b", 6), ("falcon-mamba-7b", 4))
+
+
 def serve_check(device, seed: int, prompt: int = 300,
                 steps: int = 8) -> dict:
-    """zamba2-2.7b at full width, one pattern repeat (6 layers: five
-    Mamba-2 blocks, then the shared attention+MLP block and a sixth),
-    float32, batch 1: prefill and ``steps`` teacher-forced decode steps on
-    the card (kernels) and on the CPU (plain versions) from the same
-    weights and tokens.  Every step's logits agree within 1e-3 of the
-    largest |logit| (f32 sums in another order through six layers)."""
+    """Each of ``SERVE_CHECKS`` (:func:`serve_check_one`); returns their
+    rows by arch and their card runs' launches, summed."""
+    rows, launches = {}, {}
+    for arch, layers in SERVE_CHECKS:
+        row = serve_check_one(device, seed, arch, layers, prompt, steps)
+        for k, v in row.pop("launches").items():
+            launches[k] = launches.get(k, 0) + v
+        rows[arch] = row
+    return dict(rows=rows, launches=launches)
+
+
+def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
+                    steps: int) -> dict:
+    """``arch`` at full width, ``layers`` layers, float32, batch 1:
+    prefill and ``steps`` teacher-forced decode steps on the card
+    (kernels) and on the CPU (plain versions) from the same weights and
+    tokens (a Mamba-1 arch with :func:`set_general_a`).  Every step's
+    logits agree within 1e-3 of the largest |logit| (f32 sums in another
+    order through every layer); the prefill launches ssm_scan once a
+    layer and flash_attention once an attention layer."""
     from repro_torch import configs as C
     from repro_torch.kernels import common as kc
     from repro_torch.models import lm
     from repro_torch.models import spec as sp
 
-    cfg = dataclasses.replace(C.get("zamba2-2.7b"), n_layers=6,
-                              dtype="float32")
+    cfg = dataclasses.replace(C.get(arch), n_layers=layers, dtype="float32")
     params = lm.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    if is_mamba1(cfg):
+        set_general_a(params)
     rng = np.random.default_rng(seed)
     tokens = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (1, prompt + steps)).astype(np.int32))
-    out = {}
-    for dev in (device, torch.device("cpu")):
+
+    def run(dev):
         p = sp.tree_map(lambda x: x.to(dev), params)
         tk = tokens.to(dev)
         torch.cuda.synchronize()
@@ -2970,16 +3094,18 @@ def serve_check(device, seed: int, prompt: int = 300,
                                       prompt + i)
                 rows.append(lg)
         logits = torch.cat(rows).float().cpu()
-        out[dev.type] = (logits, time.perf_counter() - t_start,
-                         dict(kc.launches))
-        del p, cache
-    (gpu, t_gpu, counts), (cpu, t_cpu, _) = out["cuda"], out["cpu"]
-    if counts["flash_attention"] != 1 or counts["ssm_scan"] != 6:
-        raise AssertionError(f"serve-check: launches {counts}")
+        return logits, time.perf_counter() - t_start, dict(kc.launches)
+
+    (gpu, t_gpu, counts), (cpu, t_cpu, _) = (
+        run(dev) for dev in (device, torch.device("cpu")))
+    del params
+    if (counts["flash_attention"], counts["ssm_scan"]) != (cfg.attn_layers,
+                                                           layers):
+        raise AssertionError(f"serve-check {arch}: launches {counts}")
     scale = float(cpu.abs().max())
     err = (gpu - cpu).abs().amax(dim=-1)
     agree = int((gpu.argmax(-1) == cpu.argmax(-1)).sum())
-    print(f"[serve-check] zamba2-2.7b full width, 6 layers, f32, batch 1, "
+    print(f"[serve-check] {arch} full width, {layers} layers, f32, batch 1, "
           f"prompt {prompt}, {steps} teacher-forced steps: card "
           f"{t_gpu:.2f} s, CPU {t_cpu:.2f} s; max |dlogit| per step "
           f"{[float(f'{e:.3g}') for e in err]} vs max |logit| "
@@ -2987,13 +3113,16 @@ def serve_check(device, seed: int, prompt: int = 300,
           f"equal {agree}/{steps + 1}; launches flash_attention "
           f"{counts['flash_attention']}, ssm_scan {counts['ssm_scan']}")
     if not bool(torch.isfinite(gpu).all()) or float(err.max()) > 1e-3 * scale:
-        raise AssertionError("serve-check: the card's logits differ from "
-                             "the CPU's beyond 1e-3 of the largest |logit|")
+        raise AssertionError(f"serve-check {arch}: the card's logits differ "
+                             f"from the CPU's beyond 1e-3 of the largest "
+                             f"|logit|")
     return dict(max_rel_err=float(err.max()) / scale, greedy_equal=agree,
                 steps=steps + 1, launches=counts)
 
 
-SERVE_RUNS = (("zamba2-2.7b", 9, 54), ("internlm2-1.8b", 24, 0))
+# (arch, flash_attention launches, ssm_scan launches) a prefill.
+SERVE_RUNS = (("zamba2-2.7b", 9, 54), ("internlm2-1.8b", 24, 0),
+              ("falcon-mamba-7b", 0, 64))
 SERVE_ARGS = dict(batch=4, prompt=2048, gen=32)
 
 
@@ -3001,7 +3130,12 @@ def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
     """``launch.serve.main`` at full width and depth on each serve arch,
     then, from the same weights, prefill + one decode step against a full
     forward at the next position, and a profile of one prefill and of 4
-    decode steps.  Returns (launches, metrics, profile) by path."""
+    decode steps.  ``serve.main`` draws the reference's init, whose
+    Mamba-1 A has constant rows; the consistency check and the profile
+    run falcon-mamba with :func:`set_general_a`.  The serve run's counts
+    are one prefill's: the decode loop is plain torch and launches none
+    of the port's kernels.  Returns (launches, metrics, profile) by
+    path."""
     import io
     import re
 
@@ -3040,9 +3174,10 @@ def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
               f"bf16, batch {b}, prompt {s}, {n_gen} tokens: prefill "
               f"{row['prefill_tok_s']:.1f} tok/s, decode "
               f"{row['decode_tok_s']:.2f} tok/s, peak memory {peak} B "
-              f"({peak / 2**30:.2f} GiB), {wall:.1f} s in all; launches "
-              f"flash_attention {counts[label]['flash_attention']}, "
-              f"ssm_scan {counts[label]['ssm_scan']}")
+              f"({peak / 2**30:.2f} GiB), {wall:.1f} s in all; launches a "
+              f"prefill: flash_attention {counts[label]['flash_attention']}, "
+              f"ssm_scan {counts[label]['ssm_scan']}; a decode step: none "
+              f"of the port's kernels")
         if (counts[label]["flash_attention"] != n_flash
                 or counts[label]["ssm_scan"] != n_scan):
             raise AssertionError(f"{label}: prefill launched "
@@ -3055,6 +3190,11 @@ def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
         # Same weights as serve.main drew (same generator and seed).
         params = lm.init(torch.Generator(device=device).manual_seed(seed),
                          cfg, device=device)
+        if is_mamba1(cfg):
+            set_general_a(params)
+            print(f"[{label}] consistency and profile with Mamba-1's "
+                  f"published A (A[d, n] = -(n + 1)): no layer's A has a "
+                  f"constant row")
         tokens = torch.randint(
             0, cfg.vocab_size, (b, s + 1), device=device, dtype=torch.int32,
             generator=torch.Generator(device=device).manual_seed(seed + 1))
@@ -3172,29 +3312,35 @@ def serve_profile(label: str, cfg, params, tokens, steps: int = 4) -> dict:
 
 
 # The training path's runs: internlm2-1.8b with one checkpoint of the
-# whole state, then zamba2-2.7b (no checkpoint write, to stay in time).
+# whole state, then zamba2-2.7b and falcon-mamba-7b (no checkpoint write,
+# to stay in time).  falcon-mamba trains at full width on 16 of its 64
+# layers: at full depth its float32 AdamW moments alone take 58 GB.
 TRAIN_RUNS = (dict(arch="internlm2-1.8b", batch=4, seq=512, steps=4,
                    ckpt=True),
               dict(arch="zamba2-2.7b", batch=4, seq=512, steps=3,
-                   ckpt=False))
+                   ckpt=False),
+              dict(arch="falcon-mamba-7b", batch=4, seq=512, steps=3,
+                   ckpt=False, layers=16))
 
 
 def train_phase(device, seed: int) -> tuple[dict, dict, dict]:
     """The training path, each run of ``TRAIN_RUNS`` in turn: the arch at
-    full width and depth in bf16 (internlm2-1.8b: 24 layers, d_model
-    2048; zamba2-2.7b: 54 Mamba-2 layers, d_model 2560, the shared
-    attention block at every 6th), batch 4 x 512, ``steps`` AdamW steps
-    through ``launch.train.make_step`` (remat off, as the CLI), the data
-    stream through the ``Prefetcher``; for internlm2 one checkpoint of
-    the whole state through ``AsyncCheckpointer`` into a temporary
-    directory; then one more step under the profiler.  Every step's loss
-    must be finite and its grad norm finite and nonzero, and each step
-    must launch flash_attention and flash_attention_bwd once per
-    attention layer and ssm_scan and ssm_scan_heads_bwd once per Mamba
-    layer, the per-channel ssm_scan_bwd never;
-    the counts are zeroed just before each run's steps and read just
-    after.  Returns (launches summed over the runs, metrics by arch,
-    profile rows)."""
+    full width in bf16 and at full depth unless the run names its
+    ``layers`` (internlm2-1.8b: 24 layers, d_model 2048; zamba2-2.7b: 54
+    Mamba-2 layers, d_model 2560, the shared attention block at every
+    6th; falcon-mamba-7b: 16 of its 64 Mamba-1 layers, d_model 4096, with
+    :func:`set_general_a`), batch 4 x 512, ``steps`` AdamW steps through
+    ``launch.train.make_step`` (remat off, as the CLI), the data stream
+    through the ``Prefetcher``; for internlm2 one checkpoint of the whole
+    state through ``AsyncCheckpointer`` into a temporary directory; then
+    one more step under the profiler.  Every step's loss must be finite
+    and its grad norm finite and nonzero, and each step must launch
+    flash_attention and flash_attention_bwd once per attention layer and
+    ssm_scan once per Mamba layer, with the backward of its version once
+    per Mamba layer (Mamba-2: ssm_scan_heads_bwd; Mamba-1: the
+    per-channel ssm_scan_bwd) and the other never; the counts are zeroed
+    just before each run's steps and read just after.  Returns (launches
+    summed over the runs, metrics by arch, profile rows)."""
     counts, metrics, profile = {}, {}, {}
     for run in TRAIN_RUNS:
         c, metrics[run["arch"]], row = train_run(device, seed, **run)
@@ -3204,8 +3350,10 @@ def train_phase(device, seed: int) -> tuple[dict, dict, dict]:
 
 
 def train_run(device, seed: int, arch: str, batch: int, seq: int,
-              steps: int, ckpt: bool) -> tuple[dict, dict, dict]:
-    """One run of :func:`train_phase`: (launches, metrics, profile)."""
+              steps: int, ckpt: bool, layers: int | None = None
+              ) -> tuple[dict, dict, dict]:
+    """One run of :func:`train_phase`, at ``layers`` layers (None: the
+    config's depth): (launches, metrics, profile)."""
     import shutil
     import tempfile
 
@@ -3217,16 +3365,22 @@ def train_run(device, seed: int, arch: str, batch: int, seq: int,
     from repro_torch.launch import train
 
     cfg = C.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     shape = ShapeConfig("train", seq, batch, "train")
+    mamba = cfg.n_layers if cfg.ssm_state else 0
+    mamba1 = is_mamba1(cfg)
     want = {"flash_attention": cfg.attn_layers,
             "flash_attention_bwd": cfg.attn_layers,
-            "ssm_scan": cfg.n_layers if cfg.ssm_state else 0,
-            "ssm_scan_bwd": 0,
-            "ssm_scan_heads_bwd": cfg.n_layers if cfg.ssm_state else 0}
+            "ssm_scan": mamba,
+            "ssm_scan_bwd": mamba if mamba1 else 0,
+            "ssm_scan_heads_bwd": 0 if mamba1 else mamba}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     state = train.build_train_state(
         torch.Generator(device=device).manual_seed(seed), cfg, device=device)
+    if mamba1:
+        set_general_a(state["params"])
     step_fn = train.make_step(cfg, peak_lr=3e-4, total_steps=steps,
                               remat=False)
     tokens = batch * seq
@@ -3318,8 +3472,9 @@ def train_check(device, seed: int, layers: int = 2, batch: int = 2,
     head; the CPU tests hold the plain path to JAX within 1e-5 on the
     reduced config).  Gradients, not parameters after a step: AdamW's
     first step is about lr sign(g), which amplifies noise where g ~ 0.
-    Then zamba2 (:func:`zamba2_train_check`).  Returns the rows of both
-    and the launches of their card runs without remat, summed."""
+    Then the SSM archs of ``SSM_TRAIN_CHECKS`` (:func:`ssm_train_check`).
+    Returns the rows of all and the launches of their card runs without
+    remat, summed."""
     from repro_torch import configs as C
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import pipeline as dp
@@ -3369,45 +3524,55 @@ def train_check(device, seed: int, layers: int = 2, batch: int = 2,
             raise AssertionError(f"train-check [{label}]: beyond the bound")
         rows[label] = dict(loss_rel_err=dl, worst_grad_rel_err=rel[worst],
                            worst_leaf=names[worst])
-    zrows, zcounts = zamba2_train_check(device, seed)
-    rows.update(zrows)
-    counts = {k: v + zcounts[k] for k, v in out["card"][2].items()}
+    counts = dict(out["card"][2])
+    for arch, n, bound in SSM_TRAIN_CHECKS:
+        srows, scounts = ssm_train_check(device, seed, arch, n, bound)
+        rows.update(srows)
+        counts = {k: v + scounts[k] for k, v in counts.items()}
     return dict(rows=rows, launches=counts)
 
 
-# zamba2's train-check: full width, one pattern repeat (6 layers, so the
-# shared attention block runs once), float32, batch 2 x 100 (a chunk of 64
-# steps and a ragged one of 36).  The bound is four times the CPU's own
-# conditioning measured for it, 4.87e-4 (its derivation:
-# zamba2_train_check).
+# The SSM train-checks: (arch, layers, gradient bound) at full width,
+# float32, batch 2 x 100 (a chunk of 64 steps and a ragged one of 36).
+# zamba2: one pattern repeat (6 layers, so the shared attention block runs
+# once), the bound four times the CPU's own conditioning measured for it,
+# 4.87e-4.  falcon-mamba: 2 Mamba-1 layers with its published A, the bound
+# about seven times the CPU's own conditioning, 1.44e-6.  Their
+# derivation: ssm_train_check.
 ZAMBA2_GRAD_BOUND = 2e-3
+FALCON_GRAD_BOUND = 1e-5
+SSM_TRAIN_CHECKS = (("zamba2-2.7b", 6, ZAMBA2_GRAD_BOUND),
+                    ("falcon-mamba-7b", 2, FALCON_GRAD_BOUND))
 
 
-def zamba2_train_check(device, seed: int, layers: int = 6, batch: int = 2,
-                       seq: int = 100) -> tuple[dict, dict]:
-    """zamba2-2.7b at full width, ``layers`` layers, float32 (TF32 off):
-    loss and every gradient of ``lm.loss_fn`` on the card (the scan's
-    forward and backward kernels, the flash pair; remat off and full)
-    against the plain path on the CPU from the same weights and batch:
-    the loss within 1e-5 relative and every gradient within
-    ``ZAMBA2_GRAD_BOUND`` of its leaf's largest |g|.  Launches: ssm_scan
-    once per layer (twice under remat), ssm_scan_heads_bwd once per layer
-    and the per-channel ssm_scan_bwd never, and
-    the flash pair once per attention application (the forward twice
-    under remat).
+def ssm_train_check(device, seed: int, arch: str, layers: int, bound: float,
+                    batch: int = 2, seq: int = 100) -> tuple[dict, dict]:
+    """``arch`` at full width, ``layers`` layers, float32 (TF32 off; a
+    Mamba-1 arch with :func:`set_general_a`): loss and every gradient of
+    ``lm.loss_fn`` on the card (the scan's forward and backward kernels,
+    the flash pair; remat off and full) against the plain path on the CPU
+    from the same weights and batch: the loss within 1e-5 relative and
+    every gradient within ``bound`` of its leaf's largest |g|.  Launches:
+    ssm_scan once per layer (twice under remat), the backward of the
+    arch's version once per layer (Mamba-2: ssm_scan_heads_bwd; Mamba-1:
+    the per-channel ssm_scan_bwd) and the other never, and the flash pair
+    once per attention application (the forward twice under remat).
 
     The bound's derivation: the CPU's own gradients move by the printed
     ``conditioning`` (max over leaves of max |dg| / max |g|) when every
     weight is moved by 1e-7 of itself, a relative change of the size of
     float32 rounding; the card's float32 differs from the CPU's by a few
     such roundings per operation, so its gradients may differ by a few
-    times the conditioning.  Measured for this configuration on the
-    CPU of the machine with the card (an H100 80GB HBM3's host): 4.87e-4
-    (worst on the token embedding; the median over leaves 3.4e-5), so
-    the bound is four times that, 2e-3.
-    Reduced zamba2 is worse conditioned against JAX (2e-3 for 1e-7;
-    ``tests/test_torch_train.py``).  Returns (rows, launches of the card
-    run without remat)."""
+    times the conditioning.  Measured on the CPU of the machine with the
+    card (an H100 80GB HBM3's host): zamba2, 6 layers, 4.87e-4 (worst on
+    the token embedding; the median over leaves 3.4e-5), so its bound is
+    four times that, 2e-3.  Reduced zamba2 is worse conditioned against
+    JAX (2e-3 for 1e-7; ``tests/test_torch_train.py``).  falcon-mamba, 2
+    layers: 1.44e-6 (worst on A_log; the median 9.1e-7), and the card's
+    gradients measured 4.95e-6 from the CPU's (3.4 times it, worst on
+    the token embedding), so its bound is 1e-5, about seven times the
+    conditioning.  Returns (rows, launches of the card run without
+    remat)."""
     from repro_torch import configs as C
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import pipeline as dp
@@ -3415,9 +3580,12 @@ def zamba2_train_check(device, seed: int, layers: int = 6, batch: int = 2,
     from repro_torch.models import lm
     from repro_torch.models import spec as sp
 
-    cfg = dataclasses.replace(C.get("zamba2-2.7b"), n_layers=layers,
+    cfg = dataclasses.replace(C.get(arch), n_layers=layers,
                               dtype="float32", remat_policy="full")
     params = lm.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    mamba1 = is_mamba1(cfg)
+    if mamba1:
+        set_general_a(params)
     gen = torch.Generator().manual_seed(seed + 1)
     moved = sp.tree_map(lambda w: w * (1 + 1e-7 * torch.randn(
         w.shape, generator=gen)), params)
@@ -3440,17 +3608,18 @@ def zamba2_train_check(device, seed: int, layers: int = 6, batch: int = 2,
 
     l_cpu, g_cpu, _, t_cpu = grads(torch.device("cpu"), False, params)
     cond, c_worst = rel(grads(torch.device("cpu"), False, moved)[1], g_cpu)
-    print(f"[train-check] zamba2-2.7b full width, {layers} layers, f32, "
+    del moved
+    print(f"[train-check] {arch} full width, {layers} layers, f32, "
           f"batch {batch} x {seq}: conditioning on the CPU (weights moved "
           f"by 1e-7 of themselves): max |dg| / max |g| per leaf worst "
           f"{cond[c_worst]:.3g} ({names[c_worst]}), median "
-          f"{float(np.median(cond)):.3g}; bound {ZAMBA2_GRAD_BOUND:g}")
+          f"{float(np.median(cond)):.3g}; bound {bound:g}")
     rows, counts = {}, None
     for label, remat in (("card", False), ("card, remat full", True)):
         l_gpu, g_gpu, c, t_gpu = grads(device, remat, params)
         r, worst = rel(g_gpu, g_cpu)
         dl = abs(l_gpu - l_cpu) / abs(l_cpu)
-        print(f"[train-check] zamba2-2.7b full width, {layers} layers, f32, "
+        print(f"[train-check] {arch} full width, {layers} layers, f32, "
               f"batch {batch} x {seq}, {label}: loss {l_gpu:.6f} vs CPU "
               f"{l_cpu:.6f} (rel {dl:.3g}); max |dg| / max |g| per leaf: "
               f"worst {r[worst]:.3g} ({names[worst]}), median "
@@ -3461,16 +3630,17 @@ def zamba2_train_check(device, seed: int, layers: int = 6, batch: int = 2,
               f"{c['flash_attention']}, flash_attention_bwd "
               f"{c['flash_attention_bwd']}")
         k = 2 if remat else 1
-        want = (layers * k, layers, 0, cfg.attn_layers * k, cfg.attn_layers)
+        want = (layers * k, 0 if mamba1 else layers, layers if mamba1 else 0,
+                cfg.attn_layers * k, cfg.attn_layers)
         if (c["ssm_scan"], c["ssm_scan_heads_bwd"], c["ssm_scan_bwd"],
                 c["flash_attention"], c["flash_attention_bwd"]) != want:
-            raise AssertionError(f"train-check zamba2 [{label}]: launches "
+            raise AssertionError(f"train-check {arch} [{label}]: launches "
                                  f"{c}, expected (scan, scan_heads_bwd, "
                                  f"scan_bwd, flash, flash_bwd) {want}")
-        if dl > 1e-5 or r[worst] > ZAMBA2_GRAD_BOUND:
-            raise AssertionError(f"train-check zamba2 [{label}]: beyond "
+        if dl > 1e-5 or r[worst] > bound:
+            raise AssertionError(f"train-check {arch} [{label}]: beyond "
                                  f"the bound")
-        rows[f"zamba2 {label}"] = dict(
+        rows[f"{arch} {label}"] = dict(
             loss_rel_err=dl, worst_grad_rel_err=r[worst],
             worst_leaf=names[worst], conditioning=cond[c_worst])
         counts = counts or c
@@ -3642,12 +3812,20 @@ def main() -> int:
         device, args.seed)
     main_rows = kernel_phase(cases)
     del cases
-    new, old = main_rows["ssm_scan_heads_bwd"], main_rows["ssm_scan_bwd"]
+    new, old = (main_rows["ssm_scan_heads_bwd"],
+                main_rows["ssm_scan_bwd zamba2"])
     print(f"[kernel] the scan's backward at [4, 512, 5120] N 64, x bf16, A "
           f"per head: per-head (chunked) ms={new['ms']:.5f} beside "
           f"per-channel ms={old['ms']:.5f} ({old['ms'] / new['ms']:.2f}x); "
           f"the chunked kernel's bound {new['bound_ms']:.5f} ms, "
           f"{new['bound_ms'] / new['ms']:.3f} of it")
+    fwd, bwd = main_rows["ssm_scan falcon"], main_rows["ssm_scan_bwd"]
+    print(f"[kernel] falcon-mamba's general routes: ssm_scan at its prefill "
+          f"ms={fwd['ms']:.5f} (bound {fwd['bound_ms']:.5f} by "
+          f"{fwd['bound_by']}, exp floor {fwd['exp_floor_ms']:.5f}), "
+          f"ssm_scan_bwd at its training shape ms={bwd['ms']:.5f} (bound "
+          f"{bwd['bound_ms']:.5f} by {bwd['bound_by']}, "
+          f"{bwd['bound_ms'] / bwd['ms']:.3f} of it)")
     entry = entry_phase(blocks, paths, device)
     counts = path_phase(paths, device)
     counts["entry"] = entry

@@ -10,13 +10,13 @@ from repro_torch.configs.base import ArchConfig
 _MODULES = {
     "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
 }
 # Architectures of the JAX package not ported yet, and what brings each.
 _LATER = {
     "llama4-maverick-400b-a17b": "the MoE slice",
     "granite-moe-1b-a400m": "the MoE slice",
     "whisper-medium": "the encoder-decoder (whisper) slice",
-    "falcon-mamba-7b": "the Mamba-1 (ssm_version 1) slice",
     "mistral-nemo-12b": "the remaining dense configs",
     "yi-9b": "the remaining dense configs",
     "llama3-8b": "the remaining dense configs",

@@ -5,6 +5,8 @@ loop, on random weights made from ``--seed`` (``repro.launch.serve``).
         --batch 4 --prompt-len 2048 --gen 32            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch zamba2-2.7b --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch falcon-mamba-7b --batch 4 --prompt-len 2048 --gen 32
 
 Prefill runs the flash-attention and ssm_scan kernels on the card (their
 plain versions on the CPU); decode is plain torch.  Weights and prompt

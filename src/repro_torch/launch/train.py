@@ -13,9 +13,12 @@ the CPU use ``--reduced`` (the tiny same-family config).
 Weights come from a ``torch.Generator`` seeded with ``--seed``, so they
 differ from the reference's for the same seed; the batches are the
 reference's, bitwise.  The attention's gradient comes from the
-flash-attention backward kernels and zamba2's scan's from the chunked
-scan backward kernel (``csrc/ssm_scan_bwd_chunked.cu``), so both model
-families train on the card:
+flash-attention backward kernels, zamba2's scan's from the chunked scan
+backward kernel (``csrc/ssm_scan_bwd_chunked.cu``) and falcon-mamba's
+(Mamba-1, a general [di, N] A) from the per-channel one
+(``csrc/ssm_scan_bwd.cu``), so every ported arch trains on the card
+(falcon-mamba-7b at full depth needs more memory than one 80 GB card
+holds; ``chip_smoke.py`` trains 16 of its 64 layers):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
       --batch 4 --seq 512 --steps 20

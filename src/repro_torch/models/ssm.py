@@ -1,28 +1,33 @@
-"""Selective-SSM (Mamba-2) blocks of the zamba2 backbone
-(``repro.models.ssm``, ``ssm_version=2``, ``ssm_impl="scan"``).
+"""Selective-SSM (Mamba) blocks (``repro.models.ssm``): Mamba-1
+(``ssm_version=1``, falcon-mamba) and Mamba-2 (``ssm_version=2``, the
+zamba2 backbone) on the reference's ``ssm_impl="scan"`` path.
 
 * prefill — ``ssm_apply``: the whole sequence through the ``ssm_scan``
-  kernel (``kernels.ssm_scan.ssm_scan_heads``: the CUDA kernel on the
-  card, its plain version on the CPU, with the per-head dt_h and a_h
-  broadcast over each head's channels), where the JAX model runs
-  ``scan_chunked``; the
-  kernel returns y in float32 and the final state for the decode cache,
-  as ``scan_chunked`` does.
+  kernel (the CUDA kernel on the card, its plain version on the CPU),
+  where the JAX model runs ``scan_chunked``; the kernel returns y in
+  float32 and the final state for the decode cache, as ``scan_chunked``
+  does.  Mamba-1 calls ``kernels.ssm_scan.ssm_scan`` with its own dt [B,
+  T, di] and A = -exp(A_log) [di, N], whose rows are not constant;
+  Mamba-2 calls ``ssm_scan_heads`` with the per-head dt_h and a_h, which
+  it broadcasts over each head's channels.
 * decode — ``ssm_decode``: one recurrence step on an explicit
   :class:`SSMState` (h and the depthwise-conv tail), plain torch.
 
-Mamba-2 is the same recurrence with a per-head scalar decay (A[d, :] =
-a_head), broadcast to a [di, N] A.  Mamba-1 (``ssm_version=1``,
-falcon-mamba) and the chunk-parallel ``ssm_impl="ssd"`` path are not
-ported yet.
+The two versions differ where the reference's do: Mamba-1 takes dt
+through a rank-``dt_rank`` pair of products (the first in x_conv's type,
+the second in float32) and B and C from x_conv, and gates with ``y *
+silu(z)``; Mamba-2 takes dt, B and C from the residual stream and gates
+through an RMSNorm.  As in the reference, ``ssm_impl`` applies to Mamba-2
+only, and its chunk-parallel ``"ssd"`` path is not ported yet.
 
-Training: where a gradient is asked, ``ssm_apply``'s scan goes through
-the ``SSMScanHeads`` autograd Function (``kernels.ssm_scan``): on the
-card the forward kernel also writes a state checkpoint every 64 steps and
-the chunked backward kernel (``csrc/ssm_scan_bwd_chunked.cu``) works from
-them per (chunk, head) on tensor cores, returning the gradients of dt_h
-and a_h directly; on the CPU the plain forward and the chunked plain
-backward (``ssm_scan_heads_bwd_ref``) do the same.
+Training: where a gradient is asked, the scan goes through an autograd
+Function of ``kernels.ssm_scan``: on the card the forward kernel also
+writes a state checkpoint every 64 steps, from which the backward kernel
+works.  Mamba-1's ``SSMScan`` runs the per-channel backward
+(``csrc/ssm_scan_bwd.cu``), Mamba-2's ``SSMScanHeads`` the chunked one
+(``csrc/ssm_scan_bwd_chunked.cu``) per (chunk, head) on tensor cores,
+returning the gradients of dt_h and a_h directly; on the CPU their plain
+versions (``ssm_scan_bwd_ref``, ``ssm_scan_heads_bwd_ref``) do the same.
 """
 
 from __future__ import annotations
@@ -45,34 +50,51 @@ class SSMState(NamedTuple):
 
 
 def _check(cfg: ArchConfig) -> None:
-    if cfg.ssm_version != 2:
-        raise NotImplementedError(
-            "Mamba-1 (ssm_version 1, falcon-mamba) is not ported yet "
-            "(ROADMAP section 1, item 9)")
-    if cfg.ssm_impl != "scan":
+    """The reference takes ``ssm_impl`` only for Mamba-2 (Mamba-1 always
+    scans); the port runs its "scan" path."""
+    if cfg.ssm_version == 2 and cfg.ssm_impl != "scan":
         raise NotImplementedError(
             f"ssm_impl={cfg.ssm_impl!r} is not ported yet; the port runs "
             f"the 'scan' path through the ssm_scan kernel")
 
 
+def dt_rank(cfg: ArchConfig) -> int:
+    """Mamba-1's rank of the dt projection: ceil(d_model / 16)."""
+    return -(-cfg.d_model // 16)
+
+
 def ssm_spec(cfg: ArchConfig) -> dict:
     _check(cfg)
     d, di, n, kk = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-    h = cfg.n_ssm_heads
-    return {
+    spec = {
         "w_in_x": ParamSpec((d, di), (None, "d_inner")),
         "w_in_z": ParamSpec((d, di), (None, "d_inner")),
         "conv_w": ParamSpec((kk, di), (None, "d_inner"), init="small_normal"),
         "conv_b": ParamSpec((di,), ("d_inner",), init="zeros"),
         "out_proj": ParamSpec((di, d), ("d_inner", None)),
         "D": ParamSpec((di,), ("d_inner",), init="ones"),
-        "w_dt": ParamSpec((d, h), (None, "ssm_heads")),
-        "dt_bias": ParamSpec((h,), ("ssm_heads",), init="zeros"),
-        "w_B": ParamSpec((d, n), (None, None)),
-        "w_C": ParamSpec((d, n), (None, None)),
-        "A_log": ParamSpec((h,), ("ssm_heads",), init="zeros"),
-        "norm_scale": ParamSpec((di,), ("d_inner",), init="ones"),
     }
+    if cfg.ssm_version == 1:
+        r = dt_rank(cfg)
+        spec.update({
+            "w_dt_low": ParamSpec((di, r), ("d_inner", None)),
+            "w_dt": ParamSpec((r, di), (None, "d_inner")),
+            "dt_bias": ParamSpec((di,), ("d_inner",), init="zeros"),
+            "w_B": ParamSpec((di, n), ("d_inner", None)),
+            "w_C": ParamSpec((di, n), ("d_inner", None)),
+            "A_log": ParamSpec((di, n), ("d_inner", None), init="zeros"),
+        })
+    else:  # Mamba-2: per-head scalar decay, B/C from the residual stream
+        h = cfg.n_ssm_heads
+        spec.update({
+            "w_dt": ParamSpec((d, h), (None, "ssm_heads")),
+            "dt_bias": ParamSpec((h,), ("ssm_heads",), init="zeros"),
+            "w_B": ParamSpec((d, n), (None, None)),
+            "w_C": ParamSpec((d, n), (None, None)),
+            "A_log": ParamSpec((h,), ("ssm_heads",), init="zeros"),
+            "norm_scale": ParamSpec((di,), ("d_inner",), init="ones"),
+        })
+    return spec
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -93,23 +115,34 @@ def _conv1d(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype) + p["conv_b"].to(x.dtype)
 
 
-def _dt_bc(cfg: ArchConfig, p: dict, x_res: torch.Tensor):
-    """(dt_h [B,T,H], B [B,T,N], C [B,T,N], a_h [H]) of Mamba-2, float32:
-    the per-head dt and (negative) decay, as the reference's ``_dt_bc``
-    returns them; ``scan_ops.heads_to_channels`` repeats them over each
-    head's channels."""
-    xf = x_res.to(F32)
-    dt_h = softplus(torch.matmul(xf, p["w_dt"].to(F32))
-                    + p["dt_bias"].to(F32))
+def _dt_bc(cfg: ArchConfig, p: dict, x_res: torch.Tensor,
+           x_conv: torch.Tensor):
+    """(dt, B [B,T,N], C [B,T,N], a), float32, as the reference's
+    ``_dt_bc`` computes them.  Mamba-1: dt [B,T,di] through the low-rank
+    pair (the first product in x_conv's type), B and C from x_conv, A
+    [di,N].  Mamba-2: the per-head dt_h [B,T,H] and a_h [H], B and C from
+    the residual stream; ``scan_ops.heads_to_channels`` repeats dt_h and
+    a_h over each head's channels."""
+    if cfg.ssm_version == 1:
+        low = torch.matmul(x_conv, p["w_dt_low"].to(x_conv.dtype))
+        dt = softplus(torch.matmul(low.to(F32), p["w_dt"].to(F32))
+                      + p["dt_bias"].to(F32))
+        xf = x_conv.to(F32)
+    else:
+        xf = x_res.to(F32)
+        dt = softplus(torch.matmul(xf, p["w_dt"].to(F32))
+                      + p["dt_bias"].to(F32))
     bm = torch.matmul(xf, p["w_B"].to(F32))
     cm = torch.matmul(xf, p["w_C"].to(F32))
-    a_h = -torch.exp(p["A_log"].to(F32))
-    return dt_h, bm, cm, a_h
+    return dt, bm, cm, -torch.exp(p["A_log"].to(F32))
 
 
-def _gated_norm(cfg: ArchConfig, p: dict, y, z):
-    """zamba2's gated RMSNorm: norm(y * silu(z)) * scale."""
+def _gate(cfg: ArchConfig, p: dict, y, z):
+    """Mamba-1's ``y * silu(z)``; zamba2's gated RMSNorm, norm(y *
+    silu(z)) * scale."""
     g = y * F.silu(z)
+    if cfg.ssm_version == 1:
+        return g
     gf = g.to(F32)
     ms = torch.mean(gf ** 2, dim=-1, keepdim=True)
     return (gf * torch.rsqrt(ms + cfg.norm_eps)
@@ -118,20 +151,22 @@ def _gated_norm(cfg: ArchConfig, p: dict, y, z):
 
 def ssm_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
               return_state: bool = False):
-    """Full-sequence Mamba-2 block from a zero state. x: [B, T, d] ->
+    """Full-sequence Mamba block from a zero state. x: [B, T, d] ->
     [B, T, d] (and the :class:`SSMState` after the last token).
     Differentiable on the card and on the CPU alike (the scan through
-    ``SSMScanHeads`` where a gradient is asked)."""
+    ``SSMScan``, Mamba-1, or ``SSMScanHeads``, Mamba-2, where a gradient
+    is asked)."""
     _check(cfg)
     t = x.shape[1]
     dt_ = x.dtype
     xh = torch.matmul(x, p["w_in_x"].to(dt_))
     z = torch.matmul(x, p["w_in_z"].to(dt_))
     xc = F.silu(_conv1d(p, xh))
-    dt_h, bm, cm, a_h = _dt_bc(cfg, p, x)
-    y, h_final = scan_ops.ssm_scan_heads(xc, dt_h, a_h, bm, cm,
-                                         p["D"].to(F32))
-    y = _gated_norm(cfg, p, y.to(dt_), z)
+    dt, bm, cm, a = _dt_bc(cfg, p, x, xc)
+    scan = scan_ops.ssm_scan if cfg.ssm_version == 1 else \
+        scan_ops.ssm_scan_heads
+    y, h_final = scan(xc, dt, a, bm, cm, p["D"].to(F32))
+    y = _gate(cfg, p, y.to(dt_), z)
     out = torch.matmul(y, p["out_proj"].to(dt_))
     if return_state:
         kk = cfg.ssm_conv
@@ -160,13 +195,14 @@ def ssm_decode(cfg: ArchConfig, p: dict, x: torch.Tensor,
     w = p["conv_w"].to(dt_)                                      # [K, di]
     xc = torch.einsum("bkd,kd->bd", conv_in, w) + p["conv_b"].to(dt_)
     xc = F.silu(xc)[:, None, :]                                  # [B,1,di]
-    dt_h, bm, cm, a_h = _dt_bc(cfg, p, x)
-    dt, a = scan_ops.heads_to_channels(dt_h, a_h, cfg.d_inner // a_h.shape[0],
-                                       cfg.ssm_state)
+    dt, bm, cm, a = _dt_bc(cfg, p, x, xc)
+    if cfg.ssm_version != 1:
+        dt, a = scan_ops.heads_to_channels(dt, a, cfg.d_inner // a.shape[0],
+                                           cfg.ssm_state)
     xcf = xc[:, 0].to(F32)
     decay = torch.exp(dt[:, 0, :, None] * a)                     # [B,di,N]
     h = decay * state.h + (dt[:, 0] * xcf)[:, :, None] * bm[:, 0, None, :]
     y = torch.einsum("bdn,bn->bd", h, cm[:, 0]) + xcf * p["D"].to(F32)
-    y = _gated_norm(cfg, p, y.to(dt_)[:, None, :], z)
+    y = _gate(cfg, p, y.to(dt_)[:, None, :], z)
     out = torch.matmul(y, p["out_proj"].to(dt_))
     return out, SSMState(h=h, conv=conv_in[:, 1:, :])

@@ -1,9 +1,10 @@
-"""Decoder-only transformer assembly for the dense and hybrid families
-(``repro.models.transformer``).
+"""Decoder-only transformer assembly for the dense, hybrid and ssm
+families (``repro.models.transformer``).
 
 Layers are grouped into a repeating pattern of length
 ``cfg.pattern_period()`` (dense: 1 [attn_mlp]; zamba2: 6 [5 x ssm,
-shared attention+MLP then ssm]); each pattern position's parameters are
+shared attention+MLP then ssm]; falcon-mamba: 1 [ssm], no attention and
+no KV cache); each pattern position's parameters are
 stacked over the repeats, and a Python loop over the stacked axis takes
 the place of the JAX package's ``lax.scan``.  The same block functions
 serve training and prefill (``forward``; with ``emit_cache`` it returns

@@ -137,6 +137,38 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok": true' not in proc.stdout
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chip_smoke_loads_mamba1_published_a(dtype):
+    """``chip_smoke.set_general_a`` sets every Mamba-1 layer's A_log of a
+    parameter tree, in place and in its own type, to log(n + 1), so A =
+    -exp(A_log) is about -(n + 1) and no row of it is constant (the
+    reference's init, zeros, makes every row constant); ``mamba1_a`` is
+    the same A as a [di, N] tensor."""
+    import dataclasses
+    import importlib.util
+
+    from repro_torch import configs as C
+    from repro_torch.models import lm
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = dataclasses.replace(C.get("falcon-mamba-7b").reduced(),
+                              dtype=dtype)
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    a_log = params["blocks"]["pos0"]["ssm"]["A_log"]
+    assert not a_log.any()
+    smoke.set_general_a(params)
+    assert params["blocks"]["pos0"]["ssm"]["A_log"] is a_log
+    assert a_log.dtype == getattr(torch, dtype)
+    assert a_log.shape == (cfg.n_layers, cfg.d_inner, cfg.ssm_state)
+    a = -torch.exp(a_log.float())
+    want = smoke.mamba1_a(cfg.d_inner, cfg.ssm_state, "cpu")
+    assert bool((a[0] != a[0][:, :1]).any(-1).all())
+    torch.testing.assert_close(a, want.expand_as(a), rtol=2**-7, atol=0)
+
+
 def test_chip_smoke_reads_flash_spills_of_both_types():
     """``chip_smoke.ptxas_by_dn`` reads ptxas's report per instance: the
     bf16 (wgmma) and float32 (3xTF32) kernels by DN, so a spill at DN 80
@@ -592,8 +624,6 @@ def _lm_unported(feature: str):
     elif feature == "window decode":
         attn.decode_attention(x[:, :, :1], attn.KVCache(k=x, v=x), 4,
                               window=4)
-    elif feature == "ssm_version 1":
-        ssm.ssm_spec(dataclasses.replace(zamba, ssm_version=1))
     elif feature == "ssd":
         ssm.ssm_spec(dataclasses.replace(zamba, ssm_impl="ssd"))
     elif feature == "moe":
@@ -612,7 +642,7 @@ def _lm_unported(feature: str):
 
 @pytest.mark.parametrize("feature,match", [
     ("window", "window"), ("window decode", "window"),
-    ("ssm_version 1", "Mamba-1"), ("ssd", "ssd"), ("moe", "MoE"),
+    ("ssd", "ssd"), ("moe", "MoE"),
     ("encoder-decoder", "encoder-decoder"), ("training", "training")])
 def test_unported_lm_features_raise(feature, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -646,8 +676,6 @@ def test_serve_writes_metrics_and_events(flag, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--device", "cpu", "--arch", "falcon-mamba-7b", "--reduced"],
-     "Mamba-1"),
     (["--device", "cpu", "--arch", "granite-moe-1b-a400m", "--reduced"],
      "MoE"),
     (["--device", "cpu", "--arch", "whisper-medium", "--reduced"],
@@ -655,6 +683,65 @@ def test_serve_writes_metrics_and_events(flag, tmp_path, capsys):
 def test_unported_serve_features_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         serve.main(argv)
+
+
+def test_mamba1_ignores_ssm_impl():
+    """As in the reference, ``ssm_impl`` applies to Mamba-2 only: Mamba-2
+    with "ssd" raises (``test_unported_lm_features_raise``), while a
+    Mamba-1 config with "ssd" builds the same block and gives the same
+    output as with "scan"."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.models import spec as sp
+    from repro_torch.models import ssm
+
+    cfg = C.get("falcon-mamba-7b").reduced()
+    ssd = dataclasses.replace(cfg, ssm_impl="ssd")
+    spec = ssm.ssm_spec(ssd)
+    assert spec == ssm.ssm_spec(cfg)
+    p = sp.init_tree(torch.Generator().manual_seed(0), spec, torch.float32,
+                     "cpu")
+    x = torch.randn(2, 9, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    assert torch.equal(ssm.ssm_apply(ssd, p, x), ssm.ssm_apply(cfg, p, x))
+    with pytest.raises(NotImplementedError, match="ssd"):
+        ssm.ssm_apply(dataclasses.replace(C.get("zamba2-2.7b").reduced(),
+                                          ssm_impl="ssd"), p, x)
+
+
+def test_serve_runs_falcon_mamba_on_the_cpu(capsys):
+    """``launch.serve`` on reduced falcon-mamba-7b (Mamba-1) with
+    ``--device cpu``: ids in range, its three lines printed, no kernel
+    launched."""
+    kc.reset_launches()
+    ids = serve.main(["--device", "cpu", "--arch", "falcon-mamba-7b",
+                      "--reduced", "--batch", "2", "--prompt-len", "9",
+                      "--gen", "3"])
+    assert ids.shape == (2, 3) and ids.dtype == torch.int32
+    assert bool(((ids >= 0) & (ids < 256)).all())
+    out = capsys.readouterr().out
+    assert "prefill: 2x9 in" in out and "decode: 3 steps x batch 2" in out
+    assert "sample output ids:" in out
+    assert not any(kc.launches.values())
+
+
+def test_train_cli_runs_falcon_mamba_on_the_cpu(tmp_path, capsys):
+    """``launch.train`` on reduced falcon-mamba-7b with ``--device cpu``:
+    finite losses every step, a committed checkpoint, and a rerun
+    resumes from it."""
+    argv = ["--device", "cpu", "--arch", "falcon-mamba-7b", "--reduced",
+            "--steps", "3", "--batch", "2", "--seq", "16", "--log-every",
+            "1", "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)]
+    state = train.main(argv)
+    out = capsys.readouterr().out
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 3 and all(np.isfinite(losses)), out
+    assert "done" in out
+    assert int(state["opt"].count) == 3
+    train.main(argv)
+    assert "resumed from step" in capsys.readouterr().out
 
 
 def test_serve_runs_on_the_cpu_when_asked(capsys):

@@ -1,9 +1,13 @@
 """Port parity, the LM serving slice: configs, parameter trees, layers,
-attention, the Mamba-2 block and the whole model (``prefill``,
-``decode``, a greedy serve) against the JAX package on the CPU, on the
-reduced zamba2-2.7b (hybrid, GQA 4 over 2 heads) and internlm2-1.8b
-(dense) configs in float32, from the same weights
-(``convert.lm_params_from_jax``).
+attention, the Mamba-2 and Mamba-1 blocks and the whole model
+(``prefill``, ``decode``, a greedy serve) against the JAX package on the
+CPU, on the reduced zamba2-2.7b (hybrid, GQA 4 over 2 heads),
+internlm2-1.8b (dense) and falcon-mamba-7b (Mamba-1, attention-free:
+d_model 64, d_inner 128, N 16, dt_rank 4) configs in float32, from the
+same weights (``convert.lm_params_from_jax``).  falcon-mamba's A_log is
+Mamba-1's published initialisation, A[d, n] = -(n + 1) (``general_a``),
+not the reference's zeros, so that no row of A is constant and the scan
+takes its general route.
 
 On the CPU the prefill runs the plain versions of the flash-attention and
 ssm_scan kernels where the JAX model runs ``chunked_attention`` and
@@ -42,7 +46,8 @@ from repro_torch.models import spec as sp  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 
-ARCHS = ["zamba2-2.7b", "internlm2-1.8b"]
+ARCHS = ["zamba2-2.7b", "internlm2-1.8b", "falcon-mamba-7b"]
+ATTN_ARCHS = [a for a in ARCHS if a != "falcon-mamba-7b"]
 CPU = "cpu"
 
 
@@ -50,13 +55,42 @@ def T(x, dtype=None):
     return torch.as_tensor(np.array(x), dtype=dtype)
 
 
+def general_a(a_log):
+    """Mamba-1's published A ("S4D real": A[d, n] = -(n + 1), so A_log[d,
+    n] = log(n + 1); state-spaces/mamba, ``mamba_simple.py``) in the shape
+    and type of the JAX leaf ``a_log`` [..., di, N]."""
+    n = a_log.shape[-1]
+    row = jnp.log(jnp.arange(1, n + 1, dtype=jnp.float32))
+    return jnp.broadcast_to(row, a_log.shape).astype(a_log.dtype)
+
+
+def with_general_a(jcfg, jparams):
+    """The JAX parameters with every Mamba-1 layer's A_log set by
+    :func:`general_a` (Mamba-2 and attention parameters unchanged)."""
+    if jcfg.ssm_version != 1 or not jcfg.ssm_state:
+        return jparams
+    return jax.tree_util.tree_map_with_path(
+        lambda path, x: general_a(x) if path[-1].key == "A_log" else x,
+        jparams)
+
+
+def _model(arch):
+    jcfg = JC.get(arch).reduced()
+    cfg = C.get(arch).reduced()
+    jparams = with_general_a(jcfg, jlm.init(jax.random.PRNGKey(0), jcfg))
+    return jcfg, cfg, jparams, convert.lm_params_from_jax(jparams, device=CPU)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def model(request):
     """(jax cfg, port cfg, jax params, port params) of a reduced arch."""
-    jcfg = JC.get(request.param).reduced()
-    cfg = C.get(request.param).reduced()
-    jparams = jlm.init(jax.random.PRNGKey(0), jcfg)
-    return jcfg, cfg, jparams, convert.lm_params_from_jax(jparams, device=CPU)
+    return _model(request.param)
+
+
+@pytest.fixture(scope="module", params=ATTN_ARCHS)
+def attn_model(request):
+    """:func:`model` of the archs with attention."""
+    return _model(request.param)
 
 
 def _tokens(cfg, b, s, seed=0):
@@ -196,7 +230,7 @@ def test_softplus_is_logaddexp():
 
 
 # ---------------------------------------------------------------------------
-# Attention and the Mamba-2 block
+# Attention and the Mamba blocks
 # ---------------------------------------------------------------------------
 
 def _block_params(model, pos):
@@ -206,12 +240,12 @@ def _block_params(model, pos):
     return jbp, bp
 
 
-def test_project_qkv_and_decode_attention(model):
-    jcfg, cfg, jparams, params = model
+def test_project_qkv_and_decode_attention(attn_model):
+    jcfg, cfg, jparams, params = attn_model
     if jcfg.family == "hybrid":
         jbp, bp = jparams["shared"], params["shared"]
     else:
-        jbp, bp = _block_params(model, "pos0")
+        jbp, bp = _block_params(attn_model, "pos0")
     rng = np.random.default_rng(4)
     b, s = 2, 9
     x = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
@@ -274,6 +308,54 @@ def test_ssm_block_prefill_and_decode():
                                atol=1e-6)
 
 
+def test_mamba1_block_prefill_and_decode():
+    """falcon-mamba's block (Mamba-1): ``dt_rank``, the spec's leaves,
+    ``_dt_bc`` (the low-rank dt, B and C from x_conv, A [di, N]),
+    ``ssm_apply`` with its final state over 70 steps (a ragged second
+    chunk of checkpoints) and a ``ssm_decode`` step, each against
+    ``repro.models.ssm`` with A_log from :func:`general_a`."""
+    jcfg = JC.get("falcon-mamba-7b").reduced()
+    cfg = C.get("falcon-mamba-7b").reduced()
+    assert ssm.dt_rank(cfg) == jssm.dt_rank(jcfg) == 4
+    assert ssm.dt_rank(C.get("falcon-mamba-7b")) == 256
+    spec = ssm.ssm_spec(cfg)
+    jspec = jssm.ssm_spec(jcfg)
+    assert sorted(spec) == sorted(jspec)
+    for k, v in jspec.items():
+        assert (spec[k].shape, spec[k].axes, spec[k].init) == (
+            v.shape, v.axes, v.init), k
+    jp = jsp.init_tree(jax.random.PRNGKey(8), jspec, jnp.float32)
+    jp = dict(jp, conv_b=jp["conv_b"] + 0.05, A_log=general_a(jp["A_log"]),
+              dt_bias=jp["dt_bias"] - 0.5)
+    p = convert.lm_params_from_jax(jp, device=CPU)
+    rng = np.random.default_rng(9)
+    b, t = 2, 70
+    x = rng.standard_normal((b, t, cfg.d_model)).astype(np.float32)
+    xc = rng.standard_normal((b, t, cfg.d_inner)).astype(np.float32)
+    want = jssm._dt_bc(jcfg, jp, jnp.asarray(x), jnp.asarray(xc))
+    got = ssm._dt_bc(cfg, p, T(x), T(xc))
+    assert want[4] is None and want[5] is None
+    for g, w in zip(got, want[:4]):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+    assert not bool((got[3] == got[3][:, :1]).all(1).any())  # no constant row
+    xj = jnp.asarray(x)
+    want, jstate = jssm.ssm_apply(jcfg, jp, xj, None, return_state=True)
+    out, state = ssm.ssm_apply(cfg, p, T(x), return_state=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(state.h.numpy(), np.asarray(jstate.h),
+                               atol=1e-5)
+    np.testing.assert_allclose(state.conv.numpy(), np.asarray(jstate.conv),
+                               atol=1e-6)
+    x1 = rng.standard_normal((b, 1, cfg.d_model)).astype(np.float32)
+    jy, jst = jssm.ssm_decode(jcfg, jp, jnp.asarray(x1), jstate, None)
+    y, st = ssm.ssm_decode(cfg, p, T(x1), state)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=1e-5)
+    np.testing.assert_allclose(st.h.numpy(), np.asarray(jst.h), atol=1e-5)
+    np.testing.assert_allclose(st.conv.numpy(), np.asarray(jst.conv),
+                               atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # The whole model
 # ---------------------------------------------------------------------------
@@ -307,10 +389,20 @@ def test_decode_step_matches_jax(model):
     cache = lm.pad_cache(cfg, cache, s + 4)
     want, _ = jlm.decode(jcfg, jparams, jnp.asarray(tk[:, s]), jcache,
                          jnp.asarray(s, jnp.int32))
+    before = [x.clone() for e in cache.values() if e["ssm"] is not None
+              for x in e["ssm"]]
     got, cache = lm.decode(cfg, params, T(tk[:, s]), cache, s)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4)
-    kv = [e["kv"] for e in cache.values() if e["kv"] is not None][0]
-    assert kv.k.shape[-2] == s + 4 and bool(kv.k[:, :, :, s].any())
+    kv = [e["kv"] for e in cache.values() if e["kv"] is not None]
+    if cfg.family == "ssm":   # no attention: no KV entry at all
+        assert not kv
+    else:
+        assert kv[0].k.shape[-2] == s + 4 and bool(kv[0].k[:, :, :, s].any())
+    # The step moved every SSM state and conv tail in place.
+    after = [x for e in cache.values() if e["ssm"] is not None
+             for x in e["ssm"]]
+    assert len(after) == len(before)
+    assert all(not torch.equal(a, b) for a, b in zip(after, before))
 
 
 def test_greedy_serve_gives_equal_tokens(model):
@@ -359,6 +451,10 @@ def test_make_cache_matches_jax(model):
     tl = [x for e in sp.tree_leaves(tc) if e is not None for x in e]
     assert [tuple(x.shape) for x in tl] == [x.shape for x in jl]
     assert all(not x.any() for x in tl)
+    # No zero-size leaf: an attention-free model has no KV entry at all.
+    assert all(x.numel() > 0 for x in tl)
+    has_kv = [e["kv"] is not None for e in tc.values()]
+    assert any(has_kv) == (cfg.attn_layers > 0)
 
 
 def test_launches_stay_zero_on_the_cpu(model):
