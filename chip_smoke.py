@@ -10,8 +10,11 @@ Phases, each fatal on failure:
              flash-attention instances of head size 80 and 128 (bf16 and
              float32) nor in any backward instance; the backward's SASS
              holds HMMA in every instance (TF32 in each float32 one)
-             and no atomic; no spill in any of the 14 instances of the
-             scan's backward (``ssm_scan_bwd_kernel``); the per-head
+             and no atomic; no spill in any instance of the scan's
+             general-A backward (``csrc/ssm_scan_bwd.cu``: the chunk
+             form's 10 ``ssm_scan_bwd_chunk_kernel`` and 5
+             ``ssm_scan_bwd_carry_kernel`` instances, the walk form's 6
+             ``ssm_scan_bwd_kernel``); the per-head
              backward's 3 instances (``ssm_scan_bwd_chunked.cu``) with no
              spill and no stack frame, TF32 HMMA in the SASS of each and
              no atomic;
@@ -41,9 +44,13 @@ Phases, each fatal on failure:
              backward; the scan with its state checkpoints (at the
              prefill and at zamba2's training shape, [4, 512, 5120] N 64)
              and ``ssm_scan_bwd`` at the training shape (x bf16, A per
-             head), with a general A and x f32 and on a ragged shape, each
-             gradient within 1e-4 of its largest against
-             ``ssm_scan_bwd_ref``, two calls the same bits; the
+             head), with a general A and x f32 and on a ragged shape (N
+             100: the walk form), each gradient within 1e-4 of its
+             largest against ``ssm_scan_bwd_ref``, two calls the same
+             bits, each case with its form, time over bound, resident
+             warps an SM of each kernel
+             (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), its
+             kernels' device times and the kernels one call launches; the
              per-head (chunked) backward ``ssm_scan_heads_bwd`` at the
              same shape (the main case), on a ragged shape with a
              final-state gradient and with x f32, each gradient within
@@ -228,7 +235,8 @@ Phases, each fatal on failure:
              flash_attention and 9 flash_attention_bwd launches per step;
              then falcon-mamba-7b at full width, 16 of its 64 layers, its
              published A, 3 steps, no checkpoint: 16 ssm_scan and 16
-             ssm_scan_bwd launches per step (0 of ssm_scan_heads_bwd);
+             ssm_scan_bwd launches per step (0 of ssm_scan_heads_bwd),
+             and the device ms a step of ssm_scan_bwd's kernels;
  10. profile where a block's time goes on each path (torch.profiler):
              wall and device-busy time per step, the idle share, kernel
              launches per step, the costliest kernels and the device time
@@ -292,6 +300,12 @@ REPLACES = {
     "ssm_scan_heads_bwd": "none: XLA autodiff of src/repro/models/ssm.py:"
                           "196 (scan_chunked) through _dt_bc's broadcasts",
 }
+# The general-A scan backward's kernels (csrc/ssm_scan_bwd.cu): the chunk
+# form's carry and chunk kernels (N <= 64) and the walk form's (N > 64),
+# and the instances of each (x's type x the lanes for N).
+SCAN_BWD_KERNELS = {"ssm_scan_bwd_carry_kernel": 5,
+                    "ssm_scan_bwd_chunk_kernel": 10,
+                    "ssm_scan_bwd_kernel": 6}
 # The per-head scan backward's kernels (csrc/ssm_scan_bwd_chunked.cu):
 # the backward, templated on x's type (2 instances), and the end-state
 # kernel that runs first.
@@ -1270,6 +1284,10 @@ def kernel_phase(cases: list[dict]) -> dict:
             print(f"[kernel] {label} ms={row['floor_ms']:.5f} host_us="
                   f"{row['floor_host_us']:.2f} (beside {case['kernel']} "
                   f"{case['mode']} ms={row['ms']:.5f})")
+        if case.get("time_over_bound"):
+            print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
+                  f"ms / bound {row['ms'] / row['bound_ms']:.3f} (bound "
+                  f"{row['bound_ms']:.5f} by {row['bound_by']})")
         if case.get("both_bounds"):
             print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
                   f"bound by operations {ops_ms:.5f} ms, by bytes "
@@ -1505,6 +1523,7 @@ def scan_train_cases(device, gen) -> list[dict]:
     channel and step u, e = exp(dt a0) and its product (3), dx (3), ddt
     (2), dD (2): 10.  A general row takes dt A, its exp and the products
     e A and e dt per element (21 N + 7)."""
+    from repro_torch.kernels import common as kc
     from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.kernels.ssm_scan.ref import (heads_to_channels,
                                                   ssm_scan_bwd_ref,
@@ -1549,12 +1568,26 @@ def scan_train_cases(device, gen) -> list[dict]:
         return fwd_args + (hc, randn(bb, tt, dd),
                            randn(bb, dd, nn) if dh else None)
 
-    def same_bits(got, a):
+    def same_bits(got, a, label):
+        before = kc.launches["ssm_scan_bwd"]
         again = scan_ops.ssm_scan_bwd(*a)
+        launches = kc.launches["ssm_scan_bwd"] - before
         if not all(torch.equal(g, w) for g, w in zip(got, again)):
             raise AssertionError("ssm_scan_bwd: two calls on the same "
                                  "inputs differ")
-        print("[kernel] ssm_scan_bwd     two calls give the same bits")
+        n = a[2].shape[1]
+        bf16 = a[0].dtype == torch.bfloat16
+        _, names = kc.card_kernels(lambda: scan_ops.ssm_scan_bwd(*a))
+        ours = [m.group(0) for m in (re.search(
+            "|".join(SCAN_BWD_KERNELS), nm) for nm in names) if m]
+        print(f"[kernel] ssm_scan_bwd     {label}: two calls give the same "
+              f"bits; form {scan_ops.bwd_route(n)}, resident warps an SM "
+              f"{scan_ops.bwd_resident_warps(n, bf16)}; "
+              f"{launches} ssm_scan_bwd launch a call, its kernels on the "
+              f"card {ours}")
+        if launches != 1 or not ours:
+            raise AssertionError(f"ssm_scan_bwd {label}: {launches} "
+                                 f"launches a call, kernels {names}")
 
     # falcon-mamba-7b's training shape, [4, 512, 8192] N 16, x bf16, its
     # published A, no final-state gradient (as ssm_apply trains).
@@ -1574,14 +1607,19 @@ def scan_train_cases(device, gen) -> list[dict]:
         args = bwd_args(fwd_args, dh)
         shape = tuple(fwd_args[0].shape)
         main = fwd_args is falcon
+        nn = fwd_args[2].shape[1]
+        split = (("ssm_scan_bwd_carry_kernel", "ssm_scan_bwd_chunk_kernel")
+                 if scan_ops.bwd_route(nn) == "chunks" else
+                 ("ssm_scan_bwd_kernel",))
         cases.append(dict(
-            kernel="ssm_scan_bwd", mode=f"{label} {shape} N "
-                                        f"{fwd_args[2].shape[1]}",
+            kernel="ssm_scan_bwd", mode=f"{label} {shape} N {nn}",
             main=main, key=key, run=lambda a=args: scan_ops.ssm_scan_bwd(*a),
             plain=lambda a=args: ssm_scan_bwd_ref(*a), tol_of_max=1e-4,
             inputs=tuple(z for z in args if z is not None), plain_iters=2,
-            ops=ops, check=(lambda got, a=args: same_bits(got, a)),
-            design="exp_per_channel_step" if key else "exp_per_state"))
+            ops=ops, check=(lambda got, a=args, lb=label: same_bits(got, a,
+                                                                     lb)),
+            device_names=split, split_names=split, time_over_bound=True,
+            design=f"{scan_ops.bwd_route(nn)} form"))
     del falcon
 
     # The per-head backward (csrc/ssm_scan_bwd_chunked.cu) at the same
@@ -2924,6 +2962,14 @@ def profile_row(prof, wall: float, units: float) -> dict:
         scopes=scope_ms(prof, units))
 
 
+def named_ms(prof) -> dict:
+    """Device ms of each kernel of a profiled window, by its name."""
+    from repro_torch.kernels import common as kc
+    return {e.key: (getattr(e, "self_device_time_total", None)
+                    or getattr(e, "device_time_total", 0.0)) / 1e3
+            for e in prof.key_averages() if kc.on_device(e)}
+
+
 def scope_ms(prof, units: float) -> dict:
     """Device ms and launches per unit under each phase scope that ran,
     from the profile's trace: every kernel, copy or fill whose launch
@@ -3455,6 +3501,12 @@ def train_run(device, seed: int, arch: str, batch: int, seq: int,
     label = f"train {arch}"
     profile = {label: profile_row(prof, wall, 1)}
     print_profile(label, profile[label], "step")
+    if mamba1:
+        per = {name: sum(kc_ms for key, kc_ms in named_ms(prof).items()
+                         if name in key) for name in SCAN_BWD_KERNELS}
+        profile[label]["ssm_scan_bwd_ms_per_step"] = sum(per.values())
+        print(f"[train] {arch}: ssm_scan_bwd {sum(per.values()):.4f} device "
+              f"ms a step (torch.profiler; by kernel {per})")
     del state, data, step_fn
     torch.cuda.empty_cache()
     return counts, metrics, profile
@@ -3779,14 +3831,17 @@ def main() -> int:
             or any(n == 0 for n, _ in tf32.values())):
         raise AssertionError(f"flash_attention_bwd SASS: {counts}")
 
-    # The scan's backward: 2 x types x 7 lane shapes, none may spill.
-    scan_bwd = ptxas_instances((build / "ssm_scan_bwd.log").read_text(),
-                               "ssm_scan_bwd_kernel")
-    print(f"[build] ssm_scan_bwd_kernel (registers, spill bytes) by "
-          f"instance: {scan_bwd}")
-    if len(scan_bwd) != 14 or any(sp != 0 for _, sp in scan_bwd.values()):
-        raise AssertionError(f"ssm_scan_bwd_kernel: ptxas reports "
-                             f"{scan_bwd} (14 instances, no spill)")
+    # The scan's general-A backward: each kernel's instances, none may
+    # spill.
+    log = (build / "ssm_scan_bwd.log").read_text()
+    for kernel, count in SCAN_BWD_KERNELS.items():
+        scan_bwd = ptxas_instances(log, kernel)
+        print(f"[build] {kernel} (registers, spill bytes) by instance: "
+              f"{scan_bwd}")
+        if len(scan_bwd) != count or any(sp != 0
+                                         for _, sp in scan_bwd.values()):
+            raise AssertionError(f"{kernel}: ptxas reports {scan_bwd} "
+                                 f"({count} instances, no spill)")
     # The per-head (chunked) backward: no spill, no stack frame, 3xTF32
     # on mma.sync (TF32 HMMA) in every instance and no atomic.
     heads = ptxas_frames((build / "ssm_scan_bwd_chunked.log").read_text(),
@@ -3860,7 +3915,8 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             mode=row["mode"], device_ms=row["device_ms"],
             bytes=row["bytes"], ops=row["ops"], launches_by=launches,
-            **{k: row[k] for k in ("host_us", "floor_ms") if k in row}))
+            **{k: row[k] for k in ("host_us", "floor_ms", "split_ms")
+               if k in row}))
         if not launches:
             raise AssertionError(f"kernel {name} launched on no path or "
                                  f"entry point")

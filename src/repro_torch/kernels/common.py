@@ -19,10 +19,11 @@ wrappers of a kernel launch another build of its source (for A/B runs).
 from; ``fused_inject.cu`` and ``merge_sort.cu`` each hold two kernels,
 ``flash_attention_bwd`` is one count for the two kernels (dQ, then dK
 and dV) that one call of its launcher starts, ``ssm_scan_bwd`` counts
-its one kernel (the ``torch.sum`` of its partial sums is not a launch of
-it), and ``ssm_scan_heads_bwd`` (``ssm_scan_bwd_chunked.cu``, the scan's
-backward for a per-head decay) counts one per call, whether the call
-starts one kernel or two.
+one per call of either form (the chunk form's carry and chunk kernels,
+or the walk form's kernel; the ``torch.sum`` of the partial sums is not
+a launch of it), and ``ssm_scan_heads_bwd`` (``ssm_scan_bwd_chunked.cu``,
+the scan's backward for a per-head decay) counts one per call, whether
+the call starts one kernel or two.
 """
 
 from __future__ import annotations

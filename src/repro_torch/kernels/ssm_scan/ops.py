@@ -1,7 +1,7 @@
 """Wrappers of the selective-SSM scan kernels (``csrc/ssm_scan.cu``,
-forward; ``csrc/ssm_scan_bwd.cu``, backward for a general [di, N] A;
-``csrc/ssm_scan_bwd_chunked.cu``, backward for Mamba-2's per-head decay)
-and the autograd Functions that join them.
+forward; ``csrc/ssm_scan_bwd.cu``, backward for a general [di, N] A, in
+two forms routed by N; ``csrc/ssm_scan_bwd_chunked.cu``, backward for
+Mamba-2's per-head decay) and the autograd Functions that join them.
 
 On CUDA tensors they launch the kernels, whatever the sizes; on CPU
 tensors they run the plain versions of
@@ -17,7 +17,11 @@ backward kernel.  Any other call is the single forward launch without
 checkpoints.  The backward uses no atomics: it writes partial sums of
 dB, dC (per block of channels), dA and dD (per batch row), which are
 added by ``torch.sum`` over their first axis, so two calls on the same
-inputs give the same bits.
+inputs give the same bits.  :func:`ssm_scan_bwd` takes the chunk form
+(:func:`ssm_scan_bwd_chunks`, chunk-parallel over the checkpoints) up to
+``CHUNKS_MAX_N`` states and the walk form (:func:`ssm_scan_bwd_walk`,
+a block walks all T steps) above: :func:`bwd_route` names the form, and
+each is one count of ``ssm_scan_bwd``.
 
 :func:`ssm_scan_heads` takes Mamba-2's per-head dt_h [B, T, H] and a_h
 [H]; it runs the same forward on their broadcast, and its Function,
@@ -44,9 +48,13 @@ F32 = torch.float32
 X_TYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [kc.P] * 6 + [kc.I] * 5 + [kc.P] * 4
 _BWD_ARGTYPES = [kc.P] * 10 + [kc.I] * 5 + [kc.P] * 7
+_CHUNKS_BWD_ARGTYPES = [kc.P] * 11 + [kc.I] * 5 + [kc.P] * 7
 _HEADS_BWD_ARGTYPES = [kc.P] * 10 + [kc.I] * 6 + [kc.P] * 7
 MAX_STATE = 16 * 32
 MAX_GRID_YZ = 65535   # a launch's grid in y and z
+# The general-A backward's chunk form takes up to CHUNKS_MAX_N states, its
+# walk form more.
+CHUNKS_MAX_N = 64
 # The per-head backward's shapes: heads of HEADS_P channels, N a multiple
 # of 4 up to HEADS_MAX_N states.
 HEADS_P, HEADS_MAX_N = 64, 64
@@ -101,24 +109,87 @@ def ssm_scan_bwd(x, dt, A, Bm, Cm, D, h_chunks, dy, dh_final=None):
     inputs, its checkpoints ``h_chunks`` and the gradients of y (dy [B,
     T, di]) and of the final state (dh_final [B, di, N], or None for 0).
     dx comes back in x's type (float32 or bfloat16; float32 for any
-    other), the rest in float32.  On the card one launch of the backward
-    kernel, then ``torch.sum`` of its partial sums."""
+    other), the rest in float32.  On the card the form that
+    :func:`bwd_route` names for N: :func:`ssm_scan_bwd_chunks` or
+    :func:`ssm_scan_bwd_walk`."""
     if not x.is_cuda:
         return ssm_scan_bwd_ref(x, dt, A, Bm, Cm, D, h_chunks, dy, dh_final)
+    form = (ssm_scan_bwd_chunks if bwd_route(A.shape[1]) == "chunks"
+            else ssm_scan_bwd_walk)
+    return form(x, dt, A, Bm, Cm, D, h_chunks, dy, dh_final)
+
+
+def bwd_route(n: int) -> str:
+    """The form of the general-A backward for ``n`` states: "chunks" up
+    to ``CHUNKS_MAX_N``, else "walk"."""
+    return "chunks" if n <= CHUNKS_MAX_N else "walk"
+
+
+def _bwd_card_args(x, dt, A, Bm, Cm, D, h_chunks, dy, dh_final):
+    """The backward kernels' inputs, checked: ``(x, pointers, tensors)``,
+    the pointers of x .. D, h_chunks, dy and dh_final (None for 0), and
+    the tensors behind them, which the caller holds until its launch."""
     b, t, di = x.shape
     n = A.shape[1]
-    (x, *_), ptrs = _card_inputs(x, dt, A, Bm, Cm, D)
+    args, ptrs = _card_inputs(x, dt, A, Bm, Cm, D)
     hc = h_chunks.to(F32).contiguous()
     dy = dy.to(F32).contiguous()
-    extra = [kc.check(hc, "h_chunks", F32, (b, -(-t // CHUNK), di, n)),
+    ptrs += [kc.check(hc, "h_chunks", F32, (b, -(-t // CHUNK), di, n)),
              kc.check(dy, "dy", F32, (b, t, di))]
     if dh_final is None:
-        extra.append(None)
+        ptrs.append(None)
     else:
         dh_final = dh_final.to(F32).contiguous()
-        extra.append(kc.check(dh_final, "dh_final", F32, (b, di, n)))
+        ptrs.append(kc.check(dh_final, "dh_final", F32, (b, di, n)))
+    return args[0], ptrs, (args, hc, dy, dh_final)
+
+
+def ssm_scan_bwd_chunks(x, dt, A, Bm, Cm, D, h_chunks, dy, dh_final=None):
+    """:func:`ssm_scan_bwd`'s chunk form, N up to ``CHUNKS_MAX_N``: one
+    launch of ``ssm_scan_bwd_chunks_launch`` (a carry kernel over chunks
+    1 .. of the summaries that pass g back across a chunk, then a block
+    per group of channels, chunk and batch row), then ``torch.sum`` of
+    its partial sums.  Raises on more states, or more than
+    ``MAX_GRID_YZ`` batch rows or chunks."""
+    b, t, di = x.shape
+    n = A.shape[1]
+    nc = -(-t // CHUNK)
+    if b > MAX_GRID_YZ or nc > MAX_GRID_YZ:
+        raise ValueError(f"ssm_scan_bwd_chunks takes at most {MAX_GRID_YZ} "
+                         f"batch rows and chunks, not {b} and {nc}")
+    channels, _ = bwd_plan(n, "chunks")
+    x, ptrs, _keep = _bwd_card_args(x, dt, A, Bm, Cm, D, h_chunks, dy,
+                                    dh_final)
+    blocks = -(-di // channels)
+    dev = x.device
+    g_sum = torch.empty((b, nc, di, n), dtype=F32, device=dev)
+    dt_sum = torch.empty((b, nc, di), dtype=F32, device=dev)
+    dx = torch.empty((b, t, di), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, t, di), dtype=F32, device=dev)
+    dbp = torch.empty((blocks, b, t, n), dtype=F32, device=dev)
+    dcp = torch.empty_like(dbp)
+    dap = torch.empty((b, nc, di, n), dtype=F32, device=dev)
+    ddp = torch.empty((b, nc, di), dtype=F32, device=dev)
+    fn = kc.kernel_fn(BWD_NAME, "ssm_scan_bwd_chunks_launch",
+                      _CHUNKS_BWD_ARGTYPES)
+    kc.launch(BWD_NAME, fn, *ptrs, g_sum.data_ptr(), dt_sum.data_ptr(), b, t,
+              di, n, int(x.dtype == torch.bfloat16), dx.data_ptr(),
+              ddt.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), dap.data_ptr(),
+              ddp.data_ptr())
+    return dx, ddt, dap.sum((0, 1)), dbp.sum(0), dcp.sum(0), ddp.sum((0, 1))
+
+
+def ssm_scan_bwd_walk(x, dt, A, Bm, Cm, D, h_chunks, dy, dh_final=None):
+    """:func:`ssm_scan_bwd`'s walk form (a block per group of channels and
+    batch row walks all T steps back), which the tree's build takes for
+    N above ``CHUNKS_MAX_N``: one launch of ``ssm_scan_bwd_launch``, then
+    ``torch.sum`` of its partial sums."""
+    b, t, di = x.shape
+    n = A.shape[1]
+    channels, scratch_floats = bwd_plan(n, "walk")
+    x, ptrs, _keep = _bwd_card_args(x, dt, A, Bm, Cm, D, h_chunks, dy,
+                                    dh_final)
     fn = kc.kernel_fn(BWD_NAME, "ssm_scan_bwd_launch", _BWD_ARGTYPES)
-    channels, scratch_floats = bwd_plan(n)
     blocks = -(-di // channels)
     scratch = torch.empty((b * blocks * scratch_floats,), dtype=F32,
                           device=x.device)
@@ -128,23 +199,43 @@ def ssm_scan_bwd(x, dt, A, Bm, Cm, D, h_chunks, dy, dh_final=None):
     dcp = torch.empty_like(dbp)
     dap = torch.empty((b, di, n), dtype=F32, device=x.device)
     ddp = torch.empty((b, di), dtype=F32, device=x.device)
-    kc.launch(BWD_NAME, fn, *ptrs, *extra, scratch.data_ptr(), b, t, di, n,
+    kc.launch(BWD_NAME, fn, *ptrs, scratch.data_ptr(), b, t, di, n,
               int(x.dtype == torch.bfloat16), dx.data_ptr(), ddt.data_ptr(),
               dbp.data_ptr(), dcp.data_ptr(), dap.data_ptr(), ddp.data_ptr())
     return dx, ddt, dap.sum(0), dbp.sum(0), dcp.sum(0), ddp.sum(0)
 
 
-def bwd_plan(n: int) -> tuple[int, int]:
+def bwd_plan(n: int, form: str) -> tuple[int, int]:
     """(channels per block, floats of global scratch per block) of the
-    backward kernel for ``n`` states, from the C source's shape: its dB
-    and dC partial sums have ceil(di / channels) rows, and it keeps each
-    chunk's tile-start states in the scratch."""
-    plan = tuple(kc.kernel_fn(BWD_NAME, symbol, [kc.I])(n) for symbol in (
-        "ssm_scan_bwd_channels", "ssm_scan_bwd_scratch"))
-    if min(plan) <= 0:
-        raise ValueError(f"ssm_scan_bwd takes at most {MAX_STATE} states, "
-                         f"not {n}")
+    general-A backward's ``form`` ("chunks" or "walk") for ``n`` states,
+    from the C source's shapes: its dB and dC partial sums have
+    ceil(di / channels) rows.  The walk form keeps each chunk's
+    tile-start states in that scratch; the chunk form's scratch is per
+    call, the chunk summaries [B, chunks, di, N] and [B, chunks, di]
+    (0 here)."""
+    if form == "chunks":
+        plan = (kc.kernel_fn(BWD_NAME, "ssm_scan_bwd_chunks_channels",
+                             [kc.I])(n), 0)
+    else:
+        plan = tuple(kc.kernel_fn(BWD_NAME, symbol, [kc.I])(n)
+                     for symbol in ("ssm_scan_bwd_channels",
+                                    "ssm_scan_bwd_scratch"))
+    if plan[0] <= 0 or plan[1] < 0:
+        raise ValueError(f"the {form} form of ssm_scan_bwd does not take "
+                         f"{n} states in this build (chunks: N <= "
+                         f"{CHUNKS_MAX_N}; walk: {CHUNKS_MAX_N} < N <= "
+                         f"{MAX_STATE})")
     return plan
+
+
+def bwd_resident_warps(n: int, x_bf16: bool) -> dict[str, int]:
+    """Resident warps an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    times the block's warps) of each kernel that the backward's form for
+    ``n`` states and x's type launches, by kernel name."""
+    fn = kc.kernel_fn(BWD_NAME, "ssm_scan_bwd_resident_warps", [kc.I] * 3)
+    names = ({"ssm_scan_bwd_chunk_kernel": 0, "ssm_scan_bwd_carry_kernel": 1}
+             if bwd_route(n) == "chunks" else {"ssm_scan_bwd_kernel": 2})
+    return {name: fn(n, int(x_bf16), k) for name, k in names.items()}
 
 
 def heads_bwd_group() -> int:

@@ -1292,16 +1292,23 @@ def _check_bwd(got, want, tol=1e-4):
 @pytest.mark.parametrize("b,t,din,n", [(2, 130, 100, 8), (1, 64, 256, 64),
                                        (2, 300, 200, 16), (1, 40, 5120, 64),
                                        (1, 33, 70, 100),
-                                       (1, 40, 96, scan.MAX_STATE)])
+                                       (1, 40, 96, scan.MAX_STATE),
+                                       (1, 65, 70, 16), (1, 128, 96, 32),
+                                       (1, 1000, 48, 16), (2, 64, 130, 4),
+                                       (1, 40, 8192, 16)])
 def test_ssm_scan_bwd_kernel_matches_plain(cuda, b, t, din, n, kind):
     """``ssm_scan_bwd`` (one launch) against ``ssm_scan_bwd_ref`` on the
     card, each gradient within 1e-4 of its largest |.| (the forward's
     bound: the card's expf, and sums in another order: dB and dC over up
-    to 5120 channels, du and q . A over up to 512 states, dA and dD over
+    to 8192 channels, du and q . A over up to 512 states, dA and dD over
     the batch and the steps, the states recomputed from the checkpoints
-    along 64 steps), over the forward's shapes: T past and short of a
-    chunk, di not a multiple of the block, N from 8 to MAX_STATE, A
-    general, per head or both in a block."""
+    along 64 steps, g carried back across up to 15 chunks), over the
+    forward's shapes and both forms of the backward (the chunk form up to
+    N 64, the walk form above): T short of a chunk, at one (64, 128),
+    one step past one (65) and over many (1000), di not a multiple of
+    the block's channels (70, 100, 130), falcon-mamba's width (8192) at
+    a short T, N from 4 to MAX_STATE, A general, per head or both in a
+    block."""
     args, hc, dy, dh = _bwd_case(cuda, b, t, din, n, kind, t + din + n)
     before = kc.launches["ssm_scan_bwd"]
     got = scan.ssm_scan_bwd(*args, hc, dy, dh)
@@ -1345,10 +1352,14 @@ def test_ssm_scan_bwd_takes_the_final_state_gradient(cuda, b, t, din, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,din,n,kind", [(4, 512, 5120, 64, "per_head"),
-                                            (2, 130, 100, 16, "mixed")])
+                                            (2, 130, 100, 16, "mixed"),
+                                            (4, 512, 8192, 16, "general"),
+                                            (1, 1000, 100, 16, "mixed"),
+                                            (1, 130, 70, 100, "mixed")])
 def test_ssm_scan_bwd_is_deterministic(cuda, b, t, din, n, kind):
     """No atomics: two calls on the same inputs give the same bits in all
-    six gradients (zamba2's training shape, and a ragged mixed one)."""
+    six gradients (zamba2's and falcon-mamba's training shapes, a ragged
+    mixed one, many chunks, and the walk form at N 100)."""
     args, hc, dy, dh = _bwd_case(cuda, b, t, din, n, kind, 11)
     first = scan.ssm_scan_bwd(*args, hc, dy, dh)
     second = scan.ssm_scan_bwd(*args, hc, dy, dh)

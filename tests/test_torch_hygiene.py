@@ -592,6 +592,8 @@ def test_variant_swaps_a_sources_build_and_restores_it():
      "flash_attention_bwd_launch"),
     ("ssm_scan", "_ARGTYPES", "ssm_scan.cu", "ssm_scan_launch"),
     ("ssm_scan", "_BWD_ARGTYPES", "ssm_scan_bwd.cu", "ssm_scan_bwd_launch"),
+    ("ssm_scan", "_CHUNKS_BWD_ARGTYPES", "ssm_scan_bwd.cu",
+     "ssm_scan_bwd_chunks_launch"),
     ("ssm_scan", "_HEADS_BWD_ARGTYPES", "ssm_scan_bwd_chunked.cu",
      "ssm_scan_heads_bwd_launch")])
 def test_ctypes_signatures_match_the_c_entry_points(module, attr, source,
