@@ -22,7 +22,8 @@ Phases, each fatal on failure:
              bitwise on every output of the SNN kernels, on inputs taken
              from the first block of each path below, in every mode the
              fabric uses, and flash attention and the SSM scan at the
-             serve paths' prefill shapes (each flash and scan row also
+             serve paths' prefill shapes (flash at granite-moe's head
+             size 64 too; each flash and scan row also
              prints its design, TFLOP/s and share of the bound, flash its
              time over SDPA's; the scan runs on the path's inputs, A per
              head, and on a general A); its time
@@ -37,8 +38,9 @@ Phases, each fatal on failure:
              with lse and ``flash_attention_bwd`` (its two kernels, dQ and
              dK/dV, timed together and apart; bf16 on ``mma.sync``,
              float32 in 3xTF32 on ``mma.sync``, each case with its route
-             and its kernels' registers and spill bytes) at internlm2's
-             and zamba2's training heads, in f32 and after cached keys,
+             and its kernels' registers and spill bytes) at internlm2's,
+             zamba2's and granite-moe's training heads, in f32 and after
+             cached keys,
              elementwise within ``attention_bwd_bounds`` (a peaked f32
              softmax within ``tf32x3_bwd_bounds``), beside SDPA's
              backward; the scan with its state checkpoints (at the
@@ -192,20 +194,28 @@ Phases, each fatal on failure:
              process group destroyed at the end;
   8. serve-check  zamba2-2.7b at full width, one pattern repeat (6
              layers), then falcon-mamba-7b at full width, 4 Mamba-1 layers
-             with its published A, float32, batch 1, prompt 300, 8
-             teacher-forced decode steps: the card (kernels) against the
-             plain path on the CPU from the same weights and tokens, every
-             step's logits within 1e-3 of the largest |logit|;
+             with its published A, then granite-moe-1b-a400m at full
+             width, 2 attention+MoE layers, float32, batch 1, prompt 300,
+             8 teacher-forced decode steps: the card (kernels) against the
+             plain path on the CPU from the same weights and tokens,
+             granite's routing of every MoE call bitwise first (expert
+             choices, slots, counts; the smallest gap between the k-th
+             and (k+1)-th router probability printed), every step's
+             logits within 1e-3 of the largest |logit|;
   9. serve   ``launch.serve.main`` on zamba2-2.7b (54 layers),
-             internlm2-1.8b (24 layers) and falcon-mamba-7b (64 layers)
-             at full width in bfloat16, batch 4, prompt 2048, 32 tokens:
-             prefill must launch flash_attention 9 and ssm_scan 54 times
-             (zamba2), flash_attention 24 times (internlm2) or ssm_scan 64
-             times (falcon-mamba), and decode none of the port's kernels;
-             then, from the same weights (falcon-mamba's with its
-             published A, no layer's A with a constant row), prefill + one
-             decode step against a full forward at the next position, in
-             float32 and in bf16 (``consistency``); tok/s and peak memory;
+             internlm2-1.8b (24 layers), falcon-mamba-7b (64 layers) and
+             granite-moe-1b-a400m (24 layers, 32 experts top-8) at full
+             width in bfloat16, batch 4, prompt 2048, 32 tokens: prefill
+             must launch flash_attention 9 and ssm_scan 54 times
+             (zamba2), flash_attention 24 times (internlm2, granite) or
+             ssm_scan 64 times (falcon-mamba), and decode none of the
+             port's kernels; then, from the same weights (falcon-mamba's
+             with its published A, no layer's A with a constant row;
+             granite's prefill routing metrics at its capacity factor
+             1.25 printed first), prefill + one decode step against a
+             full forward at the next position, in float32 and in bf16
+             (``consistency``; granite at capacity factor 8); tok/s and
+             peak memory;
      bf16-check  internlm2-1.8b at full width, 2 layers, bf16: a forward's
              logits on the card against the plain path on the CPU, within
              2^-4 of the largest |logit|;
@@ -213,6 +223,8 @@ Phases, each fatal on failure:
              and every gradient of ``lm.loss_fn`` on the card (remat off
              and full) against the CPU, the loss within 1e-5 relative and
              each gradient within 1e-3 of its leaf's largest |g|; then
+             granite-moe-1b-a400m the same way, its routing bitwise
+             first; then
              zamba2-2.7b at full width, 6 layers, float32, batch 2 x 100:
              the same on the card (remat off and full) against the CPU,
              every gradient within ``ZAMBA2_GRAD_BOUND`` of its leaf's
@@ -236,7 +248,12 @@ Phases, each fatal on failure:
              then falcon-mamba-7b at full width, 16 of its 64 layers, its
              published A, 3 steps, no checkpoint: 16 ssm_scan and 16
              ssm_scan_bwd launches per step (0 of ssm_scan_heads_bwd),
-             and the device ms a step of ssm_scan_bwd's kernels;
+             and the device ms a step of ssm_scan_bwd's kernels; then
+             granite-moe-1b-a400m at full width and depth, 4 steps, no
+             checkpoint: 24 flash_attention and 24 flash_attention_bwd
+             launches per step, no scan kernel, and the step's MoE
+             metrics (aux_loss, drop_fraction, bucket_utilization)
+             finite;
  10. profile where a block's time goes on each path (torch.profiler):
              wall and device-busy time per step, the idle share, kernel
              launches per step, the costliest kernels and the device time
@@ -379,6 +396,62 @@ def set_general_a(params) -> None:
         if bool((a == a[..., :1]).all(-1).any()):
             raise AssertionError("set_general_a: a layer's A has a "
                                  "constant row")
+
+
+@contextlib.contextmanager
+def moe_routings(store: list):
+    """Record every MoE layer call's integer routing (expert choices,
+    slots, counts; on the CPU) and the gap between the k-th and (k+1)-th
+    router probability of each token, in call order, while the block
+    runs."""
+    from repro_torch.models import moe as moem
+
+    orig = moem.moe_apply
+
+    def wrapped(cfg, p, x, routing=None):
+        r = {}
+        out = orig(cfg, p, x, routing=r)
+        top = torch.sort(r["probs"].detach().float(), dim=-1,
+                         descending=True).values
+        gap = (top[..., cfg.top_k - 1] - top[..., cfg.top_k]
+               if cfg.top_k < cfg.n_experts else torch.ones_like(top[..., 0]))
+        store.append(dict(expert_idx=r["expert_idx"].cpu(),
+                          slot=r["slot"].cpu(), counts=r["counts"].cpu(),
+                          gap=gap.cpu()))
+        if routing is not None:
+            routing.update(r)
+        return out
+
+    moem.moe_apply = wrapped
+    try:
+        yield
+    finally:
+        moem.moe_apply = orig
+
+
+def routing_check(label: str, got: list, want: list) -> float:
+    """The card's MoE routing against the CPU's, call by call, bitwise
+    (expert choices, then slots, then counts), before any float is
+    compared; prints the smallest gap between the k-th and (k+1)-th
+    router probability over every token and layer of the CPU run, and
+    raises on the first call that differs, with the gaps of the tokens
+    whose choices differ.  Returns the smallest gap."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} MoE calls on the card, "
+                             f"{len(want)} on the CPU")
+    gap = min(float(w["gap"].min()) for w in want) if want else float("nan")
+    print(f"[{label}] MoE routing: {len(want)} layer calls, smallest gap "
+          f"between the k-th and (k+1)-th router probability {gap:.3g}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in ("expert_idx", "slot", "counts"):
+            if not torch.equal(g[key], w[key]):
+                flips = (g["expert_idx"] != w["expert_idx"]).any(-1)
+                raise AssertionError(
+                    f"{label}: MoE call {i}: {key} differs from the CPU's "
+                    f"({int(flips.sum())} tokens choose other experts; "
+                    f"their gaps on the CPU "
+                    f"{w['gap'][flips].flatten()[:8].tolist()})")
+    return gap
 
 
 @contextlib.contextmanager
@@ -1363,7 +1436,8 @@ def causal_pairs(sq: int, skv: int, q_offset: int) -> int:
 
 
 def lm_kernel_cases(device, seed: int) -> list[dict]:
-    """flash_attention at the zamba2 and internlm2 prefill shapes (bf16),
+    """flash_attention at the zamba2, internlm2 and granite-moe prefill
+    shapes (bf16; granite's head size 64),
     in f32, on a ragged length and after a cached prefix; ssm_scan at the
     zamba2 prefill shape, on inputs made as the serve path makes them (x
     bf16, dt per head from softplus, A per head of 80 channels: one exp
@@ -1395,6 +1469,8 @@ def lm_kernel_cases(device, seed: int) -> list[dict]:
             ("zamba2 prefill bf16", 4, 32, 32, 2048, 2048, 80,
              torch.bfloat16, 0, True),
             ("internlm2 prefill bf16", 4, 16, 8, 2048, 2048, 128,
+             torch.bfloat16, 0, False),
+            ("granite prefill bf16", 4, 16, 8, 2048, 2048, 64,
              torch.bfloat16, 0, False),
             ("GQA 4 bf16", 4, 32, 8, 2048, 2048, 128, torch.bfloat16, 0,
              False),
@@ -1715,7 +1791,8 @@ def flash_train_cases(device, gen) -> list[dict]:
     """The training path's attention kernels at its shapes: the forward
     with lse at internlm2's training heads (bf16 [4, 16, 512, 128]), and
     ``flash_attention_bwd`` there (the main case), at zamba2's head size
-    (bf16 [4, 32, 512, 80]), in float32 (the train-check's [2, 16, 64,
+    (bf16 [4, 32, 512, 80]), at granite-moe's (bf16 [4, 16, 512, 64], GQA
+    2), in float32 (the train-check's [2, 16, 64,
     128], [1, 16, 512, 128], zamba2's heads [1, 32, 512, 80], and a
     peaked softmax: [1, 16, 512, 128] with q eight times larger) and
     after 71 cached keys (GQA 4, both types).
@@ -1773,6 +1850,8 @@ def flash_train_cases(device, gen) -> list[dict]:
             ("internlm2 train bf16", 4, 16, 8, 512, 512, 128,
              torch.bfloat16, 0, True, 1),
             ("zamba2 heads bf16", 4, 32, 32, 512, 512, 80, torch.bfloat16,
+             0, False, 1),
+            ("granite train bf16", 4, 16, 8, 512, 512, 64, torch.bfloat16,
              0, False, 1),
             ("train-check f32", 2, 16, 8, 64, 64, 128, f32, 0, False, 1),
             ("internlm2 f32, batch 1", 1, 16, 8, 512, 512, 128, f32, 0,
@@ -3085,9 +3164,12 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
 
 # The serve-checks, (arch, layers) at full width in float32: zamba2's one
 # pattern repeat (five Mamba-2 blocks, then the shared attention+MLP block
-# and a sixth), and 4 of falcon-mamba's Mamba-1 blocks with its published
-# A (the scan's general route).
-SERVE_CHECKS = (("zamba2-2.7b", 6), ("falcon-mamba-7b", 4))
+# and a sixth), 4 of falcon-mamba's Mamba-1 blocks with its published A
+# (the scan's general route), and 2 of granite-moe's attention+MoE blocks
+# (32 experts, top-8, its own capacity factor), the routing compared
+# first.
+SERVE_CHECKS = (("zamba2-2.7b", 6), ("falcon-mamba-7b", 4),
+                ("granite-moe-1b-a400m", 2))
 
 
 def serve_check(device, seed: int, prompt: int = 300,
@@ -3108,10 +3190,12 @@ def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
     """``arch`` at full width, ``layers`` layers, float32, batch 1:
     prefill and ``steps`` teacher-forced decode steps on the card
     (kernels) and on the CPU (plain versions) from the same weights and
-    tokens (a Mamba-1 arch with :func:`set_general_a`).  Every step's
-    logits agree within 1e-3 of the largest |logit| (f32 sums in another
-    order through every layer); the prefill launches ssm_scan once a
-    layer and flash_attention once an attention layer."""
+    tokens (a Mamba-1 arch with :func:`set_general_a`).  An MoE arch's
+    routing (every layer, prefill and decode) must equal the CPU's
+    bitwise (:func:`routing_check`).  Every step's logits agree within
+    1e-3 of the largest |logit| (f32 sums in another order through every
+    layer); the prefill launches ssm_scan once a Mamba layer and
+    flash_attention once an attention layer."""
     from repro_torch import configs as C
     from repro_torch.kernels import common as kc
     from repro_torch.models import lm
@@ -3130,8 +3214,9 @@ def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
         tk = tokens.to(dev)
         torch.cuda.synchronize()
         kc.reset_launches()
+        routes = []
         t_start = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), moe_routings(routes):
             last, cache = lm.prefill(cfg, p, {"tokens": tk[:, :prompt]})
             cache = lm.pad_cache(cfg, cache, prompt + steps)
             rows = [last]
@@ -3140,13 +3225,17 @@ def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
                                       prompt + i)
                 rows.append(lg)
         logits = torch.cat(rows).float().cpu()
-        return logits, time.perf_counter() - t_start, dict(kc.launches)
+        return (logits, time.perf_counter() - t_start, dict(kc.launches),
+                routes)
 
-    (gpu, t_gpu, counts), (cpu, t_cpu, _) = (
+    (gpu, t_gpu, counts, r_gpu), (cpu, t_cpu, _, r_cpu) = (
         run(dev) for dev in (device, torch.device("cpu")))
     del params
-    if (counts["flash_attention"], counts["ssm_scan"]) != (cfg.attn_layers,
-                                                           layers):
+    gap = None
+    if cfg.n_experts:
+        gap = routing_check(f"serve-check {arch}", r_gpu, r_cpu)
+    if (counts["flash_attention"], counts["ssm_scan"]) != (
+            cfg.attn_layers, layers if cfg.ssm_state else 0):
         raise AssertionError(f"serve-check {arch}: launches {counts}")
     scale = float(cpu.abs().max())
     err = (gpu - cpu).abs().amax(dim=-1)
@@ -3163,12 +3252,17 @@ def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
                              f"from the CPU's beyond 1e-3 of the largest "
                              f"|logit|")
     return dict(max_rel_err=float(err.max()) / scale, greedy_equal=agree,
-                steps=steps + 1, launches=counts)
+                steps=steps + 1, launches=counts, moe_smallest_gap=gap)
 
 
 # (arch, flash_attention launches, ssm_scan launches) a prefill.
 SERVE_RUNS = (("zamba2-2.7b", 9, 54), ("internlm2-1.8b", 24, 0),
-              ("falcon-mamba-7b", 0, 64))
+              ("falcon-mamba-7b", 0, 64), ("granite-moe-1b-a400m", 24, 0))
+# The capacity factor of an MoE model's consistency check: capacity
+# depends on the tokens of a call (a prefill's S, a forward's S + 1, a
+# decode step's B), so at the config's own factor the three would drop
+# other lanes; at 8, as the reference's own test runs it, none drops.
+MOE_CONSISTENCY_CF = 8.0
 SERVE_ARGS = dict(batch=4, prompt=2048, gen=32)
 
 
@@ -3178,17 +3272,20 @@ def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
     forward at the next position, and a profile of one prefill and of 4
     decode steps.  ``serve.main`` draws the reference's init, whose
     Mamba-1 A has constant rows; the consistency check and the profile
-    run falcon-mamba with :func:`set_general_a`.  The serve run's counts
-    are one prefill's: the decode loop is plain torch and launches none
-    of the port's kernels.  Returns (launches, metrics, profile) by
-    path."""
+    run falcon-mamba with :func:`set_general_a`; an MoE arch's runs the
+    consistency at ``MOE_CONSISTENCY_CF`` and first prints a prefill's
+    routing metrics at the config's own capacity factor.  The serve
+    run's counts are one prefill's: the decode loop is plain torch and
+    launches none of the port's kernels.  Returns (launches, metrics,
+    profile) by path."""
     import io
     import re
 
     from repro_torch import configs as C
     from repro_torch.kernels import common as kc
     from repro_torch.launch import serve
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
+    from repro_torch.models import transformer as tfm
 
     b, s, n_gen = SERVE_ARGS["batch"], SERVE_ARGS["prompt"], SERVE_ARGS["gen"]
     counts, metrics, profile = {}, {}, {}
@@ -3244,10 +3341,29 @@ def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
         tokens = torch.randint(
             0, cfg.vocab_size, (b, s + 1), device=device, dtype=torch.int32,
             generator=torch.Generator(device=device).manual_seed(seed + 1))
-        consistency(label, cfg, params, tokens)
+        check_cfg = cfg
+        if cfg.n_experts:
+            with torch.no_grad():
+                m = tfm.forward(cfg, params, tokens[:, :s]).metrics
+            row.update({k: float(v) for k, v in m.items()},
+                       capacity=moe.capacity(cfg, b * s))
+            print(f"[{label}] a prefill's MoE routing at capacity factor "
+                  f"{cfg.capacity_factor} ({row['capacity']} slots an "
+                  f"expert for {b * s} tokens x top-{cfg.top_k}): "
+                  f"drop_fraction {row['drop_fraction']:.6f}, "
+                  f"bucket_utilization {row['bucket_utilization']:.6f}, "
+                  f"aux_loss {row['aux_loss']:.6f} (averaged over "
+                  f"{cfg.n_layers} layers); the consistency check runs at "
+                  f"capacity factor {MOE_CONSISTENCY_CF}, where no lane "
+                  f"drops")
+            check_cfg = dataclasses.replace(
+                cfg, capacity_factor=MOE_CONSISTENCY_CF)
+        consistency(label, check_cfg, params, tokens)
         profile.update(serve_profile(label, cfg, params, tokens[:, :s]))
         metrics[label] = row
         del params
+        print(f"[time] {label}: {time.perf_counter() - t_start:.1f} s with "
+              f"its checks and profile")
     return counts, metrics, profile
 
 
@@ -3358,15 +3474,20 @@ def serve_profile(label: str, cfg, params, tokens, steps: int = 4) -> dict:
 
 
 # The training path's runs: internlm2-1.8b with one checkpoint of the
-# whole state, then zamba2-2.7b and falcon-mamba-7b (no checkpoint write,
-# to stay in time).  falcon-mamba trains at full width on 16 of its 64
+# whole state, then zamba2-2.7b, falcon-mamba-7b and granite-moe-1b-a400m
+# (no checkpoint write, to stay in time).  falcon-mamba trains at full width on 16 of its 64
 # layers: at full depth its float32 AdamW moments alone take 58 GB.
 TRAIN_RUNS = (dict(arch="internlm2-1.8b", batch=4, seq=512, steps=4,
                    ckpt=True),
               dict(arch="zamba2-2.7b", batch=4, seq=512, steps=3,
                    ckpt=False),
               dict(arch="falcon-mamba-7b", batch=4, seq=512, steps=3,
-                   ckpt=False, layers=16))
+                   ckpt=False, layers=16),
+              dict(arch="granite-moe-1b-a400m", batch=4, seq=512, steps=4,
+                   ckpt=False))
+
+
+MOE_METRICS = ("aux_loss", "drop_fraction", "bucket_utilization")
 
 
 def train_phase(device, seed: int) -> tuple[dict, dict, dict]:
@@ -3375,12 +3496,15 @@ def train_phase(device, seed: int) -> tuple[dict, dict, dict]:
     ``layers`` (internlm2-1.8b: 24 layers, d_model 2048; zamba2-2.7b: 54
     Mamba-2 layers, d_model 2560, the shared attention block at every
     6th; falcon-mamba-7b: 16 of its 64 Mamba-1 layers, d_model 4096, with
-    :func:`set_general_a`), batch 4 x 512, ``steps`` AdamW steps through
+    :func:`set_general_a`; granite-moe-1b-a400m: 24 attention+MoE layers,
+    d_model 1024, 32 experts top-8), batch 4 x 512, ``steps`` AdamW steps
+    through
     ``launch.train.make_step`` (remat off, as the CLI), the data stream
     through the ``Prefetcher``; for internlm2 one checkpoint of the whole
     state through ``AsyncCheckpointer`` into a temporary directory; then
     one more step under the profiler.  Every step's loss must be finite
-    and its grad norm finite and nonzero, and each step must launch
+    and its grad norm finite and nonzero (an MoE arch's step metrics must
+    carry ``MOE_METRICS``, finite), and each step must launch
     flash_attention and flash_attention_bwd once per attention layer and
     ssm_scan once per Mamba layer, with the backward of its version once
     per Mamba layer (Mamba-2: ssm_scan_heads_bwd; Mamba-1: the
@@ -3389,9 +3513,12 @@ def train_phase(device, seed: int) -> tuple[dict, dict, dict]:
     summed over the runs, metrics by arch, profile rows)."""
     counts, metrics, profile = {}, {}, {}
     for run in TRAIN_RUNS:
+        t_start = time.perf_counter()
         c, metrics[run["arch"]], row = train_run(device, seed, **run)
         counts = {k: counts.get(k, 0) + v for k, v in c.items()}
         profile.update(row)
+        print(f"[time] train {run['arch']}: "
+              f"{time.perf_counter() - t_start:.1f} s with its profile")
     return counts, metrics, profile
 
 
@@ -3448,14 +3575,20 @@ def train_run(device, seed: int, arch: str, batch: int, seq: int,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t_start
             per = {k: kc.launches[k] - before[k] for k in want}
+            moe_m = {k: float(m[k]) for k in MOE_METRICS if k in m}
             rows.append(dict(step=step, loss=loss, grad_norm=gnorm,
-                             wall_s=wall, tok_s=tokens / wall))
+                             wall_s=wall, tok_s=tokens / wall, **moe_m))
             print(f"[train] {arch} step {step}: loss {loss:.4f}, grad_norm "
                   f"{gnorm:.4f}, {wall * 1e3:.1f} ms, {tokens / wall:.1f} "
-                  f"tok/s; launches {per}")
-            if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0):
+                  f"tok/s; launches {per}"
+                  + "".join(f"; {k} {v:.6f}" for k, v in moe_m.items()))
+            if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0
+                    and all(np.isfinite(v) for v in moe_m.values())):
                 raise AssertionError(f"train {arch} step {step}: loss "
-                                     f"{loss}, grad_norm {gnorm}")
+                                     f"{loss}, grad_norm {gnorm}, {moe_m}")
+            if cfg.n_experts and len(moe_m) != len(MOE_METRICS):
+                raise AssertionError(f"train {arch}: the step's metrics "
+                                     f"lack the MoE's: {sorted(m)}")
             if per != want:
                 raise AssertionError(f"train {arch} step {step}: launches "
                                      f"{per}, expected {want} per step")
@@ -3512,29 +3645,52 @@ def train_run(device, seed: int, arch: str, batch: int, seq: int,
     return counts, metrics, profile
 
 
-def train_check(device, seed: int, layers: int = 2, batch: int = 2,
-                seq: int = 64) -> dict:
-    """internlm2-1.8b at full width, ``layers`` layers, float32 (TF32
-    off): loss and every gradient of ``lm.loss_fn`` on the card (the flash
+# The attention train-checks, (arch, layers) at full width in float32:
+# internlm2's dense blocks, then granite-moe's attention+MoE blocks (32
+# experts, top-8, its own capacity factor), the routing compared first.
+ATTN_TRAIN_CHECKS = (("internlm2-1.8b", 2), ("granite-moe-1b-a400m", 2))
+
+
+def train_check(device, seed: int) -> dict:
+    """The attention archs of ``ATTN_TRAIN_CHECKS``
+    (:func:`attn_train_check`), then the SSM archs of
+    ``SSM_TRAIN_CHECKS`` (:func:`ssm_train_check`).  Returns the rows of
+    all and the launches of their card runs without remat, summed."""
+    rows, counts = {}, {}
+    for arch, n in ATTN_TRAIN_CHECKS:
+        arows, acounts = attn_train_check(device, seed, arch, n)
+        rows.update(arows)
+        counts = {k: counts.get(k, 0) + v for k, v in acounts.items()}
+    for arch, n, bound in SSM_TRAIN_CHECKS:
+        srows, scounts = ssm_train_check(device, seed, arch, n, bound)
+        rows.update(srows)
+        counts = {k: counts.get(k, 0) + v for k, v in scounts.items()}
+    return dict(rows=rows, launches=counts)
+
+
+def attn_train_check(device, seed: int, arch: str, layers: int,
+                     batch: int = 2, seq: int = 64) -> tuple[dict, dict]:
+    """``arch`` at full width, ``layers`` layers, float32 (TF32 off):
+    loss and every gradient of ``lm.loss_fn`` on the card (the flash
     forward and backward kernels, remat off and full) against the plain
-    path on the CPU from the same weights and batch.  Bound: the loss
-    within 1e-5 relative and each gradient within 1e-3 of its leaf's
-    largest |g| (f32 sums of up to 8192 terms in another order, 3xTF32
-    in the forward, within 2e-5 of its output, through two layers and the
-    head; the CPU tests hold the plain path to JAX within 1e-5 on the
-    reduced config).  Gradients, not parameters after a step: AdamW's
-    first step is about lr sign(g), which amplifies noise where g ~ 0.
-    Then the SSM archs of ``SSM_TRAIN_CHECKS`` (:func:`ssm_train_check`).
-    Returns the rows of all and the launches of their card runs without
-    remat, summed."""
+    path on the CPU from the same weights and batch.  An MoE arch's
+    routing (every layer's first forward) must first equal the CPU's
+    bitwise (:func:`routing_check`).  Bound: the loss within 1e-5
+    relative and each gradient within 1e-3 of its leaf's largest |g| (f32
+    sums of up to 8192 terms in another order, 3xTF32 in the forward,
+    within 2e-5 of its output, through two layers and the head; the CPU
+    tests hold the plain path to JAX within 1e-5 on the reduced config).
+    Gradients, not parameters after a step: AdamW's first step is about
+    lr sign(g), which amplifies noise where g ~ 0.  Returns (rows,
+    launches of the card run without remat)."""
     from repro_torch import configs as C
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import pipeline as dp
     from repro_torch.kernels import common as kc
-    from repro_torch.models import lm, ssm
+    from repro_torch.models import lm
     from repro_torch.models import spec as sp
 
-    cfg = dataclasses.replace(C.get("internlm2-1.8b"), n_layers=layers,
+    cfg = dataclasses.replace(C.get(arch), n_layers=layers,
                               dtype="float32", remat_policy="full")
     params = lm.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
     host = dp.batch_at(cfg, ShapeConfig("t", seq, batch, "train"), seed, 0)
@@ -3544,23 +3700,30 @@ def train_check(device, seed: int, layers: int = 2, batch: int = 2,
                               ("cpu", torch.device("cpu"), False)):
         p = sp.tree_map(lambda x: x.to(dev).requires_grad_(True), params)
         kc.reset_launches()
+        routes = []
         t_start = time.perf_counter()
-        loss, _ = lm.loss_fn(cfg, p, dp.to_device(host, dev), remat=remat)
+        with moe_routings(routes):
+            loss, _ = lm.loss_fn(cfg, p, dp.to_device(host, dev),
+                                 remat=remat)
         grads = torch.autograd.grad(loss, sp.tree_leaves(p))
         grads = [g.cpu() for g in grads]
         out[label] = (float(loss.detach()), grads, dict(kc.launches),
-                      time.perf_counter() - t_start)
+                      time.perf_counter() - t_start, routes[:layers])
         del p
     names = ["/".join(k) for k in _tree_paths(params)]
-    l_cpu, g_cpu, _, t_cpu = out["cpu"]
+    l_cpu, g_cpu, _, t_cpu, r_cpu = out["cpu"]
     rows = {}
     for label in ("card", "card, remat full"):
-        l_gpu, g_gpu, counts, t_gpu = out[label]
+        l_gpu, g_gpu, counts, t_gpu, r_gpu = out[label]
+        gap = None
+        if cfg.n_experts:
+            gap = routing_check(f"train-check {arch} [{label}]", r_gpu,
+                                r_cpu)
         rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                for a, b in zip(g_gpu, g_cpu)]
         worst = max(range(len(rel)), key=rel.__getitem__)
         dl = abs(l_gpu - l_cpu) / abs(l_cpu)
-        print(f"[train-check] internlm2-1.8b full width, {layers} layers, "
+        print(f"[train-check] {arch} full width, {layers} layers, "
               f"f32, batch {batch} x {seq}, {label}: loss {l_gpu:.6f} vs CPU "
               f"{l_cpu:.6f} (rel {dl:.3g}); max |dg| / max |g| per leaf: "
               f"worst {rel[worst]:.3g} ({names[worst]}), median "
@@ -3571,17 +3734,14 @@ def train_check(device, seed: int, layers: int = 2, batch: int = 2,
         fwd = layers * (2 if "full" in label else 1)
         if (counts["flash_attention"], counts["flash_attention_bwd"]) != (
                 fwd, layers):
-            raise AssertionError(f"train-check [{label}]: launches {counts}")
+            raise AssertionError(f"train-check {arch} [{label}]: launches "
+                                 f"{counts}")
         if dl > 1e-5 or rel[worst] > 1e-3:
-            raise AssertionError(f"train-check [{label}]: beyond the bound")
-        rows[label] = dict(loss_rel_err=dl, worst_grad_rel_err=rel[worst],
-                           worst_leaf=names[worst])
-    counts = dict(out["card"][2])
-    for arch, n, bound in SSM_TRAIN_CHECKS:
-        srows, scounts = ssm_train_check(device, seed, arch, n, bound)
-        rows.update(srows)
-        counts = {k: v + scounts[k] for k, v in counts.items()}
-    return dict(rows=rows, launches=counts)
+            raise AssertionError(f"train-check {arch} [{label}]: beyond "
+                                 f"the bound")
+        rows[f"{arch} {label}"] = dict(loss_rel_err=dl, worst_grad_rel_err=rel[worst],
+                         worst_leaf=names[worst], moe_smallest_gap=gap)
+    return rows, dict(out["card"][2])
 
 
 # The SSM train-checks: (arch, layers, gradient bound) at full width,
@@ -3784,6 +3944,10 @@ def main() -> int:
     build = kc.build()
     print(f"[build] {len(kc.SOURCES)} sources, {len(kc.KERNELS)} kernels in "
           f"{time.perf_counter() - t_start:.1f} s into {build}")
+    marks = [("start", t_start)]
+
+    def mark(phase: str) -> None:
+        marks.append((phase, time.perf_counter()))
     for name in kc.SOURCES:
         log = build / f"{name}.log"
         if log.exists():
@@ -3865,8 +4029,10 @@ def main() -> int:
     blocks = paths.first_blocks()
     cases = kernel_cases(blocks, paths, device) + lm_kernel_cases(
         device, args.seed)
+    mark("build and case inputs")
     main_rows = kernel_phase(cases)
     del cases
+    mark("kernel")
     new, old = (main_rows["ssm_scan_heads_bwd"],
                 main_rows["ssm_scan_bwd zamba2"])
     print(f"[kernel] the scan's backward at [4, 512, 5120] N 64, x bf16, A "
@@ -3884,21 +4050,29 @@ def main() -> int:
     entry = entry_phase(blocks, paths, device)
     counts = path_phase(paths, device)
     counts["entry"] = entry
+    mark("entry and paths")
     counts["resilient"] = resilient_phase(paths, device)
     telemetry = telemetry_phase(paths, device)
+    mark("resilient and telemetry")
     counts["shard"], shard_rows = shard_phase(paths, blocks, device,
                                               args.seed, args.steps)
+    mark("shard")
     check = serve_check(device, args.seed)
     counts["serve-check"] = check["launches"]
+    mark("serve-check")
     serve_counts, serve_metrics, serve_profiles = serve_phase(device,
                                                               args.seed)
     counts.update(serve_counts)
+    mark("serve")
     bf16 = bf16_check(device, args.seed)
     tcheck = train_check(device, args.seed)
     counts["train-check"] = tcheck["launches"]
+    mark("bf16-check and train-check")
     counts["train"], train_metrics, train_profile = train_phase(device,
                                                                 args.seed)
+    mark("train")
     profile = profile_phase(paths, device)
+    mark("profile")
     profile.update(shard_rows)
     profile.update(serve_profiles)
     profile.update(train_profile)
@@ -3937,7 +4111,9 @@ def main() -> int:
         profile=profile)
     print(f"[summary] {json.dumps(summary)}")
     print(f"[time] {time.perf_counter() - t_start:.1f} s from the build to "
-          f"the summary")
+          f"the summary; by phase: " + ", ".join(
+              f"{name} {t - marks[i][1]:.1f} s"
+              for i, (name, t) in enumerate(marks[1:])))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,12 @@ _MODULES = {
     "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "llama4-maverick-400b-a17b":
+        "repro_torch.configs.llama4_maverick_400b_a17b",
 }
 # Architectures of the JAX package not ported yet, and what brings each.
 _LATER = {
-    "llama4-maverick-400b-a17b": "the MoE slice",
-    "granite-moe-1b-a400m": "the MoE slice",
     "whisper-medium": "the encoder-decoder (whisper) slice",
     "mistral-nemo-12b": "the remaining dense configs",
     "yi-9b": "the remaining dense configs",

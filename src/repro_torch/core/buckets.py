@@ -61,6 +61,38 @@ def compute_slots(bucket_id: torch.Tensor, valid: torch.Tensor,
     return slot.to(I32), counts[..., :n_buckets].to(I32)
 
 
+def compute_slots_sorted(bucket_id: torch.Tensor, valid: torch.Tensor,
+                         n_buckets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rank within bucket by one stable sort (the reference's
+    ``compute_slots_sorted``, the form MoE token dispatch uses: lanes are
+    tokens x top-k, buckets are experts).
+
+    The key is ``where(valid, bucket_id, n_buckets)``; a lane's slot is its
+    position in the stable order minus the exclusive prefix of the key
+    counts at its key.  The counts follow ``jnp``'s scatter rule (a
+    negative key wraps once onto ``key + n_buckets + 1``, then an
+    out-of-range key is dropped), the prefix lookup its gather rule (wrap
+    once, then clamp), so every lane's slot, invalid and out-of-range lanes
+    included, equals the reference's bitwise.  Returns ``(slot int32[...,
+    E], counts int32[..., n_buckets])``.
+    """
+    e = bucket_id.shape[-1]
+    dev = bucket_id.device
+    nk = n_buckets + 1
+    key = torch.where(valid.bool(), bucket_id.long(), n_buckets)
+    order = torch.argsort(key, dim=-1, stable=True)
+    wrapped = torch.where(key < 0, key + nk, key)
+    hit = (wrapped >= 0) & (wrapped < nk)
+    counts = torch.zeros(key.shape[:-1] + (nk + 1,), dtype=torch.long,
+                         device=dev).scatter_add_(
+        -1, torch.where(hit, wrapped, nk), torch.ones_like(key))[..., :nk]
+    start = torch.cumsum(counts, -1) - counts
+    sorted_key = wrapped.gather(-1, order).clamp(0, nk - 1)
+    rank = torch.arange(e, device=dev) - start.gather(-1, sorted_key)
+    slot = torch.empty_like(rank).scatter_(-1, order, rank)
+    return slot.to(I32), counts[..., :n_buckets].to(I32)
+
+
 def scatter_cells(bucket_id, slot, keep, words, n_buckets: int,
                   capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Reference scatter of kept words into ``[..., n_buckets*capacity]``
@@ -115,6 +147,13 @@ def flush_pack(bucket_id, addr, deadline, valid, *, slab: torch.Tensor,
     return slab, counts, overflow
 
 
+def unpack(packed: PackedBuckets):
+    """The packed buckets flattened back to decoded SoA event lanes
+    ``[n_buckets * capacity]`` (every leading axis flattened too, as the
+    reference's ``reshape(-1)``): ``(addr, deadline8, valid)``."""
+    return ev.decode_word(packed.words.reshape(-1))
+
+
 def static_bucket_ids(dest_chip, *, n_chips: int, streams: int = 1,
                       stream: int = 0) -> torch.Tensor:
     """Simplified scheme: one bucket per (destination chip, stream)."""
@@ -130,3 +169,12 @@ def dynamic_bucket_ids(dest_chip, deadline, *, n_chips: int,
     win = torch.remainder(torch.div(deadline, max(window, 1),
                                     rounding_mode="floor"), pool_per_chip)
     return dest_chip * pool_per_chip + win
+
+
+def bucket_dest_chip(n_chips: int, buckets_per_chip: int, *,
+                     device=None) -> torch.Tensor:
+    """Static bucket -> destination chip binding table, int32
+    ``[n_chips * buckets_per_chip]`` ("network addresses are statically
+    configured in the buckets")."""
+    return torch.arange(n_chips, dtype=I32, device=device).repeat_interleave(
+        buckets_per_chip)

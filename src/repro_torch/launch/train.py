@@ -18,7 +18,11 @@ backward kernel (``csrc/ssm_scan_bwd_chunked.cu``) and falcon-mamba's
 (Mamba-1, a general [di, N] A) from the per-channel one
 (``csrc/ssm_scan_bwd.cu``), so every ported arch trains on the card
 (falcon-mamba-7b at full depth needs more memory than one 80 GB card
-holds; ``chip_smoke.py`` trains 16 of its 64 layers):
+holds; ``chip_smoke.py`` trains 16 of its 64 layers; llama4 runs only at
+reduced size).  An MoE arch (granite-moe-1b-a400m) adds its routing
+metrics to each logged step: ``aux`` (the load-balancing loss, weighted
+into the loss), ``drop`` (the share of token-expert lanes past capacity)
+and ``util`` (the bucket fill):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
       --batch 4 --seq 512 --steps 20
@@ -140,8 +144,12 @@ def main(argv=None) -> dict:
                 loss = float(metrics["loss"])
                 toks = (step - start + 1) * args.batch * args.seq
                 rate = toks / max(time.time() - t0, 1e-9)
+                moe = "".join(
+                    f"{name} {float(metrics[key]):.4f}  " for key, name in (
+                        ("aux_loss", "aux"), ("drop_fraction", "drop"),
+                        ("bucket_utilization", "util")) if key in metrics)
                 print(f"step {step:5d}  loss {loss:.4f}  "
-                      f"gnorm {float(metrics['grad_norm']):.3f}  "
+                      f"gnorm {float(metrics['grad_norm']):.3f}  {moe}"
                       f"{rate:,.0f} tok/s", flush=True)
             if (step + 1) % args.ckpt_every == 0 or step == args.steps - 1:
                 writer.save(state, step)

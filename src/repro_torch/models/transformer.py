@@ -1,17 +1,21 @@
-"""Decoder-only transformer assembly for the dense, hybrid and ssm
+"""Decoder-only transformer assembly for the dense, MoE, hybrid and ssm
 families (``repro.models.transformer``).
 
 Layers are grouped into a repeating pattern of length
-``cfg.pattern_period()`` (dense: 1 [attn_mlp]; zamba2: 6 [5 x ssm,
-shared attention+MLP then ssm]; falcon-mamba: 1 [ssm], no attention and
-no KV cache); each pattern position's parameters are
+``cfg.pattern_period()`` (dense: 1 [attn_mlp]; granite-moe: 1
+[attn_moe]; llama4: 2 [attn_mlp, attn_moe]; zamba2: 6 [5 x ssm, shared
+attention+MLP then ssm]; falcon-mamba: 1 [ssm], no attention and no KV
+cache); each pattern position's parameters are
 stacked over the repeats, and a Python loop over the stacked axis takes
 the place of the JAX package's ``lax.scan``.  The same block functions
 serve training and prefill (``forward``; with ``emit_cache`` it returns
 stacked per-repeat KV and SSM caches) and decode (one token against
 those caches, updated in place).  ``forward(..., remat=)`` recomputes
 each repeat's activations in the backward as ``jax.checkpoint`` does
-around the scan body.  The MoE block kind is not ported yet.
+around the scan body.  An MoE block reports its routing metrics
+(``aux_loss``, ``drop_fraction``, ``bucket_utilization``), which
+``forward`` sums over the pattern positions of a repeat and averages over
+the repeats, as the reference does.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as ly
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import moe as moem
 from repro_torch.models import ssm as ssmm
 from repro_torch.models.spec import stack_specs, tree_map
 
@@ -54,10 +59,11 @@ def _block_spec(cfg: ArchConfig, kind: str) -> dict:
     d = cfg.d_model
     if kind in ("ssm", "shared_ssm"):
         return {"norm": ly.norm_spec(d, cfg.norm), "ssm": ssmm.ssm_spec(cfg)}
+    spec = shared_attn_spec(cfg)
     if kind == "attn_moe":
-        raise NotImplementedError("the MoE block is not ported yet "
-                                  "(ROADMAP section 1, item 9)")
-    return shared_attn_spec(cfg)
+        del spec["mlp"]
+        spec["moe"] = moem.moe_spec(cfg)
+    return spec
 
 
 def shared_attn_spec(cfg: ArchConfig) -> dict:
@@ -101,32 +107,38 @@ def _apply_attn_block(cfg, bp, x, positions, *, window, emit_cache):
 
 
 def _apply_ffn(cfg, bp, x):
-    return x + mlpm.mlp_apply(cfg, bp["mlp"], _norm(cfg, bp["ffn_norm"], x))
+    """The block's FFN with its residual: (x, metrics), the MoE's routing
+    metrics where the block has experts, else {}."""
+    h = _norm(cfg, bp["ffn_norm"], x)
+    if "moe" in bp:
+        y, metrics = moem.moe_apply(cfg, bp["moe"], h)
+        return x + y, metrics
+    return x + mlpm.mlp_apply(cfg, bp["mlp"], h), {}
 
 
 def _apply_block(cfg, kind, bp, shared, x, positions, *, window,
                  emit_cache):
-    """Returns (x, cache entry or None)."""
+    """Returns (x, cache entry or None, metrics)."""
     if kind in ("ssm", "shared_ssm"):
         cache = None
         if kind == "shared_ssm" and shared is not None:
             x, cache = _apply_attn_block(cfg, shared, x, positions,
                                          window=window, emit_cache=emit_cache)
-            x = _apply_ffn(cfg, shared, x)
+            x, _ = _apply_ffn(cfg, shared, x)
         h = _norm(cfg, bp["norm"], x)
         if emit_cache:
             y, sstate = ssmm.ssm_apply(cfg, bp["ssm"], h, return_state=True)
-            return x + y, {"kv": cache, "ssm": sstate}
-        return x + ssmm.ssm_apply(cfg, bp["ssm"], h), None
+            return x + y, {"kv": cache, "ssm": sstate}, {}
+        return x + ssmm.ssm_apply(cfg, bp["ssm"], h), None, {}
     x, cache = _apply_attn_block(cfg, bp, x, positions, window=window,
                                  emit_cache=emit_cache)
-    x = _apply_ffn(cfg, bp, x)
-    return x, ({"kv": cache, "ssm": None} if emit_cache else None)
+    x, metrics = _apply_ffn(cfg, bp, x)
+    return x, ({"kv": cache, "ssm": None} if emit_cache else None), metrics
 
 
 class DecoderOutput(NamedTuple):
     logits: torch.Tensor
-    metrics: dict       # per-block aux metrics, averaged (empty when dense)
+    metrics: dict       # MoE routing metrics (empty without experts)
     cache: Any          # stacked per-repeat cache tree (prefill) or None
 
 
@@ -168,7 +180,9 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     recomputes, as in the reference: ``"dots"`` keeps only the outputs
     of each repeat's matrix products, ``"none"`` keeps everything, and
     any other policy recomputes each repeat of the layer pattern whole
-    (``torch.utils.checkpoint``, non-reentrant)."""
+    (``torch.utils.checkpoint``, non-reentrant).  ``metrics`` holds each
+    MoE metric summed over the pattern positions of a repeat, then
+    averaged over the repeats."""
     kinds = block_kinds(cfg)
     shared = params.get("shared")
     b, s = tokens.shape[:2]
@@ -178,35 +192,41 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     policy = cfg.remat_policy if remat else "none"
 
     def body(x, blk):
-        entries = []
+        entries, sums = [], {}
         for i, kind in enumerate(kinds):
-            x, entry = _apply_block(cfg, kind, blk[f"pos{i}"], shared, x,
-                                    positions, window=window,
-                                    emit_cache=emit_cache)
+            x, entry, metrics = _apply_block(
+                cfg, kind, blk[f"pos{i}"], shared, x, positions,
+                window=window, emit_cache=emit_cache)
             entries.append(entry)
-        return x, entries
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + v
+        return x, entries, sums
 
     caches = {f"pos{i}": [] for i in range(len(kinds))}
+    per_repeat = []
     # One unbind per stacked leaf: its backward stacks the repeats'
     # gradients once, where a select per repeat would fill a zero tensor
     # of the whole stack for each.
     repeats = _unstack(params["blocks"], n_repeats(cfg))
     for blk in repeats:
         if policy == "none" or emit_cache:
-            x, entries = body(x, blk)
+            x, entries, sums = body(x, blk)
         else:
-            x, entries = tcp.checkpoint(
+            x, entries, sums = tcp.checkpoint(
                 body, x, blk, use_reentrant=False,
                 **({"context_fn": _dots_contexts} if policy == "dots"
                    else {}))
+        per_repeat.append(sums)
         if emit_cache:
             for i, entry in enumerate(entries):
                 caches[f"pos{i}"].append(entry)
+    metrics = {k: torch.stack([m[k] for m in per_repeat]).mean()
+               for k in per_repeat[0]}
     x = _norm(cfg, params["final_norm"], x)
     lg = ly.logits(params.get("unembed"), params["embed"], x,
                    tied=cfg.tie_embeddings)
     cache = {k: _stack(v) for k, v in caches.items()} if emit_cache else None
-    return DecoderOutput(logits=lg, metrics={}, cache=cache)
+    return DecoderOutput(logits=lg, metrics=metrics, cache=cache)
 
 
 def _unstack(tree, n: int) -> list:
@@ -247,7 +267,7 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
             if kind in ("ssm", "shared_ssm"):
                 if kind == "shared_ssm" and shared is not None:
                     x = attn_decode(shared, x, kv)
-                    x = _apply_ffn(cfg, shared, x)
+                    x, _ = _apply_ffn(cfg, shared, x)
                 st = entry["ssm"]
                 h = _norm(cfg, bp["norm"], x)
                 y, new = ssmm.ssm_decode(
@@ -258,7 +278,10 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
                 x = x + y
             else:
                 x = attn_decode(bp, x, kv)
-                x = _apply_ffn(cfg, bp, x)
+                # An MoE block routes the step's B tokens at their own
+                # capacity (at least 8 slots an expert); its metrics are
+                # dropped, as the reference's decode drops them.
+                x, _ = _apply_ffn(cfg, bp, x)
     x = _norm(cfg, params["final_norm"], x)
     lg = ly.logits(params.get("unembed"), params["embed"], x,
                    tied=cfg.tie_embeddings)

@@ -1569,7 +1569,7 @@ def _general_a(params):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "internlm2-1.8b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "granite-moe-1b-a400m"])
 def test_reduced_serve_on_the_card_matches_the_cpu(cuda, arch):
     """Prefill and two decode steps of a reduced config: the kernels on
     the card against the plain versions on the CPU, logits within 2e-4
@@ -1823,6 +1823,79 @@ def _run_drill(device, tmp_path, failures, t_total=14):
     final, healthy = runner.run(net.init_state(cfg, params, device=device),
                                 t_total)
     return runner, final, healthy, ckpt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_on_the_card_is_deterministic_and_routes_as_the_cpu(
+        cuda, dtype):
+    """One granite-moe MoE layer at full width (d_model 1024, 32 experts
+    top-8, d_ff 512) on 2 x 128 tokens at capacity factor 1, so lanes
+    drop: the integer routing (expert choices, slots, counts) on the card
+    equals the CPU's bitwise; two calls on the card give the same bits in
+    the output and in every gradient (x and the four weight leaves: no
+    atomics in the dispatch or the combine); in float32 the output is
+    within 1e-4 of its largest of the CPU's."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.models import moe
+    from repro_torch.models import spec as sp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(C.get("granite-moe-1b-a400m"),
+                              capacity_factor=1.0)
+    gen = torch.Generator().manual_seed(0)
+    params = sp.init_tree(gen, moe.moe_spec(cfg), dtype, "cpu")
+    x = torch.randn((2, 128, cfg.d_model), generator=gen).to(dtype)
+    dy = torch.randn((2, 128, cfg.d_model), generator=gen).to(dtype)
+
+    def run(device):
+        w = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+        xd = x.to(device).requires_grad_(True)
+        routing = {}
+        y, m = moe.moe_apply(cfg, w, xd, routing=routing)
+        grads = torch.autograd.grad((y, m["aux_loss"]), [xd, *w.values()],
+                                    (dy.to(device), torch.ones((),
+                                                               device=device)))
+        ints = [routing[k].cpu() for k in ("expert_idx", "slot", "counts")]
+        return y.detach().cpu(), [g.cpu() for g in grads], ints, m
+
+    y1, g1, r1, m1 = run(cuda)
+    y2, g2, r2, _ = run(cuda)
+    yc, _, rc, _ = run(torch.device("cpu"))
+    assert float(m1["drop_fraction"]) > 0
+    for a, b in zip(r1, rc):
+        assert torch.equal(a, b)
+    assert torch.equal(y1, y2)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+    if dtype == torch.float32:
+        scale = float(yc.abs().max())
+        assert float((y1 - yc).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_moe_top_k_ties_on_the_card_go_to_the_lower_expert(cuda):
+    """``moe.route`` on the card orders equal probabilities as
+    ``jax.lax.top_k`` does, the lower expert first: a zero router ties
+    all 32 experts (top-8 is experts 0..7 on every token); a router that
+    passes x's first 32 features through unchanged (logits exactly x,
+    on any device) with feature 5 a copy of feature 4 ties experts 4 and
+    5, and wherever both are chosen 4 comes just before 5."""
+    from repro_torch.models import moe
+
+    x = torch.randn((4096, 1024), generator=torch.Generator().manual_seed(0))
+    x[:, 5] = x[:, 4]
+    idx = moe.route(x.to(cuda), torch.zeros((1024, 32), device=cuda),
+                    8)[2].cpu()
+    assert torch.equal(idx, torch.arange(8).expand(4096, 8))
+    idx = moe.route(x.to(cuda), torch.eye(1024, 32, device=cuda), 8)[2].cpu()
+    both = (idx == 4).any(-1) & (idx == 5).any(-1)
+    assert int(both.sum()) > 100
+    pos4 = (idx[both] == 4).int().argmax(-1)
+    pos5 = (idx[both] == 5).int().argmax(-1)
+    assert torch.equal(pos5, pos4 + 1)
 
 
 @pytest.mark.cuda

@@ -628,9 +628,6 @@ def _lm_unported(feature: str):
                               window=4)
     elif feature == "ssd":
         ssm.ssm_spec(dataclasses.replace(zamba, ssm_impl="ssd"))
-    elif feature == "moe":
-        tfm.decoder_spec(dataclasses.replace(dense, family="moe",
-                                             n_experts=4, top_k=2))
     elif feature == "encoder-decoder":
         lm.init(torch.Generator(), dataclasses.replace(dense,
                                                        encoder_layers=2),
@@ -644,11 +641,32 @@ def _lm_unported(feature: str):
 
 @pytest.mark.parametrize("feature,match", [
     ("window", "window"), ("window decode", "window"),
-    ("ssd", "ssd"), ("moe", "MoE"),
+    ("ssd", "ssd"),
     ("encoder-decoder", "encoder-decoder"), ("training", "training")])
 def test_unported_lm_features_raise(feature, match):
     with pytest.raises(NotImplementedError, match=match):
         _lm_unported(feature)
+
+
+def test_moe_decoder_spec_builds():
+    """The MoE block is ported: the call that raised before this slice (a
+    dense config turned MoE) and the reduced granite-moe build their
+    ``attn_moe`` blocks, the experts' leaves stacked over the repeats."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as tfm
+
+    dense = C.get("internlm2-1.8b").reduced()
+    for cfg in (dataclasses.replace(dense, family="moe", n_experts=4,
+                                    top_k=2),
+                C.get("granite-moe-1b-a400m").reduced()):
+        spec = tfm.decoder_spec(cfg)
+        moe = spec["blocks"]["pos0"]["moe"]
+        assert "mlp" not in spec["blocks"]["pos0"]
+        assert moe["w_gate"].shape == (cfg.n_layers, 4, cfg.d_model,
+                                       cfg.d_ff)
+        assert moe["router"].shape == (cfg.n_layers, cfg.d_model, 4)
 
 
 @pytest.mark.parametrize("flag", ["--metrics-out", "--events-jsonl"])
@@ -678,13 +696,26 @@ def test_serve_writes_metrics_and_events(flag, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--device", "cpu", "--arch", "granite-moe-1b-a400m", "--reduced"],
-     "MoE"),
     (["--device", "cpu", "--arch", "whisper-medium", "--reduced"],
      "encoder-decoder")])
 def test_unported_serve_features_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         serve.main(argv)
+
+
+def test_serve_runs_granite_moe_on_the_cpu(capsys):
+    """``launch.serve`` on reduced granite-moe-1b-a400m with ``--device
+    cpu`` (the call that raised before the MoE slice): ids in range, its
+    three lines printed, no kernel launched."""
+    kc.reset_launches()
+    ids = serve.main(["--device", "cpu", "--arch", "granite-moe-1b-a400m",
+                      "--reduced"])
+    assert ids.shape == (4, 16) and ids.dtype == torch.int32
+    assert bool(((ids >= 0) & (ids < 256)).all())
+    out = capsys.readouterr().out
+    assert "prefill: 4x32 in" in out and "decode: 16 steps x batch 4" in out
+    assert "sample output ids:" in out
+    assert not any(kc.launches.values())
 
 
 def test_mamba1_ignores_ssm_impl():

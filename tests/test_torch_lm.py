@@ -46,8 +46,12 @@ from repro_torch.models import spec as sp  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 
-ARCHS = ["zamba2-2.7b", "internlm2-1.8b", "falcon-mamba-7b"]
-ATTN_ARCHS = [a for a in ARCHS if a != "falcon-mamba-7b"]
+# The config, spec and init cases take the MoE archs too; their
+# model-level cases are in tests/test_torch_moe.py.
+ARCHS = ["zamba2-2.7b", "internlm2-1.8b", "falcon-mamba-7b",
+         "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"]
+MODEL_ARCHS = ["zamba2-2.7b", "internlm2-1.8b", "falcon-mamba-7b"]
+ATTN_ARCHS = [a for a in MODEL_ARCHS if a != "falcon-mamba-7b"]
 CPU = "cpu"
 
 
@@ -81,7 +85,7 @@ def _model(arch):
     return jcfg, cfg, jparams, convert.lm_params_from_jax(jparams, device=CPU)
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=MODEL_ARCHS)
 def model(request):
     """(jax cfg, port cfg, jax params, port params) of a reduced arch."""
     return _model(request.param)
@@ -115,7 +119,7 @@ def test_configs_match_the_jax_package(arch):
 
 def test_unported_archs_raise():
     for arch in JC.ARCH_IDS:
-        if arch in ARCHS:
+        if arch in C.ARCH_IDS:
             continue
         with pytest.raises(NotImplementedError, match="not ported"):
             C.get(arch)
