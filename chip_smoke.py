@@ -40,7 +40,11 @@ Phases, each fatal on failure:
              float32 in 3xTF32 on ``mma.sync``, each case with its route
              and its kernels' registers and spill bytes) at internlm2's,
              zamba2's and granite-moe's training heads, in f32 and after
-             cached keys,
+             cached keys, and at whisper-medium's training shapes (the
+             encoder's 1500 x 1500 and the cross-attention's 448 x 1500
+             without the mask, the decoder's 448 x 448; the forward also
+             at the encoder's and both cross shapes, 8 and 448 rows over
+             1500 frames, beside SDPA without the mask),
              elementwise within ``attention_bwd_bounds`` (a peaked f32
              softmax within ``tf32x3_bwd_bounds``), beside SDPA's
              backward; the scan with its state checkpoints (at the
@@ -195,7 +199,9 @@ Phases, each fatal on failure:
   8. serve-check  zamba2-2.7b at full width, one pattern repeat (6
              layers), then falcon-mamba-7b at full width, 4 Mamba-1 layers
              with its published A, then granite-moe-1b-a400m at full
-             width, 2 attention+MoE layers, float32, batch 1, prompt 300,
+             width, 2 attention+MoE layers, then whisper-medium at full
+             width, 2 encoder and 2 decoder layers over 300 frames from 8
+             prompt tokens, float32, batch 1, prompt 300,
              8 teacher-forced decode steps: the card (kernels) against the
              plain path on the CPU from the same weights and tokens,
              granite's routing of every MoE call bitwise first (expert
@@ -205,9 +211,12 @@ Phases, each fatal on failure:
   9. serve   ``launch.serve.main`` on zamba2-2.7b (54 layers),
              internlm2-1.8b (24 layers), falcon-mamba-7b (64 layers) and
              granite-moe-1b-a400m (24 layers, 32 experts top-8) at full
-             width in bfloat16, batch 4, prompt 2048, 32 tokens: prefill
+             width in bfloat16, batch 4, prompt 2048, 32 tokens, and
+             whisper-medium (24 encoder + 24 decoder layers) on 1500
+             frames and 8 prompt tokens (frames/s printed): prefill
              must launch flash_attention 9 and ssm_scan 54 times
-             (zamba2), flash_attention 24 times (internlm2, granite) or
+             (zamba2), flash_attention 24 times (internlm2, granite),
+             72 times (whisper) or
              ssm_scan 64 times (falcon-mamba), and decode none of the
              port's kernels; then, from the same weights (falcon-mamba's
              with its published A, no layer's A with a constant row;
@@ -224,7 +233,9 @@ Phases, each fatal on failure:
              and full) against the CPU, the loss within 1e-5 relative and
              each gradient within 1e-3 of its leaf's largest |g|; then
              granite-moe-1b-a400m the same way, its routing bitwise
-             first; then
+             first; then whisper-medium, 2 encoder and 2 decoder layers,
+             64 frames and 448 target tokens (6 flash_attention and 6
+             flash_attention_bwd launches, 12 forwards under remat); then
              zamba2-2.7b at full width, 6 layers, float32, batch 2 x 100:
              the same on the card (remat off and full) against the CPU,
              every gradient within ``ZAMBA2_GRAD_BOUND`` of its leaf's
@@ -253,7 +264,10 @@ Phases, each fatal on failure:
              checkpoint: 24 flash_attention and 24 flash_attention_bwd
              launches per step, no scan kernel, and the step's MoE
              metrics (aux_loss, drop_fraction, bucket_utilization)
-             finite;
+             finite; then whisper-medium at full width and depth, batch
+             4 x 1500 frames x 448 target tokens, 4 steps, no
+             checkpoint: 72 flash_attention and 72 flash_attention_bwd
+             launches per step;
  10. profile where a block's time goes on each path (torch.profiler):
              wall and device-busy time per step, the idle share, kernel
              launches per step, the costliest kernels and the device time
@@ -1430,15 +1444,33 @@ def ptxas_by_dn(log: str, kernels) -> dict[str, dict[str, tuple]]:
     return out
 
 
-def causal_pairs(sq: int, skv: int, q_offset: int) -> int:
-    """(query, key) pairs the causal mask lets through, per head."""
+def causal_pairs(sq: int, skv: int, q_offset: int,
+                 causal: bool = True) -> int:
+    """(query, key) pairs the causal mask lets through, per head (all
+    sq x skv without the mask)."""
+    if not causal:
+        return sq * skv
     return sum(min(skv, max(0, q_offset + r + 1)) for r in range(sq))
+
+
+def flash_calls(cfg) -> int:
+    """flash_attention launches of one forward of ``cfg``'s model, and
+    flash_attention_bwd launches of its backward: one an attention layer;
+    for an encoder-decoder (whisper), one an encoder layer and two a
+    decoder layer (its causal self-attention and its cross-attention)."""
+    if cfg.is_encdec:
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return cfg.attn_layers
 
 
 def lm_kernel_cases(device, seed: int) -> list[dict]:
     """flash_attention at the zamba2, internlm2 and granite-moe prefill
     shapes (bf16; granite's head size 64),
-    in f32, on a ragged length and after a cached prefix; ssm_scan at the
+    in f32, on a ragged length and after a cached prefix, and at
+    whisper-medium's shapes without the causal mask (bf16, 16 heads of
+    64: the encoder over 1500 frames, the cross-attention of 8 and of 448
+    decoder rows over them; operations 4 D a pair and head with no causal
+    halving, SDPA with ``is_causal=False``); ssm_scan at the
     zamba2 prefill shape, on inputs made as the serve path makes them (x
     bf16, dt per head from softplus, A per head of 80 channels: one exp
     per channel and step; the main case), with f32 x and a general
@@ -1465,32 +1497,43 @@ def lm_kernel_cases(device, seed: int) -> list[dict]:
                                        device=device)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
-    for label, b, hq, hkv, sq, skv, d, dtype, q_offset, main in (
-            ("zamba2 prefill bf16", 4, 32, 32, 2048, 2048, 80,
-             torch.bfloat16, 0, True),
-            ("internlm2 prefill bf16", 4, 16, 8, 2048, 2048, 128,
-             torch.bfloat16, 0, False),
-            ("granite prefill bf16", 4, 16, 8, 2048, 2048, 64,
-             torch.bfloat16, 0, False),
-            ("GQA 4 bf16", 4, 32, 8, 2048, 2048, 128, torch.bfloat16, 0,
-             False),
+    bf16_t = torch.bfloat16
+    for label, b, hq, hkv, sq, skv, d, dtype, q_offset, main, causal in (
+            ("zamba2 prefill bf16", 4, 32, 32, 2048, 2048, 80, bf16_t, 0,
+             True, True),
+            ("internlm2 prefill bf16", 4, 16, 8, 2048, 2048, 128, bf16_t, 0,
+             False, True),
+            ("granite prefill bf16", 4, 16, 8, 2048, 2048, 64, bf16_t, 0,
+             False, True),
+            ("GQA 4 bf16", 4, 32, 8, 2048, 2048, 128, bf16_t, 0, False,
+             True),
             ("zamba2 f32, batch 1", 1, 32, 32, 2048, 2048, 80, torch.float32,
-             0, False),
+             0, False, True),
             ("ragged 300 f32", 1, 32, 32, 300, 300, 80, torch.float32, 0,
-             False),
-            ("q_offset 2048 bf16", 4, 32, 32, 64, 2112, 80, torch.bfloat16,
-             2048, False)):
+             False, True),
+            ("q_offset 2048 bf16", 4, 32, 32, 64, 2112, 80, bf16_t, 2048,
+             False, True),
+            # whisper-medium: the encoder's 1500 frames (the last key tile
+            # holds 92), the cross-attention of the 8 prompt tokens
+            # (serve) and of the 448 target tokens (train), no mask.
+            ("whisper encoder bf16", 4, 16, 16, 1500, 1500, 64, bf16_t, 0,
+             False, False),
+            ("whisper cross, prefill bf16", 4, 16, 16, 8, 1500, 64, bf16_t,
+             0, False, False),
+            ("whisper cross, train bf16", 4, 16, 16, 448, 1500, 64, bf16_t,
+             0, False, False)):
         q = randn(b, hq, sq, d).to(dtype)
         k, v = randn(b, hkv, skv, d).to(dtype), randn(b, hkv, skv, d).to(dtype)
-        args, kw = (q, k, v), dict(causal=True, q_offset=q_offset)
+        args, kw = (q, k, v), dict(causal=causal, q_offset=q_offset)
         bf16 = dtype == torch.bfloat16
         library = None
         if q_offset == 0:
-            library = (lambda a=args: sdpa(*a, is_causal=True,
-                                           enable_gqa=True))
+            library = (lambda a=args, c=causal: sdpa(*a, is_causal=c,
+                                                     enable_gqa=True))
         cases.append(dict(
-            kernel="flash_attention", mode=f"{label} {tuple(q.shape)}",
-            main=main,
+            kernel="flash_attention", mode=f"{label} {tuple(q.shape)}"
+            + ("" if causal else f" Skv {skv}, no mask"), main=main,
+            key=label if label.startswith("whisper") else None,
             run=lambda a=args, k_=kw: fa_ops.flash_attention(*a, **k_),
             plain=lambda a=args, k_=kw: attention_ref(*a, **k_),
             want=lambda a=args, k_=kw: attention_ref(
@@ -1500,7 +1543,7 @@ def lm_kernel_cases(device, seed: int) -> list[dict]:
             library=library, design=fa_ops.design(dtype),
             device_names=tuple(FLASH_INSTANCES.values()),
             library_tol=(0.0, 2e-2 if bf16 else 1e-4), inputs=args,
-            ops=4 * d * b * hq * causal_pairs(sq, skv, q_offset),
+            ops=4 * d * b * hq * causal_pairs(sq, skv, q_offset, causal),
             ops_per_s=BF16_TC_OPS_PER_S if bf16 else TF32X3_OPS_PER_S))
 
     cases += flash_train_cases(device, gen)
@@ -1795,7 +1838,10 @@ def flash_train_cases(device, gen) -> list[dict]:
     2), in float32 (the train-check's [2, 16, 64,
     128], [1, 16, 512, 128], zamba2's heads [1, 32, 512, 80], and a
     peaked softmax: [1, 16, 512, 128] with q eight times larger) and
-    after 71 cached keys (GQA 4, both types).
+    after 71 cached keys (GQA 4, both types); then at whisper-medium's
+    training shapes (bf16 [4, 16, *, 64], MHA): the encoder's 1500 x 1500
+    and the cross-attention's 448 x 1500 without the mask, the decoder's
+    448 x 448 causal.
 
     The forward's (out, lse) is held to the bf16 output bound of
     :func:`lm_kernel_cases` and its lse within 1e-4 + 1e-5 |lse| of the
@@ -1846,7 +1892,7 @@ def flash_train_cases(device, gen) -> list[dict]:
         ops_per_s=BF16_TC_OPS_PER_S))
 
     f32 = torch.float32
-    for label, b, hq, hkv, sq, skv, d, dtype, q_offset, main, q_factor in (
+    rows = [(*row, True) for row in (
             ("internlm2 train bf16", 4, 16, 8, 512, 512, 128,
              torch.bfloat16, 0, True, 1),
             ("zamba2 heads bf16", 4, 32, 32, 512, 512, 80, torch.bfloat16,
@@ -1862,17 +1908,30 @@ def flash_train_cases(device, gen) -> list[dict]:
             ("peaked f32, q x 8", 1, 16, 8, 512, 512, 128, f32, 0, False,
              8),
             ("q_offset 71, GQA 4 bf16", 1, 32, 8, 129, 200, 80,
-             torch.bfloat16, 71, False, 1)):
+             torch.bfloat16, 71, False, 1))]
+    # whisper-medium's training step, 16 heads of 64: the encoder's
+    # self-attention over 1500 frames and the cross-attention of the 448
+    # target tokens over them, without the mask; the decoder's causal
+    # self-attention.
+    rows += [
+        ("whisper encoder train bf16", 4, 16, 16, 1500, 1500, 64,
+         torch.bfloat16, 0, False, 1, False),
+        ("whisper cross train bf16", 4, 16, 16, 448, 1500, 64,
+         torch.bfloat16, 0, False, 1, False),
+        ("whisper decoder train bf16", 4, 16, 16, 448, 448, 64,
+         torch.bfloat16, 0, False, 1, True)]
+    for (label, b, hq, hkv, sq, skv, d, dtype, q_offset, main, q_factor,
+         causal) in rows:
         q = (randn(b, hq, sq, d) * q_factor).to(dtype)
         k, v = randn(b, hkv, skv, d).to(dtype), randn(b, hkv, skv, d).to(dtype)
         dout = randn(b, hq, sq, d).to(dtype)
-        kw = dict(causal=True, q_offset=q_offset)
+        kw = dict(causal=causal, q_offset=q_offset)
         out, lse = attention_with_lse_ref(q, k, v, **kw)
         args = (q, k, v, out, lse, dout)
         bounds = (tf32x3_bwd_bounds if q_factor != 1
                   else attention_bwd_bounds)(*args, **kw)
         bf16 = dtype == torch.bfloat16
-        ops = 10 * d * b * hq * causal_pairs(sq, skv, q_offset)
+        ops = 10 * d * b * hq * causal_pairs(sq, skv, q_offset, causal)
 
         def check(got, a=args, k_=kw, bd=bounds, lbl=label, bf16=bf16,
                   ops=ops):
@@ -1903,15 +1962,18 @@ def flash_train_cases(device, gen) -> list[dict]:
         if q_offset == 0:
             lq, lk, lv = (x.detach().clone().requires_grad_(True)
                           for x in (q, k, v))
-            lo = sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
+            lo = sdpa(lq, lk, lv, is_causal=causal, enable_gqa=True)
             library = (lambda o=lo, ins=(lq, lk, lv), g=dout:
                        torch.autograd.grad(o, ins, g, retain_graph=True))
-            library_time = (lambda ins=(q, k, v), g=dout: backward_graph_ms(
-                lambda a, b, c: sdpa(a, b, c, is_causal=True,
-                                     enable_gqa=True), ins, g))
+            library_time = (lambda ins=(q, k, v), g=dout, c=causal:
+                            backward_graph_ms(
+                                lambda x, y, z: sdpa(x, y, z, is_causal=c,
+                                                     enable_gqa=True),
+                                ins, g))
         cases.append(dict(
-            kernel="flash_attention_bwd", mode=f"{label} {tuple(q.shape)}",
-            main=main,
+            kernel="flash_attention_bwd", mode=f"{label} {tuple(q.shape)}"
+            + ("" if causal else f" Skv {skv}, no mask"), main=main,
+            key=label if label.startswith("whisper") else None,
             run=lambda a=args, k_=kw: fa_ops.flash_attention_bwd(*a, **k_),
             plain=lambda a=args, k_=kw: attention_bwd_ref(*a, **k_),
             tol=(0.0, max(float(x.max()) for x in bounds)), check=check,
@@ -3167,9 +3229,10 @@ def profile_phase(paths: Paths, device, blocks: int = 4) -> dict:
 # and a sixth), 4 of falcon-mamba's Mamba-1 blocks with its published A
 # (the scan's general route), and 2 of granite-moe's attention+MoE blocks
 # (32 experts, top-8, its own capacity factor), the routing compared
-# first.
+# first; whisper-medium with 2 encoder and 2 decoder layers (the prompt
+# is its frame count, the decoder starts from 8 tokens).
 SERVE_CHECKS = (("zamba2-2.7b", 6), ("falcon-mamba-7b", 4),
-                ("granite-moe-1b-a400m", 2))
+                ("granite-moe-1b-a400m", 2), ("whisper-medium", 2))
 
 
 def serve_check(device, seed: int, prompt: int = 300,
@@ -3195,29 +3258,41 @@ def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
     bitwise (:func:`routing_check`).  Every step's logits agree within
     1e-3 of the largest |logit| (f32 sums in another order through every
     layer); the prefill launches ssm_scan once a Mamba layer and
-    flash_attention once an attention layer."""
+    flash_attention :func:`flash_calls` times.  An encoder-decoder runs
+    ``layers`` encoder and decoder layers, ``prompt`` random frames and
+    8 prompt tokens."""
     from repro_torch import configs as C
     from repro_torch.kernels import common as kc
     from repro_torch.models import lm
     from repro_torch.models import spec as sp
 
     cfg = dataclasses.replace(C.get(arch), n_layers=layers, dtype="float32")
+    if cfg.is_encdec:
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
     params = lm.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
     if is_mamba1(cfg):
         set_general_a(params)
     rng = np.random.default_rng(seed)
+    frames = None
+    if cfg.is_encdec:
+        frames = torch.as_tensor(rng.standard_normal(
+            (1, prompt, cfg.d_model)).astype(np.float32))
+        prompt = 8
     tokens = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (1, prompt + steps)).astype(np.int32))
 
     def run(dev):
         p = sp.tree_map(lambda x: x.to(dev), params)
         tk = tokens.to(dev)
+        batch = {"tokens": tk[:, :prompt]}
+        if frames is not None:
+            batch["frames"] = frames.to(dev)
         torch.cuda.synchronize()
         kc.reset_launches()
         routes = []
         t_start = time.perf_counter()
         with torch.no_grad(), moe_routings(routes):
-            last, cache = lm.prefill(cfg, p, {"tokens": tk[:, :prompt]})
+            last, cache = lm.prefill(cfg, p, batch)
             cache = lm.pad_cache(cfg, cache, prompt + steps)
             rows = [last]
             for i in range(steps):
@@ -3235,13 +3310,16 @@ def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
     if cfg.n_experts:
         gap = routing_check(f"serve-check {arch}", r_gpu, r_cpu)
     if (counts["flash_attention"], counts["ssm_scan"]) != (
-            cfg.attn_layers, layers if cfg.ssm_state else 0):
+            flash_calls(cfg), layers if cfg.ssm_state else 0):
         raise AssertionError(f"serve-check {arch}: launches {counts}")
     scale = float(cpu.abs().max())
     err = (gpu - cpu).abs().amax(dim=-1)
     agree = int((gpu.argmax(-1) == cpu.argmax(-1)).sum())
-    print(f"[serve-check] {arch} full width, {layers} layers, f32, batch 1, "
-          f"prompt {prompt}, {steps} teacher-forced steps: card "
+    what = (f"{layers} + {layers} layers, f32, batch 1, {frames.shape[1]} "
+            f"frames, prompt {prompt}" if cfg.is_encdec else
+            f"{layers} layers, f32, batch 1, prompt {prompt}")
+    print(f"[serve-check] {arch} full width, {what}, {steps} teacher-forced "
+          f"steps: card "
           f"{t_gpu:.2f} s, CPU {t_cpu:.2f} s; max |dlogit| per step "
           f"{[float(f'{e:.3g}') for e in err]} vs max |logit| "
           f"{scale:.4g} (rel {float(err.max()) / scale:.3g}); greedy tokens "
@@ -3257,13 +3335,16 @@ def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
 
 # (arch, flash_attention launches, ssm_scan launches) a prefill.
 SERVE_RUNS = (("zamba2-2.7b", 9, 54), ("internlm2-1.8b", 24, 0),
-              ("falcon-mamba-7b", 0, 64), ("granite-moe-1b-a400m", 24, 0))
+              ("falcon-mamba-7b", 0, 64), ("granite-moe-1b-a400m", 24, 0),
+              ("whisper-medium", 72, 0))
 # The capacity factor of an MoE model's consistency check: capacity
 # depends on the tokens of a call (a prefill's S, a forward's S + 1, a
 # decode step's B), so at the config's own factor the three would drop
 # other lanes; at 8, as the reference's own test runs it, none drops.
 MOE_CONSISTENCY_CF = 8.0
-SERVE_ARGS = dict(batch=4, prompt=2048, gen=32)
+# An encoder-decoder's prompt is its frame count, whisper's 30-second
+# window (the decoder starts from 8 tokens, as the reference serves it).
+SERVE_ARGS = dict(batch=4, prompt=2048, gen=32, frames=1500)
 
 
 def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
@@ -3276,8 +3357,12 @@ def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
     consistency at ``MOE_CONSISTENCY_CF`` and first prints a prefill's
     routing metrics at the config's own capacity factor.  The serve
     run's counts are one prefill's: the decode loop is plain torch and
-    launches none of the port's kernels.  Returns (launches, metrics,
-    profile) by path."""
+    launches none of the port's kernels.  whisper-medium serves 1500
+    frames and 8 prompt tokens: its prefill launches flash_attention 72
+    times (24 encoder, 24 decoder self- and 24 cross-attentions), and its
+    frames per second are printed beside the reference's tok/s line,
+    which counts the 8 tokens.  Returns (launches, metrics, profile) by
+    path."""
     import io
     import re
 
@@ -3287,11 +3372,13 @@ def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
     from repro_torch.models import lm, moe
     from repro_torch.models import transformer as tfm
 
-    b, s, n_gen = SERVE_ARGS["batch"], SERVE_ARGS["prompt"], SERVE_ARGS["gen"]
+    b, n_gen = SERVE_ARGS["batch"], SERVE_ARGS["gen"]
     counts, metrics, profile = {}, {}, {}
     for arch, n_flash, n_scan in SERVE_RUNS:
         label = f"serve {arch}"
         cfg = C.get(arch)
+        s = SERVE_ARGS["frames" if cfg.is_encdec else "prompt"]
+        n_prompt = 8 if cfg.is_encdec else s
         argv = ["--arch", arch, "--batch", str(b), "--prompt-len", str(s),
                 "--gen", str(n_gen), "--seed", str(seed)]
         torch.cuda.synchronize()
@@ -3310,11 +3397,19 @@ def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
             print(f"[{label}] {line}")
         pre_ms = float(re.search(r"prefill: \S+ in ([\d.]+) ms", text)[1])
         dec_ms = float(re.search(r"decode: .* in ([\d.]+) ms", text)[1])
-        row = dict(prefill_ms=pre_ms, prefill_tok_s=b * s / pre_ms * 1e3,
+        row = dict(prefill_ms=pre_ms,
+                   prefill_tok_s=b * n_prompt / pre_ms * 1e3,
                    decode_ms=dec_ms, decode_tok_s=b * n_gen / dec_ms * 1e3,
                    peak_bytes=peak, wall_s=wall)
-        print(f"[{label}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
-              f"bf16, batch {b}, prompt {s}, {n_gen} tokens: prefill "
+        what = f"{cfg.n_layers} layers, d_model {cfg.d_model}, bf16, " \
+            f"batch {b}, prompt {s}"
+        if cfg.is_encdec:
+            row["prefill_frames_s"] = b * s / pre_ms * 1e3
+            what = (f"{cfg.encoder_layers} encoder + {cfg.n_layers} decoder "
+                    f"layers, d_model {cfg.d_model}, bf16, batch {b}, {s} "
+                    f"frames ({row['prefill_frames_s']:.1f} frames/s in the "
+                    f"prefill), prompt {n_prompt}")
+        print(f"[{label}] {what}, {n_gen} tokens: prefill "
               f"{row['prefill_tok_s']:.1f} tok/s, decode "
               f"{row['decode_tok_s']:.2f} tok/s, peak memory {peak} B "
               f"({peak / 2**30:.2f} GiB), {wall:.1f} s in all; launches a "
@@ -3338,9 +3433,14 @@ def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
             print(f"[{label}] consistency and profile with Mamba-1's "
                   f"published A (A[d, n] = -(n + 1)): no layer's A has a "
                   f"constant row")
+        draw = torch.Generator(device=device).manual_seed(seed + 1)
+        frames = None
+        if cfg.is_encdec:
+            frames = torch.randn((b, s, cfg.d_model), device=device,
+                                 generator=draw)
         tokens = torch.randint(
-            0, cfg.vocab_size, (b, s + 1), device=device, dtype=torch.int32,
-            generator=torch.Generator(device=device).manual_seed(seed + 1))
+            0, cfg.vocab_size, (b, n_prompt + 1), device=device,
+            dtype=torch.int32, generator=draw)
         check_cfg = cfg
         if cfg.n_experts:
             with torch.no_grad():
@@ -3358,8 +3458,9 @@ def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
                   f"drops")
             check_cfg = dataclasses.replace(
                 cfg, capacity_factor=MOE_CONSISTENCY_CF)
-        consistency(label, check_cfg, params, tokens)
-        profile.update(serve_profile(label, cfg, params, tokens[:, :s]))
+        consistency(label, check_cfg, params, tokens, frames)
+        profile.update(serve_profile(label, cfg, params, tokens[:, :n_prompt],
+                                     frames))
         metrics[label] = row
         del params
         print(f"[time] {label}: {time.perf_counter() - t_start:.1f} s with "
@@ -3367,17 +3468,28 @@ def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
     return counts, metrics, profile
 
 
-def next_token_logits(cfg, params, tokens):
+def model_batch(tokens, frames=None) -> dict:
+    """A prefill's batch: the tokens, and an encoder-decoder's frames."""
+    return {"tokens": tokens} if frames is None else {"tokens": tokens,
+                                                      "frames": frames}
+
+
+def next_token_logits(cfg, params, tokens, frames=None):
     """A full forward's logits at the last two positions S - 1 and S,
     and those of prefill over the first S tokens and one decode step with
-    the last token, float32 on the card."""
+    the last token, float32 on the card (an encoder-decoder's over
+    ``frames``)."""
     from repro_torch.models import lm
     from repro_torch.models import transformer as tfm
+    from repro_torch.models import whisper as wsp
 
     s = tokens.shape[1] - 1
     with torch.no_grad():
-        full = tfm.forward(cfg, params, tokens).logits[:, s - 1:].float()
-        last, cache = lm.prefill(cfg, params, {"tokens": tokens[:, :s]})
+        full = (tfm.forward(cfg, params, tokens) if frames is None
+                else wsp.forward(cfg, params, frames, tokens))
+        full = full.logits[:, s - 1:].float()
+        last, cache = lm.prefill(cfg, params,
+                                 model_batch(tokens[:, :s], frames))
         cache = lm.pad_cache(cfg, cache, s + 1)
         dec, _ = lm.decode(cfg, params, tokens[:, s], cache, s)
     for name, x in (("forward", full), ("prefill", last), ("decode", dec)):
@@ -3386,7 +3498,7 @@ def next_token_logits(cfg, params, tokens):
     return full, last.float(), dec.float()
 
 
-def consistency(label: str, cfg, params, tokens) -> None:
+def consistency(label: str, cfg, params, tokens, frames=None) -> None:
     """Prefill + one decode step against a full forward at positions S - 1
     and S, as ``tests/test_models_smoke.py`` checks the JAX model: in
     float32 (the bf16 weights widened, exactly) within 1e-3 of the largest
@@ -3403,10 +3515,10 @@ def consistency(label: str, cfg, params, tokens) -> None:
     the exact function."""
     from repro_torch.models import spec as sp
 
-    f16, l16, d16 = next_token_logits(cfg, params, tokens)
+    f16, l16, d16 = next_token_logits(cfg, params, tokens, frames)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = sp.tree_map(lambda x: x.float(), params)
-    f32, l32, d32 = next_token_logits(cfg32, p32, tokens)
+    f32, l32, d32 = next_token_logits(cfg32, p32, tokens, frames)
     del p32
     torch.cuda.empty_cache()
     scale = float(f32.abs().max())
@@ -3434,9 +3546,11 @@ def consistency(label: str, cfg, params, tokens) -> None:
                              f"and the bf16 forward's distance from float32")
 
 
-def serve_profile(label: str, cfg, params, tokens, steps: int = 4) -> dict:
+def serve_profile(label: str, cfg, params, tokens, frames=None,
+                  steps: int = 4) -> dict:
     """torch.profiler over one prefill, then over ``steps`` decode steps
-    (after one warm-up step)."""
+    (after one warm-up step); an encoder-decoder's prefill over
+    ``frames``."""
     from repro_torch.kernels import common as kc
     from repro_torch.models import lm
 
@@ -3444,7 +3558,7 @@ def serve_profile(label: str, cfg, params, tokens, steps: int = 4) -> dict:
     out = {}
     def prefill():
         t_start = time.perf_counter()
-        logits, cache = lm.prefill(cfg, params, {"tokens": tokens})
+        logits, cache = lm.prefill(cfg, params, model_batch(tokens, frames))
         torch.cuda.synchronize()
         return time.perf_counter() - t_start, logits, cache
 
@@ -3477,6 +3591,9 @@ def serve_profile(label: str, cfg, params, tokens, steps: int = 4) -> dict:
 # whole state, then zamba2-2.7b, falcon-mamba-7b and granite-moe-1b-a400m
 # (no checkpoint write, to stay in time).  falcon-mamba trains at full width on 16 of its 64
 # layers: at full depth its float32 AdamW moments alone take 58 GB.
+# whisper-medium takes the reference's training layout: ``seq`` frames
+# for the encoder (1500, whisper's own count) and max_target_len (448)
+# decoder tokens; its tok/s counts the frames, as the reference does.
 TRAIN_RUNS = (dict(arch="internlm2-1.8b", batch=4, seq=512, steps=4,
                    ckpt=True),
               dict(arch="zamba2-2.7b", batch=4, seq=512, steps=3,
@@ -3484,6 +3601,8 @@ TRAIN_RUNS = (dict(arch="internlm2-1.8b", batch=4, seq=512, steps=4,
               dict(arch="falcon-mamba-7b", batch=4, seq=512, steps=3,
                    ckpt=False, layers=16),
               dict(arch="granite-moe-1b-a400m", batch=4, seq=512, steps=4,
+                   ckpt=False),
+              dict(arch="whisper-medium", batch=4, seq=1500, steps=4,
                    ckpt=False))
 
 
@@ -3543,8 +3662,8 @@ def train_run(device, seed: int, arch: str, batch: int, seq: int,
     shape = ShapeConfig("train", seq, batch, "train")
     mamba = cfg.n_layers if cfg.ssm_state else 0
     mamba1 = is_mamba1(cfg)
-    want = {"flash_attention": cfg.attn_layers,
-            "flash_attention_bwd": cfg.attn_layers,
+    want = {"flash_attention": flash_calls(cfg),
+            "flash_attention_bwd": flash_calls(cfg),
             "ssm_scan": mamba,
             "ssm_scan_bwd": mamba if mamba1 else 0,
             "ssm_scan_heads_bwd": 0 if mamba1 else mamba}
@@ -3614,8 +3733,12 @@ def train_run(device, seed: int, arch: str, batch: int, seq: int,
         ckpt_snapshot_s=snap, ckpt_save_s=save,
         tok_s=tokens * len(steady) / sum(r["wall_s"] for r in steady),
         launches_per_step={k: v / steps for k, v in counts.items() if v})
-    print(f"[train] {arch}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"bf16, batch {batch} x {seq}, {steps} AdamW steps: "
+    layout = (f"{cfg.encoder_layers} encoder + {cfg.n_layers} decoder "
+              f"layers, d_model {cfg.d_model}, bf16, batch {batch} x {seq} "
+              f"frames x {cfg.max_target_len} tokens" if cfg.is_encdec else
+              f"{cfg.n_layers} layers, d_model {cfg.d_model}, bf16, batch "
+              f"{batch} x {seq}")
+    print(f"[train] {arch}, {layout}, {steps} AdamW steps: "
           f"{metrics['tok_s']:.1f} tok/s after the first step, peak memory "
           f"{peak} B ({peak / 2**30:.2f} GiB); launches per step "
           f"{metrics['launches_per_step']}"
@@ -3647,8 +3770,11 @@ def train_run(device, seed: int, arch: str, batch: int, seq: int,
 
 # The attention train-checks, (arch, layers) at full width in float32:
 # internlm2's dense blocks, then granite-moe's attention+MoE blocks (32
-# experts, top-8, its own capacity factor), the routing compared first.
-ATTN_TRAIN_CHECKS = (("internlm2-1.8b", 2), ("granite-moe-1b-a400m", 2))
+# experts, top-8, its own capacity factor), the routing compared first,
+# then whisper-medium's 2 encoder and 2 decoder layers (64 frames, 448
+# target tokens).
+ATTN_TRAIN_CHECKS = (("internlm2-1.8b", 2), ("granite-moe-1b-a400m", 2),
+                     ("whisper-medium", 2))
 
 
 def train_check(device, seed: int) -> dict:
@@ -3692,6 +3818,8 @@ def attn_train_check(device, seed: int, arch: str, layers: int,
 
     cfg = dataclasses.replace(C.get(arch), n_layers=layers,
                               dtype="float32", remat_policy="full")
+    if cfg.is_encdec:
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
     params = lm.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
     host = dp.batch_at(cfg, ShapeConfig("t", seq, batch, "train"), seed, 0)
     out = {}
@@ -3731,9 +3859,9 @@ def attn_train_check(device, seed: int, arch: str, layers: int,
               f"{t_cpu:.2f} s; launches flash_attention "
               f"{counts['flash_attention']}, flash_attention_bwd "
               f"{counts['flash_attention_bwd']}")
-        fwd = layers * (2 if "full" in label else 1)
+        fwd = flash_calls(cfg) * (2 if "full" in label else 1)
         if (counts["flash_attention"], counts["flash_attention_bwd"]) != (
-                fwd, layers):
+                fwd, flash_calls(cfg)):
             raise AssertionError(f"train-check {arch} [{label}]: launches "
                                  f"{counts}")
         if dl > 1e-5 or rel[worst] > 1e-3:
@@ -3843,7 +3971,7 @@ def ssm_train_check(device, seed: int, arch: str, layers: int, bound: float,
               f"{c['flash_attention_bwd']}")
         k = 2 if remat else 1
         want = (layers * k, 0 if mamba1 else layers, layers if mamba1 else 0,
-                cfg.attn_layers * k, cfg.attn_layers)
+                flash_calls(cfg) * k, flash_calls(cfg))
         if (c["ssm_scan"], c["ssm_scan_heads_bwd"], c["ssm_scan_bwd"],
                 c["flash_attention"], c["flash_attention_bwd"]) != want:
             raise AssertionError(f"train-check {arch} [{label}]: launches "
@@ -4047,6 +4175,12 @@ def main() -> int:
           f"ssm_scan_bwd at its training shape ms={bwd['ms']:.5f} (bound "
           f"{bwd['bound_ms']:.5f} by {bwd['bound_by']}, "
           f"{bwd['bound_ms'] / bwd['ms']:.3f} of it)")
+    whisper = {k: v for k, v in main_rows.items() if k.startswith("whisper")}
+    for key, row in whisper.items():
+        print(f"[kernel] {key}: {row['name']} ms={row['ms']:.5f} bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}, "
+              f"{row['bound_ms'] / row['ms']:.3f} of it), SDPA "
+              f"{row['library_ms']:.5f} ({row['ms'] / row['library_ms']:.2f}x)")
     entry = entry_phase(blocks, paths, device)
     counts = path_phase(paths, device)
     counts["entry"] = entry
@@ -4107,6 +4241,9 @@ def main() -> int:
         serve=serve_metrics,
         serve_check={k: v for k, v in check.items() if k != "launches"},
         bf16_check=bf16, train_check=tcheck["rows"], train=train_metrics,
+        whisper_kernels={k: {f: v[f] for f in ("ms", "bound_ms", "bound_by",
+                                               "library_ms", "mode")}
+                         for k, v in whisper.items()},
         checkpoint=counts["resilient"]["checkpoint"], telemetry=telemetry,
         profile=profile)
     print(f"[summary] {json.dumps(summary)}")

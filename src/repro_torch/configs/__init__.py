@@ -14,10 +14,10 @@ _MODULES = {
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
     "llama4-maverick-400b-a17b":
         "repro_torch.configs.llama4_maverick_400b_a17b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
 }
 # Architectures of the JAX package not ported yet, and what brings each.
 _LATER = {
-    "whisper-medium": "the encoder-decoder (whisper) slice",
     "mistral-nemo-12b": "the remaining dense configs",
     "yi-9b": "the remaining dense configs",
     "llama3-8b": "the remaining dense configs",

@@ -7,6 +7,13 @@ loop, on random weights made from ``--seed`` (``repro.launch.serve``).
         --arch zamba2-2.7b --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch falcon-mamba-7b --batch 4 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch whisper-medium --batch 4 --prompt-len 1500 --gen 32
+
+For an encoder-decoder (whisper) ``--prompt-len`` is the encoder's frame
+count (random frame embeddings: the audio frontend is a stub) and the
+decoder starts from 8 prompt tokens; the printed prefill line counts
+those 8 tokens, as the reference's does.
 
 Prefill runs the flash-attention and ssm_scan kernels on the card (their
 plain versions on the CPU); decode is plain torch.  Weights and prompt
@@ -68,8 +75,20 @@ def main(argv=None) -> torch.Tensor:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init(gen, cfg, device=device)
     b, s = args.batch, args.prompt_len
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                           device=device, dtype=torch.int32)
+    if cfg.is_encdec:
+        # --prompt-len frames for the encoder, 8 prompt tokens for the
+        # decoder, as the reference serves it.
+        batch = {
+            "frames": torch.randn((b, s, cfg.d_model), generator=gen,
+                                  device=device, dtype=torch.float32),
+            "tokens": torch.randint(0, cfg.vocab_size, (b, 8), generator=gen,
+                                    device=device, dtype=torch.int32),
+        }
+        s = 8
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device=device,
+                                         dtype=torch.int32)}
 
     timer = SpanTimer()
     events = []                      # (kind, fields) for --events-jsonl
@@ -77,7 +96,7 @@ def main(argv=None) -> torch.Tensor:
     _sync(device)
     t0 = time.perf_counter()
     with timer.span("serve/prefill"), torch.no_grad():
-        logits, cache = lm.prefill(cfg, params, {"tokens": tokens})
+        logits, cache = lm.prefill(cfg, params, batch)
         cache = lm.pad_cache(cfg, cache, s + args.gen)
         _sync(device)
     t_prefill = time.perf_counter() - t0

@@ -26,6 +26,15 @@ and ``util`` (the bucket fill):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
       --batch 4 --seq 512 --steps 20
+
+An encoder-decoder (whisper-medium) takes the reference's training
+layout: ``--seq`` frames for the encoder (the stream's float32
+``frames`` leaf, moved by the ``Prefetcher`` with the tokens) and
+``max_target_len`` (448) decoder tokens; the printed tok/s counts batch
+x seq, the frames, as the reference does:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium \
+      --batch 4 --seq 1500 --steps 20
 """
 
 from __future__ import annotations

@@ -32,7 +32,12 @@ F32 = torch.float32
 NEG_INF = torch.finfo(torch.float32).min
 
 
-def attn_spec(cfg: ArchConfig) -> dict:
+def attn_spec(cfg: ArchConfig, *, cross: bool = False) -> dict:
+    """The projections of one attention: self-attention, or with
+    ``cross`` an encoder-decoder's cross-attention, whose leaves are the
+    same (queries from the decoder, keys and values from the encoder's
+    output), as in the reference."""
+    del cross
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if cfg.head_pad:
         if cfg.head_pad % hkv:
@@ -52,7 +57,7 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhe->bhse") as one matmul."""
     d, h, e = w.shape
     y = torch.matmul(x, w.to(x.dtype).reshape(d, h * e))
@@ -62,9 +67,9 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def project_qkv(cfg: ArchConfig, p: dict, x_q: torch.Tensor,
                 x_kv: torch.Tensor, positions, kv_positions, *,
                 use_rope: bool):
-    q = _proj(x_q, p["wq"])
-    k = _proj(x_kv, p["wk"])
-    v = _proj(x_kv, p["wv"])
+    q = project(x_q, p["wq"])
+    k = project(x_kv, p["wk"])
+    v = project(x_kv, p["wv"])
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)

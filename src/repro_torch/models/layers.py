@@ -51,6 +51,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoid table [seq, d] in float32: the sines of
+    position x 10000^(-i / (d/2 - 1)) in the first half, their cosines in
+    the second."""
+    pos = torch.arange(seq, dtype=F32, device=device)[:, None]
+    return sinusoid(pos, d)
+
+
+def sinusoid(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """The sinusoid rows of the float32 positions ``pos`` [..., 1]:
+    [..., d]."""
+    dim = torch.arange(d // 2, dtype=F32, device=pos.device)
+    # The rate in float32 throughout, as the reference computes it.
+    rate = torch.log(torch.tensor(10000.0, dtype=F32)) / max(d // 2 - 1, 1)
+    inv = torch.exp(-dim * rate.to(pos.device))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def embed_spec(vocab: int, d: int) -> dict:
     return {"tokens": ParamSpec((vocab, d), ("vocab", None),
                                 init="small_normal")}

@@ -1,7 +1,10 @@
-"""Model API (``repro.models.lm``) for the decoder-only architectures:
-``init``, the training loss (``cross_entropy``, ``loss_fn``), and the
-serving entry points ``prefill``, ``decode``, ``make_cache`` and
-``pad_cache``.  The encoder-decoder (whisper) comes with a later slice.
+"""Model API (``repro.models.lm``): every arch resolves to the same
+entry points, ``model_spec``, ``init``, the training loss
+(``cross_entropy``, ``loss_fn``), and the serving entry points
+``prefill``, ``decode``, ``make_cache`` and ``pad_cache``; the
+encoder-decoder (whisper, ``cfg.is_encdec``) through
+:mod:`repro_torch.models.whisper`, the others through
+:mod:`repro_torch.models.transformer`.
 """
 
 from __future__ import annotations
@@ -14,17 +17,12 @@ from repro_torch.kernels import common as kc
 from repro_torch.models import attention as attn_m
 from repro_torch.models import spec as sp
 from repro_torch.models import transformer as tfm
-
-
-def _decoder_only(cfg: ArchConfig) -> None:
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            "the encoder-decoder (whisper) is not ported yet (ROADMAP "
-            "section 1, item 9)")
+from repro_torch.models import whisper as wsp
 
 
 def model_spec(cfg: ArchConfig) -> dict:
-    _decoder_only(cfg)
+    if cfg.is_encdec:
+        return wsp.encdec_spec(cfg)
     return tfm.decoder_spec(cfg)
 
 
@@ -51,13 +49,18 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
             remat: bool = True):
-    """batch {"tokens": [B, S], "targets": [B, S]} -> (loss, metrics):
-    the cross-entropy, plus the MoE auxiliary loss where the model reports
+    """batch {"tokens": [B, S], "targets": [B, S]} (and "frames" [B,
+    S_enc, d_model] for an encoder-decoder) -> (loss, metrics): the
+    cross-entropy, plus the MoE auxiliary loss where the model reports
     one; metrics hold ``ce_loss`` and ``loss`` (and the model's own).
     With ``remat``, ``cfg.remat_policy`` chooses what the backward
-    recomputes (:func:`repro_torch.models.transformer.forward`)."""
-    _decoder_only(cfg)
-    out = tfm.forward(cfg, params, batch["tokens"], remat=remat)
+    recomputes (:func:`repro_torch.models.transformer.forward`; whisper
+    recomputes each block whole)."""
+    if cfg.is_encdec:
+        out = wsp.forward(cfg, params, batch["frames"], batch["tokens"],
+                          remat=remat)
+    else:
+        out = tfm.forward(cfg, params, batch["tokens"], remat=remat)
     loss = cross_entropy(out.logits, batch["targets"])
     metrics = dict(out.metrics)
     metrics["ce_loss"] = loss
@@ -68,11 +71,15 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, *, window: int = 0):
-    """batch {"tokens": [B, S]} -> (last-token logits [B, V], stacked
-    caches of S slots)."""
-    _decoder_only(cfg)
-    out = tfm.forward(cfg, params, batch["tokens"], emit_cache=True,
-                      window=window)
+    """batch {"tokens": [B, S]} (and "frames" for an encoder-decoder) ->
+    (last-token logits [B, V], stacked caches of S slots; whisper's cross
+    caches hold the S_enc frames)."""
+    if cfg.is_encdec:
+        out = wsp.forward(cfg, params, batch["frames"], batch["tokens"],
+                          emit_cache=True)
+    else:
+        out = tfm.forward(cfg, params, batch["tokens"], emit_cache=True,
+                          window=window)
     return out.logits[:, -1, :], out.cache
 
 
@@ -80,19 +87,27 @@ def decode(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
            pos: int):
     """One token per sequence at position ``pos``; the cache is updated
     in place and returned."""
-    _decoder_only(cfg)
+    if cfg.is_encdec:
+        return wsp.decode_step(cfg, params, token, cache, pos)
     return tfm.decode_step(cfg, params, token, cache, pos)
 
 
-def make_cache(cfg: ArchConfig, batch: int, s_max: int, *, device="cuda"):
-    _decoder_only(cfg)
-    return tfm.make_cache(cfg, batch, s_max,
-                          device=kc.resolve_device(device))
+def make_cache(cfg: ArchConfig, batch: int, s_max: int, *, enc_s: int = 0,
+               device="cuda"):
+    """Zero decode caches of ``s_max`` slots (an encoder-decoder's cross
+    cache of ``enc_s`` frames, ``s_max`` where 0)."""
+    device = kc.resolve_device(device)
+    if cfg.is_encdec:
+        return wsp.make_cache(cfg, batch, s_max, enc_s or s_max,
+                              device=device)
+    return tfm.make_cache(cfg, batch, s_max, device=device)
 
 
 def pad_cache(cfg: ArchConfig, cache, s_max: int):
     """Grow prefill KV caches ([R, B, H, S, D]) to ``s_max`` decode
-    slots."""
+    slots.  As in the reference, every KV cache shorter than ``s_max``
+    grows, an encoder-decoder's cross cache too: decode then attends
+    over its zero keys as well."""
 
     def one(entry):
         if isinstance(entry, attn_m.KVCache) and entry.k.shape[-2] < s_max:

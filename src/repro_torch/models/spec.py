@@ -44,6 +44,15 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def unstack(tree, n: int) -> list:
+    """The ``n`` slices of a tree stacked on its leading axis, as views.
+    One unbind per leaf: its backward stacks the slices' gradients once,
+    where a select per slice would fill a zero tensor of the whole stack
+    for each."""
+    leaves = tree_map(lambda x: x.unbind(0), tree)
+    return [tree_map(lambda xs, r=r: xs[r], leaves) for r in range(n)]
+
+
 def init_tree(gen: torch.Generator, tree, dtype: torch.dtype,
               device) -> dict:
     """Materialize a spec tree: ``normal`` draws N(0, 1/fan_in),

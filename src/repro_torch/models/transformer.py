@@ -31,7 +31,7 @@ from repro_torch.models import layers as ly
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
 from repro_torch.models import ssm as ssmm
-from repro_torch.models.spec import stack_specs, tree_map
+from repro_torch.models.spec import stack_specs, tree_map, unstack
 
 
 def block_kinds(cfg: ArchConfig) -> list[str]:
@@ -204,10 +204,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
 
     caches = {f"pos{i}": [] for i in range(len(kinds))}
     per_repeat = []
-    # One unbind per stacked leaf: its backward stacks the repeats'
-    # gradients once, where a select per repeat would fill a zero tensor
-    # of the whole stack for each.
-    repeats = _unstack(params["blocks"], n_repeats(cfg))
+    repeats = unstack(params["blocks"], n_repeats(cfg))
     for blk in repeats:
         if policy == "none" or emit_cache:
             x, entries, sums = body(x, blk)
@@ -227,12 +224,6 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                    tied=cfg.tie_embeddings)
     cache = {k: _stack(v) for k, v in caches.items()} if emit_cache else None
     return DecoderOutput(logits=lg, metrics=metrics, cache=cache)
-
-
-def _unstack(tree, n: int) -> list:
-    """The per-repeat slices of a stacked parameter tree, as views."""
-    leaves = tree_map(lambda x: x.unbind(0), tree)
-    return [tree_map(lambda xs, r=r: xs[r], leaves) for r in range(n)]
 
 
 def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
@@ -258,7 +249,7 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
         o = attn.decode_attention(q, kv, min(pos + 1, s_max))
         return x + attn.output_proj(bp["attn"], o)
 
-    for r, blk in enumerate(_unstack(params["blocks"], n_repeats(cfg))):
+    for r, blk in enumerate(unstack(params["blocks"], n_repeats(cfg))):
         for i, kind in enumerate(kinds):
             bp = blk[f"pos{i}"]
             entry = cache[f"pos{i}"]

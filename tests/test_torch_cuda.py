@@ -941,7 +941,9 @@ FLASH_SHAPES = [
     (1, 4, 2, 64, 192, 16, True, 128),
     (1, 2, 2, 100, 300, 64, False, 0),
     (1, 2, 1, 1, 77, 256, True, 76),
-    (1, 3, 3, 65, 65, 8, True, 0)]
+    (1, 3, 3, 65, 65, 8, True, 0),
+    (1, 16, 16, 1500, 1500, 64, False, 0),  # whisper's encoder: 1500
+    (1, 16, 16, 8, 1500, 64, False, 0)]     # frames; its cross-attention
 # The tensor-core kernels' edges, run in both types: head sizes that are
 # not a multiple of 64 (TMA zero-fills the columns past D) or of 16 (the
 # float32 instance skips the column blocks past D), a single key, a
@@ -1067,7 +1069,9 @@ FLASH_BWD_SHAPES = [
     (1, 4, 4, 64, 64, 192, True, 0),
     (1, 2, 2, 150, 170, 256, True, 0),
     (1, 32, 32, 512, 512, 80, True, 0),   # zamba2's training heads
-    (1, 32, 8, 129, 200, 80, True, 71)]   # the same, GQA 4, 71 keys on
+    (1, 32, 8, 129, 200, 80, True, 71),   # the same, GQA 4, 71 keys on
+    (1, 16, 16, 448, 1500, 64, False, 0),  # whisper's cross-attention
+    (1, 16, 16, 1500, 1500, 64, False, 0)]  # and its encoder, training
 
 
 def _bwd_inputs(device, b, hq, hkv, sq, skv, d, dtype, causal, q_offset):
@@ -1146,6 +1150,23 @@ def test_flash_attention_bwd_bf16_is_deterministic(cuda, b, hq, hkv, s, d):
     assert fa.design(torch.bfloat16, backward=True) == "mma_bf16"
     first = fa.flash_attention_bwd(*args)
     second = fa.flash_attention_bwd(*args)
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq", [448, 1500])
+def test_flash_attention_bwd_without_the_mask_is_deterministic(cuda, sq,
+                                                               dtype):
+    """Without the causal mask, at whisper's training shapes (448 decoder
+    rows or 1500 frames over 1500 frames, a ragged last key tile, 16 heads
+    of 64): two calls on the same inputs give bitwise equal dq, dk and
+    dv."""
+    args = _bwd_inputs(cuda, 1, 16, 16, sq, 1500, 64, getattr(torch, dtype),
+                       False, 0)
+    first = fa.flash_attention_bwd(*args, causal=False)
+    second = fa.flash_attention_bwd(*args, causal=False)
     for name, x, y in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(x, y), name
 

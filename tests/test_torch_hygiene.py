@@ -614,9 +614,7 @@ def _lm_unported(feature: str):
 
     from repro_torch import configs as C
     from repro_torch.models import attention as attn
-    from repro_torch.models import lm
     from repro_torch.models import ssm
-    from repro_torch.models import transformer as tfm
 
     zamba = C.get("zamba2-2.7b").reduced()
     dense = C.get("internlm2-1.8b").reduced()
@@ -628,10 +626,6 @@ def _lm_unported(feature: str):
                               window=4)
     elif feature == "ssd":
         ssm.ssm_spec(dataclasses.replace(zamba, ssm_impl="ssd"))
-    elif feature == "encoder-decoder":
-        lm.init(torch.Generator(), dataclasses.replace(dense,
-                                                       encoder_layers=2),
-                device="cpu")
     else:
         # Training runs on one device; its data-parallel form with
         # compressed gradients waits for models/sharding.py.
@@ -641,8 +635,7 @@ def _lm_unported(feature: str):
 
 @pytest.mark.parametrize("feature,match", [
     ("window", "window"), ("window decode", "window"),
-    ("ssd", "ssd"),
-    ("encoder-decoder", "encoder-decoder"), ("training", "training")])
+    ("ssd", "ssd"), ("training", "training")])
 def test_unported_lm_features_raise(feature, match):
     with pytest.raises(NotImplementedError, match=match):
         _lm_unported(feature)
@@ -693,14 +686,6 @@ def test_serve_writes_metrics_and_events(flag, tmp_path, capsys):
         rows = list(read_jsonl(str(path)))
         assert [r["kind"] for r in rows] == ["prefill", "decode"]
         assert rows[0]["prompt_len"] == 5 and rows[1]["steps"] == 3
-
-
-@pytest.mark.parametrize("argv,match", [
-    (["--device", "cpu", "--arch", "whisper-medium", "--reduced"],
-     "encoder-decoder")])
-def test_unported_serve_features_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        serve.main(argv)
 
 
 def test_serve_runs_granite_moe_on_the_cpu(capsys):

@@ -34,7 +34,6 @@ from repro.models import lm as jlm  # noqa: E402
 from repro.models import mlp as jmlp  # noqa: E402
 from repro.models import spec as jsp  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
-from repro.models import transformer as jtfm  # noqa: E402
 from repro_torch import configs as C  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.kernels import common as kc  # noqa: E402
@@ -46,10 +45,12 @@ from repro_torch.models import spec as sp  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 
-# The config, spec and init cases take the MoE archs too; their
-# model-level cases are in tests/test_torch_moe.py.
+# The config, spec and init cases take the MoE archs and whisper too;
+# their model-level cases are in tests/test_torch_moe.py and
+# tests/test_torch_whisper.py.
 ARCHS = ["zamba2-2.7b", "internlm2-1.8b", "falcon-mamba-7b",
-         "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"]
+         "granite-moe-1b-a400m", "llama4-maverick-400b-a17b",
+         "whisper-medium"]
 MODEL_ARCHS = ["zamba2-2.7b", "internlm2-1.8b", "falcon-mamba-7b"]
 ATTN_ARCHS = [a for a in MODEL_ARCHS if a != "falcon-mamba-7b"]
 CPU = "cpu"
@@ -130,7 +131,7 @@ def test_unported_archs_raise():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_spec_tree_matches_the_jax_package(arch):
     """Same keys, shapes, init rules and fan-ins, at full width."""
-    j, t = jtfm.decoder_spec(JC.get(arch)), tfm.decoder_spec(C.get(arch))
+    j, t = jlm.model_spec(JC.get(arch)), lm.model_spec(C.get(arch))
     jleaves, _ = jax.tree.flatten(j, is_leaf=lambda x: isinstance(
         x, jsp.ParamSpec))
     tleaves = sp.tree_leaves(t)
@@ -145,7 +146,7 @@ def test_spec_tree_matches_the_jax_package(arch):
 def test_init_draws_the_spec(arch):
     cfg = C.get(arch).reduced()
     params = lm.init(torch.Generator().manual_seed(0), cfg, device=CPU)
-    specs = sp.tree_leaves(tfm.decoder_spec(cfg))
+    specs = sp.tree_leaves(lm.model_spec(cfg))
     for spec, x in zip(specs, sp.tree_leaves(params)):
         assert tuple(x.shape) == spec.shape and x.dtype == torch.float32
         if spec.init == "zeros":
