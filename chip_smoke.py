@@ -422,9 +422,9 @@ def moe_routings(store: list):
 
     orig = moem.moe_apply
 
-    def wrapped(cfg, p, x, routing=None):
+    def wrapped(cfg, p, x, *, rules=None, routing=None):
         r = {}
-        out = orig(cfg, p, x, routing=r)
+        out = orig(cfg, p, x, rules=rules, routing=r)
         top = torch.sort(r["probs"].detach().float(), dim=-1,
                          descending=True).values
         gap = (top[..., cfg.top_k - 1] - top[..., cfg.top_k]
@@ -1349,7 +1349,8 @@ def kernel_phase(cases: list[dict]) -> dict:
               f"({row['bound_by']})"
               + ("" if lms is None else f" library_ms={lms:.5f}"))
         if "sole_kernel" in case:
-            _, names = kc.card_kernels(case["run"])
+            _, names = kc.card_kernels(
+                case["run"], expect=re.escape(case["sole_kernel"]))
             if len(names) != 1 or case["sole_kernel"] not in names[0]:
                 raise AssertionError(f"{label}: one call put {names} on the "
                                      f"card, not one {case['sole_kernel']}")
@@ -1696,7 +1697,8 @@ def scan_train_cases(device, gen) -> list[dict]:
                                  "inputs differ")
         n = a[2].shape[1]
         bf16 = a[0].dtype == torch.bfloat16
-        _, names = kc.card_kernels(lambda: scan_ops.ssm_scan_bwd(*a))
+        _, names = kc.card_kernels(lambda: scan_ops.ssm_scan_bwd(*a),
+                                   expect="|".join(SCAN_BWD_KERNELS))
         ours = [m.group(0) for m in (re.search(
             "|".join(SCAN_BWD_KERNELS), nm) for nm in names) if m]
         print(f"[kernel] ssm_scan_bwd     {label}: two calls give the same "
@@ -3753,7 +3755,9 @@ def train_run(device, seed: int, arch: str, batch: int, seq: int,
         torch.cuda.synchronize()
         return time.perf_counter() - t_start, out
 
-    prof, (wall, (state, _)) = kc.profiled(window, f"profile of train {arch}")
+    prof, (wall, (state, _)) = kc.profiled(
+        window, f"profile of train {arch}",
+        expect="|".join(SCAN_BWD_KERNELS) if mamba1 else None)
     label = f"train {arch}"
     profile = {label: profile_row(prof, wall, 1)}
     print_profile(label, profile[label], "step")
@@ -3987,6 +3991,367 @@ def ssm_train_check(device, seed: int, arch: str, layers: int, bound: float,
     return rows, counts
 
 
+# The compressed-gradient data-parallel phase: internlm2-1.8b at full width
+# and depth, bf16, batch 4 x 512 a rank; (method, checked steps) after
+# "none", each method's timed steps after them.
+COMPRESSED_ARCH = "internlm2-1.8b"
+COMPRESSED_METHODS = (("int8", 3), ("topk", 3))
+COMPRESSED_TIMED = 2
+TOPK_FRAC = 0.01
+
+
+def state_leaves(state) -> list:
+    """A trainer state's parameters, both moments and step count, in the
+    reference's leaf order."""
+    from repro_torch.models.spec import tree_leaves
+
+    opt = state["opt"]
+    return (tree_leaves(state["params"]) + tree_leaves(opt.m)
+            + tree_leaves(opt.v) + [opt.count])
+
+
+def state_to_host(state) -> list:
+    """:func:`state_leaves` copied to the host, for a bitwise comparison
+    after the card's copy is freed."""
+    return [x.cpu() for x in state_leaves(state)]
+
+
+def same_state(label: str, state, host: list) -> None:
+    got = state_leaves(state)
+    if len(got) != len(host):
+        raise AssertionError(f"{label}: {len(got)} leaves, {len(host)}")
+    bad = [i for i, (g, h) in enumerate(zip(got, host))
+           if not torch.equal(g.cpu(), h)]
+    if bad:
+        raise AssertionError(f"{label}: leaves {bad} of {len(host)} differ")
+
+
+@contextlib.contextmanager
+def codec_checks(rows: list):
+    """While the block runs, every ``compression.compress_leaf`` call is
+    held to the codec's contract: wire + new residual equals gradient +
+    old residual within 1e-5 of the leaf's largest |g + r|; int8: every
+    wire value q scale with |q| <= 127; topk: the wire is acc times the
+    mask of the k largest |acc|, which keeps at least k.  A row a leaf
+    goes to ``rows``."""
+    from repro_torch.optim import compression
+
+    orig = compression.compress_leaf
+
+    def wrapped(g, r, gen, *, method, topk_frac=0.01):
+        wire, res = orig(g, r, gen, method=method, topk_frac=topk_frac)
+        acc = g.float() + r
+        big = float(acc.abs().max())
+        err = float(((wire + res) - acc).abs().max())
+        row = dict(method=method, n=acc.numel(), err=err, big=big,
+                   ok=err <= 1e-5 * big)
+        if method == "int8":
+            # The codec's scale, by the same float32 operations.
+            scale = acc.abs().max() / 127.0
+            scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+            q = torch.round(wire / scale)
+            row["q_max"] = float(q.abs().max())
+            row["ok"] &= (torch.equal(q * scale, wire)
+                          and row["q_max"] <= 127)
+        elif method == "topk":
+            mask = compression._topk_mask(acc, topk_frac)
+            row["k"] = max(1, int(acc.numel() * topk_frac))
+            row["kept"] = int(mask.sum())
+            row["ok"] &= (row["kept"] >= row["k"]
+                          and torch.equal(wire, acc * mask))
+        rows.append(row)
+        return wire, res
+
+    compression.compress_leaf = wrapped
+    try:
+        yield
+    finally:
+        compression.compress_leaf = orig
+
+
+@contextlib.contextmanager
+def count_all_reduces(store: list):
+    """Count the host's ``torch.distributed.all_reduce`` calls while the
+    block runs (``store`` gets one entry a call)."""
+    import torch.distributed as dist
+
+    orig = dist.all_reduce
+
+    def wrapped(*args, **kwargs):
+        store.append(1)
+        return orig(*args, **kwargs)
+
+    dist.all_reduce = wrapped
+    try:
+        yield
+    finally:
+        dist.all_reduce = orig
+
+
+def _compressed_rank(rank: int, world: int, store: str, out: str,
+                     seed: int) -> None:
+    """A rank of the multi-GPU run (spawned, GPU ``rank``): one
+    ``make_compressed_step(method="none")`` step of internlm2-1.8b on its
+    half of the batch, then whether every leaf of its new state equals
+    rank 0's (broadcast)."""
+    import torch.distributed as dist
+
+    from repro_torch import configs as C
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline as dp
+    from repro_torch.launch import mesh as ms
+    from repro_torch.launch import train
+    from repro_torch.optim import compression
+
+    torch.cuda.set_device(rank)
+    device = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method="file://" + store,
+                            rank=rank, world_size=world)
+    try:
+        cfg = C.get(COMPRESSED_ARCH)
+        mesh = ms.make_host_mesh()
+        state = train.build_train_state(
+            torch.Generator(device=device).manual_seed(seed), cfg,
+            device=device)
+        state["ef"] = compression.ef_init(state["params"])
+        batch = dp.to_device(dp.batch_at(
+            cfg, ShapeConfig("train", 512, 4 * world, "train"), seed, 0),
+            device)
+        mine = {k: v[rank * 4:(rank + 1) * 4] for k, v in batch.items()}
+        step = train.make_compressed_step(cfg, mesh, peak_lr=3e-4,
+                                          total_steps=8, method="none")
+        state, _ = step(state, mine, torch.Generator(device=device))
+        equal = True
+        for x in state_leaves(state):
+            y = x.clone()
+            dist.broadcast(y, src=0)
+            equal &= torch.equal(x, y)
+        torch.save(dict(equal=equal), f"{out}-{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def compressed_phase(device, seed: int) -> tuple[dict, dict, dict]:
+    """The data-parallel trainer with compressed gradients on the card:
+    ``launch.train.make_compressed_step`` on a one-rank NCCL group
+    (``launch.mesh.make_host_mesh()``, a (1, 1) ("data", "model") mesh),
+    internlm2-1.8b at full width and depth (24 layers, d_model 2048),
+    bf16, batch 4 x 512 from ``data.pipeline``, remat off.
+
+    ``make_step`` takes a first step, then twice the same second step
+    (timed); ``method="none"`` from the same
+    state and batch must equal it bitwise in the new parameters, both
+    moments and the loss (the wire is the float32 gradient plus a zero
+    residual, the one-rank all-reduce divides by 1, ``adamw.update``
+    casts each gradient to float32).  Then ``none``, ``int8`` and
+    ``topk`` (``TOPK_FRAC``): int8 and topk first take their checked
+    steps under :func:`codec_checks`, then each method its timed steps,
+    then one step under the profiler (NCCL kernels by name, expected one
+    all-reduce a leaf and one for the metrics).  Every step's loss must
+    be finite and it must launch flash_attention and flash_attention_bwd
+    24 times each and no other kernel; the host's all-reduce calls a
+    compressed step must be one a leaf plus one.  With a second GPU,
+    ``none`` at world 2 (spawned, last): the ranks' states must be
+    bitwise equal.  Returns (launches, metrics, profile rows)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs as C
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline as dp
+    from repro_torch.kernels import common as kc
+    from repro_torch.launch import mesh as ms
+    from repro_torch.launch import train
+    from repro_torch.optim import compression
+
+    cfg = C.get(COMPRESSED_ARCH)
+    shape = ShapeConfig("train", 512, 4, "train")
+    tokens = shape.global_batch * shape.seq_len
+    want = {k: 0 for k in kc.KERNELS}
+    want.update(flash_attention=flash_calls(cfg),
+                flash_attention_bwd=flash_calls(cfg))
+    tmp = tempfile.mkdtemp(prefix="compressed-")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    metrics, profile = {}, {}
+    try:
+        marks = [time.perf_counter()]
+        mesh = ms.make_host_mesh()
+        batches = [dp.to_device(dp.batch_at(cfg, shape, seed, i), device)
+                   for i in range(4)]
+        state = train.build_train_state(
+            torch.Generator(device=device).manual_seed(seed), cfg,
+            device=device)
+        n_leaves = len(state_leaves(state)[:-1]) // 3
+        wire_bytes = {m: compression.wire_bytes(state["params"], method=m,
+                                                topk_frac=TOPK_FRAC)
+                      for m in ("none", "int8", "topk")}
+        plain = train.make_step(cfg, peak_lr=3e-4, total_steps=8,
+                                remat=False)
+        steps = {m: train.make_compressed_step(
+            cfg, mesh, peak_lr=3e-4, total_steps=8, method=m,
+            topk_frac=TOPK_FRAC) for m in ("none", "int8", "topk")}
+        gen = torch.Generator(device=device).manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kc.reset_launches()
+        rows = []
+
+        def run(label, fn, *args):
+            """One step, timed and checked: (state, metrics)."""
+            before = dict(kc.launches)
+            calls: list = []
+            t_start = time.perf_counter()
+            with count_all_reduces(calls):
+                out, m = fn(*args)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+            per = {k: kc.launches[k] - before[k] for k in want}
+            rows.append(dict(label=label, loss=loss, wall_s=wall,
+                             grad_norm=float(m["grad_norm"]),
+                             all_reduces=len(calls)))
+            print(f"[compressed] {label}: loss {loss:.4f}, grad_norm "
+                  f"{float(m['grad_norm']):.4f}, {wall * 1e3:.1f} ms, "
+                  f"{tokens / wall:.1f} tok/s, {len(calls)} all-reduce "
+                  f"calls")
+            if not np.isfinite(loss):
+                raise AssertionError(f"compressed {label}: loss {loss}")
+            if per != want:
+                raise AssertionError(f"compressed {label}: launches {per}, "
+                                     f"expected {want}")
+            if fn is not plain and len(calls) != n_leaves + 1:
+                raise AssertionError(f"compressed {label}: {len(calls)} "
+                                     f"all-reduces, expected {n_leaves} "
+                                     f"leaves + 1")
+            return out, m
+
+        # make_step: a first step, then its second step twice (timed).
+        marks.append(time.perf_counter())
+        s1, _ = run("make_step 1", plain, state, batches[0])
+        del state
+        s2, m2 = run("make_step 2", plain, s1, batches[1])
+        host, loss2 = state_to_host(s2), m2["loss"].cpu()
+        del s2
+        run("make_step 2 again", plain, s1, batches[1])
+        timed = {"make_step": [rows[-2]["wall_s"], rows[-1]["wall_s"]]}
+        # "none" from the same state and batch: bitwise equal.
+        s1["ef"] = compression.ef_init(s1["params"])
+        cur, mn = run("none 1", steps["none"], s1, batches[1], gen)
+        same_state("none against make_step", cur, host)
+        if not torch.equal(mn["loss"].cpu(), loss2):
+            raise AssertionError("none: the loss differs from make_step's")
+        del s1, host
+        marks.append(time.perf_counter())
+        print(f"[compressed] none: new parameters, both moments and the "
+              f"loss bitwise equal to make_step's ({n_leaves} leaves)")
+        checks = {}
+        for method, n in COMPRESSED_METHODS:
+            checks[method] = []
+            with codec_checks(checks[method]):
+                for i in range(n):
+                    cur, _ = run(f"{method} checked {i + 1}", steps[method],
+                                 cur, batches[i % 4], gen)
+            bad = [r for r in checks[method] if not r["ok"]]
+            worst = max(r["err"] / r["big"] for r in checks[method]
+                        if r["big"])
+            extra = (f"largest |q| {max(r['q_max'] for r in checks[method])}"
+                     if method == "int8" else
+                     f"kept / k from {min(r['kept'] / r['k'] for r in checks[method]):.4f}"
+                     f" to {max(r['kept'] / r['k'] for r in checks[method]):.4f}")
+            print(f"[compressed] {method}: {n} steps x {n_leaves} leaves "
+                  f"hold the codec: wire + residual within "
+                  f"{worst:.3g} of each leaf's largest |g + r| (bound "
+                  f"1e-5); {extra}")
+            if bad or len(checks[method]) != n * n_leaves:
+                raise AssertionError(f"compressed {method}: codec checks "
+                                     f"failed {bad[:3]}")
+        marks.append(time.perf_counter())
+        for method in ("none", "int8", "topk"):
+            timed[method] = []
+            for i in range(COMPRESSED_TIMED):
+                cur, _ = run(f"{method} timed {i + 1}", steps[method], cur,
+                             batches[i % 4], gen)
+                timed[method].append(rows[-1]["wall_s"])
+        counts = dict(kc.launches)
+        peak = torch.cuda.max_memory_allocated()
+        marks.append(time.perf_counter())
+        for method in ("none", "int8", "topk"):
+            data = batches[3]
+
+            def window(cur=cur, method=method, data=data):
+                t_start = time.perf_counter()
+                out = steps[method](cur, data, gen)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t_start, out
+
+            prof, (wall, (nxt, _)) = kc.profiled(
+                window, f"profile of compressed {method}",
+                expect="flash_attention_bwd")
+            label = f"compressed {method}"
+            row = profile_row(prof, wall, 1)
+            nccl = [e for e in prof.key_averages()
+                    if kc.on_device(e) and "nccl" in e.key.lower()]
+            row["nccl_kernels"] = {e.key[:80]: e.count for e in nccl}
+            row["nccl_kernels_per_step"] = sum(e.count for e in nccl)
+            profile[label] = row
+            print_profile(label, row)
+            print(f"[compressed] {method}: NCCL kernels a step "
+                  f"{row['nccl_kernels_per_step']} (expected {n_leaves + 1}"
+                  f": one all-reduce a leaf, one for the metrics), by name "
+                  f"{row['nccl_kernels']}")
+            del nxt
+        marks.append(time.perf_counter())
+        parts = dict(zip(("setup", "make_step and none", "checked steps",
+                          "timed steps", "profiles"), np.diff(marks)))
+        print("[time] compressed: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in parts.items()))
+        tok_s = {m: tokens * len(w) / sum(w) for m, w in timed.items()}
+        metrics = dict(
+            steps=rows, tok_s=tok_s, wire_bytes=wire_bytes, peak_bytes=peak,
+            n_leaves=n_leaves, topk_frac=TOPK_FRAC,
+            launches_per_step={k: v for k, v in want.items() if v},
+            codec_worst={m: max(r["err"] / r["big"] for r in c if r["big"])
+                         for m, c in checks.items()})
+        print(f"[compressed] {COMPRESSED_ARCH}, {cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, {cfg.dtype}, batch {shape.global_batch} x "
+              f"{shape.seq_len} a rank, world 1 on NCCL: tok/s after the "
+              f"first step " + ", ".join(f"{m} {v:.1f}"
+                                         for m, v in tok_s.items())
+              + f"; wire bytes a step {wire_bytes}; peak memory {peak} B "
+              f"({peak / 2**30:.2f} GiB); launches per step "
+              f"{metrics['launches_per_step']}; {gpu_line()}")
+        del cur, batches, steps, plain
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    try:
+        n_dev = torch.cuda.device_count()
+        if n_dev >= 2:
+            import torch.multiprocessing as mp
+
+            mp.spawn(_compressed_rank, args=(2, f"{tmp}/store2",
+                                             f"{tmp}/out", seed),
+                     nprocs=2, join=True)
+            ranks = [torch.load(f"{tmp}/out-{r}.pt") for r in range(2)]
+            if not all(r["equal"] for r in ranks):
+                raise AssertionError("compressed: at world 2 the ranks' "
+                                     "states differ")
+            metrics["world2_equal"] = True
+            print(f"[compressed] world 2 (NCCL, {n_dev} devices), none: "
+                  f"the ranks' parameters and moments are bitwise equal")
+        else:
+            print(f"[compressed] world 2 did not run: {n_dev} CUDA device "
+                  f"(the CPU tests hold worlds 2 and 4 on gloo)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts, metrics, profile
+
+
 def _tree_paths(tree, prefix=()):
     if isinstance(tree, dict):
         return [p for k in sorted(tree) for p in _tree_paths(tree[k],
@@ -4207,6 +4572,10 @@ def main() -> int:
     mark("train")
     profile = profile_phase(paths, device)
     mark("profile")
+    counts["compressed"], compressed, compressed_profile = compressed_phase(
+        device, args.seed)
+    mark("compressed")
+    profile.update(compressed_profile)
     profile.update(shard_rows)
     profile.update(serve_profiles)
     profile.update(train_profile)
@@ -4241,6 +4610,7 @@ def main() -> int:
         serve=serve_metrics,
         serve_check={k: v for k, v in check.items() if k != "launches"},
         bf16_check=bf16, train_check=tcheck["rows"], train=train_metrics,
+        compressed=compressed,
         whisper_kernels={k: {f: v[f] for f in ("ms", "bound_ms", "bound_by",
                                                "library_ms", "mode")}
                          for k, v in whisper.items()},

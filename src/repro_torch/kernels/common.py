@@ -32,6 +32,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -177,27 +178,35 @@ def on_device(event) -> bool:
     return str(getattr(event, "device_type", "")).endswith("CUDA")
 
 
-def profiled(window, where: str, tries: int = 5):
+def profiled(window, where: str, tries: int = 5, expect: str | None = None):
     """``(prof, window())`` from the first of up to ``tries`` torch.profiler
     sessions (CPU and CUDA activities) around ``window`` that recorded
-    device activity; raises, naming ``where``, if none did.  Now and then
-    a session records no device activity at all, and after a spawned
-    child process that used the card nearly every one does
-    (``tools/profiler_probe.py``), so ``window`` may run more than
-    once."""
+    device activity and, with ``expect`` (a regular expression), a device
+    event whose name matches it; raises, naming ``where`` (and the
+    pattern), if none did.  Now and then a session records no device
+    activity at all, and after a spawned child process that used the card
+    nearly every one does (``tools/profiler_probe.py``); a session may
+    also record PyTorch's kernels and miss a ctypes kernel of the same
+    window.  So ``window`` may run more than once."""
+    pattern = re.compile(expect) if expect is not None else None
     for _ in range(tries):
         with torch.profiler.profile(activities=list(PROFILER_ACTS)) as prof:
             out = window()
-        if any(on_device(e) for e in prof.events()):
+        names = [e.name for e in prof.events() if on_device(e)]
+        if names and (pattern is None
+                      or any(pattern.search(n) for n in names)):
             return prof, out
-    raise AssertionError(f"{where}: torch.profiler recorded no device "
-                         f"activity in {tries} sessions")
+    raise AssertionError(
+        f"{where}: torch.profiler recorded no device activity"
+        + ("" if pattern is None else f" matching {expect!r}")
+        + f" in {tries} sessions")
 
 
-def card_kernels(fn, tries: int = 5):
+def card_kernels(fn, tries: int = 5, expect: str | None = None):
     """``fn()``'s result and the names of the CUDA kernels (and copies or
     fills) that one call of it put on the card, from torch.profiler
-    (:func:`profiled`), after one warm-up call."""
+    (:func:`profiled`, which retries a session without a kernel matching
+    ``expect``), after one warm-up call."""
     fn()
     torch.cuda.synchronize()
 
@@ -206,7 +215,7 @@ def card_kernels(fn, tries: int = 5):
         torch.cuda.synchronize()
         return out
 
-    prof, out = profiled(window, "card_kernels", tries)
+    prof, out = profiled(window, "card_kernels", tries, expect)
     return out, [e.name for e in prof.events() if on_device(e)]
 
 

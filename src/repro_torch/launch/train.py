@@ -35,6 +35,12 @@ x seq, the frames, as the reference does:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium \
       --batch 4 --seq 1500 --steps 20
+
+``make_compressed_step`` is the reference's data-parallel trainer: each
+rank of a ``torch.distributed`` group takes its share of the batch, and
+the gradients cross the ranks through the error-feedback codecs of
+``optim/compression.py`` (int8, top-k or none) on the mesh's ``"data"``
+group.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ from repro_torch.data import pipeline as dp
 from repro_torch.kernels import common as kc
 from repro_torch.models import lm
 from repro_torch.models.spec import tree_leaves, tree_map
-from repro_torch.optim import adamw, schedules
+from repro_torch.optim import adamw, compression, schedules
 
 
 def build_train_state(gen: torch.Generator, cfg: ArchConfig, *,
@@ -64,11 +70,23 @@ def build_train_state(gen: torch.Generator, cfg: ArchConfig, *,
     return {"params": params, "opt": adamw.init(params)}
 
 
-def make_step(cfg: ArchConfig, *, peak_lr: float, total_steps: int,
-              remat: bool = True, warmup_steps: int | None = None):
+def _loss_and_grads(cfg, params: dict, batch: dict, rules, remat: bool):
+    """(metrics detached, gradients) of ``lm.loss_fn`` with respect to
+    fresh leaves of ``params`` (so no gradient carries over from an
+    earlier step)."""
+    params = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    loss, metrics = lm.loss_fn(cfg, params, batch, rules=rules, remat=remat)
+    grads = iter(torch.autograd.grad(loss, tree_leaves(params)))
+    # Detached, so the metrics hold no graph past the step.
+    return ({k: v.detach() for k, v in metrics.items()},
+            tree_map(lambda _: next(grads), params))
+
+
+def make_step(cfg: ArchConfig, rules=None, *, peak_lr: float,
+              total_steps: int, remat: bool = True,
+              warmup_steps: int | None = None):
     """``step(state, batch) -> (state, metrics)``: the loss and its
-    gradients with respect to fresh leaves of the parameters (so no
-    gradient carries over from an earlier step), then ``adamw.update``
+    gradients (``rules`` passed to ``lm.loss_fn``), then ``adamw.update``
     without autograd at the warm-up/cosine rate of the step count
     (``warmup_steps`` defaults to a twentieth of ``total_steps``).  The
     state passed in is not changed."""
@@ -76,30 +94,65 @@ def make_step(cfg: ArchConfig, *, peak_lr: float, total_steps: int,
         warmup_steps = max(total_steps // 20, 1)
 
     def step(state, batch):
-        params = tree_map(lambda x: x.detach().requires_grad_(True),
-                          state["params"])
-        loss, metrics = lm.loss_fn(cfg, params, batch, remat=remat)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(params)))
-        grads = tree_map(lambda _: next(grads), params)
+        metrics, grads = _loss_and_grads(cfg, state["params"], batch, rules,
+                                         remat)
         lr = schedules.warmup_cosine(
             state["opt"].count, peak_lr=peak_lr,
             warmup_steps=warmup_steps, total_steps=total_steps)
         new_params, new_opt, om = adamw.update(grads, state["opt"],
                                                state["params"], lr=lr)
-        # Detached, so the metrics hold no graph past the step.
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(om)
         return {"params": new_params, "opt": new_opt}, metrics
 
     return step
 
 
-def make_compressed_step(*args, **kwargs):
-    raise NotImplementedError(
-        "compressed-gradient data-parallel training (error-feedback int8 / "
-        "top-k all-reduce over the data axis) is not ported yet: it comes "
-        "with models/sharding.py and optim/compression.py (ROADMAP section "
-        "1, item 9)")
+def make_compressed_step(cfg: ArchConfig, mesh, *, peak_lr: float,
+                         total_steps: int, method: str = "int8",
+                         topk_frac: float = 0.01):
+    """The data-parallel trainer with error-feedback compressed gradients:
+    ``step(state, batch, gen) -> (state, metrics)`` over ``state =
+    {"params", "opt", "ef"}`` (``ef`` a ``compression.EFState``), run on
+    every rank of ``mesh`` (a ``DeviceMesh`` with a ``"data"`` axis, e.g.
+    ``launch.mesh.make_host_mesh()``) with the rank's share of the batch.
+
+    Each rank computes its local loss and gradients (no rules, no remat,
+    as the reference's ``local_step``), then ``compressed_psum`` over the
+    data group with ``method`` (``gen``, seeded alike on every rank, draws
+    int8's noise); the metrics are averaged over the group, and
+    ``adamw.update`` runs at the warm-up/cosine rate.  Parameters and
+    moments stay replicated and equal on every rank.  ``ef`` is each
+    rank's own residual, one float32 tensor a parameter: error feedback
+    is per worker.  (The reference declares ``ef`` as ``P("data")``,
+    which splits the first dimension of each param-shaped residual over
+    the data axis, so its layout holds only at data size 1.)"""
+    import torch.distributed as dist
+
+    group = mesh.get_group("data")
+    warmup_steps = max(total_steps // 20, 1)
+
+    def step(state, batch, gen):
+        metrics, grads = _loss_and_grads(cfg, state["params"], batch, None,
+                                         False)
+        reduced, ef = compression.compressed_psum(
+            grads, state["ef"], gen, mesh, "data", method=method,
+            topk_frac=topk_frac)
+        del grads
+        # The metrics' mean over the group, one all-reduce for all.
+        names = sorted(metrics)
+        mean = torch.stack([metrics[k] for k in names])
+        dist.all_reduce(mean, op=dist.ReduceOp.SUM, group=group)
+        mean = mean / dist.get_world_size(group)
+        metrics = {k: mean[i] for i, k in enumerate(names)}
+        lr = schedules.warmup_cosine(
+            state["opt"].count, peak_lr=peak_lr,
+            warmup_steps=warmup_steps, total_steps=total_steps)
+        new_params, new_opt, om = adamw.update(reduced, state["opt"],
+                                               state["params"], lr=lr)
+        metrics.update(om)
+        return {"params": new_params, "opt": new_opt, "ef": ef}, metrics
+
+    return step
 
 
 def parse_args(argv=None) -> argparse.Namespace:

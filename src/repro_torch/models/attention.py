@@ -26,6 +26,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope
+from repro_torch.models.sharding import shard
 from repro_torch.models.spec import ParamSpec
 
 F32 = torch.float32
@@ -66,21 +67,22 @@ def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def project_qkv(cfg: ArchConfig, p: dict, x_q: torch.Tensor,
                 x_kv: torch.Tensor, positions, kv_positions, *,
-                use_rope: bool):
-    q = project(x_q, p["wq"])
-    k = project(x_kv, p["wk"])
-    v = project(x_kv, p["wv"])
+                use_rope: bool, rules=None):
+    q = shard(project(x_q, p["wq"]), rules, "batch", "heads", None, None)
+    k = shard(project(x_kv, p["wk"]), rules, "batch", "kv_heads", None, None)
+    v = shard(project(x_kv, p["wv"]), rules, "batch", "kv_heads", None, None)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
 
 
-def output_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
+def output_proj(p: dict, o: torch.Tensor, *, rules=None) -> torch.Tensor:
     """einsum("bhse,hed->bsd")."""
     b, h, s, e = o.shape
     w = p["wo"].to(o.dtype).reshape(h * e, -1)
-    return torch.matmul(o.transpose(1, 2).reshape(b, s, h * e), w)
+    y = torch.matmul(o.transpose(1, 2).reshape(b, s, h * e), w)
+    return shard(y, rules, "batch", None, None)
 
 
 def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -129,3 +131,16 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype,
     shape = (batch, cfg.n_kv_heads, s_max, cfg.d_head)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def cache_spec(cfg: ArchConfig, batch: int, s_max: int, dtype) -> KVCache:
+    """The cache's shapes and type as ``meta`` tensors (the reference's
+    ``ShapeDtypeStruct`` stand-ins)."""
+    x = torch.empty((batch, cfg.n_kv_heads, s_max, cfg.d_head), dtype=dtype,
+                    device="meta")
+    return KVCache(k=x, v=x)
+
+
+def cache_axes() -> KVCache:
+    return KVCache(k=("batch", "kv_heads", None, None),
+                   v=("batch", "kv_heads", None, None))

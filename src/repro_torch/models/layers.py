@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.sharding import shard
 from repro_torch.models.spec import ParamSpec
 
 F32 = torch.float32
@@ -75,9 +76,9 @@ def embed_spec(vocab: int, d: int) -> dict:
                                 init="small_normal")}
 
 
-def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+def embed(p: dict, tokens: torch.Tensor, *, rules=None) -> torch.Tensor:
     """[B, S] int -> [B, S, d]."""
-    return p["tokens"][tokens.long()]
+    return shard(p["tokens"][tokens.long()], rules, "batch", None, None)
 
 
 def unembed_spec(d: int, vocab: int) -> dict:
@@ -85,6 +86,7 @@ def unembed_spec(d: int, vocab: int) -> dict:
 
 
 def logits(p_unembed: dict | None, p_embed: dict, x: torch.Tensor, *,
-           tied: bool) -> torch.Tensor:
+           tied: bool, rules=None) -> torch.Tensor:
     w = p_embed["tokens"].T if tied else p_unembed["w"]
-    return torch.matmul(x, w.to(x.dtype))
+    return shard(torch.matmul(x, w.to(x.dtype)), rules, "batch", None,
+                 "vocab")

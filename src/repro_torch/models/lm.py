@@ -5,6 +5,12 @@ entry points, ``model_spec``, ``init``, the training loss
 encoder-decoder (whisper, ``cfg.is_encdec``) through
 :mod:`repro_torch.models.whisper`, the others through
 :mod:`repro_torch.models.transformer`.
+
+The sharding half: ``param_shapes`` and ``input_specs`` (``meta``
+tensors for every parameter and every model input of an (arch x shape)
+cell), ``param_pspecs`` and ``batch_pspecs`` (their ``PartitionSpec``
+trees under :class:`repro_torch.models.sharding.Rules`), and the
+keyword ``rules`` of ``loss_fn``, ``prefill`` and ``decode``.
 """
 
 from __future__ import annotations
@@ -12,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.kernels import common as kc
 from repro_torch.models import attention as attn_m
 from repro_torch.models import spec as sp
@@ -35,6 +41,15 @@ def init(gen: torch.Generator, cfg: ArchConfig, *, device="cuda") -> dict:
     return sp.tree_map(lambda x: x.to(device), params)
 
 
+def param_shapes(cfg: ArchConfig) -> dict:
+    """Every parameter as a ``meta`` tensor of its shape and type."""
+    return sp.shape_tree(model_spec(cfg), tfm.dtype_of(cfg))
+
+
+def param_pspecs(cfg: ArchConfig, rules) -> dict:
+    return sp.pspec_tree(model_spec(cfg), rules)
+
+
 MOE_AUX_WEIGHT = 0.01
 
 
@@ -48,7 +63,7 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
-            remat: bool = True):
+            rules=None, remat: bool = True):
     """batch {"tokens": [B, S], "targets": [B, S]} (and "frames" [B,
     S_enc, d_model] for an encoder-decoder) -> (loss, metrics): the
     cross-entropy, plus the MoE auxiliary loss where the model reports
@@ -58,9 +73,10 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
     recomputes each block whole)."""
     if cfg.is_encdec:
         out = wsp.forward(cfg, params, batch["frames"], batch["tokens"],
-                          remat=remat)
+                          remat=remat, rules=rules)
     else:
-        out = tfm.forward(cfg, params, batch["tokens"], remat=remat)
+        out = tfm.forward(cfg, params, batch["tokens"], remat=remat,
+                          rules=rules)
     loss = cross_entropy(out.logits, batch["targets"])
     metrics = dict(out.metrics)
     metrics["ce_loss"] = loss
@@ -70,32 +86,34 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
     return loss, metrics
 
 
-def prefill(cfg: ArchConfig, params: dict, batch: dict, *, window: int = 0):
+def prefill(cfg: ArchConfig, params: dict, batch: dict, *, window: int = 0,
+            rules=None):
     """batch {"tokens": [B, S]} (and "frames" for an encoder-decoder) ->
     (last-token logits [B, V], stacked caches of S slots; whisper's cross
     caches hold the S_enc frames)."""
     if cfg.is_encdec:
         out = wsp.forward(cfg, params, batch["frames"], batch["tokens"],
-                          emit_cache=True)
+                          emit_cache=True, rules=rules)
     else:
         out = tfm.forward(cfg, params, batch["tokens"], emit_cache=True,
-                          window=window)
+                          window=window, rules=rules)
     return out.logits[:, -1, :], out.cache
 
 
 def decode(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
-           pos: int):
+           pos: int, *, rules=None):
     """One token per sequence at position ``pos``; the cache is updated
     in place and returned."""
     if cfg.is_encdec:
-        return wsp.decode_step(cfg, params, token, cache, pos)
-    return tfm.decode_step(cfg, params, token, cache, pos)
+        return wsp.decode_step(cfg, params, token, cache, pos, rules=rules)
+    return tfm.decode_step(cfg, params, token, cache, pos, rules=rules)
 
 
 def make_cache(cfg: ArchConfig, batch: int, s_max: int, *, enc_s: int = 0,
                device="cuda"):
     """Zero decode caches of ``s_max`` slots (an encoder-decoder's cross
-    cache of ``enc_s`` frames, ``s_max`` where 0)."""
+    cache of ``enc_s`` frames, ``s_max`` where 0); on the ``meta`` device
+    their shapes and types alone (the reference's ``build="spec"``)."""
     device = kc.resolve_device(device)
     if cfg.is_encdec:
         return wsp.make_cache(cfg, batch, s_max, enc_s or s_max,
@@ -117,3 +135,66 @@ def pad_cache(cfg: ArchConfig, cache, s_max: int):
         return entry
 
     return sp.tree_map(one, cache)
+
+
+# ---------------------------------------------------------------------------
+# Input contracts per (arch x shape) cell
+# ---------------------------------------------------------------------------
+
+def cache_len_for(cfg: ArchConfig, shape: ShapeConfig) -> int:
+    """Decode-cache length: sliding-window archs cap the KV ring at
+    ``cfg.window`` for the long_500k cell (the windowed attention itself
+    is not ported: ``models/attention.py``)."""
+    if shape.kind == "long_decode" and cfg.long_context == "native" \
+            and cfg.attn_layers > 0:
+        return cfg.window
+    if cfg.is_encdec:
+        return cfg.max_target_len
+    return shape.seq_len
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Every model input of this cell as a ``meta`` tensor (the
+    reference's ``ShapeDtypeStruct`` stand-ins)."""
+    gb, s = shape.global_batch, shape.seq_len
+
+    def tok(*sh):
+        return torch.empty(sh, dtype=torch.int32, device="meta")
+
+    def frames():
+        return torch.empty((gb, s, cfg.d_model), dtype=tfm.dtype_of(cfg),
+                           device="meta")
+
+    if shape.kind == "train":
+        if cfg.is_encdec:
+            return {"frames": frames(), "tokens": tok(gb, cfg.max_target_len),
+                    "targets": tok(gb, cfg.max_target_len)}
+        return {"tokens": tok(gb, s), "targets": tok(gb, s)}
+    if shape.kind == "prefill":
+        if cfg.is_encdec:
+            return {"frames": frames(), "tokens": tok(gb, cfg.max_target_len)}
+        return {"tokens": tok(gb, s)}
+    # decode / long_decode: one new token against a cache
+    cache = make_cache(cfg, gb, cache_len_for(cfg, shape), enc_s=s,
+                       device="meta")
+    return {"token": tok(gb), "cache": cache, "pos": tok()}
+
+
+def batch_pspecs(cfg: ArchConfig, shape: ShapeConfig, rules) -> dict:
+    """PartitionSpecs matching :func:`input_specs` leaf for leaf."""
+    specs = input_specs(cfg, shape)
+    gb = shape.global_batch
+    if shape.kind in ("train", "prefill"):
+        return {name: rules.pspec(("batch",) + (None,) * (leaf.ndim - 1),
+                                  tuple(leaf.shape))
+                for name, leaf in specs.items()}
+    if cfg.is_encdec:
+        def kv(e):
+            p = rules.pspec((None, "batch", "kv_heads", None, None),
+                            tuple(e.k.shape))
+            return attn_m.KVCache(k=p, v=p)
+        cache_p = sp.tree_map(kv, specs["cache"])
+    else:
+        cache_p = tfm.cache_pspecs(specs["cache"], rules)
+    return {"token": rules.pspec(("batch",), (gb,)), "cache": cache_p,
+            "pos": rules.pspec(())}

@@ -6,6 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.sharding import shard
 from repro_torch.models.spec import ParamSpec
 
 
@@ -25,13 +26,18 @@ def mlp_spec(cfg: ArchConfig, d_ff: int | None = None) -> dict:
     }
 
 
-def mlp_apply(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
+              rules=None) -> torch.Tensor:
     dt = x.dtype
     if cfg.act == "swiglu":
         gate = torch.matmul(x, p["w_gate"].to(dt))
         up = torch.matmul(x, p["w_up"].to(dt))
-        return torch.matmul(F.silu(gate) * up, p["w_down"].to(dt))
-    # jax.nn.gelu defaults to the tanh approximation.
-    h = F.gelu(torch.matmul(x, p["w_up"].to(dt)) + p["b_up"].to(dt),
-               approximate="tanh")
-    return torch.matmul(h, p["w_down"].to(dt)) + p["b_down"].to(dt)
+        h = shard(F.silu(gate) * up, rules, "batch", None, "ff")
+        y = torch.matmul(h, p["w_down"].to(dt))
+    else:
+        # jax.nn.gelu defaults to the tanh approximation.
+        h = F.gelu(torch.matmul(x, p["w_up"].to(dt)) + p["b_up"].to(dt),
+                   approximate="tanh")
+        h = shard(h, rules, "batch", None, "ff")
+        y = torch.matmul(h, p["w_down"].to(dt)) + p["b_down"].to(dt)
+    return shard(y, rules, "batch", None, None)

@@ -27,9 +27,12 @@ it so that two calls on the card give the same bits and use no atomics:
   adds a token's k lanes one after another in lane order, in x's type,
   as the reference's scatter-add does; no ``index_add_``.
 
-The port has no sharding rules yet, so the local dispatch runs with one
-data group (G = 1), as the reference does with ``rules=None``; it keeps
-the ``[G, ...]`` layout for more groups.
+The local dispatch splits the tokens into G data groups, G the data
+shards the rules give the batch (``_data_groups``; 1 without rules, as
+on the reference's CPU path), each ranked with its own capacity.  The
+``shard`` constraints of the reference (the dispatched slabs, the hidden
+products, the expert outputs, the combine) stand where it puts them;
+without rules, or on plain tensors, they change nothing.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import buckets as bk
+from repro_torch.models.sharding import Rules, shard
 from repro_torch.models.spec import ParamSpec
 
 
@@ -59,6 +63,22 @@ def capacity(cfg: ArchConfig, n_tokens: int) -> int:
     """Bucket capacity: ceil(T k / E cf), aligned up to 8 lanes."""
     c = int(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts) + 1
     return max(8, -(-c // 8) * 8)
+
+
+def _data_groups(rules: Rules | None, batch: int) -> int:
+    """Number of data shards the token stream is split across (1 without
+    rules)."""
+    if rules is None:
+        return 1
+    fitted = rules._fit(rules.mesh_axis("batch"), batch)
+    if fitted is None:
+        return 1
+    if isinstance(fitted, str):
+        fitted = (fitted,)
+    g = 1
+    for a in fitted:
+        g *= rules._axis_size(a)
+    return g
 
 
 def route(x: torch.Tensor, router: torch.Tensor, k: int):
@@ -90,12 +110,33 @@ class _CellGather(torch.autograd.Function):
         return out.index_put_((code,), grad), None
 
 
-def _experts(p: dict, xd: torch.Tensor) -> torch.Tensor:
-    """SwiGLU experts on the slabs: xd [E, rows, d] -> [E, rows, d]."""
+def _experts(p: dict, xd: torch.Tensor, pin) -> torch.Tensor:
+    """SwiGLU experts on the slabs: xd [E, rows, d] -> [E, rows, d];
+    ``pin`` places the hidden product and the output."""
     dt = xd.dtype
     gate_h = torch.bmm(xd, p["w_gate"].to(dt))
     up_h = torch.bmm(xd, p["w_up"].to(dt))
-    return torch.bmm(F.silu(gate_h) * up_h, p["w_down"].to(dt))
+    h = pin(F.silu(gate_h) * up_h)
+    return pin(torch.bmm(h, p["w_down"].to(dt)))
+
+
+def _pin(rules: Rules | None, local: bool, g: int):
+    """The reference's constraint on the expert slabs, as a function of
+    the port's [E, G cap, n] layout: ``("batch", "experts", None, None)``
+    on the [G, E, cap, n] view in the local dispatch, ``("experts", None,
+    None)`` in the global one (G 1)."""
+    if rules is None:
+        return lambda t: t
+    if not local:
+        return lambda t: shard(t, rules, "experts", None, None)
+
+    def pin(t):
+        e, rows, n = t.shape
+        v = t.reshape(e, g, rows // g, n).transpose(0, 1)
+        v = shard(v, rules, "batch", "experts", None, None)
+        return v.transpose(0, 1).reshape(e, rows, n)
+
+    return pin
 
 
 def _dispatch(x: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
@@ -145,7 +186,7 @@ def _metrics(probs, counts, keep, cap: int, e: int) -> dict:
 
 
 def _apply(cfg: ArchConfig, p: dict, x: torch.Tensor, g: int, cap: int,
-           routing: dict | None):
+           routing: dict | None, rules: Rules | None, local: bool):
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     xg = x.reshape(g, b * s // g, d)
@@ -156,9 +197,11 @@ def _apply(cfg: ArchConfig, p: dict, x: torch.Tensor, g: int, cap: int,
     slot = slot.reshape(idx.shape).long()
     keep = slot < cap
     xd, code = _dispatch(xg, idx, slot, keep, e, cap)
-    ye = _experts(p, xd.transpose(0, 1).reshape(e, g * cap, d))
+    pin = _pin(rules, local, g)
+    ye = _experts(p, pin(xd.transpose(0, 1).reshape(e, g * cap, d)), pin)
     ye = ye.reshape(e, g, cap, d).transpose(0, 1)
-    out = _combine(ye, code, gate, keep).reshape(b, s, d)
+    out = shard(_combine(ye, code, gate, keep).reshape(b, s, d), rules,
+                "batch", None, None)
     if routing is not None:
         routing.update(expert_idx=idx, slot=slot, keep=keep, counts=counts,
                        gate=gate, probs=probs, capacity=cap)
@@ -166,21 +209,21 @@ def _apply(cfg: ArchConfig, p: dict, x: torch.Tensor, g: int, cap: int,
 
 
 def moe_apply_local(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
+                    rules: Rules | None = None,
                     routing: dict | None = None):
     """Shard-local dispatch (``cfg.moe_dispatch == "local"``): tokens are
-    ranked within each data group, each with a local capacity of C / G
-    (aligned up to 8), as each source chip packs its own buckets.  With
-    ample capacity the output equals :func:`moe_apply`'s.  G is 1: the
-    port has no sharding rules yet (the reference's ``_data_groups`` with
-    ``rules=None``); the ``[G, ...]`` layout is kept for more groups."""
-    g = 1
+    ranked within each of G data groups (``_data_groups(rules, B)``),
+    each with a local capacity of C / G (aligned up to 8), as each source
+    chip packs its own buckets.  With ample capacity the output equals
+    :func:`moe_apply`'s."""
+    g = _data_groups(rules, x.shape[0])
     t = x.shape[0] * x.shape[1]
     cap = max(8, -(-capacity(cfg, t) // (8 * g)) * 8)
-    return _apply(cfg, p, x, g, cap, routing)
+    return _apply(cfg, p, x, g, cap, routing, rules, True)
 
 
 def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
-              routing: dict | None = None):
+              rules: Rules | None = None, routing: dict | None = None):
     """x [B, S, d] -> (y [B, S, d] in x's type, metrics {"aux_loss",
     "drop_fraction", "bucket_utilization"}).  Capacity is
     ``capacity(cfg, B S)``: it depends on the tokens of the call.  A dict
@@ -188,6 +231,6 @@ def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     ``slot``, ``keep``, ``counts``, each with a leading group axis), the
     gates, the router's probabilities and the capacity."""
     if cfg.moe_dispatch == "local":
-        return moe_apply_local(cfg, p, x, routing=routing)
+        return moe_apply_local(cfg, p, x, rules=rules, routing=routing)
     return _apply(cfg, p, x, 1, capacity(cfg, x.shape[0] * x.shape[1]),
-                  routing)
+                  routing, rules, False)

@@ -1,11 +1,17 @@
-"""Parameter-spec trees: shapes and init rules of a model's parameters
-(``repro.models.spec`` without the sharding half).
+"""Parameter-spec trees: one source of truth for shapes, init and
+sharding (``repro.models.spec``).
 
-A model's parameters are a nested dict of :class:`ParamSpec`; ``init_tree``
-materializes it as a nested dict of tensors with the same keys, drawing
-from a ``torch.Generator`` with the reference's distributions (the numbers
-differ from ``jax.random``'s; tests carry weights across with
-``convert.lm_params_from_jax``).
+A model's parameters are a nested dict of :class:`ParamSpec` (shape,
+logical axis names, init rule).  From the same tree come
+
+  * ``init_tree``     -- materialized parameters, drawn from a
+    ``torch.Generator`` with the reference's distributions (the numbers
+    differ from ``jax.random``'s; tests carry weights across with
+    ``convert.lm_params_from_jax``);
+  * ``shape_tree``    -- tensors on the ``meta`` device, the reference's
+    ``ShapeDtypeStruct`` stand-ins (no allocation);
+  * ``pspec_tree``    -- a ``sharding.PartitionSpec`` per leaf;
+  * ``sharding_tree`` -- the DTensor placements per leaf.
 """
 
 from __future__ import annotations
@@ -70,6 +76,24 @@ def init_tree(gen: torch.Generator, tree, dtype: torch.dtype,
         return (x * scale).to(dt)
 
     return tree_map(one, tree)
+
+
+def shape_tree(tree, dtype: torch.dtype) -> dict:
+    """Each spec as an empty tensor of its shape and type on the ``meta``
+    device."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype or dtype,
+                                          device="meta"), tree)
+
+
+def pspec_tree(tree, rules) -> dict:
+    """Each spec's ``PartitionSpec`` under ``rules``
+    (:class:`repro_torch.models.sharding.Rules`)."""
+    return tree_map(lambda s: rules.pspec(s.axes, s.shape), tree)
+
+
+def sharding_tree(tree, rules) -> dict:
+    """Each spec's DTensor placements under ``rules``."""
+    return tree_map(lambda s: rules.sharding(s.axes, s.shape), tree)
 
 
 def stack_specs(tree, n: int, axis_name=None):

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssm_scan import ops as scan_ops
+from repro_torch.models.sharding import shard
 from repro_torch.models.spec import ParamSpec
 
 F32 = torch.float32
@@ -150,7 +151,7 @@ def _gate(cfg: ArchConfig, p: dict, y, z):
 
 
 def ssm_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
-              return_state: bool = False):
+              return_state: bool = False, rules=None):
     """Full-sequence Mamba block from a zero state. x: [B, T, d] ->
     [B, T, d] (and the :class:`SSMState` after the last token).
     Differentiable on the card and on the CPU alike (the scan through
@@ -159,15 +160,18 @@ def ssm_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     _check(cfg)
     t = x.shape[1]
     dt_ = x.dtype
-    xh = torch.matmul(x, p["w_in_x"].to(dt_))
-    z = torch.matmul(x, p["w_in_z"].to(dt_))
+    xh = shard(torch.matmul(x, p["w_in_x"].to(dt_)), rules, "batch", None,
+               "d_inner")
+    z = shard(torch.matmul(x, p["w_in_z"].to(dt_)), rules, "batch", None,
+              "d_inner")
     xc = F.silu(_conv1d(p, xh))
     dt, bm, cm, a = _dt_bc(cfg, p, x, xc)
     scan = scan_ops.ssm_scan if cfg.ssm_version == 1 else \
         scan_ops.ssm_scan_heads
     y, h_final = scan(xc, dt, a, bm, cm, p["D"].to(F32))
     y = _gate(cfg, p, y.to(dt_), z)
-    out = torch.matmul(y, p["out_proj"].to(dt_))
+    out = shard(torch.matmul(y, p["out_proj"].to(dt_)), rules, "batch", None,
+                None)
     if return_state:
         kk = cfg.ssm_conv
         tail = (xh[:, -(kk - 1):, :] if t >= kk - 1
@@ -184,8 +188,23 @@ def init_ssm_state(cfg: ArchConfig, batch: int, dtype, device) -> SSMState:
                          dtype=dtype, device=device))
 
 
+def ssm_state_spec(cfg: ArchConfig, batch: int, dtype) -> SSMState:
+    """The state's shapes and types as ``meta`` tensors."""
+    return SSMState(
+        h=torch.empty((batch, cfg.d_inner, cfg.ssm_state), dtype=F32,
+                      device="meta"),
+        conv=torch.empty((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype,
+                         device="meta"))
+
+
+def ssm_state_axes() -> SSMState:
+    return SSMState(h=("batch", "d_inner", None),
+                    conv=("batch", None, "d_inner"))
+
+
 def ssm_decode(cfg: ArchConfig, p: dict, x: torch.Tensor,
-               state: SSMState) -> tuple[torch.Tensor, SSMState]:
+               state: SSMState, *,
+               rules=None) -> tuple[torch.Tensor, SSMState]:
     """One-token step. x: [B, 1, d] -> ([B, 1, d], state)."""
     _check(cfg)
     dt_ = x.dtype
@@ -205,4 +224,5 @@ def ssm_decode(cfg: ArchConfig, p: dict, x: torch.Tensor,
     y = torch.einsum("bdn,bn->bd", h, cm[:, 0]) + xcf * p["D"].to(F32)
     y = _gate(cfg, p, y.to(dt_)[:, None, :], z)
     out = torch.matmul(y, p["out_proj"].to(dt_))
-    return out, SSMState(h=h, conv=conv_in[:, 1:, :])
+    return shard(out, rules, "batch", None, None), SSMState(
+        h=h, conv=conv_in[:, 1:, :])

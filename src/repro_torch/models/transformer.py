@@ -31,6 +31,7 @@ from repro_torch.models import layers as ly
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
 from repro_torch.models import ssm as ssmm
+from repro_torch.models.sharding import shard
 from repro_torch.models.spec import stack_specs, tree_map, unstack
 
 
@@ -97,42 +98,44 @@ def _norm(cfg, p, x):
     return ly.apply_norm(p, x, kind=cfg.norm, eps=cfg.norm_eps)
 
 
-def _apply_attn_block(cfg, bp, x, positions, *, window, emit_cache):
+def _apply_attn_block(cfg, bp, x, positions, *, window, emit_cache, rules):
     h = _norm(cfg, bp["attn_norm"], x)
     q, k, v = attn.project_qkv(cfg, bp["attn"], h, h, positions, positions,
-                               use_rope=True)
+                               use_rope=True, rules=rules)
     o = attn.prefill_attention(q, k, v, causal=True, window=window)
-    x = x + attn.output_proj(bp["attn"], o)
+    x = x + attn.output_proj(bp["attn"], o, rules=rules)
     return x, (attn.KVCache(k=k, v=v) if emit_cache else None)
 
 
-def _apply_ffn(cfg, bp, x):
+def _apply_ffn(cfg, bp, x, rules=None):
     """The block's FFN with its residual: (x, metrics), the MoE's routing
     metrics where the block has experts, else {}."""
     h = _norm(cfg, bp["ffn_norm"], x)
     if "moe" in bp:
-        y, metrics = moem.moe_apply(cfg, bp["moe"], h)
+        y, metrics = moem.moe_apply(cfg, bp["moe"], h, rules=rules)
         return x + y, metrics
-    return x + mlpm.mlp_apply(cfg, bp["mlp"], h), {}
+    return x + mlpm.mlp_apply(cfg, bp["mlp"], h, rules=rules), {}
 
 
 def _apply_block(cfg, kind, bp, shared, x, positions, *, window,
-                 emit_cache):
+                 emit_cache, rules=None):
     """Returns (x, cache entry or None, metrics)."""
     if kind in ("ssm", "shared_ssm"):
         cache = None
         if kind == "shared_ssm" and shared is not None:
             x, cache = _apply_attn_block(cfg, shared, x, positions,
-                                         window=window, emit_cache=emit_cache)
-            x, _ = _apply_ffn(cfg, shared, x)
+                                         window=window, emit_cache=emit_cache,
+                                         rules=rules)
+            x, _ = _apply_ffn(cfg, shared, x, rules)
         h = _norm(cfg, bp["norm"], x)
         if emit_cache:
-            y, sstate = ssmm.ssm_apply(cfg, bp["ssm"], h, return_state=True)
+            y, sstate = ssmm.ssm_apply(cfg, bp["ssm"], h, return_state=True,
+                                       rules=rules)
             return x + y, {"kv": cache, "ssm": sstate}, {}
-        return x + ssmm.ssm_apply(cfg, bp["ssm"], h), None, {}
+        return x + ssmm.ssm_apply(cfg, bp["ssm"], h, rules=rules), None, {}
     x, cache = _apply_attn_block(cfg, bp, x, positions, window=window,
-                                 emit_cache=emit_cache)
-    x, metrics = _apply_ffn(cfg, bp, x)
+                                 emit_cache=emit_cache, rules=rules)
+    x, metrics = _apply_ffn(cfg, bp, x, rules)
     return x, ({"kv": cache, "ssm": None} if emit_cache else None), metrics
 
 
@@ -174,7 +177,7 @@ def _dots_contexts():
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             window: int = 0, emit_cache: bool = False,
-            remat: bool = False) -> DecoderOutput:
+            remat: bool = False, rules=None) -> DecoderOutput:
     """tokens [B, S] -> logits [B, S, V] (and the stacked caches).
     With ``remat``, ``cfg.remat_policy`` chooses what the backward
     recomputes, as in the reference: ``"dots"`` keeps only the outputs
@@ -182,13 +185,14 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     any other policy recomputes each repeat of the layer pattern whole
     (``torch.utils.checkpoint``, non-reentrant).  ``metrics`` holds each
     MoE metric summed over the pattern positions of a repeat, then
-    averaged over the repeats."""
+    averaged over the repeats.  ``rules`` (``models/sharding.py``) places
+    the activations where the reference constrains them."""
     kinds = block_kinds(cfg)
     shared = params.get("shared")
     b, s = tokens.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    x = ly.embed(params["embed"], tokens).to(dtype_of(cfg))
+    x = ly.embed(params["embed"], tokens, rules=rules).to(dtype_of(cfg))
     policy = cfg.remat_policy if remat else "none"
 
     def body(x, blk):
@@ -196,7 +200,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         for i, kind in enumerate(kinds):
             x, entry, metrics = _apply_block(
                 cfg, kind, blk[f"pos{i}"], shared, x, positions,
-                window=window, emit_cache=emit_cache)
+                window=window, emit_cache=emit_cache, rules=rules)
             entries.append(entry)
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v
@@ -221,15 +225,17 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                for k in per_repeat[0]}
     x = _norm(cfg, params["final_norm"], x)
     lg = ly.logits(params.get("unembed"), params["embed"], x,
-                   tied=cfg.tie_embeddings)
+                   tied=cfg.tie_embeddings, rules=rules)
     cache = {k: _stack(v) for k, v in caches.items()} if emit_cache else None
     return DecoderOutput(logits=lg, metrics=metrics, cache=cache)
 
 
 def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
-                pos: int, *, window: int = 0):
+                pos: int, *, window: int = 0, rules=None):
     """token [B] at position ``pos`` (the tokens already in the cache)
-    -> (logits [B, V], cache).  The cache is updated in place."""
+    -> (logits [B, V], cache).  The cache is updated in place; with
+    ``rules`` each updated KV cache is pinned to its declared placement,
+    as the reference pins its loop-carried cache."""
     if window:
         raise NotImplementedError("sliding-window decode is not ported")
     kinds = block_kinds(cfg)
@@ -238,16 +244,20 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
     pos = int(pos)
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=token.device)
-    x = ly.embed(params["embed"], token[:, None]).to(dtype_of(cfg))
+    x = ly.embed(params["embed"], token[:, None],
+                 rules=rules).to(dtype_of(cfg))
 
     def attn_decode(bp, x, kv):
         h = _norm(cfg, bp["attn_norm"], x)
         q, k, v = attn.project_qkv(cfg, bp["attn"], h, h, positions,
-                                   positions, use_rope=True)
+                                   positions, use_rope=True, rules=rules)
         s_max = kv.k.shape[2]
         kv = attn.cache_update(kv, k, v, pos % s_max)
+        kv = attn.KVCache(
+            k=shard(kv.k, rules, "batch", "kv_heads", None, None),
+            v=shard(kv.v, rules, "batch", "kv_heads", None, None))
         o = attn.decode_attention(q, kv, min(pos + 1, s_max))
-        return x + attn.output_proj(bp["attn"], o)
+        return x + attn.output_proj(bp["attn"], o, rules=rules)
 
     for r, blk in enumerate(unstack(params["blocks"], n_repeats(cfg))):
         for i, kind in enumerate(kinds):
@@ -258,12 +268,13 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
             if kind in ("ssm", "shared_ssm"):
                 if kind == "shared_ssm" and shared is not None:
                     x = attn_decode(shared, x, kv)
-                    x, _ = _apply_ffn(cfg, shared, x)
+                    x, _ = _apply_ffn(cfg, shared, x, rules)
                 st = entry["ssm"]
                 h = _norm(cfg, bp["norm"], x)
                 y, new = ssmm.ssm_decode(
                     cfg, bp["ssm"], h, ssmm.SSMState(h=st.h[r],
-                                                     conv=st.conv[r]))
+                                                     conv=st.conv[r]),
+                    rules=rules)
                 st.h[r].copy_(new.h)
                 st.conv[r].copy_(new.conv)
                 x = x + y
@@ -272,15 +283,16 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
                 # An MoE block routes the step's B tokens at their own
                 # capacity (at least 8 slots an expert); its metrics are
                 # dropped, as the reference's decode drops them.
-                x, _ = _apply_ffn(cfg, bp, x)
+                x, _ = _apply_ffn(cfg, bp, x, rules)
     x = _norm(cfg, params["final_norm"], x)
     lg = ly.logits(params.get("unembed"), params["embed"], x,
-                   tied=cfg.tie_embeddings)
+                   tied=cfg.tie_embeddings, rules=rules)
     return lg[:, 0, :], cache
 
 
 def make_cache(cfg: ArchConfig, batch: int, s_max: int, *, device) -> dict:
-    """Stacked per-repeat decode cache of zeros."""
+    """Stacked per-repeat decode cache of zeros; on the ``meta`` device
+    its shapes and types alone (the reference's ``build="spec"``)."""
     dtype = dtype_of(cfg)
     r = n_repeats(cfg)
     out = {}
@@ -296,3 +308,25 @@ def make_cache(cfg: ArchConfig, batch: int, s_max: int, *, device) -> dict:
     return tree_map(
         lambda e: None if e is None else type(e)(
             *(x.expand((r,) + x.shape).clone() for x in e)), out)
+
+
+def cache_pspecs(cache_tree, rules) -> dict:
+    """PartitionSpecs of a stacked cache tree, by the entries' types: KV
+    [R, B, Hkv, S, D], SSM h [R, B, di, N] and conv [R, B, K-1, di]."""
+
+    def one(entry):
+        if entry is None:
+            return None
+        if isinstance(entry, attn.KVCache):
+            p = rules.pspec((None, "batch", "kv_heads", None, None),
+                            tuple(entry.k.shape))
+            return attn.KVCache(k=p, v=p)
+        if isinstance(entry, ssmm.SSMState):
+            return ssmm.SSMState(
+                h=rules.pspec((None, "batch", "d_inner", None),
+                              tuple(entry.h.shape)),
+                conv=rules.pspec((None, "batch", None, "d_inner"),
+                                 tuple(entry.conv.shape)))
+        raise TypeError(type(entry))
+
+    return tree_map(one, cache_tree)

@@ -86,7 +86,7 @@ def _run(body, x, blocks: list, remat: bool) -> tuple[torch.Tensor, list]:
 
 
 def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False, rules=None) -> torch.Tensor:
     """frames [B, S_enc, d_model] (the frontend stub's embeddings) -> the
     encoder's output [B, S_enc, d_model] in the model's type."""
     s = frames.shape[1]
@@ -97,11 +97,11 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
         bp = blk["blk"]
         h = _norm(cfg, bp["attn_norm"], x)
         q, k, v = attn.project_qkv(cfg, bp["attn"], h, h, None, None,
-                                   use_rope=False)
+                                   use_rope=False, rules=rules)
         o = attn.prefill_attention(q, k, v, causal=False)
-        x = x + attn.output_proj(bp["attn"], o)
+        x = x + attn.output_proj(bp["attn"], o, rules=rules)
         h = _norm(cfg, bp["ffn_norm"], x)
-        return x + mlpm.mlp_apply(cfg, bp["mlp"], h), None
+        return x + mlpm.mlp_apply(cfg, bp["mlp"], h, rules=rules), None
 
     x, _ = _run(body, x, unstack(params["enc_blocks"], cfg.encoder_layers),
                 remat)
@@ -121,29 +121,29 @@ def _stack(caches: list) -> attn.KVCache:
 
 def forward(cfg: ArchConfig, params: dict, frames: torch.Tensor,
             tokens: torch.Tensor, *, emit_cache: bool = False,
-            remat: bool = False) -> EncDecOutput:
+            remat: bool = False, rules=None) -> EncDecOutput:
     """frames [B, S_enc, d_model], tokens [B, S] -> logits [B, S, V] (and,
     with ``emit_cache``, the decoder's self caches of S slots and its
     cross caches of S_enc, each stacked over the layers)."""
-    enc_out = encode(cfg, params, frames, remat=remat)
+    enc_out = encode(cfg, params, frames, remat=remat, rules=rules)
     s = tokens.shape[1]
-    y = ly.embed(params["embed"], tokens).to(dtype_of(cfg))
+    y = ly.embed(params["embed"], tokens, rules=rules).to(dtype_of(cfg))
     y = y + ly.sinusoidal_positions(s, cfg.d_model, tokens.device).to(y.dtype)
 
     def body(y, blk):
         bp = blk["blk"]
         h = _norm(cfg, bp["self_norm"], y)
         q, k, v = attn.project_qkv(cfg, bp["self_attn"], h, h, None, None,
-                                   use_rope=False)
+                                   use_rope=False, rules=rules)
         o = attn.prefill_attention(q, k, v, causal=True)
-        y = y + attn.output_proj(bp["self_attn"], o)
+        y = y + attn.output_proj(bp["self_attn"], o, rules=rules)
         h = _norm(cfg, bp["cross_norm"], y)
         qc, kc, vc = attn.project_qkv(cfg, bp["cross_attn"], h, enc_out,
-                                      None, None, use_rope=False)
+                                      None, None, use_rope=False, rules=rules)
         oc = attn.prefill_attention(qc, kc, vc, causal=False)
-        y = y + attn.output_proj(bp["cross_attn"], oc)
+        y = y + attn.output_proj(bp["cross_attn"], oc, rules=rules)
         h = _norm(cfg, bp["ffn_norm"], y)
-        y = y + mlpm.mlp_apply(cfg, bp["mlp"], h)
+        y = y + mlpm.mlp_apply(cfg, bp["mlp"], h, rules=rules)
         caches = None
         if emit_cache:
             caches = (attn.KVCache(k=k, v=v), attn.KVCache(k=kc, v=vc))
@@ -152,7 +152,7 @@ def forward(cfg: ArchConfig, params: dict, frames: torch.Tensor,
     y, caches = _run(body, y, unstack(params["dec_blocks"], cfg.n_layers),
                      remat)
     y = _norm(cfg, params["final_norm"], y)
-    lg = ly.logits(None, params["embed"], y, tied=True)
+    lg = ly.logits(None, params["embed"], y, tied=True, rules=rules)
     cache = None
     if emit_cache:
         cache = {"self": _stack([c[0] for c in caches]),
@@ -161,13 +161,14 @@ def forward(cfg: ArchConfig, params: dict, frames: torch.Tensor,
 
 
 def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
-                pos: int):
+                pos: int, *, rules=None):
     """token [B] at position ``pos`` -> (logits [B, V], cache).  The self
     cache [L, B, H, s_max, D] is written in place at ``pos % s_max`` and
     read over ``min(pos + 1, s_max)`` slots; the cross cache [L, B, H,
     S_enc, D] is read over its whole length."""
     pos = int(pos)
-    y = ly.embed(params["embed"], token[:, None]).to(dtype_of(cfg))
+    y = ly.embed(params["embed"], token[:, None],
+                 rules=rules).to(dtype_of(cfg))
     # The absolute position's sinusoid.
     row = ly.sinusoid(torch.full((1,), float(pos), device=token.device),
                       cfg.d_model)
@@ -178,29 +179,30 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
         bp = blk["blk"]
         h = _norm(cfg, bp["self_norm"], y)
         q, k, v = attn.project_qkv(cfg, bp["self_attn"], h, h, None, None,
-                                   use_rope=False)
+                                   use_rope=False, rules=rules)
         kv = attn.cache_update(attn.KVCache(k=self_c.k[r], v=self_c.v[r]),
                                k, v, pos % s_max)
         o = attn.decode_attention(q, kv, min(pos + 1, s_max))
-        y = y + attn.output_proj(bp["self_attn"], o)
+        y = y + attn.output_proj(bp["self_attn"], o, rules=rules)
 
         h = _norm(cfg, bp["cross_norm"], y)
         qc = attn.project(h, bp["cross_attn"]["wq"])
         cross = attn.KVCache(k=cross_c.k[r], v=cross_c.v[r])
         oc = attn.decode_attention(qc, cross, cross.k.shape[2])
-        y = y + attn.output_proj(bp["cross_attn"], oc)
+        y = y + attn.output_proj(bp["cross_attn"], oc, rules=rules)
 
         h = _norm(cfg, bp["ffn_norm"], y)
-        y = y + mlpm.mlp_apply(cfg, bp["mlp"], h)
+        y = y + mlpm.mlp_apply(cfg, bp["mlp"], h, rules=rules)
     y = _norm(cfg, params["final_norm"], y)
-    lg = ly.logits(None, params["embed"], y, tied=True)
+    lg = ly.logits(None, params["embed"], y, tied=True, rules=rules)
     return lg[:, 0, :], cache
 
 
 def make_cache(cfg: ArchConfig, batch: int, s_max: int, enc_s: int, *,
                device) -> dict:
     """Zero caches: the decoder's self cache of ``s_max`` slots and the
-    cross cache of ``enc_s`` frames, each [L, B, H, S, D]."""
+    cross cache of ``enc_s`` frames, each [L, B, H, S, D] (on the
+    ``meta`` device, their shapes and types alone)."""
     dtype = dtype_of(cfg)
 
     def stacked(s):

@@ -8,9 +8,9 @@ parameter is updated in float32 and cast back to its type.  The state is
 a NamedTuple with the reference's fields, so checkpoints carry the
 reference's keys (``opt/count``, ``opt/m/...``, ``opt/v/...``).
 
-The ZeRO-1 moment specs (``zero_pspecs``, ``zero_state_pspecs``,
-``param_pspecs``) shard across devices and come with
-``models/sharding.py`` (ROADMAP section 1, item 9).
+ZeRO-1: ``zero_pspecs`` gives the moments the parameters' specs with
+their largest replicated dimension also sharded over the data axes
+where it divides; ``zero_state_pspecs`` the whole state's specs.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.models.spec import tree_leaves, tree_map
+from repro_torch.models.sharding import PartitionSpec, Rules
+from repro_torch.models.spec import ParamSpec, pspec_tree, tree_leaves, tree_map
 
 F32 = torch.float32
 
@@ -97,3 +98,40 @@ def _zip_map(fn, tree, *rest):
         return {k: _zip_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     return fn(tree, *rest)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharding of the moment trees
+# ---------------------------------------------------------------------------
+
+def zero_pspecs(spec_tree: Any, rules: Rules) -> Any:
+    """Moment-tree PartitionSpecs: the parameter's spec, and its largest
+    replicated dimension sharded over the data axes where the data size
+    divides it."""
+    data_axes = rules.batch_axes
+    data_size = 1
+    for a in data_axes:
+        data_size *= rules._axis_size(a)
+
+    def one(s: ParamSpec):
+        mesh_axes = [rules._fit(rules.mesh_axis(a), d)
+                     for a, d in zip(s.axes, s.shape)]
+        best, best_dim = -1, -1
+        for i, (n, ax) in enumerate(zip(s.shape, mesh_axes)):
+            if ax is None and n % data_size == 0 and n > best:
+                best, best_dim = n, i
+        if best_dim >= 0:
+            mesh_axes[best_dim] = (data_axes if len(data_axes) > 1
+                                   else data_axes[0])
+        return PartitionSpec(*mesh_axes)
+
+    return tree_map(one, spec_tree)
+
+
+def zero_state_pspecs(spec_tree: Any, rules: Rules) -> AdamWState:
+    moments = zero_pspecs(spec_tree, rules)
+    return AdamWState(count=PartitionSpec(), m=moments, v=moments)
+
+
+def param_pspecs(spec_tree: Any, rules: Rules) -> Any:
+    return pspec_tree(spec_tree, rules)

@@ -136,7 +136,7 @@ def test_fused_inject_edge_rows_match_plain(cuda, kind, lanes, cap, mode):
     before = kc.launches["fused_inject"]
     run()
     assert kc.launches["fused_inject"] == before + 1
-    got, names = kc.card_kernels(run)
+    got, names = kc.card_kernels(run, expect="fused_inject_kernel")
     assert len(names) == 1 and "fused_inject_kernel" in names[0], names
     want = fused_inject_ref(events, table, t0, **kw)
     for g, w in zip(got, want):
@@ -173,7 +173,7 @@ def test_fused_inject_with_reach_matches_plain(cuda, kind, lanes, mode):
     before = kc.launches["fused_inject"]
     run()
     assert kc.launches["fused_inject"] == before + 1
-    got, names = kc.card_kernels(run)
+    got, names = kc.card_kernels(run, expect="fused_inject_kernel")
     assert len(names) == 1 and "fused_inject_kernel" in names[0], names
     want = fused_inject_ref(events, table, t0, **kw)
     for g, w in zip(got, want):
@@ -387,7 +387,7 @@ def test_bucket_pack_lanes_match_plain(cuda, shape, layout):
     before = kc.launches["bucket_pack"]
     run()
     assert kc.launches["bucket_pack"] == before + 1
-    got, names = kc.card_kernels(run)
+    got, names = kc.card_kernels(run, expect="bucket_pack_kernel")
     assert len(names) == 1 and "bucket_pack_kernel" in names[0], names
     rows, counts, overflow = bucket_pack_ref(
         bid, ev.encode_word(addr, dead, valid), n_buckets=nb, capacity=cap)
@@ -910,7 +910,7 @@ def test_fused_lif_inject_tiles_and_cut_match_plain(cuda, b, mode):
     before = kc.launches["fused_lif_inject"]
     run()
     assert kc.launches["fused_lif_inject"] == before + 1
-    got, names = kc.card_kernels(run)
+    got, names = kc.card_kernels(run, expect="fused_lif_inject_kernel")
     assert len(names) == 1 and "fused_lif_inject_kernel" in names[0], names
     want = fused_lif_inject_ref(v, refrac, currents, lifp, table, t0, **kw)
     for name in ("v", "refrac", "spikes", "voltage"):

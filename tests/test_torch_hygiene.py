@@ -83,6 +83,82 @@ def test_import_check_covers_the_shard_modules():
             "shard_slice"} <= set(net.__all__)
 
 
+LM_SHARD_MODULES = [
+    ROOT / "src" / "repro_torch" / "models" / "sharding.py",
+    ROOT / "src" / "repro_torch" / "optim" / "compression.py"]
+
+
+def test_import_check_covers_the_lm_sharding_modules():
+    """``models/sharding.py`` and ``optim/compression.py`` are among the
+    files checked above and import only torch, the standard library and
+    the port; ``make_compressed_step`` is ported."""
+    for path in LM_SHARD_MODULES:
+        assert path in PORT_FILES
+        assert {m.split(".")[0] for m in _imported_modules(path)} <= {
+            "__future__", "dataclasses", "typing", "torch",
+            "repro_torch"}, path
+    assert "raise NotImplementedError" not in (
+        ROOT / "src" / "repro_torch" / "launch" / "train.py").read_text()
+
+
+class _FakeEvent:
+    def __init__(self, name, device=True):
+        self.name = name
+        self.device_type = "DeviceType.CUDA" if device else "DeviceType.CPU"
+
+
+def _fake_profiler(sessions: list):
+    """A stand-in for ``torch.profiler.profile`` whose n-th session
+    records the events ``sessions[n]``."""
+
+    class Profile:
+        def __init__(self, *args, **kwargs):
+            self._events = sessions.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return self._events
+
+    return Profile
+
+
+def test_profiled_retries_a_session_that_misses_the_expected_kernel(
+        monkeypatch):
+    """``kc.profiled``: a session with no device activity, then one that
+    caught PyTorch's kernels but not the expected one, are retried; the
+    third, which holds it, is returned.  Without ``expect`` the second
+    would do.  No session with the kernel: it raises, naming the
+    pattern."""
+    torch_kernel = _FakeEvent("void at::native::reduce_kernel<512, 1>")
+    ours = _FakeEvent("ssm_scan_bwd_kernel<4, 8>")
+    cpu = _FakeEvent("aten::sum", device=False)
+    runs = []
+
+    def window():
+        runs.append(1)
+        return len(runs)
+
+    monkeypatch.setattr(torch.profiler, "profile", _fake_profiler(
+        [[cpu], [cpu, torch_kernel], [cpu, torch_kernel, ours]]))
+    prof, out = kc.profiled(window, "probe", expect="ssm_scan_bwd_kernel")
+    assert out == 3 and ours in prof.events()
+    monkeypatch.setattr(torch.profiler, "profile", _fake_profiler(
+        [[cpu], [cpu, torch_kernel], [cpu, torch_kernel, ours]]))
+    assert kc.profiled(window, "probe")[1] == 5
+    monkeypatch.setattr(torch.profiler, "profile",
+                        _fake_profiler([[torch_kernel]] * 3))
+    with pytest.raises(AssertionError,
+                       match="probe: .*no device activity matching "
+                             "'ssm_scan_bwd_kernel' in 3 sessions"):
+        kc.profiled(window, "probe", tries=3, expect="ssm_scan_bwd_kernel")
+    assert len(runs) == 8
+
+
 def test_mesh_module_touches_no_device_state_at_import():
     """``launch/mesh.py`` holds functions only: importing it builds no
     mesh and touches no device or process group (the reference's rule
@@ -617,25 +693,18 @@ def _lm_unported(feature: str):
     from repro_torch.models import ssm
 
     zamba = C.get("zamba2-2.7b").reduced()
-    dense = C.get("internlm2-1.8b").reduced()
     x = torch.zeros((1, 2, 4, 16))
     if feature == "window":
         attn.prefill_attention(x, x, x, window=4)
     elif feature == "window decode":
         attn.decode_attention(x[:, :, :1], attn.KVCache(k=x, v=x), 4,
                               window=4)
-    elif feature == "ssd":
-        ssm.ssm_spec(dataclasses.replace(zamba, ssm_impl="ssd"))
     else:
-        # Training runs on one device; its data-parallel form with
-        # compressed gradients waits for models/sharding.py.
-        from repro_torch.launch import train
-        train.make_compressed_step(dense)
+        ssm.ssm_spec(dataclasses.replace(zamba, ssm_impl="ssd"))
 
 
 @pytest.mark.parametrize("feature,match", [
-    ("window", "window"), ("window decode", "window"),
-    ("ssd", "ssd"), ("training", "training")])
+    ("window", "window"), ("window decode", "window"), ("ssd", "ssd")])
 def test_unported_lm_features_raise(feature, match):
     with pytest.raises(NotImplementedError, match=match):
         _lm_unported(feature)

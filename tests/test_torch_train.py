@@ -480,11 +480,6 @@ def test_train_lm_tiny_preset_runs_on_the_cpu(tmp_path, capsys):
     assert (big.d_model, big.n_layers, big.vocab_size) == (768, 12, 32000)
 
 
-def test_make_compressed_step_waits_for_sharding():
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1, item 9"):
-        train.make_compressed_step(C.get("internlm2-1.8b"))
-
-
 def test_ssm_apply_trains_through_the_scan_function(monkeypatch):
     """A backward through ``ssm_apply`` goes through the ``SSMScanHeads``
     autograd Function (the plain forward with checkpoints, then the

@@ -321,3 +321,128 @@ def card_shard_worker(rank: int, world: int) -> dict:
                 getattr(rec.stats, f)[:, rows])
     return dict(equal=equal, launches=launches,
                 sent=int(rec.stats.sent.sum()))
+
+
+# -- the LM's sharding rules and the compressed-gradient trainer --------------
+
+SHARD_MESHES = {
+    2: {"host": ((2, 1), ("data", "model")),
+        "model": ((1, 2), ("data", "model"))},
+    4: {"host": ((2, 2), ("data", "model")),
+        "pod": ((2, 2, 1), ("pod", "data", "model")),
+        "kv": ((1, 2, 2), ("data", "kv", "mp"))},
+}
+
+
+def sharding_worker(rank: int, world: int, cases: dict) -> dict:
+    """Each case ``(mesh name, logical axes, full tensor)`` of
+    tests/test_torch_sharding.py at ``world``: the placements
+    ``from_mesh(mesh).sharding`` gives, this rank's shard of the tensor
+    distributed with them, and ``shard`` on a replicated DTensor (its
+    placements, local shard and full tensor) and on a plain tensor."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.models import sharding as shd
+
+    meshes = {name: _mesh(*m) for name, m in SHARD_MESHES[world].items()}
+    out = {}
+    for key, (mesh_name, axes, x) in cases.items():
+        mesh = meshes[mesh_name]
+        rules = shd.from_mesh(mesh)
+        pl = rules.sharding(axes, tuple(x.shape))
+        rep = distribute_tensor(x, mesh, [Replicate()] * mesh.ndim)
+        moved = shd.shard(rep, rules, *axes)
+        out[key] = dict(
+            placements=[repr(p) for p in pl],
+            local=distribute_tensor(x, mesh, list(pl)).to_local(),
+            shard_placements=[repr(p) for p in moved.placements],
+            shard_local=moved.to_local(), shard_full=moved.full_tensor(),
+            plain_is_x=shd.shard(x, rules, *axes) is x,
+            rank_error=_error(lambda: shd.shard(rep, rules, *axes[1:])))
+    return out
+
+
+def _psum_case(mesh, grads, res, noise, frac) -> dict:
+    """``compressed_psum`` over the mesh's ``"data"`` group for each
+    method, from this rank's gradients and residuals with a generator
+    seeded alike on every rank; beside it the rank's own wires and
+    residuals from ``compress_leaf`` and the noise its generator draws.
+    With ``noise`` each leaf's int8 noise is the one given instead (the
+    reference's, for a bitwise comparison)."""
+    from repro_torch.optim import compression as cmp
+
+    given, leaf = {}, cmp.compress_leaf
+
+    def with_given(g, r, gen, *, method, topk_frac=0.01):
+        if method != "int8":
+            return leaf(g, r, gen, method=method, topk_frac=topk_frac)
+        return cmp._compress(g, r, next(given["it"]), method=method,
+                             topk_frac=topk_frac)
+
+    if noise is not None:
+        cmp.compress_leaf = with_given
+    out = {}
+    try:
+        for method in ("none", "int8", "topk"):
+            given["it"] = iter(noise or ())
+            gen = torch.Generator().manual_seed(7)
+            reduced, ef = cmp.compressed_psum(
+                grads, cmp.EFState(residual=res), gen, mesh, method=method,
+                topk_frac=frac)
+            given["it"] = iter(noise or ())
+            gen = torch.Generator().manual_seed(7)
+            own = {k: cmp.compress_leaf(grads[k], res[k], gen,
+                                        method=method, topk_frac=frac)
+                   for k in sorted(grads)}
+            out[method] = dict(
+                reduced=reduced, residual=ef.residual,
+                wire={k: w for k, (w, _) in own.items()},
+                own_residual={k: r for k, (_, r) in own.items()})
+    finally:
+        cmp.compress_leaf = leaf
+    gen = torch.Generator().manual_seed(7)
+    out["noise"] = [torch.rand(g.shape, generator=gen) - 0.5
+                    for g in (grads[k] for k in sorted(grads))]
+    return out
+
+
+def compress_worker(rank: int, world: int, data: dict) -> dict:
+    """The cases of tests/test_torch_compression.py at ``world``: each
+    ``compressed_psum`` case on its mesh (``(shape, names)``; a data group
+    of one rank where "data" has size 1), the rank taking the gradients
+    and residuals of its data coordinate; and, with ``data["steps"]``,
+    :func:`compressed_steps` on the host mesh."""
+    out = {}
+    for name, case in data["psum"].items():
+        mesh = _mesh(*case["mesh"])
+        i = mesh.get_local_rank("data")
+        out[name] = _psum_case(mesh, case["grads"][i], case["residual"][i],
+                               case.get("noise"), case["frac"])
+    if "steps" in data:
+        out["steps"] = compressed_steps(world, data["steps"])
+    return out
+
+
+def compressed_steps(world: int, data: dict) -> list:
+    """Two steps of ``make_compressed_step(method="none")`` on the
+    ``"data"`` group of a (world, 1) host mesh, each rank on its rows of
+    the batch: from ``data["states"][i]`` (the reference's state before
+    step i, with zero residuals) on ``data["batches"][i]``.  Returns each
+    step's new state and metrics."""
+    from repro_torch.launch import mesh as lms
+    from repro_torch.launch import train
+    from repro_torch.optim import compression as cmp
+
+    mesh = lms.make_host_mesh(device_type="cpu")
+    step = train.make_compressed_step(data["cfg"], mesh, method="none",
+                                      **data["kw"])
+    out = []
+    rank = mesh.get_local_rank("data")
+    for state, batch in zip(data["states"], data["batches"]):
+        n = batch["tokens"].shape[0] // world
+        mine = {k: torch.as_tensor(v[rank * n:(rank + 1) * n])
+                for k, v in batch.items()}
+        state = dict(state, ef=cmp.ef_init(state["params"]))
+        new, metrics = step(state, mine, torch.Generator().manual_seed(0))
+        out.append(dict(state=new, metrics=metrics))
+    return out
