@@ -152,3 +152,14 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "long_decode"),
 }
+
+
+def runnable(arch: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch, shape) is a runnable cell; else the documented skip
+    (the reference's words)."""
+    if shape.kind == "long_decode" and arch.long_context == "skip":
+        return False, (
+            f"{arch.name} is pure full-attention; 512k decode needs "
+            "sub-quadratic attention (DESIGN.md §4)"
+        )
+    return True, ""

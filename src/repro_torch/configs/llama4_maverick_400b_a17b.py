@@ -8,9 +8,11 @@ the name: 24 x 128 experts x 3*5120*8192 ~= 386B expert params + dense ~=
 400B total, ~17B active with top-1).
 
 At full width the model holds about 4e11 parameters, 0.8 TB in bf16: it
-does not fit one 80 GB card, so the port runs it only at reduced size
-(``CONFIG.reduced()``, the CPU tests) until the experts can be sharded
-across cards (``models/sharding.py``).
+does not fit one 80 GB card.  One repeat of its pattern at full width
+(``dataclasses.replace(CONFIG, n_layers=CONFIG.pattern_period())``: a
+dense layer and an MoE layer of 128 experts, about 1.84e10 parameters,
+36.9 GB in bf16) does, and serves on one card; the whole model waits for
+experts sharded across cards (``models/sharding.py``).
 """
 
 from repro_torch.configs.base import ArchConfig

@@ -37,6 +37,7 @@ import time
 import torch
 
 from repro_torch import configs as C
+from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import common as kc
 from repro_torch.models import lm
 from repro_torch.obs import JsonlLogger, SpanTimer, prometheus_text
@@ -65,13 +66,21 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> torch.Tensor:
-    """Serve one batch; returns the generated ids [batch, gen] (int32, on
-    the device)."""
+    """Serve one batch of ``--arch``; returns the generated ids [batch,
+    gen] (int32, on the device)."""
     args = parse_args(argv)
-    device = kc.resolve_device(args.device)
     cfg = C.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    return serve(cfg, args)
+
+
+def serve(cfg: ArchConfig, args: argparse.Namespace) -> torch.Tensor:
+    """Serve one batch of ``cfg`` (any config, e.g. one repeat of a
+    model's layer pattern at full width) with the options of
+    :func:`parse_args` (``args.arch`` labels the metrics); the weights
+    live only for the call.  Returns the generated ids [batch, gen]."""
+    device = kc.resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init(gen, cfg, device=device)
     b, s = args.batch, args.prompt_len

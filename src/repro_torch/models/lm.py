@@ -33,12 +33,11 @@ def model_spec(cfg: ArchConfig) -> dict:
 
 
 def init(gen: torch.Generator, cfg: ArchConfig, *, device="cuda") -> dict:
-    """Random parameters drawn from ``gen`` (on its own device), on
-    ``device``."""
+    """Random parameters drawn from ``gen`` (on its own device) a block
+    at a time, straight into their one copy on ``device``
+    (:func:`repro_torch.models.spec.init_tree`)."""
     device = kc.resolve_device(device)
-    params = sp.init_tree(gen, model_spec(cfg), tfm.dtype_of(cfg),
-                          gen.device)
-    return sp.tree_map(lambda x: x.to(device), params)
+    return sp.init_tree(gen, model_spec(cfg), tfm.dtype_of(cfg), device)
 
 
 def param_shapes(cfg: ArchConfig) -> dict:

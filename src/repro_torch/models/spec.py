@@ -59,10 +59,19 @@ def unstack(tree, n: int) -> list:
     return [tree_map(lambda xs, r=r: xs[r], leaves) for r in range(n)]
 
 
+# The most float32 elements one draw of ``init_tree`` holds (64 MiB).
+DRAW_ELEMS = 1 << 24
+
+
 def init_tree(gen: torch.Generator, tree, dtype: torch.dtype,
               device) -> dict:
     """Materialize a spec tree: ``normal`` draws N(0, 1/fan_in),
-    ``small_normal`` N(0, 0.02^2), in float32 and then cast."""
+    ``small_normal`` N(0, 0.02^2).  Each leaf is allocated once, in its
+    own type on ``device``, and filled a block at a time
+    (:func:`fill_normal`): float32 from ``gen`` (on its own device, one
+    stream in leaf order), scaled in place, then copied in.  No float32
+    scratch holds more than one block, so a stacked leaf of 34 GB in
+    float32 fills a 17 GB bf16 tensor."""
 
     def one(spec: ParamSpec) -> torch.Tensor:
         dt = spec.dtype or dtype
@@ -70,12 +79,38 @@ def init_tree(gen: torch.Generator, tree, dtype: torch.dtype,
             return torch.zeros(spec.shape, dtype=dt, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dt, device=device)
-        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                        device=device)
+        out = torch.empty(spec.shape, dtype=dt, device=device)
         scale = 0.02 if spec.init == "small_normal" else spec.scale()
-        return (x * scale).to(dt)
+        fill_normal(out, gen, scale, DRAW_ELEMS)
+        return out
 
     return tree_map(one, tree)
+
+
+def fill_normal(out: torch.Tensor, gen: torch.Generator, scale: float,
+                draw_elems: int) -> None:
+    """Fill ``out`` (contiguous) with N(0, scale^2) along its leading axis:
+    a block of as many leading slices as ``draw_elems`` holds (at least
+    one) at a time; a slice larger than that is filled the same way along
+    its own leading axis.  Each block is drawn in float32 from ``gen``,
+    in order, so the values depend on the seed, the shape and
+    ``draw_elems`` alone, not on ``out``'s type or device."""
+    if out.dim() <= 1 or out.numel() <= draw_elems:
+        flat = out.view(-1)
+        for start in range(0, flat.numel(), draw_elems):
+            part = flat[start:start + draw_elems]
+            x = torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                            device=gen.device)
+            part.copy_(x.mul_(scale))
+        return
+    per = out[0].numel()
+    if per > draw_elems:
+        for row in out:
+            fill_normal(row, gen, scale, draw_elems)
+        return
+    rows = draw_elems // per
+    for start in range(0, out.shape[0], rows):
+        fill_normal(out[start:start + rows], gen, scale, draw_elems)
 
 
 def shape_tree(tree, dtype: torch.dtype) -> dict:

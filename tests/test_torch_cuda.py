@@ -958,7 +958,8 @@ FLASH_BF16_EDGES = [
     (1, 2, 2, 7, 1, 80, True, 20),
     (1, 4, 4, 129, 129, 80, True, 0),     # one row past a 128-row tile
     (2, 8, 2, 300, 300, 128, True, 0),    # GQA group 4
-    (1, 8, 2, 129, 200, 80, True, 0)]
+    (1, 8, 2, 129, 200, 80, True, 0),
+    (1, 16, 2, 129, 200, 128, True, 0)]   # GQA group 8 (yi-9b's, chameleon's)
 
 
 @pytest.mark.cuda
@@ -1071,7 +1072,9 @@ FLASH_BWD_SHAPES = [
     (1, 32, 32, 512, 512, 80, True, 0),   # zamba2's training heads
     (1, 32, 8, 129, 200, 80, True, 71),   # the same, GQA 4, 71 keys on
     (1, 16, 16, 448, 1500, 64, False, 0),  # whisper's cross-attention
-    (1, 16, 16, 1500, 1500, 64, False, 0)]  # and its encoder, training
+    (1, 16, 16, 1500, 1500, 64, False, 0),  # and its encoder, training
+    (1, 16, 2, 129, 200, 128, True, 0),   # GQA group 8, a ragged q tile
+    (1, 64, 8, 129, 129, 128, True, 0)]   # chameleon-34b's 64 heads over 8
 
 
 def _bwd_inputs(device, b, hq, hkv, sq, skv, d, dtype, causal, q_offset):
@@ -2003,6 +2006,36 @@ def test_telemetry_on_equals_off_on_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(m.blocks) == int(fon.metrics.blocks) + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gen_device", ["cuda", "cpu"])
+def test_sliced_init_holds_one_draw_beside_the_leaf(cuda, gen_device):
+    """A stacked bf16 leaf of 2^27 elements (256 MiB; 512 MiB in float32)
+    drawn straight onto the card: the allocator's peak stays within the
+    leaf's bytes plus one float32 draw (``DRAW_ELEMS``, 64 MiB: a block of
+    4096 rows, half of one [8192, 4096] slice), from a generator on the
+    card or on the CPU (drawn there, copied a block at a time), and both
+    generators fill every slice differently."""
+    from repro_torch.models import spec as sp
+
+    tree = {"w": sp.stack_specs({"w": sp.ParamSpec((8192, 4096),
+                                                   (None, None))}, 4)["w"]}
+    leaf = 4 * 8192 * 4096 * 2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=gen_device).manual_seed(0)
+    params = sp.init_tree(gen, tree, torch.bfloat16, cuda)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    w = params["w"]
+    assert w.device.type == "cuda" and w.dtype == torch.bfloat16
+    assert peak <= leaf + 4 * sp.DRAW_ELEMS, (peak, leaf)
+    assert peak < leaf + 4 * 8192 * 4096      # below one float32 slice more
+    assert abs(float(w[0].float().std()) * 90.50967 - 1) < 0.01
+    assert not torch.equal(w[0], w[1])
 
 
 @pytest.mark.cuda
