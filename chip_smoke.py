@@ -71,6 +71,17 @@ Phases, each fatal on failure:
              ``ssm_scan_bwd`` at its training shape, [4, 512, 8192] N
              16 (the backward's main case), within 1e-4 of each
              gradient's largest, two calls the same bits.
+             zamba2's long context: ``flash_attention`` with the sliding
+             window (bf16 and f32 at [1, 32, 32768, 80], window 4096,
+             against the plain version on blocks of query rows, SDPA with
+             the window as a boolean mask beside it; the windowed bf16
+             call must take at most ``WINDOW_SHARE`` of the same call
+             without the window; ragged cases, GQA 2, causal and not) and
+             ``ssd_chunked`` (x bf16 [1, 32768, 5120], 80 heads of 64, N
+             64, chunk 256, the main case; in f32; at [4, 2048, 5120];
+             ragged with an initial state), within 2^-7 (bf16) or 1e-4
+             (f32) of each output's largest, its three kernels' device
+             times and its exp floor.
              ``bucket_pack``
              (the wafer's flush), ``lif_step`` and every case of
              ``fused_inject`` and ``fused_lif_inject`` print their launch
@@ -204,7 +215,9 @@ Phases, each fatal on failure:
              prompt tokens, then llama3-8b, yi-9b, mistral-nemo-12b and
              chameleon-34b at full width, 2 layers each, float32, batch 1,
              prompt 300,
-             8 teacher-forced decode steps: the card (kernels) against the
+             8 teacher-forced decode steps, then zamba2 again at 6 layers
+             with ``ssm_impl="ssd"`` (chunk 64) and window 128, prefill and
+             one windowed decode step: the card (kernels) against the
              plain path on the CPU from the same weights and tokens,
              granite's routing of every MoE call bitwise first (expert
              choices, slots, counts; the smallest gap between the k-th
@@ -220,7 +233,14 @@ Phases, each fatal on failure:
              chameleon-34b (48, 63.9 GiB of weights), then
              llama4-maverick-400b-a17b at full width on one repeat of its
              pattern (a dense and an MoE layer of 128 experts, top-1)
-             through ``launch.serve.serve``: prefill must launch
+             through ``launch.serve.serve``; after zamba2's run, its
+             long-context path on the same weights (``long_context``:
+             ``ssm_impl="ssd"``, chunk 256, window 4096; a windowed
+             prefill of 1 x 32768 tokens, 32 windowed decode steps over
+             the padded cache, tok/s and peak memory, 54 ssd_chunked and
+             9 flash_attention launches a prefill and no ssm_scan; the
+             long_500k ring of 4096 slots, 32 steps; "ssd" against "scan"
+             at 4 x 2048 in turns): prefill must launch
              flash_attention 9 and ssm_scan 54 times (zamba2),
              flash_attention 24 times (internlm2, granite), 72 times
              (whisper), once a layer (the dense archs, llama4) or ssm_scan
@@ -342,7 +362,22 @@ REPLACES = {
     # and a_h (_dt_bc, src/repro/models/ssm.py:84).
     "ssm_scan_heads_bwd": "none: XLA autodiff of src/repro/models/ssm.py:"
                           "196 (scan_chunked) through _dt_bc's broadcasts",
+    # No TPU kernel: the reference's chunk-parallel SSD forward is XLA
+    # code (three einsums a chunk under lax.scan).
+    "ssd_chunked": "none: XLA src/repro/models/ssm.py:118 (ssd_chunked)",
 }
+# zamba2's long-context serving path: the sliding window, the prompt of
+# prefill_32k at batch 1, the decode steps, the chunk of the reference's
+# tuned "ssd" setting (src/repro/launch/dryrun.py:389), and the largest
+# share of the unwindowed causal flash time that the windowed call may
+# take at [1, 32, 32768, 80] (its live pairs are 0.23 of the causal ones).
+LONG_WINDOW = 4096
+LONG_PROMPT = 32768
+LONG_GEN = 32
+SSD_CHUNK = 256
+WINDOW_SHARE = 0.4
+# The ssd_chunked launcher's three kernels.
+SSD_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_scan_kernel")
 # The general-A scan backward's kernels (csrc/ssm_scan_bwd.cu): the chunk
 # form's carry and chunk kernels (N <= 64) and the walk form's (N > 64),
 # and the instances of each (x's type x the lanes for N).
@@ -576,6 +611,36 @@ def compare_scaled(name: str, got, want, frac: float) -> float:
                                      f"largest, beyond {frac:g}"
                                      + (" and a bf16 ulp" if ulp else ""))
     return worst
+
+
+def compare_rows(name: str, got, want, rtol: float,
+                 frac: float) -> tuple[float, float, float]:
+    """Attention held row by row: raises where an element is off by more
+    than ``rtol * |want| + frac * rms``, ``rms`` the root mean square of
+    its own row of ``want`` over the head dimension, or is not finite.
+    Each query row is a softmax of its own: a bf16 kernel's error there
+    (P rounded to bf16 before P V) scales with that row's output, which
+    is near |v| where the causal mask leaves a few keys and about
+    1/sqrt(keys) where the window leaves thousands, so one scale for the
+    tensor would be loose on the bulk or tight at the start.  Returns the
+    max abs difference, the largest share of its tolerance an element
+    used, and the mean |want|."""
+    a, b = got.double(), want.double()
+    if a.shape != b.shape:
+        raise AssertionError(f"{name}: shape {tuple(a.shape)}, plain "
+                             f"{tuple(b.shape)}")
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    diff, ref = (a - b).abs(), b.abs()
+    allowed = rtol * ref + frac * b.pow(2).mean(-1, keepdim=True).sqrt()
+    share = float(torch.where(allowed > 0, diff / allowed.clamp_min(1e-300),
+                              torch.where(diff > 0, torch.inf, 0.0)).max())
+    err = float(diff.max())
+    if share > 1.0:
+        raise AssertionError(f"{name}: an element differs from the plain "
+                             f"version by {share:.3g} of rtol {rtol:g} plus "
+                             f"{frac:g} of its row's rms (max abs {err:.3g})")
+    return err, share, float(ref.mean())
 
 
 def event_ms(fn, iters: int) -> float:
@@ -1312,9 +1377,14 @@ def kernel_phase(cases: list[dict]) -> dict:
         want = case.get("want", case["plain"])()
         torch.cuda.synchronize()
         tol, frac = case.get("tol"), case.get("tol_of_max")
-        err = (compare_scaled(label, got, want, frac) if frac is not None
-               else compare(label, got, want) if tol is None
-               else compare_close(label, got, want, *tol))
+        rows_tol, share = case.get("tol_rows"), None
+        if rows_tol is not None:
+            err, share, want_mean = compare_rows(label, got, want, *rows_tol)
+        else:
+            err = (compare_scaled(label, got, want, frac)
+                   if frac is not None
+                   else compare(label, got, want) if tol is None
+                   else compare_close(label, got, want, *tol))
         if case.get("check") is not None:
             case["check"](got)
         del want
@@ -1334,16 +1404,25 @@ def kernel_phase(cases: list[dict]) -> dict:
         if dms is not None:   # the mean per kernel, times kernels per call
             dms *= len(case.get("split_names", (None,)))
         row = dict(name=case["kernel"], mode=case["mode"], max_abs_err=err,
+                   pairs=case.get("pairs"),
                    ms=kc.graph_ms(case["run"]), device_ms=dms,
                    plain_ms=event_ms(case["plain"], case.get("plain_iters",
                                                              5)),
                    bytes=moved, ops=case["ops"],
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   library_ms=(None if library is None
-                               else case["library_time"]()
+                   library_ms=(case["library_time"]()
                                if case.get("library_time")
+                               else None if library is None
                                else library_ms(library)))
+        if share is not None:
+            row.update(tol_share=share, want_mean_abs=want_mean)
+        if case.get("library_small") is not None:
+            row["library_small"] = case["library_small"]()
+            print(f"[kernel] {case['kernel']:16s} {case['mode']:40s} "
+                  f"SDPA with the mask at {row['library_small']['shape']}: "
+                  f"ms={row['library_small']['library_ms']:.5f}, the kernel "
+                  f"there ms={row['library_small']['kernel_ms']:.5f}")
         for name in case.get("split_names", ()):
             split = device_ms(case["run"], (name,), 20)
             row.setdefault("split_ms", {})[name] = split
@@ -1351,7 +1430,11 @@ def kernel_phase(cases: list[dict]) -> dict:
                   f"{name}: device_ms="
                   f"{'not measured' if split is None else f'{split:.5f}'}")
         dms, lms = row["device_ms"], row["library_ms"]
-        check = (f"within {frac:g} of each output's largest (worst "
+        check = (f"within rtol {rows_tol[0]:g} and {rows_tol[1]:g} of its "
+                 f"row's rms (max abs {err:.3g}, {share:.3g} of the "
+                 f"tolerance at most; mean |want| {want_mean:.3g})"
+                 if rows_tol is not None else
+                 f"within {frac:g} of each output's largest (worst "
                  f"{err:.3g})" if frac is not None else
                  "bitwise ok" if tol is None else
                  f"within rtol {tol[0]:g} atol {tol[1]:g} (max abs "
@@ -1416,6 +1499,7 @@ def kernel_phase(cases: list[dict]) -> dict:
             main[case["kernel"]] = row
         if case.get("key"):
             main[case["key"]] = row
+        torch.cuda.empty_cache()
     return main
 
 
@@ -1625,6 +1709,207 @@ def lm_kernel_cases(device, seed: int) -> list[dict]:
         design="exp_per_state"))
     del falcon
     cases += scan_train_cases(device, gen)
+    # Last: the 32k cases' plain versions hold tens of GB for a while.
+    cases += long_context_cases(device, gen)
+    return cases
+
+
+def window_pairs(sq: int, skv: int, q_offset: int, causal: bool,
+                 window: int) -> int:
+    """(query, key) pairs per head that the causal mask (where ``causal``)
+    and the sliding window (where ``window`` > 0) let through."""
+    pos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(pos, skv - 1) if causal else np.full_like(pos, skv - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros_like(pos)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def blocked_attention_ref(q, k, v, *, causal: bool, q_offset: int = 0,
+                          window: int = 0, rows: int = 1024):
+    """``attention_ref`` on blocks of ``rows`` query rows, each over the
+    keys its mask and window can reach (the same function: the plain
+    version at shapes whose [Sq, Skv] scores do not fit the card)."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    sq, skv = q.shape[2], k.shape[2]
+    outs = []
+    for a in range(0, sq, rows):
+        b = min(sq, a + rows)
+        lo = max(0, a + q_offset - window + 1) if window else 0
+        hi = min(skv, b + q_offset) if causal else skv
+        if hi <= lo:   # no row of the block sees a key
+            outs.append(torch.zeros_like(q[:, :, a:b]))
+            continue
+        outs.append(attention_ref(q[:, :, a:b], k[:, :, lo:hi],
+                                  v[:, :, lo:hi], causal=causal,
+                                  q_offset=a + q_offset - lo, window=window))
+    return torch.cat(outs, dim=2)
+
+
+def window_sdpa(q, k, v, *, causal: bool, q_offset: int, window: int):
+    """SDPA with the causal mask and the window as one boolean mask (the
+    library's call for a windowed attention; it computes every pair)."""
+    from repro_torch.kernels.flash_attention.ref import _mask
+
+    mask = _mask(q.shape[2], k.shape[2], causal, q_offset, q.device, window)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=q.shape[1] != k.shape[1])
+
+
+def ssd_ops(b: int, t: int, nh: int, p: int, n: int, chunk: int) -> int:
+    """Operations the chunk-parallel scan needs: per chunk C B^T on the
+    causal triangle (shared by the heads), per head and chunk the decay
+    times cb, (decay o cb) dtx, exp(cum) C h^T and the state update, and
+    x D."""
+    l = min(chunk, t)
+    nc, tri = -(-t // l), l * (l + 1) // 2
+    per_head = tri + 2 * tri * p + 2 * l * n * p + l * p + 2 * l * p * n \
+        + 2 * p * n + l * p
+    return b * nc * (2 * tri * n + nh * per_head) + 2 * b * t * nh * p
+
+
+def ssd_exps(b: int, t: int, nh: int, chunk: int) -> int:
+    """Exponentials the chunk-parallel scan needs: the decay of every (t,
+    s <= t) pair of a chunk, w and exp(cum) per step, per head."""
+    l = min(chunk, t)
+    return b * -(-t // l) * nh * (l * (l + 1) // 2 + 2 * l)
+
+
+def long_context_cases(device, gen) -> list[dict]:
+    """zamba2's long-context kernels.  flash_attention with the sliding
+    window: bf16 and f32 at [1, 32, 32768, 80] (prefill_32k at batch 1,
+    window 4096), the same bf16 call without the window (the causal time
+    the windowed one is held to a share of), and ragged cases (Sq 777,
+    Skv 1000, q_offset 223, window 100, GQA 2, causal and not, both
+    types), against the plain version on blocks of query rows
+    (:func:`blocked_attention_ref`): bf16 within 2^-8 |want| plus 2^-5 of
+    the rms of the element's own row (:func:`compare_rows`; P rounded to
+    bf16 leaves about 2^-9 of it per element, and a window one key off
+    moves the bulk by some 19 times the tolerance:
+    ``tools/window_tolerance.py``), f32 within 5e-5;
+    operations 4 D a pair the mask and window let through; SDPA with the
+    window as a boolean mask beside it, tried at the full shape and,
+    where it does not run there, timed beside the kernel at [1, 32, 8192,
+    80] under a key of its own (``library_small``), never as the full
+    shape's ``library_ms``.
+    ssd_chunked (the main case: x bf16 [1, 32768, 5120], 80 heads of 64, N
+    64, chunk 256), in f32 there, at zamba2's serve shape [4, 2048, 5120]
+    and ragged (2, 130, 640) with chunk 128 and a nonzero initial state,
+    against ``ssd_chunked_ref`` within 2^-7 (bf16: the same roundings of
+    the same exact products, a flip of one is a bf16 ulp of a term) or
+    1e-4 (f32: 3xTF32 products, cumulative sums in another order, whose
+    rounding the decays pass on) of each output's largest, with its
+    exponentials' floor beside the bound."""
+    from repro_torch.kernels import common as kc
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops_m
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    randn = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                       device=device)
+    bf16_t, f32_t = torch.bfloat16, torch.float32
+    cases = []
+    for label, hq, hkv, sq, skv, dtype, q_offset, causal, window in (
+            ("long 32k window bf16", 32, 32, LONG_PROMPT, LONG_PROMPT,
+             bf16_t, 0, True, LONG_WINDOW),
+            ("long 32k causal bf16", 32, 32, LONG_PROMPT, LONG_PROMPT,
+             bf16_t, 0, True, 0),
+            ("long 32k window f32", 32, 32, LONG_PROMPT, LONG_PROMPT, f32_t,
+             0, True, LONG_WINDOW),
+            ("window ragged bf16", 8, 4, 777, 1000, bf16_t, 223, True, 100),
+            ("window ragged bf16, no mask", 8, 4, 777, 1000, bf16_t, 223,
+             False, 100),
+            ("window ragged f32", 8, 4, 777, 1000, f32_t, 223, True, 100),
+            ("window ragged f32, no mask", 8, 4, 777, 1000, f32_t, 223, False,
+             100)):
+        d = 80
+        q = randn(1, hq, sq, d).to(dtype)
+        k, v = randn(1, hkv, skv, d).to(dtype), randn(1, hkv, skv, d).to(dtype)
+        args = (q, k, v)
+        kw = dict(causal=causal, q_offset=q_offset, window=window)
+        bf16 = dtype == bf16_t
+        library, library_time, library_small = None, None, None
+        if window:
+            library = lambda a=args, k_=kw: window_sdpa(*a, **k_)  # noqa: E731
+            why = None
+            if sq > 8192:
+                try:
+                    library()
+                    torch.cuda.synchronize()
+                except (RuntimeError, torch.cuda.OutOfMemoryError) as err:
+                    why = (f"{type(err).__name__}: "
+                           f"{(str(err).splitlines() or [''])[0]}")
+                torch.cuda.empty_cache()
+            if why is not None:
+                print(f"[kernel] flash_attention {label}: SDPA with the mask "
+                      f"does not run at {tuple(q.shape)} ({why}); it and the "
+                      f"kernel are timed at [1, {hq}, 8192, {d}] instead")
+                library = None
+                library_small = (
+                    lambda a=tuple(x[:, :, :8192] for x in args), k_=kw: dict(
+                        shape=[1, hq, 8192, d],
+                        library_ms=library_ms(lambda: window_sdpa(*a, **k_)),
+                        kernel_ms=kc.graph_ms(
+                            lambda: fa_ops.flash_attention(*a, **k_))))
+            elif sq > 8192 and not bf16:
+                # every pair on the library's float32 route: a call takes
+                # a good share of a second, so three calls, not a graph
+                library_time = (lambda f=library: event_ms(f, 3))
+        elif q_offset == 0:
+            library = (lambda a=args, c=causal: torch.nn.functional
+                       .scaled_dot_product_attention(*a, is_causal=c,
+                                                     enable_gqa=True))
+        pairs = window_pairs(sq, skv, q_offset, causal, window)
+        cases.append(dict(
+            kernel="flash_attention", key=label,
+            mode=f"{label} {tuple(q.shape)}" + ("" if skv == sq else
+                                                f" Skv {skv}")
+            + ("" if hq == hkv else f" Hkv {hkv}")
+            + (f" q_offset {q_offset}" if q_offset else "")
+            + (f" window {window}" if window else "")
+            + ("" if causal else ", no mask"), main=False,
+            run=lambda a=args, k_=kw: fa_ops.flash_attention(*a, **k_),
+            plain=lambda a=args, k_=kw: blocked_attention_ref(*a, **k_),
+            want=lambda a=args, k_=kw: blocked_attention_ref(
+                *(x.float() for x in a), **k_),
+            tol_rows=(2**-8, 2**-5) if bf16 else None,
+            tol=None if bf16 else (0.0, 5e-5),
+            library=library, library_time=library_time,
+            library_small=library_small,
+            design=fa_ops.design(dtype), plain_iters=1,
+            device_names=tuple(FLASH_INSTANCES.values()),
+            library_tol=(0.0, 2e-2 if bf16 else 1e-4), inputs=args,
+            ops=4 * d * hq * pairs, pairs=pairs,
+            ops_per_s=BF16_TC_OPS_PER_S if bf16 else TF32X3_OPS_PER_S))
+    softplus = torch.nn.functional.softplus
+    for label, b, t, nh, n, chunk, dtype, with_h0, main in (
+            ("long 32k ssd bf16", 1, LONG_PROMPT, 80, 64, SSD_CHUNK, bf16_t,
+             False, True),
+            ("long 32k ssd f32", 1, LONG_PROMPT, 80, 64, SSD_CHUNK, f32_t,
+             False, False),
+            ("zamba2 prefill ssd bf16", 4, 2048, 80, 64, SSD_CHUNK, bf16_t,
+             False, False),
+            ("zamba2 prefill ssd f32", 4, 2048, 80, 64, SSD_CHUNK, f32_t,
+             False, False),
+            ("ssd ragged bf16", 2, 130, 10, 64, 128, bf16_t, True, False),
+            ("ssd ragged f32", 2, 130, 10, 64, 128, f32_t, True, False)):
+        di = nh * 64
+        args = (randn(b, t, di).to(dtype), softplus(randn(b, t, nh) - 1.0),
+                -torch.exp(randn(nh) * 0.5), randn(b, t, n), randn(b, t, n),
+                randn(di), randn(b, di, n) if with_h0 else None)
+        bf16 = dtype == bf16_t
+        cases.append(dict(
+            kernel="ssd_chunked", key=label, main=main,
+            mode=f"{label} {(b, t, di)} {nh} heads N {n} chunk {chunk}"
+            + (", h0" if with_h0 else ""),
+            run=lambda a=args, c=chunk: ssd_ops_m.ssd_chunked(*a, chunk=c),
+            plain=lambda a=args, c=chunk: ssd_chunked_ref(*a, chunk=c),
+            tol_of_max=2**-7 if bf16 else 1e-4, inputs=args, plain_iters=1,
+            device_names=SSD_KERNELS, split_names=SSD_KERNELS,
+            ops=ssd_ops(b, t, nh, 64, n, chunk),
+            exps=ssd_exps(b, t, nh, chunk), both_bounds=True,
+            ops_per_s=BF16_TC_OPS_PER_S if bf16 else TF32X3_OPS_PER_S,
+            design="mma_bf16" if bf16 else "mma_tf32x3"))
     return cases
 
 
@@ -3267,29 +3552,41 @@ SERVE_CHECKS = (("zamba2-2.7b", 6), ("falcon-mamba-7b", 4),
                 ("chameleon-34b", 2))
 
 
+# zamba2's long-context path in the serve-check: 6 layers (one shared
+# attention), "ssd" with chunks of 64, window 128 (below the 300-token
+# prompt, so that it bites), one decode step.
+LONG_SERVE_CHECK = dict(arch="zamba2-2.7b", layers=6, steps=1, window=128,
+                        replace=dict(ssm_impl="ssd", ssd_chunk=64))
+
+
 def serve_check(device, seed: int, prompt: int = 300,
                 steps: int = 8) -> dict:
-    """Each of ``SERVE_CHECKS`` (:func:`serve_check_one`); returns their
-    rows by arch and their card runs' launches, summed."""
+    """Each of ``SERVE_CHECKS``, then ``LONG_SERVE_CHECK``
+    (:func:`serve_check_one`); returns their rows by arch and their card
+    runs' launches, summed."""
     rows, launches = {}, {}
-    for arch, layers in SERVE_CHECKS:
-        row = serve_check_one(device, seed, arch, layers, prompt, steps)
+    runs = [dict(arch=a, layers=n, steps=steps) for a, n in SERVE_CHECKS]
+    for run in runs + [LONG_SERVE_CHECK]:
+        row = serve_check_one(device, seed, prompt=prompt, **run)
         for k, v in row.pop("launches").items():
             launches[k] = launches.get(k, 0) + v
-        rows[arch] = row
+        rows[row.pop("label")] = row
     return dict(rows=rows, launches=launches)
 
 
 def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
-                    steps: int) -> dict:
+                    steps: int, window: int = 0,
+                    replace: dict | None = None) -> dict:
     """``arch`` at full width, ``layers`` layers, float32, batch 1:
     prefill and ``steps`` teacher-forced decode steps on the card
     (kernels) and on the CPU (plain versions) from the same weights and
-    tokens (a Mamba-1 arch with :func:`set_general_a`).  An MoE arch's
-    routing (every layer, prefill and decode) must equal the CPU's
-    bitwise (:func:`routing_check`).  Every step's logits agree within
-    1e-3 of the largest |logit| (f32 sums in another order through every
-    layer); the prefill launches ssm_scan once a Mamba layer and
+    tokens (a Mamba-1 arch with :func:`set_general_a`), with the config's
+    fields ``replace`` and the sliding ``window`` (prefill and decode)
+    where given.  An MoE arch's routing (every layer, prefill and decode)
+    must equal the CPU's bitwise (:func:`routing_check`).  Every step's
+    logits agree within 1e-3 of the largest |logit| (f32 sums in another
+    order through every layer); the prefill launches ssm_scan (or
+    ssd_chunked on the "ssd" route) once a Mamba layer and
     flash_attention :func:`flash_calls` times.  An encoder-decoder runs
     ``layers`` encoder and decoder layers, ``prompt`` random frames and
     8 prompt tokens."""
@@ -3297,8 +3594,10 @@ def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
     from repro_torch.kernels import common as kc
     from repro_torch.models import lm
     from repro_torch.models import spec as sp
+    from repro_torch.models import ssm
 
-    cfg = dataclasses.replace(C.get(arch), n_layers=layers, dtype="float32")
+    cfg = dataclasses.replace(C.get(arch), n_layers=layers, dtype="float32",
+                              **(replace or {}))
     if cfg.is_encdec:
         cfg = dataclasses.replace(cfg, encoder_layers=layers)
     params = lm.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
@@ -3324,12 +3623,12 @@ def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
         routes = []
         t_start = time.perf_counter()
         with torch.no_grad(), moe_routings(routes):
-            last, cache = lm.prefill(cfg, p, batch)
+            last, cache = lm.prefill(cfg, p, batch, window=window)
             cache = lm.pad_cache(cfg, cache, prompt + steps)
             rows = [last]
             for i in range(steps):
                 lg, cache = lm.decode(cfg, p, tk[:, prompt + i], cache,
-                                      prompt + i)
+                                      prompt + i, window=window)
                 rows.append(lg)
         logits = torch.cat(rows).float().cpu()
         return (logits, time.perf_counter() - t_start, dict(kc.launches),
@@ -3341,8 +3640,11 @@ def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
     gap = None
     if cfg.n_experts:
         gap = routing_check(f"serve-check {arch}", r_gpu, r_cpu)
-    if (counts["flash_attention"], counts["ssm_scan"]) != (
-            flash_calls(cfg), layers if cfg.ssm_state else 0):
+    mamba = layers if cfg.ssm_state else 0
+    ssd = ssm.uses_ssd(cfg)
+    if (counts["flash_attention"], counts["ssm_scan"],
+            counts["ssd_chunked"]) != (flash_calls(cfg), 0 if ssd else mamba,
+                                       mamba if ssd else 0):
         raise AssertionError(f"serve-check {arch}: launches {counts}")
     scale = float(cpu.abs().max())
     err = (gpu - cpu).abs().amax(dim=-1)
@@ -3350,19 +3652,25 @@ def serve_check_one(device, seed: int, arch: str, layers: int, prompt: int,
     what = (f"{layers} + {layers} layers, f32, batch 1, {frames.shape[1]} "
             f"frames, prompt {prompt}" if cfg.is_encdec else
             f"{layers} layers, f32, batch 1, prompt {prompt}")
-    print(f"[serve-check] {arch} full width, {what}, {steps} teacher-forced "
+    label = arch
+    if replace or window:
+        label += "".join(f", {k} {v}" for k, v in (replace or {}).items()) \
+            + (f", window {window}" if window else "")
+    print(f"[serve-check] {label} full width, {what}, {steps} teacher-forced "
           f"steps: card "
           f"{t_gpu:.2f} s, CPU {t_cpu:.2f} s; max |dlogit| per step "
           f"{[float(f'{e:.3g}') for e in err]} vs max |logit| "
           f"{scale:.4g} (rel {float(err.max()) / scale:.3g}); greedy tokens "
           f"equal {agree}/{steps + 1}; launches flash_attention "
-          f"{counts['flash_attention']}, ssm_scan {counts['ssm_scan']}")
+          f"{counts['flash_attention']}, ssm_scan {counts['ssm_scan']}, "
+          f"ssd_chunked {counts['ssd_chunked']}")
     if not bool(torch.isfinite(gpu).all()) or float(err.max()) > 1e-3 * scale:
-        raise AssertionError(f"serve-check {arch}: the card's logits differ "
+        raise AssertionError(f"serve-check {label}: the card's logits differ "
                              f"from the CPU's beyond 1e-3 of the largest "
                              f"|logit|")
-    return dict(max_rel_err=float(err.max()) / scale, greedy_equal=agree,
-                steps=steps + 1, launches=counts, moe_smallest_gap=gap)
+    return dict(label=label, max_rel_err=float(err.max()) / scale,
+                greedy_equal=agree, steps=steps + 1, launches=counts,
+                moe_smallest_gap=gap)
 
 
 # (arch, flash_attention launches, ssm_scan launches) a prefill, at full
@@ -3514,10 +3822,173 @@ def serve_phase(device, seed: int) -> tuple[dict, dict, dict]:
         profile.update(serve_profile(label, cfg, params, tokens[:, :n_prompt],
                                      frames))
         metrics[label] = row
+        if arch == "zamba2-2.7b":
+            long_counts, long_rows = long_context(device, seed, cfg, params)
+            counts.update(long_counts)
+            metrics.update(long_rows)
         del params
         print(f"[time] {label}: {time.perf_counter() - t_start:.1f} s with "
               f"its checks and profile")
     return counts, metrics, profile
+
+
+def long_context(device, seed: int, cfg, params) -> tuple[dict, dict]:
+    """zamba2's long-context serving path on the serve run's weights, bf16,
+    54 layers, ``ssm_impl="ssd"`` with chunks of ``SSD_CHUNK`` and the
+    window ``LONG_WINDOW`` (the config's own):
+    (a) ``lm.prefill(window=)`` on 1 x ``LONG_PROMPT`` tokens (prefill_32k
+        at batch 1), the cache padded by ``LONG_GEN`` slots, then
+        ``LONG_GEN`` greedy steps of ``transformer.decode_step(window=)``;
+        the timed prefill (after one warm-up) must launch ssd_chunked once
+        a Mamba layer (54), flash_attention once an attention application
+        (9) and ssm_scan never;
+    (b) the long_500k ring: a windowed prefill of ``LONG_WINDOW`` tokens
+        is the ring of ``lm.cache_len_for(cfg, SHAPES["long_500k"])``
+        slots at position ``LONG_WINDOW``; ``LONG_GEN`` decode steps wrap
+        it from the first (slot pos % window);
+    (c) the "ssd" and "scan" routes at the serve shape (4 x 2048) in
+        turns (scan, ssd, ssd, scan, after a warm-up of each): prefill
+        tok/s of each and their ratio, and the largest |logit| gap
+        between them (printed: two bf16 routes through 54 random layers).
+    Logits must be finite and ids in range.  Returns (launches, metrics)
+    by step."""
+    from repro_torch import configs as C
+    from repro_torch.kernels import common as kc
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tfm
+
+    ssd = dataclasses.replace(cfg, ssm_impl="ssd", ssd_chunk=SSD_CHUNK)
+    w = cfg.window
+    if w != LONG_WINDOW:
+        raise AssertionError(f"{cfg.name}: window {w}, not {LONG_WINDOW}")
+    draw = torch.Generator(device=device).manual_seed(seed + 2)
+    counts, rows = {}, {}
+
+    def finite(label, x):
+        if not bool(torch.isfinite(x.float()).all()):
+            raise AssertionError(f"{label}: non-finite logits")
+
+    def prefill(c, tokens, window):
+        torch.cuda.synchronize()
+        kc.reset_launches()
+        t_start = time.perf_counter()
+        last, cache = lm.prefill(c, params, {"tokens": tokens}, window=window)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t_start, last, cache, dict(kc.launches)
+
+    def greedy(label, last, cache, pos):
+        tok, ids = last.argmax(-1).to(torch.int32), []
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for i in range(LONG_GEN):
+            lg, cache = tfm.decode_step(ssd, params, tok, cache, pos + i,
+                                        window=w)
+            tok = lg.argmax(-1).to(torch.int32)
+            ids.append(tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        finite(label, lg)
+        ids = torch.stack(ids)
+        if not bool(((ids >= 0) & (ids < cfg.vocab_size)).all()):
+            raise AssertionError(f"{label}: generated ids out of range")
+        return wall, cache
+
+    def launches_ok(label, got, scan, ssd_n):
+        want = (cfg.attn_layers, scan, ssd_n)
+        have = (got["flash_attention"], got["ssm_scan"], got["ssd_chunked"])
+        if have != want:
+            raise AssertionError(f"{label}: a prefill launched flash, scan, "
+                                 f"ssd {have}, not {want}")
+
+    with torch.no_grad():
+        # (a) prefill_32k at batch 1, windowed, then 32 windowed steps.
+        label = "long-context 32k"
+        tokens = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
+                               device=device, dtype=torch.int32,
+                               generator=draw)
+        prefill(ssd, tokens, w)   # warm-up: the timed call is the next
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pre, last, cache, got = prefill(ssd, tokens, w)
+        counts[label] = got
+        launches_ok(label, got, 0, cfg.n_layers)
+        finite(label, last)
+        cache = lm.pad_cache(ssd, cache, LONG_PROMPT + LONG_GEN)
+        dec, cache = greedy(label, last, cache, LONG_PROMPT)
+        peak = torch.cuda.max_memory_allocated()
+        del cache, last
+        rows[label] = dict(prefill_s=pre, prefill_tok_s=LONG_PROMPT / pre,
+                           decode_s=dec, decode_tok_s=LONG_GEN / dec,
+                           peak_bytes=peak)
+        print(f"[{label}] {cfg.name} {cfg.n_layers} layers {cfg.dtype}, ssd "
+              f"chunk {SSD_CHUNK}, window {w}, batch 1, prompt {LONG_PROMPT}: "
+              f"prefill {pre * 1e3:.1f} ms ({LONG_PROMPT / pre:.1f} tok/s), "
+              f"{LONG_GEN} decode steps over {LONG_PROMPT + LONG_GEN} slots "
+              f"{dec * 1e3:.1f} ms ({LONG_GEN / dec:.2f} tok/s), peak memory "
+              f"{peak} B ({peak / 2**30:.2f} GiB); launches a prefill: "
+              f"ssd_chunked {got['ssd_chunked']}, flash_attention "
+              f"{got['flash_attention']}, ssm_scan {got['ssm_scan']}")
+        # (b) the long_500k ring.
+        label = "long-context ring"
+        slots = lm.cache_len_for(cfg, C.SHAPES["long_500k"])
+        if slots != w:
+            raise AssertionError(f"{label}: {slots} slots, not {w}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, last, cache, got = prefill(ssd, tokens[:, :slots], w)
+        counts[label] = got
+        launches_ok(label, got, 0, cfg.n_layers)
+        kv = cache[f"pos{cfg.pattern_period() - 1}"]["kv"]
+        if kv.k.shape[-2] != slots:
+            raise AssertionError(f"{label}: cache of {kv.k.shape[-2]} slots")
+        first = kv.k[..., 0, :].clone()
+        dec, cache = greedy(label, last, cache, slots)
+        if torch.equal(kv.k[..., 0, :], first):
+            raise AssertionError(f"{label}: the first step did not write "
+                                 f"slot 0 of the ring")
+        peak = torch.cuda.max_memory_allocated()
+        del cache, last, kv, first
+        rows[label] = dict(decode_s=dec, decode_tok_s=LONG_GEN / dec,
+                           peak_bytes=peak, slots=slots)
+        print(f"[{label}] {cfg.name}: a windowed prefill of {slots} tokens "
+              f"fills the long_500k ring of {slots} slots; {LONG_GEN} decode "
+              f"steps from position {slots} wrap it (slot pos % {slots}): "
+              f"{dec * 1e3:.1f} ms ({LONG_GEN / dec:.2f} tok/s), peak memory "
+              f"{peak} B ({peak / 2**30:.2f} GiB)")
+        del tokens
+        # (c) the two routes at the serve shape, in turns.
+        label = "long-context routes"
+        b, s = SERVE_ARGS["batch"], SERVE_ARGS["prompt"]
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), device=device,
+                               dtype=torch.int32, generator=draw)
+        routes = {"scan": cfg, "ssd": ssd}
+        outs, times = {}, {"scan": [], "ssd": []}
+        for name in ("scan", "ssd"):
+            _, outs[name], _, got = prefill(routes[name], tokens, 0)
+            counts[f"{label} {name}"] = got
+            launches_ok(f"{label} {name}", got,
+                        0 if name == "ssd" else cfg.n_layers,
+                        cfg.n_layers if name == "ssd" else 0)
+            finite(f"{label} {name}", outs[name])
+        for name in ("scan", "ssd", "ssd", "scan"):
+            times[name].append(prefill(routes[name], tokens, 0)[0])
+        torch.cuda.empty_cache()
+        tok_s = {k: b * s / (sum(v) / len(v)) for k, v in times.items()}
+        ms = {k: [round(x * 1e3, 1) for x in v] for k, v in times.items()}
+        gap = float((outs["ssd"].float() - outs["scan"].float()).abs().max())
+        top = float(outs["scan"].float().abs().max())
+        rows[label] = dict(prefill_tok_s=tok_s, prefill_s=times,
+                           ssd_over_scan=tok_s["ssd"] / tok_s["scan"],
+                           logit_gap=gap, max_logit=top)
+        print(f"[{label}] {cfg.name} {cfg.dtype}, batch {b}, prompt {s}, "
+              f"prefill in turns (scan, ssd, ssd, scan): scan "
+              f"{tok_s['scan']:.1f} tok/s {ms['scan']} ms, ssd (chunk "
+              f"{SSD_CHUNK}) {tok_s['ssd']:.1f} tok/s {ms['ssd']} ms: "
+              f"ssd/scan {tok_s['ssd'] / tok_s['scan']:.3f}; last-token "
+              f"logits of "
+              f"the two routes {gap:.4g} apart (max |logit| {top:.4g}: two "
+              f"{cfg.dtype} routes through {cfg.n_layers} random layers)")
+    return counts, rows
 
 
 def model_batch(tokens, frames=None) -> dict:
@@ -4672,6 +5143,25 @@ def main() -> int:
           f"ssm_scan_bwd at its training shape ms={bwd['ms']:.5f} (bound "
           f"{bwd['bound_ms']:.5f} by {bwd['bound_by']}, "
           f"{bwd['bound_ms'] / bwd['ms']:.3f} of it)")
+    window, causal = (main_rows["long 32k window bf16"],
+                      main_rows["long 32k causal bf16"])
+    share = window["ms"] / causal["ms"]
+    print(f"[kernel] flash_attention at [1, 32, 32768, 80] bf16: window "
+          f"{LONG_WINDOW} ms={window['ms']:.5f} ({window['pairs']} pairs a "
+          f"head) against causal ms={causal['ms']:.5f} ({causal['pairs']} "
+          f"pairs): {share:.3f} of it (live pairs "
+          f"{window['pairs'] / causal['pairs']:.3f}); SDPA with the mask "
+          f"{window['library_ms']}")
+    if share > WINDOW_SHARE:
+        raise AssertionError(f"the windowed flash takes {share:.3f} of the "
+                             f"causal call's time, above {WINDOW_SHARE}: "
+                             f"the tiles outside the window are not skipped")
+    ssd = main_rows["ssd_chunked"]
+    print(f"[kernel] ssd_chunked at [1, 32768, 5120] bf16, chunk "
+          f"{SSD_CHUNK}: ms={ssd['ms']:.5f} bound {ssd['bound_ms']:.5f} "
+          f"({ssd['bound_by']}, {ssd['bound_ms'] / ssd['ms']:.3f} of it), "
+          f"exp floor {ssd['exp_floor_ms']:.5f}; the scan route at [4, 2048, "
+          f"5120] ms={main_rows['ssm_scan']['ms']:.5f}")
     whisper = {k: v for k, v in main_rows.items() if k.startswith("whisper")}
     dense = {k: v for k, v in main_rows.items()
              if k.startswith(KEYED) and k not in whisper}
@@ -4751,6 +5241,15 @@ def main() -> int:
         dense_kernels={k: {f: v[f] for f in ("ms", "bound_ms", "bound_by",
                                              "library_ms", "mode")}
                        for k, v in dense.items()},
+        long_context_kernels={
+            k: {f: v.get(f) for f in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "exp_floor_ms", "max_abs_err", "mode",
+                                      "split_ms", "tol_share",
+                                      "want_mean_abs", "library_small")}
+            for k, v in main_rows.items()
+            if k.startswith(("long ", "window ", "ssd ",
+                             "zamba2 prefill ssd"))},
         checkpoint=counts["resilient"]["checkpoint"], telemetry=telemetry,
         profile=profile)
     print(f"[summary] {json.dumps(summary)}")

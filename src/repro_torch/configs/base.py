@@ -58,7 +58,7 @@ class ArchConfig:
 
     # --- performance levers of the JAX package (kept for parity) ---
     ssm_unroll: int = 8
-    ssm_impl: str = "scan"      # scan | ssd (the port runs "scan")
+    ssm_impl: str = "scan"      # scan | ssd (Mamba-2; "ssd" serves only)
     ssd_chunk: int = 128
     head_pad: int = 0
     moe_dispatch: str = "global"

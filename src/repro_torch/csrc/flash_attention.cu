@@ -18,7 +18,14 @@
 // set to 0 where masked; alpha = exp(m - m_new) (0 while m is the
 // minimum); l = alpha * l + sum(p); acc = alpha * acc + p . v; out = acc
 // / l, with l = 0 (a row with no valid key) giving 0.  k tiles wholly
-// after the causal diagonal of the q tile are skipped.  The output has
+// after the causal diagonal of the q tile are skipped.  A sliding window
+// (window > 0, zamba2's long-context path; the reference masks it in XLA,
+// models/attention.py:147) also masks col <= q_offset + row - window, and
+// each q tile starts its k loop at the first tile that meets the window
+// of its first row, so a windowed prefill costs O(Sq window), not O(Sq
+// Skv); tiles are masked only where they cross a window's edge.  Without
+// the causal mask a row can see no key at all: it gives 0, as an empty
+// row does.  The output has
 // the input's type.  Handed an lse pointer (training), each design also
 // writes every row's log-sum-exp in natural-log units, the backward's
 // residual (flash_attention_bwd.cu): m + log l, or (m + log2 l) ln 2 from
@@ -179,7 +186,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map,
     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int hq,
-    int hkv, int sq, int skv, int d, int q_offset, int causal, float scale) {
+    int hkv, int sq, int skv, int d, int q_offset, int causal, float scale,
+    int window) {
   using T = WgTile<DN>;
   constexpr int BK = T::kBK;
   constexpr int kStages = T::kStages;
@@ -200,6 +208,12 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgBQ;
   const int k_end = causal ? min(skv, q0 + q_offset + kWgBQ) : skv;
   const int n_tiles = (k_end + BK - 1) / BK;
+  // The first tile that meets the window of the CTA's first row; a CTA
+  // whose rows see no key at all (no causal mask) still runs its last
+  // tile, wholly masked, so that every row gives 0.
+  const int j0 =
+      window > 0 ? min(max(0, q0 + q_offset - window + 1) / BK, n_tiles - 1)
+                 : 0;
 
   if (threadIdx.x == 0) {
     sm::mbar_init(q_full, 1);
@@ -223,17 +237,18 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
       for (int c = 0; c < T::kBoxes; ++c)
         sm::tma_load_3d(qs + c * kWgBQ * kBoxRowBytes, &q_map, q_full,
                         c * kBox, q0, bh);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % kStages;
-        const uint32_t parity = (j / kStages - 1) & 1;
+      for (int j = j0; j < n_tiles; ++j) {
+        const int jj = j - j0;  // the ring counts tiles from j0
+        const int s = jj % kStages;
+        const uint32_t parity = (jj / kStages - 1) & 1;
         unsigned char* kt = ks + s * T::kKVBytes;
         unsigned char* vt = vs + s * T::kKVBytes;
-        if (j >= kStages) sm::mbar_wait(k_empty + s, parity);
+        if (jj >= kStages) sm::mbar_wait(k_empty + s, parity);
         sm::mbar_expect_tx(k_full + s, T::kKVBytes);
         for (int c = 0; c < T::kBoxes; ++c)
           sm::tma_load_3d(kt + c * BK * kBoxRowBytes, &k_map, k_full + s,
                           c * kBox, j * BK, kvh);
-        if (j >= kStages) sm::mbar_wait(v_empty + s, parity);
+        if (jj >= kStages) sm::mbar_wait(v_empty + s, parity);
         sm::mbar_expect_tx(v_full + s, T::kKVBytes);
         for (int c = 0; c < T::kBoxes; ++c)
           sm::tma_load_3d(vt + c * BK * kBoxRowBytes, &v_map, v_full + s,
@@ -266,8 +281,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
     // S = Q K^T of tile j over DN / 16 steps of 16 columns (issued, not
     // waited for).
     auto issue_qk = [&](int j) {
-      const int stage = j % kStages;
-      sm::mbar_wait(k_full + stage, (j / kStages) & 1);
+      const int stage = (j - j0) % kStages;
+      sm::mbar_wait(k_full + stage, ((j - j0) / kStages) & 1);
 #pragma unroll
       for (int kk = 0; kk < DN / 16; ++kk) {
         const uint32_t in_box = kk % 4 * 32;
@@ -285,8 +300,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
     };
     // O += P V of tile j over BK / 16 steps of 16 keys (issued).
     auto issue_pv = [&](int j) {
-      const int stage = j % kStages;
-      sm::mbar_wait(v_full + stage, (j / kStages) & 1);
+      const int stage = (j - j0) % kStages;
+      sm::mbar_wait(v_full + stage, ((j - j0) / kStages) & 1);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
         sm::Wgmma<DN>::rs(
@@ -296,8 +311,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
     };
     // The online softmax of tile j on S: scores in the log2 domain, masks
     // only where the tile crosses the causal diagonal of this
-    // warpgroup's rows or the Skv edge; leaves p (f32) in s, updates m
-    // and l, and sets alpha.
+    // warpgroup's rows, a window's edge or the Skv edge; leaves p (f32)
+    // in s, updates m and l, and sets alpha.
     auto softmax = [&](int j) {
       const int k0 = j * BK;
       // Four partial maxima and sums per row, so no dependent chain is
@@ -307,12 +322,16 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int g = 0; g < 4; ++g) mx[h][g] = kNegInf, rs[h][g] = 0.0f;
-      if (k0 + BK > skv || (causal && k0 + BK - 1 > first_pos)) {
+      if (k0 + BK > skv || (causal && k0 + BK - 1 > first_pos) ||
+          (window > 0 && k0 <= first_pos + kWgRows - 1 - window)) {
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) {
           const int c = k0 + i / 4 * 8 + col + i % 2;
           const int pos = row + i / 2 % 2 * 8 + q_offset;
-          s[i] = c >= skv || (causal && c > pos) ? kNegInf : s[i] * scale_log2;
+          s[i] = c >= skv || (causal && c > pos) ||
+                         (window > 0 && pos - c >= window)
+                     ? kNegInf
+                     : s[i] * scale_log2;
           mx[i / 2 % 2][i / 4 % 4] = fmaxf(mx[i / 2 % 2][i / 4 % 4], s[i]);
         }
       } else {
@@ -363,14 +382,14 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
     sm::mbar_wait(q_full, 0);
     turn_wait();
     sm::wgmma_fence();
-    issue_qk(0);
+    issue_qk(j0);
     turn_pass(false);
     sm::wgmma_wait<0>();
     sm::fence_regs(s);
     sm::mbar_arrive(k_empty);
-    softmax(0);
+    softmax(j0);
     pack_p();
-    for (int j = 1; j < n_tiles; ++j) {
+    for (int j = j0 + 1; j < n_tiles; ++j) {
       sm::fence_regs(o);
       turn_wait();
       sm::wgmma_fence();
@@ -379,11 +398,11 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
       turn_pass(false);
       sm::wgmma_wait<1>();
       sm::fence_regs(s);
-      sm::mbar_arrive(k_empty + j % kStages);
+      sm::mbar_arrive(k_empty + (j - j0) % kStages);
       softmax(j);
       sm::wgmma_wait<0>();
       sm::fence_regs(o);
-      sm::mbar_arrive(v_empty + (j - 1) % kStages);
+      sm::mbar_arrive(v_empty + (j - 1 - j0) % kStages);
 #pragma unroll
       for (int i = 0; i < DN / 2; ++i) o[i] *= alpha[i / 2 % 2];
       pack_p();
@@ -425,7 +444,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_attention_wgmma_kernel(
 template <int DN>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int batch, int hq, int hkv, int sq, int skv,
-                 int d, int q_offset, int causal, float scale,
+                 int d, int q_offset, int causal, float scale, int window,
                  cudaStream_t stream) {
   using T = WgTile<DN>;
   CUtensorMap q_map, k_map, v_map;
@@ -441,13 +460,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((sq + kWgBQ - 1) / kWgBQ, batch * hq);
   flash_attention_wgmma_kernel<DN><<<grid, kWgThreads, T::kSmem, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, hq, hkv, sq,
-      skv, d, q_offset, causal, scale);
+      skv, d, q_offset, causal, scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
                    float* lse, int batch, int hq, int hkv, int sq, int skv,
-                   int d, int q_offset, int causal, float scale,
+                   int d, int q_offset, int causal, float scale, int window,
                    cudaStream_t stream) {
   if (skv == 0)  // no key: every row has l = 0, so every output is 0
     return no_key(out, sizeof(__nv_bfloat16), lse, batch, hq, sq, d, stream);
@@ -455,7 +474,7 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
 #define REPRO_FLASH_WG_CASE(N)                                               \
   if (dn == N)                                                               \
     return launch_wgmma<N>(q, k, v, out, lse, batch, hq, hkv, sq, skv, d,     \
-                           q_offset, causal, scale, stream);
+                           q_offset, causal, scale, window, stream);
   REPRO_FLASH_WG_CASE(16)
   REPRO_FLASH_WG_CASE(32)
   REPRO_FLASH_WG_CASE(48)
@@ -511,7 +530,7 @@ __global__ void __launch_bounds__(kTfThreads) flash_attention_tf32x3_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,
     float* __restrict__ lse, int hq, int hkv, int sq, int skv, int d,
-    int q_offset, int causal, float scale) {
+    int q_offset, int causal, float scale, int window) {
   using T = TfTile<DN>;
   constexpr int NT = T::kNT;
   constexpr int BK = T::kBK;
@@ -527,6 +546,8 @@ __global__ void __launch_bounds__(kTfThreads) flash_attention_tf32x3_kernel(
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTfBQ;
   const int k_end = causal ? min(skv, q0 + q_offset + kTfBQ) : skv;
   const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+  // The first tile that meets the window of the CTA's first row.
+  const int j0 = window > 0 ? max(0, q0 + q_offset - window + 1) / BK : 0;
   const int nt = d / 8;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
@@ -551,7 +572,7 @@ __global__ void __launch_bounds__(kTfThreads) flash_attention_tf32x3_kernel(
     }
     sm::cp_async_commit();
   };
-  if (n_tiles > 0) load_kv(0);
+  if (j0 < n_tiles) load_kv(j0);
 
   // Each warp splits its own q rows once, into A fragments: k-step kk
   // takes columns 8 kk + 2t and + 1 as k-indices t and t + 4 (k is
@@ -580,7 +601,7 @@ __global__ void __launch_bounds__(kTfThreads) flash_attention_tf32x3_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
 
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int j = j0; j < n_tiles; ++j) {
     sm::cp_async_wait_all();
     __syncthreads();  // raw tile j has landed; every warp is done with j - 1
     // Split the tile once for all four warps, into the B fragments as a
@@ -607,8 +628,11 @@ __global__ void __launch_bounds__(kTfThreads) flash_attention_tf32x3_kernel(
     __syncthreads();  // the fragments are in; the raw tile is free
     if (j + 1 < n_tiles) load_kv(j + 1);
     const int k0 = j * BK;
-    // A tile wholly after the warp's rows, or a warp wholly past Sq.
-    if (first >= sq || (causal && k0 > first + 15 + q_offset)) continue;
+    // A tile wholly after the warp's rows or before their windows, or a
+    // warp wholly past Sq.
+    if (first >= sq || (causal && k0 > first + 15 + q_offset) ||
+        (window > 0 && k0 + BK - 1 <= first + q_offset - window))
+      continue;
 
     // S = Q K^T.
     float s[BK / 8][4];
@@ -631,15 +655,17 @@ __global__ void __launch_bounds__(kTfThreads) flash_attention_tf32x3_kernel(
     // The online softmax on the fragment: s[n][e] is row row + 8 (e / 2),
     // key k0 + 8n + 2t + e % 2; p = exp(s - safe) is 0 where masked.
     const bool edge =
-        k0 + BK > skv || (causal && k0 + BK - 1 > first + q_offset);
+        k0 + BK > skv || (causal && k0 + BK - 1 > first + q_offset) ||
+        (window > 0 && k0 <= first + 15 + q_offset - window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = k0 + 8 * n + 2 * t + e % 2;
-        const bool ok =
-            !edge || (c < skv && (!causal || c <= row + 8 * (e / 2) + q_offset));
+        const int pos = row + 8 * (e / 2) + q_offset;
+        const bool ok = !edge || (c < skv && (!causal || c <= pos) &&
+                                  (window <= 0 || pos - c < window));
         s[n][e] = ok ? s[n][e] * scale : kNegInf;
         mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
       }
@@ -704,7 +730,7 @@ __global__ void __launch_bounds__(kTfThreads) flash_attention_tf32x3_kernel(
 template <int DN>
 int launch_tf32x3(const void* q, const void* k, const void* v, void* out,
                   float* lse, int batch, int hq, int hkv, int sq, int skv,
-                  int d, int q_offset, int causal, float scale,
+                  int d, int q_offset, int causal, float scale, int window,
                   cudaStream_t stream) {
   using T = TfTile<DN>;
   static size_t allowed = 48 * 1024;
@@ -715,20 +741,20 @@ int launch_tf32x3(const void* q, const void* k, const void* v, void* out,
   flash_attention_tf32x3_kernel<DN><<<grid, kTfThreads, T::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, hq, hkv,
-      sq, skv, d, q_offset, causal, scale);
+      sq, skv, d, q_offset, causal, scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_tf32x3(const void* q, const void* k, const void* v, void* out,
                     float* lse, int batch, int hq, int hkv, int sq, int skv,
-                    int d, int q_offset, int causal, float scale,
+                    int d, int q_offset, int causal, float scale, int window,
                     cudaStream_t stream) {
   if (skv == 0)  // no key: every row has l = 0, so every output is 0
     return no_key(out, sizeof(float), lse, batch, hq, sq, d, stream);
 #define REPRO_FLASH_TF_CASE(N)                                               \
   if (d <= N)                                                                \
     return launch_tf32x3<N>(q, k, v, out, lse, batch, hq, hkv, sq, skv, d,    \
-                            q_offset, causal, scale, stream);
+                            q_offset, causal, scale, window, stream);
   REPRO_FLASH_TF_CASE(16)
   REPRO_FLASH_TF_CASE(32)
   REPRO_FLASH_TF_CASE(64)
@@ -750,20 +776,22 @@ int dispatch_tf32x3(const void* q, const void* k, const void* v, void* out,
 // null, receives each row's log-sum-exp of the scaled scores in natural
 // log units, float32 [batch, hq, sq] (finfo(float32).min for a row with
 // no valid key): the residual of the backward (flash_attention_bwd.cu).
+// window > 0: query row i (position q_offset + i) sees keys j with
+// q_offset + i - j < window only; 0: no window.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int batch, int hq, int hkv, int sq, int skv, int d, int q_offset,
-    int causal, float scale, int dtype, void* stream) {
+    int causal, float scale, int dtype, int window, void* stream) {
   if (batch == 0 || hq == 0 || sq == 0 || d == 0) return 0;
-  if (d > 256 || d % 8 != 0 || hkv <= 0 || hq % hkv != 0)
+  if (d > 256 || d % 8 != 0 || hkv <= 0 || hq % hkv != 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   if (dtype == 0)
     return dispatch_tf32x3(q, k, v, out, lse_f, batch, hq, hkv, sq, skv, d,
-                           q_offset, causal, scale, s);
+                           q_offset, causal, scale, window, s);
   if (dtype == 1)
     return dispatch_wgmma(q, k, v, out, lse_f, batch, hq, hkv, sq, skv, d,
-                          q_offset, causal, scale, s);
+                          q_offset, causal, scale, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -23,7 +23,8 @@ one per call of either form (the chunk form's carry and chunk kernels,
 or the walk form's kernel; the ``torch.sum`` of the partial sums is not
 a launch of it), and ``ssm_scan_heads_bwd`` (``ssm_scan_bwd_chunked.cu``,
 the scan's backward for a per-head decay) counts one per call, whether
-the call starts one kernel or two.
+the call starts one kernel or two, and so does ``ssd_chunked`` (Mamba-2's
+chunk-parallel scan: three kernels a call).
 """
 
 from __future__ import annotations
@@ -42,14 +43,15 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("bucket_pack", "fused_inject", "fused_drain", "lif_step",
            "merge_sort", "flash_attention", "flash_attention_bwd", "ssm_scan",
-           "ssm_scan_bwd", "ssm_scan_bwd_chunked")
+           "ssm_scan_bwd", "ssm_scan_bwd_chunked", "ssd_chunked")
 KERNELS = {"fused_inject": "fused_inject", "fused_lif_inject": "fused_inject",
            "bucket_pack": "bucket_pack", "fused_drain": "fused_drain",
            "lif_step": "lif_step", "merge_sort_words": "merge_sort",
            "merge_sort": "merge_sort", "flash_attention": "flash_attention",
            "flash_attention_bwd": "flash_attention_bwd",
            "ssm_scan": "ssm_scan", "ssm_scan_bwd": "ssm_scan_bwd",
-           "ssm_scan_heads_bwd": "ssm_scan_bwd_chunked"}
+           "ssm_scan_heads_bwd": "ssm_scan_bwd_chunked",
+           "ssd_chunked": "ssd_chunked"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Shared memory one block may use on Hopper (227 KB).

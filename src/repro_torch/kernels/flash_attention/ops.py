@@ -19,7 +19,10 @@ CPU tensors both run the plain versions of
 input requires grad under grad mode: the forward then also writes each
 row's log-sum-exp, which the Function saves with q, k, v and the output
 for the backward.  Any other call is the single forward launch, with no
-lse.
+lse.  ``window`` > 0 (query position i sees key j only where i - j <
+window) is taken by the forward alone: each q tile starts its key loop at
+the first tile that meets its window; the backward kernels have no
+window, so a windowed call where a gradient is asked raises.
 """
 
 from __future__ import annotations
@@ -36,12 +39,15 @@ BWD_NAME = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DESIGNS = {torch.float32: "mma_tf32x3", torch.bfloat16: "wgmma"}
 _BWD_DESIGNS = {torch.float32: "mma_tf32x3", torch.bfloat16: "mma_bf16"}
-_ARGTYPES = [kc.P] * 5 + [kc.I] * 8 + [kc.F, kc.I, kc.P]
+_ARGTYPES = [kc.P] * 5 + [kc.I] * 8 + [kc.F, kc.I, kc.I, kc.P]
 _BWD_ARGTYPES = [kc.P] * 10 + [kc.I] * 8 + [kc.F, kc.I, kc.P]
 # TMA (bf16) and the 16-byte cp.async copies (float32) read a tensor from
 # a 16-byte aligned base address; so do the backward's 16-byte loads.
 TMA_ALIGN = 16
 F32 = torch.float32
+NO_WINDOW_GRAD = ("training with a sliding window is not ported: the "
+                  "flash-attention backward kernels have no window "
+                  "(ROADMAP.md section 1, item 9)")
 
 
 def design(dtype: torch.dtype, *, backward: bool = False) -> str:
@@ -82,18 +88,21 @@ def _card_check(q, d):
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         scale: float | None = None, q_offset: int = 0,
-                        with_lse: bool = False):
+                        with_lse: bool = False, window: int = 0):
     """The forward: out [B, Hq, Sq, D] in q's type, and with ``with_lse``
     also lse [B, Hq, Sq] float32 (natural log; ``finfo(float32).min`` on
-    a row with no valid key) as ``(out, lse)``.  Inputs that are not
-    contiguous, or not 16-byte aligned, are copied first."""
+    a row with no valid key) as ``(out, lse)``.  ``window`` > 0 keeps
+    only keys j with q_offset + i - j < window for query row i.  Inputs
+    that are not contiguous, or not 16-byte aligned, are copied first."""
     (b, hq, hkv, sq, skv, d), scale = _shapes(q, k, scale)
+    if window < 0:
+        raise ValueError(f"window must be 0 (none) or positive, not {window}")
     if not q.is_cuda:
         if with_lse:
             return attention_with_lse_ref(q, k, v, causal=causal, scale=scale,
-                                          q_offset=q_offset)
+                                          q_offset=q_offset, window=window)
         return attention_ref(q, k, v, causal=causal, scale=scale,
-                             q_offset=q_offset)
+                             q_offset=q_offset, window=window)
     _card_check(q, d)
     q, k, v = tma_ready(q), tma_ready(k), tma_ready(v)
     out = torch.empty_like(q)
@@ -106,7 +115,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
               kc.check(v, "v", q.dtype, (b, hkv, skv, d)),
               out.data_ptr(), None if lse is None else lse.data_ptr(), b, hq,
               hkv, sq, skv, d, q_offset, int(causal), scale,
-              _DTYPES[q.dtype])
+              _DTYPES[q.dtype], int(window))
     return (out, lse) if with_lse else out
 
 
@@ -167,15 +176,19 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, window: int = 0) -> torch.Tensor:
     """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] (Hq a multiple of Hkv) ->
     [B, Hq, Sq, D] in q's type.  ``scale`` defaults to 1/sqrt(D); query
-    row i sits at position ``q_offset + i`` for the causal mask.
-    Differentiable: where an input requires grad under grad mode the call
-    goes through :class:`FlashAttention`."""
+    row i sits at position ``q_offset + i`` for the causal mask and the
+    sliding window (``window`` > 0: keys j with position - j < window).
+    Differentiable without a window: where an input requires grad under
+    grad mode the call goes through :class:`FlashAttention`; with a
+    window it raises there."""
     _, scale = _shapes(q, k, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if window:
+            raise NotImplementedError(NO_WINDOW_GRAD)
         return FlashAttention.apply(q, k, v, causal, scale, q_offset)
     return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                               q_offset=q_offset)
+                               q_offset=q_offset, window=window)

@@ -2,7 +2,10 @@
 
 * :func:`attention_ref`: exact softmax attention with GQA head grouping
   and a causal mask with ``q_offset``
-  (``repro.kernels.flash_attention.ref.attention_ref``), f32 inside;
+  (``repro.kernels.flash_attention.ref.attention_ref``), and with
+  ``window`` > 0 the sliding window of ``repro.models.attention``'s
+  ``chunked_attention`` (query position i sees key j only where i - j <
+  window), f32 inside;
   :func:`attention_with_lse_ref` also returns each row's log-sum-exp, the
   residual of the backward.
 * :func:`attention_bwd_ref`: the backward, ``_chunked_attention_bwd`` of
@@ -12,8 +15,8 @@
 A row with no valid key gives 0, as the kernel's ``l == 0`` guard does
 (the JAX oracle would average such a row uniformly; neither the causal
 nor the full mask ever leaves a row empty when ``q_offset >= 0`` and
-``Skv > 0``), and its lse is ``finfo(float32).min``, as in
-``_chunked_attention_fwd``."""
+``Skv > 0``, a window without the causal mask can), and its lse is
+``finfo(float32).min``, as in ``_chunked_attention_fwd``."""
 
 from __future__ import annotations
 
@@ -23,17 +26,24 @@ F32 = torch.float32
 NEG_INF = torch.finfo(torch.float32).min
 
 
-def _mask(sq: int, skv: int, causal: bool, q_offset: int, device):
-    """[Sq, Skv] bool: query row i (at position q_offset + i) sees key j."""
-    if not causal:
-        return torch.ones((sq, skv), dtype=torch.bool, device=device)
-    col = torch.arange(skv, device=device)
+def _mask(sq: int, skv: int, causal: bool, q_offset: int, device,
+          window: int = 0):
+    """[Sq, Skv] bool: query row i (at position q_offset + i) sees key j:
+    j <= q_offset + i where causal, and q_offset + i - j < window where
+    ``window`` > 0."""
+    col = torch.arange(skv, device=device)[None, :]
     row = torch.arange(sq, device=device)[:, None] + q_offset
-    return row >= col[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (row >= col)
+    if window:
+        mask = mask & (row - col < window)
+    return mask
 
 
 def attention_with_lse_ref(q, k, v, *, causal: bool = True,
-                           scale: float | None = None, q_offset: int = 0):
+                           scale: float | None = None, q_offset: int = 0,
+                           window: int = 0):
     """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] -> (out [B, Hq, Sq, D] in q's
     type, lse [B, Hq, Sq] float32 in natural-log units)."""
     _, hq, sq, d = q.shape
@@ -44,7 +54,7 @@ def attention_with_lse_ref(q, k, v, *, causal: bool = True,
     kr = k.to(F32).repeat_interleave(group, dim=1)
     vr = v.to(F32).repeat_interleave(group, dim=1)
     s = torch.matmul(q.to(F32), kr.transpose(-1, -2)) * scale
-    mask = _mask(sq, skv, causal, q_offset, q.device)
+    mask = _mask(sq, skv, causal, q_offset, q.device, window)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
@@ -56,11 +66,11 @@ def attention_with_lse_ref(q, k, v, *, causal: bool = True,
 
 
 def attention_ref(q, k, v, *, causal: bool = True, scale: float | None = None,
-                  q_offset: int = 0) -> torch.Tensor:
+                  q_offset: int = 0, window: int = 0) -> torch.Tensor:
     """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] -> [B, Hq, Sq, D] in q's
     type."""
     return attention_with_lse_ref(q, k, v, causal=causal, scale=scale,
-                                  q_offset=q_offset)[0]
+                                  q_offset=q_offset, window=window)[0]
 
 
 def _probabilities(q, k, lse, causal, scale, q_offset):

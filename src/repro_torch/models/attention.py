@@ -13,8 +13,13 @@ through the ``FlashAttention`` autograd Function, with
 ``chunked_attention``'s roundings.  The forwards differ only by rounding
 (the plain version multiplies f32 probabilities by v in f32, where
 ``chunked_attention`` and the bf16 kernel first cast them to v's type).
-Decode stays plain torch, as in JAX.  Sliding windows are not ported:
-the kernels have none, and neither serving nor training asks for one.
+Decode stays plain torch, as in JAX.  A sliding window (``window`` > 0:
+query position i sees keys j with i - j < window, zamba2's long-context
+path) runs in the forward kernel, which skips the key tiles outside
+every row's window; ``decode_attention`` masks the cache slots before
+``cache_len - window``.  Training with a window is not ported: the
+backward kernels have no window, and a windowed call under a gradient
+raises.
 """
 
 from __future__ import annotations
@@ -87,21 +92,19 @@ def output_proj(p: dict, o: torch.Tensor, *, rules=None) -> torch.Tensor:
 
 def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Full-sequence attention of training and prefill: the flash-attention
-    kernel, differentiable through its backward kernels."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window attention is not ported: the flash-attention "
-            "kernel has no window (ROADMAP section 1, item 9)")
-    return fa_ops.flash_attention(q, k, v, causal=causal)
+    kernel, differentiable through its backward kernels where ``window``
+    is 0; a windowed call is the forward alone (under a gradient it
+    raises)."""
+    return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q: torch.Tensor, cache: KVCache, cache_len: int, *,
                      window: int = 0) -> torch.Tensor:
     """q [B, Hq, 1, D] against the first ``cache_len`` slots of the
-    cache.  Scores and the product with v in f32 from the cache's values,
-    the probabilities rounded to the cache's type first, as in JAX."""
-    if window:
-        raise NotImplementedError("sliding-window decode is not ported")
+    cache, with ``window`` only slots ``cache_len - window`` onwards (in a
+    ring of ``window`` slots that have all been written, every slot).
+    Scores and the product with v in f32 from the cache's values, the
+    probabilities rounded to the cache's type first, as in JAX."""
     b, hq, _, d = q.shape
     hkv = cache.k.shape[1]
     g = hq // hkv
@@ -109,7 +112,10 @@ def decode_attention(q: torch.Tensor, cache: KVCache, cache_len: int, *,
     s_max = cache.k.shape[2]
     qg = q.reshape(b, hkv, g, d)
     s = torch.matmul(qg.to(F32), cache.k.to(F32).transpose(-1, -2)) * scale
-    mask = torch.arange(s_max, device=q.device) < cache_len
+    idx = torch.arange(s_max, device=q.device)
+    mask = idx < cache_len
+    if window:
+        mask = mask & (idx >= cache_len - window)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.matmul(p.to(cache.v.dtype).to(F32), cache.v.to(F32))

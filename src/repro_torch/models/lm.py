@@ -100,12 +100,17 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *, window: int = 0,
 
 
 def decode(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
-           pos: int, *, rules=None):
+           pos: int, *, window: int = 0, rules=None):
     """One token per sequence at position ``pos``; the cache is updated
-    in place and returned."""
+    in place and returned.  ``window`` (decoder-only models) masks the
+    cache slots outside the sliding window, as the windowed prefill
+    does."""
     if cfg.is_encdec:
+        if window:
+            raise ValueError("the encoder-decoder takes no window")
         return wsp.decode_step(cfg, params, token, cache, pos, rules=rules)
-    return tfm.decode_step(cfg, params, token, cache, pos, rules=rules)
+    return tfm.decode_step(cfg, params, token, cache, pos, window=window,
+                           rules=rules)
 
 
 def make_cache(cfg: ArchConfig, batch: int, s_max: int, *, enc_s: int = 0,
@@ -142,8 +147,9 @@ def pad_cache(cfg: ArchConfig, cache, s_max: int):
 
 def cache_len_for(cfg: ArchConfig, shape: ShapeConfig) -> int:
     """Decode-cache length: sliding-window archs cap the KV ring at
-    ``cfg.window`` for the long_500k cell (the windowed attention itself
-    is not ported: ``models/attention.py``)."""
+    ``cfg.window`` for the long_500k cell (decode then runs with
+    ``window=cfg.window``: ``transformer.decode_step`` writes slot ``pos %
+    window``)."""
     if shape.kind == "long_decode" and cfg.long_context == "native" \
             and cfg.attn_layers > 0:
         return cfg.window

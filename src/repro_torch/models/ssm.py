@@ -1,15 +1,20 @@
 """Selective-SSM (Mamba) blocks (``repro.models.ssm``): Mamba-1
 (``ssm_version=1``, falcon-mamba) and Mamba-2 (``ssm_version=2``, the
-zamba2 backbone) on the reference's ``ssm_impl="scan"`` path.
+zamba2 backbone) on both of the reference's paths, ``ssm_impl="scan"``
+and ``"ssd"``.
 
-* prefill — ``ssm_apply``: the whole sequence through the ``ssm_scan``
-  kernel (the CUDA kernel on the card, its plain version on the CPU),
-  where the JAX model runs ``scan_chunked``; the kernel returns y in
-  float32 and the final state for the decode cache, as ``scan_chunked``
-  does.  Mamba-1 calls ``kernels.ssm_scan.ssm_scan`` with its own dt [B,
-  T, di] and A = -exp(A_log) [di, N], whose rows are not constant;
-  Mamba-2 calls ``ssm_scan_heads`` with the per-head dt_h and a_h, which
-  it broadcasts over each head's channels.
+* prefill — ``ssm_apply``: the whole sequence through a kernel (the
+  CUDA kernel on the card, its plain version on the CPU), which returns
+  the final state for the decode cache.  ``"scan"``, where the JAX model
+  runs ``scan_chunked``: the ``ssm_scan`` kernel, y in float32.  Mamba-1
+  calls ``kernels.ssm_scan.ssm_scan`` with its own dt [B, T, di] and A =
+  -exp(A_log) [di, N], whose rows are not constant; Mamba-2 calls
+  ``ssm_scan_heads`` with the per-head dt_h and a_h, which it broadcasts
+  over each head's channels.  ``"ssd"`` (Mamba-2 only), where the JAX
+  model runs ``ssd_chunked``: the ``ssd_chunked`` kernel with chunks of
+  ``cfg.ssd_chunk`` steps, y in x's type where that is bfloat16, with the
+  reference's roundings (``kernels.ssd``); serving only, a gradient
+  through it raises.
 * decode — ``ssm_decode``: one recurrence step on an explicit
   :class:`SSMState` (h and the depthwise-conv tail), plain torch.
 
@@ -18,10 +23,10 @@ through a rank-``dt_rank`` pair of products (the first in x_conv's type,
 the second in float32) and B and C from x_conv, and gates with ``y *
 silu(z)``; Mamba-2 takes dt, B and C from the residual stream and gates
 through an RMSNorm.  As in the reference, ``ssm_impl`` applies to Mamba-2
-only, and its chunk-parallel ``"ssd"`` path is not ported yet.
+only.
 
-Training: where a gradient is asked, the scan goes through an autograd
-Function of ``kernels.ssm_scan``: on the card the forward kernel also
+Training (``"scan"``): where a gradient is asked, the scan goes through an
+autograd Function of ``kernels.ssm_scan``: on the card the forward kernel also
 writes a state checkpoint every 64 steps, from which the backward kernel
 works.  Mamba-1's ``SSMScan`` runs the per-channel backward
 (``csrc/ssm_scan_bwd.cu``), Mamba-2's ``SSMScanHeads`` the chunked one
@@ -38,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.models.sharding import shard
 from repro_torch.models.spec import ParamSpec
@@ -52,11 +58,16 @@ class SSMState(NamedTuple):
 
 def _check(cfg: ArchConfig) -> None:
     """The reference takes ``ssm_impl`` only for Mamba-2 (Mamba-1 always
-    scans); the port runs its "scan" path."""
-    if cfg.ssm_version == 2 and cfg.ssm_impl != "scan":
-        raise NotImplementedError(
-            f"ssm_impl={cfg.ssm_impl!r} is not ported yet; the port runs "
-            f"the 'scan' path through the ssm_scan kernel")
+    scans): "scan" (the ``ssm_scan`` kernel) or "ssd" (the
+    ``ssd_chunked`` kernel, serving only)."""
+    if cfg.ssm_version == 2 and cfg.ssm_impl not in ("scan", "ssd"):
+        raise ValueError(f"ssm_impl={cfg.ssm_impl!r}: Mamba-2 takes 'scan' "
+                         f"or 'ssd'")
+
+
+def uses_ssd(cfg: ArchConfig) -> bool:
+    """Whether ``ssm_apply`` takes the chunk-parallel "ssd" route."""
+    return cfg.ssm_version == 2 and cfg.ssm_impl == "ssd"
 
 
 def dt_rank(cfg: ArchConfig) -> int:
@@ -154,9 +165,9 @@ def ssm_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
               return_state: bool = False, rules=None):
     """Full-sequence Mamba block from a zero state. x: [B, T, d] ->
     [B, T, d] (and the :class:`SSMState` after the last token).
-    Differentiable on the card and on the CPU alike (the scan through
-    ``SSMScan``, Mamba-1, or ``SSMScanHeads``, Mamba-2, where a gradient
-    is asked)."""
+    ``"scan"`` is differentiable on the card and on the CPU alike (the
+    scan through ``SSMScan``, Mamba-1, or ``SSMScanHeads``, Mamba-2,
+    where a gradient is asked); ``"ssd"`` raises under a gradient."""
     _check(cfg)
     t = x.shape[1]
     dt_ = x.dtype
@@ -166,9 +177,13 @@ def ssm_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
               "d_inner")
     xc = F.silu(_conv1d(p, xh))
     dt, bm, cm, a = _dt_bc(cfg, p, x, xc)
-    scan = scan_ops.ssm_scan if cfg.ssm_version == 1 else \
-        scan_ops.ssm_scan_heads
-    y, h_final = scan(xc, dt, a, bm, cm, p["D"].to(F32))
+    if uses_ssd(cfg):
+        y, h_final = ssd_ops.ssd_chunked(xc, dt, a, bm, cm, p["D"].to(F32),
+                                         chunk=cfg.ssd_chunk)
+    else:
+        scan = scan_ops.ssm_scan if cfg.ssm_version == 1 else \
+            scan_ops.ssm_scan_heads
+        y, h_final = scan(xc, dt, a, bm, cm, p["D"].to(F32))
     y = _gate(cfg, p, y.to(dt_), z)
     out = shard(torch.matmul(y, p["out_proj"].to(dt_)), rules, "batch", None,
                 None)

@@ -233,11 +233,13 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
 def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
                 pos: int, *, window: int = 0, rules=None):
     """token [B] at position ``pos`` (the tokens already in the cache)
-    -> (logits [B, V], cache).  The cache is updated in place; with
-    ``rules`` each updated KV cache is pinned to its declared placement,
-    as the reference pins its loop-carried cache."""
-    if window:
-        raise NotImplementedError("sliding-window decode is not ported")
+    -> (logits [B, V], cache).  The cache is updated in place (slot ``pos
+    % S_max``: a cache of ``window`` slots is a ring); with ``rules`` each
+    updated KV cache is pinned to its declared placement, as the
+    reference pins its loop-carried cache.  ``window`` reaches
+    ``decode_attention``, so a windowed prefill is followed by a windowed
+    step over a padded cache too; the reference's ``decode_step`` takes
+    ``window`` and drops it (ROADMAP.md section 3)."""
     kinds = block_kinds(cfg)
     shared = params.get("shared")
     b = token.shape[0]
@@ -256,7 +258,7 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, cache,
         kv = attn.KVCache(
             k=shard(kv.k, rules, "batch", "kv_heads", None, None),
             v=shard(kv.v, rules, "batch", "kv_heads", None, None))
-        o = attn.decode_attention(q, kv, min(pos + 1, s_max))
+        o = attn.decode_attention(q, kv, min(pos + 1, s_max), window=window)
         return x + attn.output_proj(bp["attn"], o, rules=rules)
 
     for r, blk in enumerate(unstack(params["blocks"], n_repeats(cfg))):

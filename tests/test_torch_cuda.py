@@ -1034,6 +1034,119 @@ def test_flash_attention_bf16_copies_a_misaligned_view(cuda):
     _check_flash_bf16(got, q, k, v)
 
 
+# Windowed flash shapes: (b, hq, hkv, sq, skv, d, causal, q_offset, window),
+# the ragged case of chip_smoke.py (Sq 777, Skv 1000, q_offset 223, window
+# 100, GQA 2) with and without the causal mask, a window below a tile,
+# and rows past their window's keys without the mask (those give 0).
+WINDOW_SHAPES = [
+    (1, 8, 4, 777, 1000, 80, True, 223, 100),
+    (1, 8, 4, 777, 1000, 80, False, 223, 100),
+    (2, 4, 2, 300, 300, 64, True, 0, 7),
+    (1, 4, 4, 200, 130, 128, False, 60, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,q_offset,window",
+                         WINDOW_SHAPES)
+def test_flash_attention_window_matches_plain(cuda, b, hq, hkv, sq, skv, d,
+                                              causal, q_offset, window,
+                                              dtype):
+    """The sliding window in both forward routes against the plain
+    version (float32 within 2e-5, bfloat16 within
+    :func:`_check_flash_bf16`'s bound); one ``flash_attention`` kernel a
+    call (torch.profiler), two calls the same bits."""
+    q, k, v = _flash_inputs(cuda, b, hq, hkv, sq, skv, d,
+                            getattr(torch, dtype))
+    kw = dict(causal=causal, q_offset=q_offset, window=window)
+    before = kc.launches["flash_attention"]
+    got, names = kc.card_kernels(lambda: fa.flash_attention(q, k, v, **kw),
+                                 expect="flash_attention")
+    assert kc.launches["flash_attention"] > before
+    assert len(names) == 1 and "flash_attention" in names[0], names
+    assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+    if dtype == "bfloat16":
+        _check_flash_bf16(got, q, k, v, **kw)
+    else:
+        torch.testing.assert_close(got, attention_ref(q, k, v, **kw), rtol=0,
+                                   atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_window_refuses_a_gradient(cuda):
+    q, k, v = (x.requires_grad_() for x in _flash_inputs(
+        cuda, 1, 2, 2, 64, 64, 64, torch.bfloat16))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa.flash_attention(q, k, v, window=16)
+
+
+def _ssd_inputs(device, b, t, nh, n, dtype, with_h0):
+    rng = np.random.default_rng(b + t + nh + n)
+    f = lambda *s: _on(rng.standard_normal(s).astype(np.float32),  # noqa: E731
+                       device)
+    di = nh * 64
+    return (f(b, t, di).to(dtype),
+            torch.nn.functional.softplus(f(b, t, nh) - 1.0),
+            -torch.exp(f(nh) * 0.5), f(b, t, n), f(b, t, n), f(di),
+            f(b, di, n) if with_h0 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,nh,n,chunk,with_h0", [
+    (2, 130, 10, 64, 128, True),     # ragged, a nonzero initial state
+    (1, 300, 4, 64, 64, False),      # the serve-check's chunk
+    (1, 50, 2, 64, 256, True),       # t < chunk
+    (2, 512, 3, 48, 256, False),     # N below 64
+    (1, 200, 2, 64, 100, True)])     # a chunk that is no multiple of 16
+def test_ssd_chunked_kernel_matches_plain(cuda, b, t, nh, n, chunk, with_h0,
+                                          dtype):
+    """``ssd_chunked`` against ``ssd_chunked_ref`` on the same inputs:
+    within 2^-7 (bf16: the same roundings of the same exact products, a
+    flip of one an ulp of a term; a bf16 ulp of the element too) or 1e-4
+    (f32, 3xTF32) of each output's largest; one launch of each of its
+    three kernels a call (torch.profiler), one count; two calls the same
+    bits."""
+    from repro_torch.kernels.ssd import ops as ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    args = _ssd_inputs(cuda, b, t, nh, n, getattr(torch, dtype), with_h0)
+    before = kc.launches["ssd_chunked"]
+    (y, h), names = kc.card_kernels(
+        lambda: ssd.ssd_chunked(*args, chunk=chunk), expect="ssd_scan_kernel")
+    assert kc.launches["ssd_chunked"] == before + 2   # warm-up and call
+    assert len(names) == 3 and all(
+        sum(k in n_ for n_ in names) == 1
+        for k in ("ssd_state_kernel", "ssd_pass_kernel", "ssd_scan_kernel")
+    ), names
+    y2, h2 = ssd.ssd_chunked(*args, chunk=chunk)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    wy, wh = ssd_chunked_ref(*args, chunk=chunk)
+    assert y.dtype == wy.dtype and h.dtype == torch.float32
+    frac = 2.0 ** -7 if dtype == "bfloat16" else 1e-4
+    ulp = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    for got, want in ((y, wy), (h, wh)):
+        diff = (got.double() - want.double()).abs()
+        ref = want.double().abs()
+        assert bool((diff <= frac * float(ref.max()) + ulp * ref).all()), (
+            float(diff.max()), float(ref.max()))
+
+
+@pytest.mark.cuda
+def test_ssd_chunked_refuses_other_shapes_and_a_gradient(cuda):
+    from repro_torch.kernels.ssd import ops as ssd
+
+    args = _ssd_inputs(cuda, 1, 40, 2, 64, torch.bfloat16, False)
+    with pytest.raises(ValueError, match="heads of 64"):
+        ssd.ssd_chunked(args[0][..., :96], args[1], args[2], *args[3:5],
+                        args[5][:96], chunk=32)
+    with pytest.raises(ValueError, match="chunks of 1 to 256"):
+        ssd.ssd_chunked(*args, chunk=512)
+    x = args[0].float().requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd.ssd_chunked(x, *args[1:], chunk=32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,q_offset",
